@@ -1,0 +1,115 @@
+"""Importance-sampling distributions (port of gfxexp_tpu/core/distributions.py:
+the host alias-table build and the 2D piecewise-constant distribution that
+samples the environment light)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from gfxexp_torch.core.tensors import TensorData
+
+
+def vose_alias_arrays(weights: np.ndarray):
+    """Host-side O(n) Vose construction; returns numpy (pmf, prob, alias,
+    integral)."""
+    w = np.maximum(np.asarray(weights, np.float64), 0.0)
+    n = w.shape[0]
+    integral = w.sum()
+    if integral <= 0.0:
+        p = np.full(n, 1.0 / n)
+    else:
+        p = w / integral
+    scaled = p * n
+    prob = np.ones(n)
+    alias = np.arange(n)
+    small = [i for i in range(n) if scaled[i] < 1.0]
+    large = [i for i in range(n) if scaled[i] >= 1.0]
+    while small and large:
+        s = small.pop()
+        l = large.pop()
+        prob[s] = scaled[s]
+        alias[s] = l
+        scaled[l] = (scaled[l] + scaled[s]) - 1.0
+        (small if scaled[l] < 1.0 else large).append(l)
+    for i in large + small:
+        prob[i] = 1.0
+    return p, prob, alias, integral
+
+
+@dataclass
+class Continuous2D(TensorData):
+    """Piecewise-constant 2D pdf over [0,1]^2 from an importance image [H, W]:
+    conditional_cdf [H, W+1], marginal_cdf [H+1], pdf [H, W]."""
+
+    conditional_cdf: torch.Tensor
+    marginal_cdf: torch.Tensor
+    pdf: torch.Tensor
+    integral: torch.Tensor
+
+
+def build_continuous_2d(importance) -> Continuous2D:
+    imp = torch.clamp(torch.as_tensor(importance, dtype=torch.float32),
+                      min=0.0)
+    h, w = imp.shape
+    row_sum = imp.sum(dim=1)
+    total = row_sum.sum()
+    safe_rows = torch.where(row_sum > 0.0, row_sum, 1.0)
+    cond_pmf = imp / safe_rows[:, None]
+    cond_cdf = torch.cat([torch.zeros((h, 1)), torch.cumsum(cond_pmf, dim=1)],
+                         dim=1)
+    cond_cdf = cond_cdf / torch.clamp(cond_cdf[:, -1:], min=1e-20)
+    safe_total = torch.where(total > 0.0, total, 1.0)
+    marg_pmf = row_sum / safe_total
+    marg_cdf = torch.cat([torch.zeros(1), torch.cumsum(marg_pmf, dim=0)])
+    marg_cdf = marg_cdf / torch.clamp(marg_cdf[-1:], min=1e-20)
+    pdf = (marg_pmf[:, None] * cond_pmf) * float(h * w)
+    return Continuous2D(conditional_cdf=cond_cdf, marginal_cdf=marg_cdf,
+                        pdf=pdf, integral=total / float(h * w))
+
+
+def _rowwise_searchsorted(cdf_rows, u):
+    """Binary search where each lane has its own row: largest i with
+    cdf_rows[..., i] <= u. cdf_rows: [..., W+1], u: [...]."""
+    wp1 = cdf_rows.shape[-1]
+    lo = torch.zeros(u.shape, dtype=torch.int64, device=u.device)
+    hi = torch.full(u.shape, wp1 - 1, dtype=torch.int64, device=u.device)
+    for _ in range(int(np.ceil(np.log2(max(wp1, 2))))):
+        mid = (lo + hi) // 2
+        mid_val = torch.gather(cdf_rows, -1, mid[..., None])[..., 0]
+        go_right = mid_val <= u
+        lo = torch.where(go_right, mid, lo)
+        hi = torch.where(go_right, hi, mid)
+    return lo
+
+
+def sample_continuous_2d(dist: Continuous2D, u0, u1):
+    """Sample (u, v) in [0,1)^2 plus density: u0 picks the row (v axis), u1
+    the column (u axis)."""
+    h, w = dist.pdf.shape
+    row = torch.clamp(torch.searchsorted(dist.marginal_cdf, u0, right=True)
+                      - 1, 0, h - 1)
+    row_lo = dist.marginal_cdf[row]
+    row_w = dist.marginal_cdf[row + 1] - row_lo
+    dv = torch.where(row_w > 0.0,
+                     (u0 - row_lo) / torch.where(row_w > 0.0, row_w, 1.0), 0.5)
+    cond = dist.conditional_cdf[row]  # [..., W+1]
+    col = torch.clamp(_rowwise_searchsorted(cond, u1), 0, w - 1)
+    col_lo = torch.gather(cond, -1, col[..., None])[..., 0]
+    col_hi = torch.gather(cond, -1, col[..., None] + 1)[..., 0]
+    col_w = col_hi - col_lo
+    du = torch.where(col_w > 0.0,
+                     (u1 - col_lo) / torch.where(col_w > 0.0, col_w, 1.0), 0.5)
+    u = (col.to(torch.float32) + du) / w
+    v = (row.to(torch.float32) + dv) / h
+    return u, v, dist.pdf[row, col]
+
+
+def continuous_2d_pdf(dist: Continuous2D, u, v):
+    """Density at (u, v) in [0,1)^2."""
+    h, w = dist.pdf.shape
+    col = torch.clamp((u * w).to(torch.int64), 0, w - 1)
+    row = torch.clamp((v * h).to(torch.int64), 0, h - 1)
+    return dist.pdf[row, col]

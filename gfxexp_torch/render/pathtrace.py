@@ -1,0 +1,443 @@
+"""Wavefront path tracer: NEE + implicit-hit MIS (power heuristic) + Russian
+roulette, progressive accumulation (port of gfxexp_tpu/render/pathtrace.py).
+
+All paths advance one vertex at a time over SoA tensors with masked lanes.
+The RNG is counter-based and keyed by (pixel, sample, stream), with the JAX
+package's call order, so both packages draw the same numbers for the same
+path vertex: camera jitter on stream 0xFFFF; per bounce (stream = bounce)
+u_rr (not on the first bounce, not on the collect-only last one), then
+u_light, u0, u1 for NEE, then u0, u1 for the BSDF.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from gfxexp_torch.accel.traverse import intersect_any, intersect_closest
+from gfxexp_torch.core.math import (
+    cross,
+    dot,
+    length,
+    luminance,
+    make_frame,
+    normalize,
+    offset_ray_origin,
+    to_local,
+    to_world,
+)
+from gfxexp_torch.core.rng import SampleStream
+from gfxexp_torch.core.tensors import TensorData
+from gfxexp_torch.render.bsdf import (
+    bsdf_evaluate,
+    bsdf_pdf,
+    bsdf_sample,
+    material_params_textured,
+)
+from gfxexp_torch.render.camera import (
+    Camera,
+    generate_rays_for_lanes,
+    lane_from_pixel,
+    pixel_from_lane,
+)
+from gfxexp_torch.scene.lights import (
+    env_pdf,
+    env_radiance,
+    light_selection_probs,
+    pack_light_rows,
+    sample_light,
+)
+from gfxexp_torch.scene.types import SceneData
+
+_PI = float(np.pi)
+
+
+@dataclasses.dataclass(frozen=True)
+class PTConfig:
+    """Integrator configuration: the fields and defaults of gfxexp_tpu's
+    PTConfig. The port implements the default integrator; the options the
+    bench path does not use raise NotImplementedError when set
+    (`enable_bump_mapping` and `displaced_shadows` act on textures and
+    displaced geometry, which the port's scenes do not have yet)."""
+
+    max_path_length: int = 5
+    enable_jitter: bool = True
+    enable_env: bool = True
+    use_implicit_light_sampling: bool = True
+    use_explicit_light_sampling: bool = True
+    russian_roulette: bool = True
+    count_rays: bool = False
+    enable_bump_mapping: bool = False
+    sort_secondary_rays: bool = False
+    compact_rays: bool = False
+    use_solid_angle_sampling: bool = False
+    mollify_specular: bool = False
+    displaced_shadows: bool = True
+    texture_lod: bool = False
+    fuse_shadow_rays: bool = False
+
+    @property
+    def use_mis(self):
+        return (self.use_implicit_light_sampling
+                and self.use_explicit_light_sampling)
+
+
+_UNPORTED = ("fuse_shadow_rays", "sort_secondary_rays", "compact_rays",
+             "use_solid_angle_sampling", "texture_lod")
+
+
+def _check_supported(scene: SceneData, cfg: PTConfig, nee_fn,
+                     debug_switches):
+    for name in _UNPORTED:
+        if getattr(cfg, name):
+            raise NotImplementedError(f"PTConfig.{name} is not ported yet")
+    if nee_fn is not None:
+        raise NotImplementedError("custom nee_fn is not ported yet")
+    if debug_switches is not None and int(debug_switches) != 0:
+        raise NotImplementedError("debug switches are not ported yet")
+
+
+@dataclass
+class SurfacePoint(TensorData):
+    position: torch.Tensor  # [R, 3]
+    geom_normal: torch.Tensor  # [R, 3]
+    shading_normal: torch.Tensor  # [R, 3]
+    texcoord: torch.Tensor  # [R, 2]
+    tangent: torch.Tensor  # [R, 3]
+    unit: torch.Tensor  # [R] int64
+    material: torch.Tensor  # [R] int64
+    emittance: torch.Tensor  # [R, 3]
+
+
+def pack_tri_attrs(tris, scene: SceneData = None) -> torch.Tensor:
+    """[T, 27] per-triangle shading rows, so a surface point is one row
+    gather: p0 e1 e2 n0 n1 n2 (0:18) uv0 uv1 uv2 (18:24), bitcast unit id
+    (24), hypothetical NEE area pdf (25, when `scene` is given), texel
+    density (26)."""
+    cols = [tris.p0, tris.e1, tris.e2, tris.n0, tris.n1, tris.n2,
+            tris.uv0, tris.uv1, tris.uv2,
+            tris.unit_id.to(torch.int32).view(torch.float32)[:, None]]
+    cr_len = length(cross(tris.e1, tris.e2))
+    if scene is not None:
+        rec_area = 2.0 / torch.clamp(cr_len, min=1e-20)
+        pdf = (scene.light_unit_pmf[tris.unit_id.to(torch.int64)]
+               * scene.units.light_tri_pmf * rec_area)
+        cols.append(pdf[:, None])
+    else:
+        cols.append(torch.zeros_like(cr_len)[:, None])
+    duv1 = tris.uv1 - tris.uv0
+    duv2 = tris.uv2 - tris.uv0
+    uv_det = torch.abs(duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0])
+    cols.append(torch.sqrt(uv_det / torch.clamp(cr_len, min=1e-20))[:, None])
+    return torch.cat(cols, dim=1)
+
+
+def compute_surface_point(scene: SceneData, tri_idx, u, v,
+                          packed=None) -> SurfacePoint:
+    """Hit attributes from one packed-row gather (missed lanes gather row 0
+    and are masked out by the caller)."""
+    tri_idx = torch.clamp(tri_idx.to(torch.int64), min=0)
+    if packed is None:
+        packed = pack_tri_attrs(scene.triangles)
+    rows = packed[tri_idx]
+    p0, e1, e2 = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
+    u1, v1 = u[..., None], v[..., None]
+    position = p0 + u1 * e1 + v1 * e2
+    gn = normalize(cross(e1, e2))
+    w1 = (1.0 - u - v)[..., None]
+    sn = normalize(w1 * rows[:, 9:12] + u1 * rows[:, 12:15]
+                   + v1 * rows[:, 15:18])
+    uv0, uv1, uv2 = rows[:, 18:20], rows[:, 20:22], rows[:, 22:24]
+    tc = w1 * uv0 + u1 * uv1 + v1 * uv2
+    duv1 = uv1 - uv0
+    duv2 = uv2 - uv0
+    det = duv1[..., 0] * duv2[..., 1] - duv1[..., 1] * duv2[..., 0]
+    tan = duv2[..., 1:2] * e1 - duv1[..., 1:2] * e2
+    fallback, _ = make_frame(sn)
+    tan = torch.where((torch.abs(det) < 1e-12)[..., None], fallback, tan)
+    tan = normalize(tan - dot(tan, sn, keepdim=True) * sn)
+    unit = rows[:, 24].contiguous().view(torch.int32).to(torch.int64)
+    mat = scene.units.material[unit].to(torch.int64)
+    return SurfacePoint(
+        position=position, geom_normal=gn, shading_normal=sn, texcoord=tc,
+        tangent=tan, unit=unit, material=mat,
+        emittance=scene.materials.emittance[mat])
+
+
+def _next_event_setup(scene, sp: SurfacePoint, v_out_local, frame, params,
+                      rs, cfg: PTConfig, alive=None, light_packed=None):
+    """NEE without the occlusion trace: light sample, MIS weight,
+    unshadowed contribution and the shadow ray. Returns (contrib [R, 3],
+    shadow_dir [R, 3], shadow_tmax [R]); shadow_tmax < 0 on lanes that
+    cannot contribute (the walk skips them)."""
+    t, b, n = frame
+    u_light = rs.next()
+    u0, u1 = rs.next2()
+    ls = sample_light(scene, u_light, u0, u1, light_packed)
+
+    inf3 = ls.at_infinity[..., None]
+    shadow_vec = torch.where(inf3, ls.position, ls.position - sp.position)
+    dist2 = torch.clamp(dot(shadow_vec, shadow_vec), min=1e-12)
+    dist = torch.sqrt(dist2)
+    shadow_dir = shadow_vec / dist[..., None]
+    v_in_local = to_local(t, b, n, shadow_dir)
+
+    lp_cos = dot(-shadow_dir, ls.normal)
+    sp_cos = v_in_local[..., 2]
+
+    if cfg.use_mis:
+        bsdf_p = (bsdf_pdf(params, v_out_local, v_in_local)
+                  * torch.abs(lp_cos) / dist2)
+        bsdf_p = torch.where(torch.isfinite(bsdf_p), bsdf_p, 0.0)
+        light_p = ls.pdf
+        mis = torch.where(
+            light_p > 0.0,
+            light_p ** 2 / torch.clamp(bsdf_p ** 2 + light_p ** 2, min=1e-30),
+            0.0)
+    else:
+        mis = torch.ones_like(ls.pdf)
+
+    potential = (ls.pdf > 0.0) & (lp_cos > 0.0)
+    if alive is not None:
+        potential = potential & alive
+    # the reference traces with tmax = 0.9999 dist (env: 1e10)
+    shadow_tmax = torch.where(ls.at_infinity, 1e10, dist * 0.9999)
+    shadow_tmax = torch.where(potential, shadow_tmax, -1.0)
+
+    le = ls.emittance / _PI  # diffuse emitter
+    f_val = bsdf_evaluate(params, v_out_local, v_in_local)
+    g = lp_cos * torch.abs(sp_cos) / dist2
+    g = torch.where(ls.at_infinity, torch.abs(sp_cos), g)
+    contrib = f_val * le * (g * mis / torch.clamp(ls.pdf, min=1e-30))[..., None]
+    contrib = torch.where(potential[..., None], contrib, 0.0)
+    return contrib, shadow_dir, shadow_tmax
+
+
+def _next_event(scene, bvh, sp: SurfacePoint, v_out_local, frame, params, rs,
+                cfg: PTConfig, alive=None, light_packed=None):
+    """NEE with MIS: [R, 3] contribution after the any-hit shadow query."""
+    contrib, shadow_dir, shadow_tmax = _next_event_setup(
+        scene, sp, v_out_local, frame, params, rs, cfg, alive, light_packed)
+    occluded = intersect_any(bvh, scene.triangles, sp.position, shadow_dir,
+                             t_min=0.0, t_max=shadow_tmax)
+    return torch.where(occluded[..., None], 0.0, contrib)
+
+
+def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
+                 height: int, lane_start, lane_count: int, sample_idx,
+                 cfg: PTConfig = PTConfig(), nee_fn=None, nee_aux=None,
+                 debug_switches=None):
+    """Render one sample for `lane_count` consecutive lanes starting at
+    `lane_start`. Returns radiance [lane_count, 3] in lane order (and the
+    traced-ray count as a 0-d tensor when cfg.count_rays). Runs on the
+    device that holds `scene`."""
+    _check_supported(scene, cfg, nee_fn, debug_switches)
+    dev = scene.triangles.p0.device
+    n = lane_count
+    lane = int(lane_start) + torch.arange(n, dtype=torch.int64, device=dev)
+    pixel = pixel_from_lane(lane, width, height)
+    sample_idx = int(sample_idx)
+    rays_traced = torch.zeros((), device=dev)
+
+    rs_cam = SampleStream(pixel, sample_idx, stream=0xFFFF)
+    if cfg.enable_jitter:
+        jx, jy = rs_cam.next2()
+    else:
+        jx = torch.full((n,), 0.5, device=dev)
+        jy = torch.full((n,), 0.5, device=dev)
+    ray_o, ray_d = generate_rays_for_lanes(camera, width, height, pixel,
+                                           jx, jy)
+
+    contribution = torch.zeros((n, 3), device=dev)
+    throughput = torch.ones((n, 3), device=dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    prev_pdf = torch.zeros(n, device=dev)
+
+    use_env = cfg.enable_env and scene.env is not None
+    p_env_sel, p_surf_sel = light_selection_probs(scene)
+    tri_packed = pack_tri_attrs(scene.triangles, scene)
+    light_packed = (pack_light_rows(scene)
+                    if cfg.use_explicit_light_sampling else None)
+
+    # the first bounce (MIS weight 1) and the last (collect only: no NEE,
+    # no new direction) are peeled, as in the reference
+    def step(bounce: int, first: bool, collect_only: bool):
+        nonlocal ray_o, ray_d, throughput, alive, prev_pdf, contribution
+        nonlocal rays_traced
+        rs = SampleStream(pixel, sample_idx, stream=bounce)
+        if cfg.count_rays:
+            rays_traced = rays_traced + alive.sum().to(torch.float32)
+        # dead lanes trace with tmax < 0: no traversal work
+        tmax = torch.where(alive, 1e30, -1.0)
+        hit = intersect_closest(bvh, scene.triangles, ray_o, ray_d,
+                                t_min=0.0, t_max=tmax)
+        hit_ok = alive & hit.hit
+        miss = alive & ~hit.hit
+
+        # ---- miss: environment ------------------------------------------
+        if use_env:
+            env_l = env_radiance(scene.env, ray_d)
+            if first or not cfg.use_mis:
+                env_mis = torch.ones(n, device=dev)
+            else:
+                light_p = p_env_sel * env_pdf(scene.env, ray_d)
+                env_mis = prev_pdf ** 2 / torch.clamp(
+                    prev_pdf ** 2 + light_p ** 2, min=1e-30)
+            if cfg.use_implicit_light_sampling or first:
+                contribution = contribution + torch.where(
+                    miss[..., None], throughput * env_l * env_mis[..., None],
+                    0.0)
+
+        sp = compute_surface_point(scene, hit.tri, hit.u, hit.v,
+                                   packed=tri_packed)
+        v_out = -ray_d
+        front = dot(v_out, sp.geom_normal) >= 0.0
+        gn_signed = torch.where(front[..., None], sp.geom_normal,
+                                -sp.geom_normal)
+        pos_off = offset_ray_origin(sp.position, gn_signed)
+        nrm = sp.shading_normal
+        t, b = make_frame(nrm)
+        v_out_local = to_local(t, b, nrm, v_out)
+
+        # ---- implicit emitter hit ---------------------------------------
+        emissive = ((sp.emittance > 0.0).any(dim=-1)
+                    & (v_out_local[..., 2] > 0.0))
+        if cfg.use_implicit_light_sampling or first:
+            if first or not cfg.use_mis:
+                mis_w = torch.ones(n, device=dev)
+            else:
+                dist2 = torch.clamp(hit.t ** 2, min=1e-12)
+                hyp_area = tri_packed[torch.clamp(hit.tri.to(torch.int64),
+                                                  min=0), 25]
+                light_p = (p_surf_sel * hyp_area * dist2
+                           / torch.clamp(v_out_local[..., 2], min=1e-6))
+                mis_w = prev_pdf ** 2 / torch.clamp(
+                    prev_pdf ** 2 + light_p ** 2, min=1e-30)
+            gate = hit_ok & emissive
+            contribution = contribution + torch.where(
+                gate[..., None],
+                throughput * sp.emittance * (mis_w / _PI)[..., None], 0.0)
+
+        alive = hit_ok
+
+        # ---- Russian roulette (skipped where it cannot change the image)
+        if cfg.russian_roulette and not first and not collect_only:
+            cont_prob = torch.clamp(luminance(throughput), max=1.0)
+            u_rr = rs.next()
+            alive = alive & (u_rr < cont_prob)
+            throughput = throughput / torch.clamp(cont_prob,
+                                                  min=1e-8)[..., None]
+        if collect_only:
+            return
+
+        # ---- NEE ---------------------------------------------------------
+        params = material_params_textured(scene.materials, None, sp.material,
+                                          sp.texcoord)
+        if cfg.mollify_specular and not first:
+            params.roughness = 1.0 - 0.5 * (1.0 - params.roughness)
+        sp_off = dataclasses.replace(sp, position=pos_off)
+        if cfg.use_explicit_light_sampling:
+            if cfg.count_rays:
+                rays_traced = rays_traced + alive.sum().to(torch.float32)
+            nee = _next_event(scene, bvh, sp_off, v_out_local, (t, b, nrm),
+                              params, rs, cfg, alive,
+                              light_packed=light_packed)
+            contribution = contribution + torch.where(
+                alive[..., None], throughput * nee, 0.0)
+
+        # ---- next direction ---------------------------------------------
+        u0, u1 = rs.next2()
+        v_in_local, f_val, pdf = bsdf_sample(params, v_out_local, u0, u1)
+        valid = (pdf > 0.0) & torch.isfinite(pdf)
+        thr = f_val * (torch.abs(v_in_local[..., 2])
+                       / torch.clamp(pdf, min=1e-30))[..., None]
+        throughput = torch.where((alive & valid)[..., None],
+                                 throughput * thr, throughput)
+        alive = alive & valid
+        ray_o = pos_off
+        ray_d = normalize(to_world(t, b, nrm, v_in_local))
+        prev_pdf = pdf
+
+    L = cfg.max_path_length
+    step(1, first=True, collect_only=(L == 1))
+    for bounce in range(2, L):
+        step(bounce, first=False, collect_only=False)
+    if L > 1:
+        step(L, first=False, collect_only=True)
+
+    if cfg.count_rays:
+        return contribution, rays_traced
+    return contribution
+
+
+def _pixel_order(width: int, height: int, device):
+    return lane_from_pixel(torch.arange(width * height, device=device),
+                           width, height)
+
+
+def render_sample(scene: SceneData, bvh, camera: Camera, width: int,
+                  height: int, sample_idx, cfg: PTConfig = PTConfig(),
+                  debug_switches=None):
+    """One sample for every pixel: radiance [H*W, 3] in row-major pixel
+    order (plus the ray count when cfg.count_rays)."""
+    out = render_lanes(scene, bvh, camera, width, height, 0, width * height,
+                       sample_idx, cfg, debug_switches=debug_switches)
+    order = _pixel_order(width, height, scene.triangles.p0.device)
+    if cfg.count_rays:
+        contribution, nrays = out
+        return contribution[order], nrays
+    return out[order]
+
+
+def render_tile(scene: SceneData, bvh, camera: Camera, width: int,
+                height: int, lane_start, lane_count: int, sample_idx,
+                cfg: PTConfig = PTConfig()):
+    """One sample of one lane tile (bounds the live per-lane state)."""
+    return render_lanes(scene, bvh, camera, width, height, lane_start,
+                        lane_count, sample_idx, cfg)
+
+
+def accumulate(accum, new_sample, num_accum_frames):
+    """Progressive running mean."""
+    w = 1.0 / (1.0 + num_accum_frames)
+    return (1.0 - w) * accum + w * new_sample
+
+
+def render_tile_accumulate(scene: SceneData, bvh, camera: Camera, width: int,
+                           height: int, lane_start, lane_count: int,
+                           start_idx, n_samples: int,
+                           cfg: PTConfig = PTConfig()):
+    """n_samples samples of one lane tile: (summed radiance [lane_count, 3]
+    in lane order, total rays when cfg.count_rays)."""
+    dev = scene.triangles.p0.device
+    acc = torch.zeros((lane_count, 3), device=dev)
+    rays = torch.zeros((), device=dev)
+    for s in range(n_samples):
+        out = render_lanes(scene, bvh, camera, width, height, lane_start,
+                           lane_count, int(start_idx) + s, cfg)
+        if cfg.count_rays:
+            out, nr = out
+            rays = rays + nr
+        acc = acc + out
+    if cfg.count_rays:
+        return acc, rays
+    return acc
+
+
+def render_accumulate(scene: SceneData, bvh, camera: Camera, width: int,
+                      height: int, start_idx, n_samples: int,
+                      cfg: PTConfig = PTConfig()):
+    """Mean of n_samples samples (sample s = render_sample(start_idx + s)):
+    (mean radiance [H*W, 3] in pixel order, total rays when
+    cfg.count_rays)."""
+    n = width * height
+    out = render_tile_accumulate(scene, bvh, camera, width, height, 0, n,
+                                 start_idx, n_samples, cfg)
+    acc, rays = out if cfg.count_rays else (out, None)
+    mean = (acc / n_samples)[_pixel_order(width, height, acc.device)]
+    if cfg.count_rays:
+        return mean, rays
+    return mean

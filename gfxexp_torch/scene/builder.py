@@ -1,0 +1,358 @@
+"""Host-side scene construction -> SceneData (port of
+gfxexp_tpu/scene/builder.py: materials, rectangles, spheres, instances, the
+environment light and the non-instanced compile).
+
+`compile()` flattens the instance graph into world-space triangle tables and
+per-unit light distributions with numpy, as the JAX package does, and returns
+them as CPU tensors; move the result with `.to(device)`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from gfxexp_torch.core.distributions import (
+    build_continuous_2d,
+    vose_alias_arrays,
+)
+from gfxexp_torch.core.math import np_normalize
+from gfxexp_torch.scene.types import (
+    BSDF_DIFFUSE_SPECULAR,
+    BSDF_LAMBERT,
+    EnvLight,
+    InstanceTable,
+    MaterialTable,
+    SceneData,
+    TriangleSoA,
+    UnitTable,
+)
+
+_LUMA = np.array([0.2126729, 0.7151522, 0.0721750])
+
+
+@dataclasses.dataclass
+class HostMaterial:
+    bsdf_type: int = BSDF_LAMBERT
+    diffuse_color: Tuple[float, float, float] = (0.8, 0.8, 0.8)
+    specular_f0: Tuple[float, float, float] = (0.04, 0.04, 0.04)
+    roughness: float = 0.3
+    metallic: float = 0.0
+    emittance: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    diffuse_tex: int = -1
+    emittance_tex: int = -1
+    normal_tex: int = -1
+    normal_map_kind: int = 0
+    name: str = ""
+
+
+@dataclasses.dataclass
+class HostGeometry:
+    """One triangle mesh with a single material slot (object space)."""
+
+    positions: np.ndarray  # [V, 3] float32
+    normals: np.ndarray  # [V, 3]
+    texcoords: np.ndarray  # [V, 2]
+    indices: np.ndarray  # [F, 3] int32
+    material: int
+
+
+@dataclasses.dataclass
+class HostInstance:
+    """Placement of a list of geometries in the world."""
+
+    geometries: List[int]
+    transform: np.ndarray  # [3, 4] object -> world
+
+
+def affine(rotation=None, translation=None, scale=None) -> np.ndarray:
+    r = np.eye(3) if rotation is None else np.asarray(rotation, np.float64)
+    if scale is not None:
+        s = np.broadcast_to(np.atleast_1d(np.asarray(scale, np.float64)), (3,))
+        r = r * s[None, :]
+    t = (np.zeros(3) if translation is None
+         else np.asarray(translation, np.float64))
+    return np.concatenate([r, t[:, None]], axis=1).astype(np.float32)
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+class SceneBuilder:
+    """Accumulates materials, geometries and instances, then `compile()`s to
+    a SceneData of CPU tensors."""
+
+    def __init__(self):
+        self.materials: List[HostMaterial] = []
+        self.geometries: List[HostGeometry] = []
+        self.instances: List[HostInstance] = []
+        self.env_radiance: Optional[np.ndarray] = None  # [H, W, 3]
+        self.env_power: float = 1.0
+        self.env_rotation: float = 0.0
+
+    # -- not ported yet ----------------------------------------------------
+
+    def add_texture(self, image):
+        raise NotImplementedError("textures are not ported yet")
+
+    def load_texture(self, path, to_linear=True):
+        raise NotImplementedError("textures are not ported yet")
+
+    def add_curve(self, *args, **kw):
+        raise NotImplementedError("curves are not ported yet")
+
+    def add_displaced(self, *args, **kw):
+        raise NotImplementedError("displaced geometry is not ported yet")
+
+    def add_shell(self, *args, **kw):
+        raise NotImplementedError("shell mapping is not ported yet")
+
+    def compile_instanced(self, *args, **kw):
+        raise NotImplementedError("two-level (instanced) scenes are not "
+                                  "ported yet")
+
+    # -- materials ---------------------------------------------------------
+
+    def add_material(self, mat: HostMaterial) -> int:
+        self.materials.append(mat)
+        return len(self.materials) - 1
+
+    def add_lambert_material(self, reflectance, emittance=(0, 0, 0),
+                             name="") -> int:
+        return self.add_material(HostMaterial(
+            bsdf_type=BSDF_LAMBERT, diffuse_color=tuple(reflectance),
+            emittance=tuple(emittance), name=name))
+
+    def add_diffuse_specular_material(self, diffuse, specular_f0, smoothness,
+                                      emittance=(0, 0, 0), name="") -> int:
+        return self.add_material(HostMaterial(
+            bsdf_type=BSDF_DIFFUSE_SPECULAR, diffuse_color=tuple(diffuse),
+            specular_f0=tuple(specular_f0),
+            roughness=float(1.0 - smoothness), emittance=tuple(emittance),
+            name=name))
+
+    # -- geometry ----------------------------------------------------------
+
+    def add_rectangle(self, dim_x, dim_z, material) -> int:
+        """XZ-plane rectangle centred at the origin, +Y normal."""
+        hx, hz = dim_x * 0.5, dim_z * 0.5
+        positions = np.array(
+            [[-hx, 0, -hz], [hx, 0, -hz], [hx, 0, hz], [-hx, 0, hz]],
+            np.float32)
+        normals = np.tile(np.array([[0, 1, 0]], np.float32), (4, 1))
+        texcoords = np.array([[0, 1], [1, 1], [1, 0], [0, 0]], np.float32)
+        # winding chosen so cross(e1, e2) == +Y == the shading normal
+        indices = np.array([[0, 2, 1], [0, 3, 2]], np.int32)
+        self.geometries.append(HostGeometry(positions, normals, texcoords,
+                                            indices, int(material)))
+        return len(self.geometries) - 1
+
+    def add_sphere(self, radius, material, n_theta=32, n_phi=64) -> int:
+        """UV sphere."""
+        th = np.linspace(0, np.pi, n_theta + 1)
+        ph = np.linspace(0, 2 * np.pi, n_phi, endpoint=False)
+        tt, pp = np.meshgrid(th, ph, indexing="ij")
+        x = np.sin(tt) * np.cos(pp)
+        y = np.cos(tt)
+        z = np.sin(tt) * np.sin(pp)
+        pos = np.stack([x, y, z], axis=-1).reshape(-1, 3).astype(np.float32)
+        nrm = pos.copy()
+        uv = np.stack([pp / (2 * np.pi), 1.0 - tt / np.pi],
+                      axis=-1).reshape(-1, 2)
+        idx = []
+        for i in range(n_theta):
+            for j in range(n_phi):
+                a = i * n_phi + j
+                b = i * n_phi + (j + 1) % n_phi
+                c = (i + 1) * n_phi + j
+                d = (i + 1) * n_phi + (j + 1) % n_phi
+                if i > 0:
+                    idx.append([a, b, c])
+                if i < n_theta - 1:
+                    idx.append([b, d, c])
+        self.geometries.append(HostGeometry(
+            pos * radius, nrm.astype(np.float32), uv.astype(np.float32),
+            np.asarray(idx, np.int32), int(material)))
+        return len(self.geometries) - 1
+
+    # -- instances ---------------------------------------------------------
+
+    def add_instance(self, geometries, transform=None) -> int:
+        if isinstance(geometries, int):
+            geometries = [geometries]
+        if transform is None:
+            transform = affine()
+        self.instances.append(HostInstance(
+            list(geometries), np.asarray(transform, np.float32)))
+        return len(self.instances) - 1
+
+    # -- environment -------------------------------------------------------
+
+    def set_environment(self, radiance_hw3, power_coeff=1.0, rotation=0.0):
+        self.env_radiance = np.asarray(radiance_hw3, np.float32)
+        self.env_power = float(power_coeff)
+        self.env_rotation = float(rotation)
+
+    # -- compile -----------------------------------------------------------
+
+    def _materials_table(self, mats) -> MaterialTable:
+        def col(key, dtype):
+            return _t(np.asarray([getattr(m, key) for m in mats], dtype))
+
+        return MaterialTable(
+            bsdf_type=col("bsdf_type", np.int32),
+            diffuse_color=col("diffuse_color", np.float32),
+            specular_f0=col("specular_f0", np.float32),
+            roughness=col("roughness", np.float32),
+            metallic=col("metallic", np.float32),
+            emittance=col("emittance", np.float32),
+            diffuse_tex=col("diffuse_tex", np.int32),
+            emittance_tex=col("emittance_tex", np.int32),
+            normal_tex=col("normal_tex", np.int32),
+            normal_map_kind=col("normal_map_kind", np.int32),
+        )
+
+    def _env_light(self):
+        if self.env_radiance is None:
+            return None
+        # importance = luminance x sin(theta) (lat-long solid-angle factor)
+        h = self.env_radiance.shape[0]
+        lum = self.env_radiance @ _LUMA
+        sin_t = np.sin(np.pi * (np.arange(h) + 0.5) / h)
+        return EnvLight(
+            radiance=_t(self.env_radiance),
+            importance=build_continuous_2d(lum * sin_t[:, None]),
+            power_coeff=torch.tensor(self.env_power, dtype=torch.float32),
+            rotation=torch.tensor(self.env_rotation, dtype=torch.float32),
+            enabled=torch.tensor(True),
+        )
+
+    def compile(self, use_probability_texture: bool = False) -> SceneData:
+        """Flatten the instance graph to world-space SoA tables and light
+        distributions (CPU tensors)."""
+        if use_probability_texture:
+            raise NotImplementedError("the probability-texture light "
+                                      "selector is not ported yet")
+        if not self.instances:
+            raise ValueError("scene has no instances")
+        mats = self.materials or [HostMaterial()]
+
+        tri_chunks = {k: [] for k in ("p0", "e1", "e2", "n0", "n1", "n2",
+                                      "uv0", "uv1", "uv2", "unit")}
+        unit_material, unit_instance = [], []
+        unit_tri_offset, unit_tri_count = [], []
+        unit_importance = []
+        tri_pmf_chunks, tri_cdf_chunks = [], []
+        tri_aprob_chunks, tri_aidx_chunks = [], []
+        inst_transform, inst_scale = [], []
+
+        tri_cursor = 0
+        unit_cursor = 0
+        for inst_id, inst in enumerate(self.instances):
+            m = inst.transform.astype(np.float64)
+            rot = m[:, :3]
+            inst_transform.append(inst.transform)
+            inst_scale.append(
+                float(np.cbrt(max(abs(np.linalg.det(rot)), 1e-30))))
+            nrm_mat = np.linalg.inv(rot).T
+            for geom_id in inst.geometries:
+                g = self.geometries[geom_id]
+                v = g.positions @ rot.T + m[:, 3]
+                n = np_normalize(g.normals @ nrm_mat.T)
+                i0, i1, i2 = g.indices[:, 0], g.indices[:, 1], g.indices[:, 2]
+                p0, p1, p2 = v[i0], v[i1], v[i2]
+                tri_chunks["p0"].append(p0)
+                tri_chunks["e1"].append(p1 - p0)
+                tri_chunks["e2"].append(p2 - p0)
+                tri_chunks["n0"].append(n[i0])
+                tri_chunks["n1"].append(n[i1])
+                tri_chunks["n2"].append(n[i2])
+                tri_chunks["uv0"].append(g.texcoords[i0])
+                tri_chunks["uv1"].append(g.texcoords[i1])
+                tri_chunks["uv2"].append(g.texcoords[i2])
+                nt = len(g.indices)
+                tri_chunks["unit"].append(np.full(nt, unit_cursor, np.int32))
+
+                # per-triangle emissive importance = world area x luminance
+                area = 0.5 * np.linalg.norm(np.cross(p1 - p0, p2 - p0),
+                                            axis=-1)
+                emit_lum = float(np.dot(_LUMA, mats[g.material].emittance))
+                w = area * emit_lum
+                total = w.sum()
+                pmf = w / total if total > 0 else np.zeros(nt)
+                cdf = np.concatenate([[0.0], np.cumsum(pmf)[:-1]])
+                tri_pmf_chunks.append(pmf.astype(np.float32))
+                tri_cdf_chunks.append(cdf.astype(np.float32))
+                _, a_prob, a_idx, _ = vose_alias_arrays(w)
+                tri_aprob_chunks.append(a_prob.astype(np.float32))
+                tri_aidx_chunks.append(a_idx.astype(np.int32))
+
+                unit_material.append(g.material)
+                unit_instance.append(inst_id)
+                unit_tri_offset.append(tri_cursor)
+                unit_tri_count.append(nt)
+                unit_importance.append(float(total))
+                tri_cursor += nt
+                unit_cursor += 1
+
+        def cat(key):
+            return _t(np.concatenate(tri_chunks[key]).astype(
+                np.int32 if key == "unit" else np.float32))
+
+        triangles = TriangleSoA(
+            p0=cat("p0"), e1=cat("e1"), e2=cat("e2"),
+            n0=cat("n0"), n1=cat("n1"), n2=cat("n2"),
+            uv0=cat("uv0"), uv1=cat("uv1"), uv2=cat("uv2"),
+            unit_id=cat("unit"))
+
+        unit_importance = np.asarray(unit_importance, np.float64)
+        total_imp = unit_importance.sum()
+        unit_pmf = (unit_importance / total_imp if total_imp > 0
+                    else np.zeros_like(unit_importance))
+        unit_cdf = np.concatenate([[0.0], np.cumsum(unit_pmf)])
+        _, unit_aprob, unit_aidx, _ = vose_alias_arrays(unit_importance)
+
+        units = UnitTable(
+            material=_t(np.asarray(unit_material, np.int32)),
+            instance=_t(np.asarray(unit_instance, np.int32)),
+            tri_offset=_t(np.asarray(unit_tri_offset, np.int32)),
+            tri_count=_t(np.asarray(unit_tri_count, np.int32)),
+            light_tri_cdf=_t(np.concatenate(tri_cdf_chunks).astype(
+                np.float32)),
+            light_tri_index=torch.arange(tri_cursor, dtype=torch.int32),
+            light_tri_pmf=_t(np.concatenate(tri_pmf_chunks).astype(
+                np.float32)),
+            emissive_importance=_t(unit_importance.astype(np.float32)),
+            light_tri_alias_prob=_t(np.concatenate(tri_aprob_chunks).astype(
+                np.float32)),
+            light_tri_alias_local=_t(np.concatenate(tri_aidx_chunks).astype(
+                np.int32)),
+        )
+
+        transforms = np.stack(inst_transform).astype(np.float32)
+        inv = np.zeros_like(transforms)
+        for i, t in enumerate(transforms):
+            r_inv = np.linalg.inv(t[:, :3].astype(np.float64))
+            inv[i, :, :3] = r_inv
+            inv[i, :, 3] = -r_inv @ t[:, 3].astype(np.float64)
+        instances = InstanceTable(
+            transform=_t(transforms), inv_transform=_t(inv),
+            prev_transform=_t(transforms.copy()),
+            uniform_scale=_t(np.asarray(inst_scale, np.float32)))
+
+        return SceneData(
+            materials=self._materials_table(mats),
+            triangles=triangles,
+            units=units,
+            instances=instances,
+            light_unit_cdf=_t(unit_cdf.astype(np.float32)),
+            light_unit_pmf=_t(unit_pmf.astype(np.float32)),
+            light_unit_alias_prob=_t(unit_aprob.astype(np.float32)),
+            light_unit_alias_idx=_t(unit_aidx.astype(np.int32)),
+            total_emissive_importance=torch.tensor(np.float32(total_imp)),
+            env=self._env_light(),
+        )

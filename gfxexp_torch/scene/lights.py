@@ -1,0 +1,265 @@
+"""Light sampling and pdfs (port of the non-instanced parts of
+gfxexp_tpu/scene/lights.py).
+
+Emitters are diffuse (Le = emittance / pi). Surface samples return an area
+pdf, environment samples a solid-angle pdf. Environment direction for
+(u, v): phi = 2 pi u - rotation, theta = pi v, y up.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from gfxexp_torch.core.distributions import (
+    continuous_2d_pdf,
+    sample_continuous_2d,
+)
+from gfxexp_torch.core.math import cross, length
+from gfxexp_torch.core.tensors import TensorData
+from gfxexp_torch.scene.types import SceneData
+
+_PI = float(np.pi)
+PROB_SAMPLE_ENV = 0.25
+
+
+@dataclass
+class LightSample(TensorData):
+    position: torch.Tensor  # [R, 3] (env: the unit direction)
+    normal: torch.Tensor  # [R, 3]
+    emittance: torch.Tensor  # [R, 3]
+    pdf: torch.Tensor  # [R] area pdf (surface) or solid-angle pdf (env)
+    at_infinity: torch.Tensor  # [R] bool
+
+
+def _square_to_triangle(u0, u1):
+    """Low-distortion square -> triangle map."""
+    b_a = 0.5 * u0
+    b_b = 0.5 * u1
+    offset = b_b - b_a
+    b_b2 = torch.where(offset > 0, b_b + offset, b_b)
+    b_a2 = torch.where(offset > 0, b_a, b_a - offset)
+    return b_a2, b_b2
+
+
+def _segment_searchsorted(cdf_flat, offset, count, u, max_log2=20):
+    """Largest i in [0, count) with cdf_flat[offset + i] <= u (each segment's
+    cdf is an exclusive prefix starting at 0)."""
+    top = torch.clamp(count - 1, min=0)
+    lo = torch.zeros_like(offset)
+    hi = top
+    for _ in range(max_log2):
+        mid = (lo + hi + 1) // 2
+        mid_val = cdf_flat[offset + torch.minimum(mid, top)]
+        go_right = (mid_val <= u) & (mid <= hi)
+        lo = torch.where(go_right, mid, lo)
+        hi = torch.where(go_right, hi, mid - 1)
+    return lo
+
+
+def _alias_pick(prob, alias, idx_base, n, u):
+    """Walker alias draw over the window of `n` buckets at idx_base in the
+    flat (prob, alias) arrays (alias entries are local). Returns (local
+    index, remapped uniform)."""
+    scaled = u * n.to(torch.float32)
+    bucket = torch.minimum(torch.clamp(scaled.to(torch.int64), min=0),
+                           torch.clamp(n - 1, min=0))
+    frac = scaled - bucket.to(torch.float32)
+    p = prob[idx_base + bucket]
+    keep = frac < p
+    local = torch.where(keep, bucket, alias[idx_base + bucket].to(torch.int64))
+    u_re = torch.where(keep, frac / torch.clamp(p, min=1e-12),
+                       (frac - p) / torch.clamp(1.0 - p, min=1e-12))
+    return local, torch.clamp(u_re, 0.0, 1.0 - 1e-7)
+
+
+def _select_light_pos(scene: SceneData, u_sel):
+    """Two-level emissive selection (unit, then triangle in the unit) by the
+    alias tables, else by CDF search. Returns (unit, light-order position)."""
+    units = scene.units
+    n_units = scene.num_units
+    if scene.light_unit_alias_prob is not None:
+        unit, u_re = _alias_pick(
+            scene.light_unit_alias_prob, scene.light_unit_alias_idx,
+            torch.zeros((), dtype=torch.int64, device=u_sel.device),
+            torch.full(u_sel.shape, n_units, dtype=torch.int64,
+                       device=u_sel.device), u_sel)
+    else:
+        unit = torch.clamp(torch.searchsorted(scene.light_unit_cdf, u_sel,
+                                              right=True) - 1,
+                           0, n_units - 1)
+        lo = scene.light_unit_cdf[unit]
+        width = scene.light_unit_cdf[unit + 1] - lo
+        u_re = torch.clamp(
+            torch.where(width > 0,
+                        (u_sel - lo) / torch.where(width > 0, width, 1.0),
+                        0.0), 0.0, 1.0 - 1e-7)
+    offset = units.tri_offset[unit].to(torch.int64)
+    count = units.tri_count[unit].to(torch.int64)
+    if units.light_tri_alias_prob is not None:
+        local, _ = _alias_pick(units.light_tri_alias_prob,
+                               units.light_tri_alias_local, offset, count,
+                               u_re)
+    else:
+        local = _segment_searchsorted(units.light_tri_cdf, offset, count,
+                                      u_re)
+    return unit, offset + local
+
+
+def pack_light_rows(scene: SceneData) -> torch.Tensor:
+    """[T, 22] world-space emissive-triangle rows in light order: p0 e1 e2
+    n0 n1 n2 (0:18), pdf = unit_pmf * tri_pmf / area (18), emittance
+    (19:22). A surface-light sample is then one row gather."""
+    units = scene.units
+    tris = scene.triangles
+    t = units.light_tri_index.shape[0]
+    dev = units.light_tri_index.device
+    j = torch.arange(t, dtype=torch.int64, device=dev)
+    unit = torch.clamp(torch.searchsorted(units.tri_offset.to(torch.int64), j,
+                                          right=True) - 1,
+                       0, scene.num_units - 1)
+    tri = units.light_tri_index.to(torch.int64)
+    p0, e1, e2 = tris.p0[tri], tris.e1[tri], tris.e2[tri]
+    n0, n1, n2 = tris.n0[tri], tris.n1[tri], tris.n2[tri]
+    tri_pmf = units.light_tri_pmf[tri]
+    unit_pmf = scene.light_unit_pmf[unit]
+    cr_len = length(cross(e1, e2))
+    rec_area = 2.0 / torch.clamp(cr_len, min=1e-20)
+    pdf = torch.where(cr_len > 0, unit_pmf * tri_pmf * rec_area, 0.0)
+    emit = scene.materials.emittance[units.material[unit].to(torch.int64)]
+    return torch.cat([p0, e1, e2, n0, n1, n2, pdf[:, None], emit], dim=1)
+
+
+def env_dir_from_uv(env, u, v):
+    phi = 2.0 * _PI * u - env.rotation
+    theta = _PI * v
+    sin_t = torch.sin(theta)
+    return torch.stack([sin_t * torch.cos(phi), torch.cos(theta),
+                        sin_t * torch.sin(phi)], dim=-1)
+
+
+def env_uv_from_dir(env, d):
+    theta = torch.arccos(torch.clamp(d[..., 1], -1.0, 1.0))
+    phi = torch.atan2(d[..., 2], d[..., 0])
+    u = (phi + env.rotation) / (2.0 * _PI)
+    u = u - torch.floor(u)
+    v = theta / _PI
+    return u, v
+
+
+def env_radiance(env, d):
+    """Bilinear environment lookup (u wraps, v clamps)."""
+    u, v = env_uv_from_dir(env, d)
+    h, w = env.radiance.shape[:2]
+    fx = u * w - 0.5
+    fy = v * h - 0.5
+    x0 = torch.floor(fx).to(torch.int64)
+    y0 = torch.floor(fy).to(torch.int64)
+    tx = (fx - x0)[..., None]
+    ty = (fy - y0)[..., None]
+    x0w = x0 % w
+    x1w = (x0 + 1) % w
+    y0c = torch.clamp(y0, 0, h - 1)
+    y1c = torch.clamp(y0 + 1, 0, h - 1)
+    r00 = env.radiance[y0c, x0w]
+    r10 = env.radiance[y0c, x1w]
+    r01 = env.radiance[y1c, x0w]
+    r11 = env.radiance[y1c, x1w]
+    r = ((1 - ty) * ((1 - tx) * r00 + tx * r10)
+         + ty * ((1 - tx) * r01 + tx * r11))
+    return r * env.power_coeff
+
+
+def env_pdf(env, d):
+    """Solid-angle pdf of importance-sampling direction d."""
+    u, v = env_uv_from_dir(env, d)
+    uv_pdf = continuous_2d_pdf(env.importance, u, v)
+    sin_t = torch.clamp(torch.sin(_PI * v), min=1e-6)
+    return uv_pdf / (2.0 * _PI * _PI * sin_t)
+
+
+def sample_surface_light(scene: SceneData, u_sel, u0, u1,
+                         packed) -> LightSample:
+    """Emissive-surface sample through the packed light rows (the path the
+    tracer takes): unit, triangle, then the square -> triangle map."""
+    _, light_pos = _select_light_pos(scene, u_sel)
+    row = packed[light_pos]  # [R, 22]
+    b_a, b_b = _square_to_triangle(u0, u1)
+    b_c = 1.0 - b_a - b_b
+    position = (row[:, 0:3] + b_b[..., None] * row[:, 3:6]
+                + b_c[..., None] * row[:, 6:9])
+    normal = (b_a[..., None] * row[:, 9:12] + b_b[..., None] * row[:, 12:15]
+              + b_c[..., None] * row[:, 15:18])
+    normal = normal / torch.clamp(length(normal, keepdim=True), min=1e-20)
+    pdf = row[:, 18]
+    return LightSample(position=position, normal=normal,
+                       emittance=row[:, 19:22], pdf=pdf,
+                       at_infinity=torch.zeros(pdf.shape, dtype=torch.bool,
+                                               device=pdf.device))
+
+
+def sample_env_light(scene: SceneData, u0, u1) -> LightSample:
+    env = scene.env
+    u, v, uv_pdf = sample_continuous_2d(env.importance, u1, u0)
+    direction = env_dir_from_uv(env, u, v)
+    sin_t = torch.clamp(torch.sin(_PI * v), min=1e-6)
+    pdf = uv_pdf / (2.0 * _PI * _PI * sin_t)
+    # Le = emittance / pi = coeff * tex; bilinear as env_radiance so NEE and
+    # implicit hits agree (MIS consistency)
+    emittance = _PI * env_radiance(env, direction)
+    return LightSample(position=direction, normal=-direction,
+                       emittance=emittance, pdf=pdf,
+                       at_infinity=torch.ones(pdf.shape, dtype=torch.bool,
+                                              device=pdf.device))
+
+
+def sample_light(scene: SceneData, u_light, u0, u1, packed) -> LightSample:
+    """Light sample mixing env and surface lights with the fixed 0.25 env
+    probability; u_light picks the family and is remapped into it. The pdf
+    includes the selection probability."""
+    surface_ok = scene.total_emissive_importance > 0.0
+    if scene.env is None:
+        surf = sample_surface_light(scene, u_light, u0, u1, packed)
+        surf.pdf = torch.where(surface_ok, surf.pdf, 0.0)
+        return surf
+    p_env = (torch.where(surface_ok, PROB_SAMPLE_ENV, 1.0)
+             * torch.where(scene.env.enabled, 1.0, 0.0))
+    pick_env = u_light < p_env
+    u_surf = torch.clamp((u_light - p_env) / torch.clamp(1.0 - p_env,
+                                                         min=1e-8),
+                         0.0, 1.0 - 1e-7)
+    surf = sample_surface_light(scene, u_surf, u0, u1, packed)
+    envs = sample_env_light(scene, u0, u1)
+    pe3 = pick_env[..., None]
+    pdf = torch.where(pick_env, envs.pdf * p_env,
+                      torch.where(surface_ok, surf.pdf * (1.0 - p_env), 0.0))
+    return LightSample(
+        position=torch.where(pe3, envs.position, surf.position),
+        normal=torch.where(pe3, envs.normal, surf.normal),
+        emittance=torch.where(pe3, envs.emittance, surf.emittance),
+        pdf=pdf, at_infinity=pick_env)
+
+
+def surface_light_pdf(scene: SceneData, tri_idx):
+    """Area pdf of sampling triangle `tri_idx`'s surface through
+    sample_surface_light (implicit-hit MIS), non-instanced scenes."""
+    tris = scene.triangles
+    tri_idx = tri_idx.to(torch.int64)
+    unit = tris.unit_id[tri_idx].to(torch.int64)
+    tri_pmf = scene.units.light_tri_pmf[tri_idx]
+    cr_len = length(cross(tris.e1[tri_idx], tris.e2[tri_idx]))
+    rec_area = 2.0 / torch.clamp(cr_len, min=1e-20)
+    return scene.light_unit_pmf[unit] * tri_pmf * rec_area
+
+
+def light_selection_probs(scene: SceneData):
+    """(p_env, p_surface) selection probabilities, as 0-d tensors."""
+    surface_ok = scene.total_emissive_importance > 0.0
+    if scene.env is None:
+        return (torch.zeros((), device=surface_ok.device),
+                torch.where(surface_ok, 1.0, 0.0))
+    p_env = (torch.where(surface_ok, PROB_SAMPLE_ENV, 1.0)
+             * torch.where(scene.env.enabled, 1.0, 0.0))
+    return p_env, torch.where(surface_ok, 1.0 - p_env, 0.0)

@@ -1,0 +1,137 @@
+"""Scene data model: dataclasses of tensors (port of gfxexp_tpu/scene/types.py).
+
+Instances are flattened into world-space "units" (instance x geometry) at
+compile time; the light tables keep per-unit windows into flat arrays.
+`from_numpy` carries a gfxexp_tpu object (by attribute name, no jax import)
+into the port's classes.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from gfxexp_torch.core.distributions import Continuous2D
+from gfxexp_torch.core.tensors import TensorData
+from gfxexp_torch.core.tensors import from_numpy as _from_numpy
+
+BSDF_LAMBERT = 0
+BSDF_DIFFUSE_SPECULAR = 1
+BSDF_SIMPLE_PBR = 2
+
+
+@dataclass
+class MaterialTable(TensorData):
+    bsdf_type: torch.Tensor  # [M] int32
+    diffuse_color: torch.Tensor  # [M, 3]
+    specular_f0: torch.Tensor  # [M, 3]
+    roughness: torch.Tensor  # [M]
+    metallic: torch.Tensor  # [M]
+    emittance: torch.Tensor  # [M, 3]
+    diffuse_tex: torch.Tensor  # [M] int32, -1 = constant
+    emittance_tex: torch.Tensor  # [M] int32
+    normal_tex: torch.Tensor  # [M] int32
+    normal_map_kind: Optional[torch.Tensor] = None  # [M] int32
+
+
+@dataclass
+class TriangleSoA(TensorData):
+    """World-space triangles in traversal order (p0, e1 = p1-p0, e2 = p2-p0)
+    with per-corner shading attributes."""
+
+    p0: torch.Tensor  # [T, 3]
+    e1: torch.Tensor
+    e2: torch.Tensor
+    n0: torch.Tensor  # [T, 3] unit shading normals
+    n1: torch.Tensor
+    n2: torch.Tensor
+    uv0: torch.Tensor  # [T, 2]
+    uv1: torch.Tensor
+    uv2: torch.Tensor
+    unit_id: torch.Tensor  # [T] int32
+
+    @property
+    def count(self):
+        return self.p0.shape[0]
+
+
+@dataclass
+class UnitTable(TensorData):
+    """Flattened (instance, geometry) pairs with their emissive light
+    distributions in light order (units contiguous)."""
+
+    material: torch.Tensor  # [U] int32
+    instance: torch.Tensor  # [U] int32
+    tri_offset: torch.Tensor  # [U] int32
+    tri_count: torch.Tensor  # [U] int32
+    light_tri_cdf: torch.Tensor  # [T] per-unit exclusive prefix
+    light_tri_index: torch.Tensor  # [T] int32 light order -> traversal id
+    light_tri_pmf: torch.Tensor  # [T] indexed by traversal id
+    emissive_importance: torch.Tensor  # [U]
+    light_tri_alias_prob: Optional[torch.Tensor] = None  # [T]
+    light_tri_alias_local: Optional[torch.Tensor] = None  # [T] int32
+
+
+@dataclass
+class InstanceTable(TensorData):
+    transform: torch.Tensor  # [I, 3, 4] object -> world
+    inv_transform: torch.Tensor  # [I, 3, 4]
+    prev_transform: torch.Tensor  # [I, 3, 4]
+    uniform_scale: torch.Tensor  # [I]
+
+
+@dataclass
+class EnvLight(TensorData):
+    """Lat-long environment light."""
+
+    radiance: torch.Tensor  # [H, W, 3]
+    importance: Continuous2D
+    power_coeff: torch.Tensor  # []
+    rotation: torch.Tensor  # [] radians
+    enabled: torch.Tensor  # [] bool
+
+
+@dataclass
+class SceneData(TensorData):
+    """Everything the device code needs for one frame (single-level scenes:
+    the port has no instanced, textured or displaced scenes yet)."""
+
+    materials: MaterialTable
+    triangles: TriangleSoA
+    units: UnitTable
+    instances: InstanceTable
+    light_unit_cdf: torch.Tensor  # [U+1]
+    light_unit_pmf: torch.Tensor  # [U]
+    total_emissive_importance: torch.Tensor  # []
+    env: Optional[EnvLight] = None
+    light_unit_alias_prob: Optional[torch.Tensor] = None  # [U]
+    light_unit_alias_idx: Optional[torch.Tensor] = None  # [U] int32
+
+    is_instanced = False
+
+    @property
+    def num_triangles(self):
+        return self.triangles.count
+
+    @property
+    def num_units(self):
+        return self.units.material.shape[0]
+
+
+def from_numpy(obj):
+    """gfxexp_tpu object (SceneData, its tables, Camera, WideRowBVH, ...) ->
+    the port's object on the CPU. Reads fields by attribute name; fields the
+    port does not model are ignored."""
+    # containers register on import; make sure the ones outside this module
+    # are known
+    import gfxexp_torch.accel.widerow  # noqa: F401
+    import gfxexp_torch.render.camera  # noqa: F401
+
+    for name in ("textures", "displaced", "inst_unit_base",
+                 "light_unit_probtex"):
+        if getattr(obj, name, None) is not None:
+            raise NotImplementedError(
+                f"the port does not carry scenes with {name!r} yet")
+    return _from_numpy(obj)

@@ -1,0 +1,98 @@
+"""Tests of the port that need a CUDA device: the hand-written kernels against
+their plain PyTorch versions, and a render on the card against the same
+render on the CPU. They skip where there is no card. This file imports no
+JAX (the card's machine has none); run it there with
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+"""
+
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, "tests")
+import torch_scenes as S  # noqa: E402
+
+import gfxexp_torch.scene.builder as TB  # noqa: E402
+from gfxexp_torch.accel import persistent  # noqa: E402
+from gfxexp_torch.accel.persistent import walk_cuda, walk_plain  # noqa: E402
+from gfxexp_torch.accel.traverse import intersect_any  # noqa: E402
+from gfxexp_torch.accel.traverse import intersect_closest  # noqa: E402
+from gfxexp_torch.accel.widerow import build_widerow  # noqa: E402
+from gfxexp_torch.render import pathtrace as tpt  # noqa: E402
+from gfxexp_torch.render.camera import make_camera  # noqa: E402
+from gfxexp_torch.scene.compile import compile_scene  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _soup_table(arity, n=2000, seed=1234):
+    rng = np.random.default_rng(seed)
+    p0 = rng.normal(size=(n, 3)).astype(np.float32)
+    e1 = (rng.normal(size=(n, 3)) * 0.3).astype(np.float32)
+    e2 = (rng.normal(size=(n, 3)) * 0.3).astype(np.float32)
+    return build_widerow(p0, e1, e2, arity=arity)[0]
+
+
+def _rays(n, seed=5):
+    rng = np.random.default_rng(seed)
+    o = (rng.normal(size=(n, 3)) * 3).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return torch.from_numpy(o), torch.from_numpy(d)
+
+
+@pytest.mark.parametrize("arity", [4, 8])
+def test_kernel_matches_plain(dev, arity):
+    """Both instantiations, dead lanes included: the kernel and the plain
+    version round the same operations in the same order (--fmad=false),
+    so their results are identical."""
+    tb = _soup_table(arity).to(dev)
+    o, d = (x.to(dev) for x in _rays(20000))
+    t_max = torch.where(torch.arange(20000, device=dev) % 5 == 0, -1.0, 4.0)
+    for any_hit in (False, True):
+        k = walk_cuda(tb, o, d, 1e-4, t_max, any_hit)
+        p = walk_plain(tb, o, d, 1e-4, t_max, any_hit)
+        torch.cuda.synchronize()
+        assert torch.equal(k.hit, p.hit) and torch.equal(k.tri, p.tri)
+        assert torch.equal(k.t, p.t) and torch.equal(k.u, p.u)
+        assert not k.hit[t_max < 0].any()
+
+
+def test_wrappers_launch_the_kernel_and_count(dev):
+    tb = _soup_table(4, n=300).to(dev)
+    o, d = (x.to(dev) for x in _rays(1000))
+    persistent.reset_launch_counts()
+    intersect_closest(tb, None, o, d)
+    intersect_any(tb, None, o, d)
+    intersect_any(tb, None, o[:0], d[:0])  # nothing to launch
+    assert persistent.launch_counts == {"closest": 1, "any": 1}
+
+
+def test_oversized_stack_raises(dev):
+    tb = _soup_table(4, n=300).to(dev)
+    tb.max_depth = 100  # (100 + 2) * 3 entries > the kernel's bound
+    o, d = (x.to(dev) for x in _rays(16))
+    with pytest.raises(ValueError, match="stack"):
+        walk_cuda(tb, o, d, 1e-4, 1e30, any_hit=False)
+
+
+def test_render_on_card_matches_cpu(dev):
+    ts, tb = compile_scene(S.box_scene(TB))
+    tc = make_camera(**S.BOX_CAMERA)
+    cfg = tpt.PTConfig(max_path_length=4, count_rays=True)
+    a, na = tpt.render_accumulate(ts.to(dev), tb.to(dev), tc.to(dev), 32, 32,
+                                  0, 2, cfg)
+    b, nb = tpt.render_accumulate(ts, tb, tc, 32, 32, 0, 2, cfg)
+    assert torch.isfinite(a).all()
+    assert S.image_rel_diff(a.cpu().numpy(), b.numpy()) < 5e-3
+    assert abs(float(na) - float(nb)) <= 5e-3 * float(nb)
