@@ -105,10 +105,16 @@ def _prepare(bvh: WideRowBVH, o, d, t_min, t_max):
 # ---------------------------------------------------------------------------
 
 
-def walk_plain(bvh: WideRowBVH, o, d, t_min, t_max, any_hit: bool) -> HitInfo:
+def walk_plain(bvh: WideRowBVH, o, d, t_min, t_max, any_hit: bool,
+               base=None, start=None, with_stats: bool = False):
     """The kernel's walk written as tensor code: each iteration loads the
     current row of every active ray, tests its children or triangles, and
-    descends, pops or retires the ray. Same arithmetic, same order."""
+    descends, pops or retires the ray. Same arithmetic, same order.
+
+    `start` [N] is the row each ray starts at and `base` [N] the row its
+    child indices count from (a BLAS's first row in a flat table of several
+    BLAS, as the two-level walk uses it); both default to 0. with_stats=True
+    also returns the number of rows each ray visited [N] int64."""
     nodes, o, d, t_min, t_max = _prepare(bvh, o, d, t_min, t_max)
     nodes_i = nodes.view(torch.int32)
     K, L = bvh.arity, bvh.max_leaf
@@ -124,12 +130,20 @@ def walk_plain(bvh: WideRowBVH, o, d, t_min, t_max, any_hit: bool) -> HitInfo:
                        device=dev)
     sp = torch.zeros(n, dtype=torch.int64, device=dev)
 
+    rows_visited = torch.zeros(n, dtype=torch.int64, device=dev)
+
     act = torch.nonzero(t_max >= 0.0).squeeze(1)  # ray ids still walking
-    cur = torch.zeros_like(act)  # their current rows
+    # their current rows, and the rows those count from
+    cur = (torch.zeros_like(act) if start is None
+           else start.to(device=dev, dtype=torch.int64)[act])
+    a_base = (torch.zeros_like(act) if base is None
+              else base.to(device=dev, dtype=torch.int64)[act])
     while act.numel():
-        cur = torch.clamp(cur, 0, n_rows - 1)
-        row = nodes[cur]
-        row_i = nodes_i[cur]
+        if with_stats:
+            rows_visited[act] += 1
+        ridx = torch.clamp(a_base + cur, 0, n_rows - 1)
+        row = nodes[ridx]
+        row_i = nodes_i[ridx]
         ox, oy, oz = o[act].unbind(1)
         dx, dy, dz = d[act].unbind(1)
         ix, iy, iz = inv[act].unbind(1)
@@ -209,9 +223,10 @@ def walk_plain(bvh: WideRowBVH, o, d, t_min, t_max, any_hit: bool) -> HitInfo:
         nxt = torch.where(pop, popped, nxt)
         sp[act] = a_sp
         keep = nxt >= 0
-        act, cur = act[keep], nxt[keep]
-    return HitInfo(t=best_t, tri=best_tri, u=best_u, v=best_v,
-                   hit=best_tri >= 0)
+        act, cur, a_base = act[keep], nxt[keep], a_base[keep]
+    hit = HitInfo(t=best_t, tri=best_tri, u=best_u, v=best_v,
+                  hit=best_tri >= 0)
+    return (hit, rows_visited) if with_stats else hit
 
 
 # ---------------------------------------------------------------------------

@@ -4,6 +4,7 @@ the dispatch on the acceleration structure, and the brute-force oracle."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -20,32 +21,43 @@ class HitInfo(TensorData):
     u: torch.Tensor  # [R] barycentric of corner 1
     v: torch.Tensor  # [R] barycentric of corner 2
     hit: torch.Tensor  # [R] bool
+    # [R] int32 instance of the hit (two-level structures only; -1 on miss,
+    # None for single-level structures)
+    inst: Optional[torch.Tensor] = None
 
 
 def _check_structure(bvh):
+    from gfxexp_torch.accel.instanced import InstancedAccel
     from gfxexp_torch.accel.widerow import WideRowBVH
 
-    if not isinstance(bvh, WideRowBVH):
+    if not isinstance(bvh, (WideRowBVH, InstancedAccel)):
         raise NotImplementedError(
-            f"the port traverses WideRowBVH tables only, got "
-            f"{type(bvh).__name__}")
+            f"the port traverses WideRowBVH and InstancedAccel tables only, "
+            f"got {type(bvh).__name__}")
+    return isinstance(bvh, InstancedAccel)
 
 
 def intersect_closest(bvh, tris, o, d, t_min=1e-4, t_max=1e30) -> HitInfo:
     """Closest-hit query for a ray batch; o, d: [R, 3]. `tris` is unused
-    (the wide-row table bakes the triangles) and kept for the reference's
-    signature."""
+    (the row tables bake the triangles) and kept for the reference's
+    signature. Two-level structures also return the hit instance."""
+    from gfxexp_torch.accel.instanced import intersect_closest_instanced
     from gfxexp_torch.accel.persistent import intersect_closest_widerow
 
-    _check_structure(bvh)
+    if _check_structure(bvh):
+        hit, inst = intersect_closest_instanced(bvh, o, d, t_min, t_max)
+        hit.inst = inst
+        return hit
     return intersect_closest_widerow(bvh, o, d, t_min, t_max)
 
 
 def intersect_any(bvh, tris, o, d, t_min=1e-4, t_max=1e30) -> torch.Tensor:
     """Shadow-ray query: occluded [R] bool."""
+    from gfxexp_torch.accel.instanced import intersect_any_instanced
     from gfxexp_torch.accel.persistent import intersect_any_widerow
 
-    _check_structure(bvh)
+    if _check_structure(bvh):
+        return intersect_any_instanced(bvh, o, d, t_min, t_max)
     return intersect_any_widerow(bvh, o, d, t_min, t_max)
 
 

@@ -1,15 +1,29 @@
 """Path-tracing ray throughput of the port on one CUDA device.
 
-The configuration is bench.py's (the JAX package's benchmark), procedural
-branch: floor + area light + two spheres, NEE+MIS path tracing with max path
-length 5, 16 timed samples, at 512x512 (render_accumulate) and at 1920x1080
-(8 tiles of 259,200 lanes through render_tile_accumulate). Mrays/s counts the
-closest-hit and shadow rays the integrator traced (cfg.count_rays), divided
-by the wall time of the timed run fenced with torch.cuda.synchronize().
+The configurations are bench.py's (the JAX package's benchmark), procedural
+branch (the teapot and bunny meshes are not in the repository, so spheres
+stand in for them, as in bench.py): NEE+MIS path tracing with max path
+length 5, 16 timed samples.
 
-    python -m gfxexp_torch.bench            # both sizes, bench.py's line
+- the small scene: floor + area light + two spheres, at 512x512
+  (render_accumulate) and at 1920x1080 (8 tiles of 259,200 lanes through
+  render_tile_accumulate), traced through the wide-row table;
+- `big`: a 6x6 grid of sphere pairs (74 instances) on a 4x4 floor, and
+  `city`: a 16x16 grid (514 instances) on a 10x10 floor, both compiled
+  two-level (traversal="instanced") and rendered at 512x512. `rebraid<k>`
+  opens the largest instances into about k entries per instance (k = 4 when
+  omitted), `tlas` routes the queries through the ray-sorted pass, and
+  `persist` / `nopersist` pick the nearest-first or the build-order walk.
+
+Mrays/s counts the closest-hit and shadow rays the integrator traced
+(cfg.count_rays), divided by the wall time of the timed run fenced with
+torch.cuda.synchronize().
+
+    python -m gfxexp_torch.bench            # small scene, both sizes
     python -m gfxexp_torch.bench 512        # one size
     python -m gfxexp_torch.bench 1080p
+    python -m gfxexp_torch.bench big        # 512x512
+    python -m gfxexp_torch.bench city rebraid4 tlas
 
 Prints one JSON line of bench.py's shape: metric, value, unit, vs_baseline.
 Needs a CUDA device; it does not fall back to the CPU.
@@ -24,7 +38,7 @@ import time
 import numpy as np
 import torch
 
-from gfxexp_torch.accel import persistent
+from gfxexp_torch.accel import instanced, persistent
 from gfxexp_torch.render.camera import make_camera
 from gfxexp_torch.render.pathtrace import (
     PTConfig,
@@ -39,41 +53,75 @@ TIMED_SAMPLES = 16
 TARGET_MRAYS = 100.0  # bench.py's north-star, Mrays/s per device
 HD_TILES = 8
 SIZES = {"512": (512, 512), "1080p": (1920, 1080)}
+SCENES = ("small", "big", "city")
+# per scene: floor side, instance grid (cells per side, 0 = one pair),
+# camera position and target (bench.py:119-132, 205-219)
+_LAYOUT = {
+    "small": (2.0, 0, [0.0, 0.8, 1.6], [0.0, 0.2, 0.0]),
+    "big": (4.0, 6, [0.0, 2.2, 3.4], [0.0, 0.1, 0.0]),
+    "city": (10.0, 16, [0.0, 4.5, 8.0], [0.0, 0.1, 0.0]),
+}
 
 
-def bench_scene_builder(b=None):
+def bench_scene_builder(b=None, scene: str = "small"):
     """Populate a SceneBuilder (the port's by default) with bench.py's
-    procedural scene: a 2x2 floor, a 0.6x0.6 light of emittance 300 facing
-    down at y = 1.5, a diffuse-specular sphere (r 0.25) and a Lambert sphere
-    (r 0.2). Any builder with the same API works, so tests can build the
-    identical scene in the JAX package."""
+    procedural scene: a floor, a light of emittance 300 facing down at
+    y = 1.5 (0.3 x the floor's side), and diffuse-specular spheres (r 0.25)
+    paired with Lambert spheres (r 0.2): one pair for "small", a 6x6 grid
+    for "big", a 16x16 grid for "city". The spheres are two geometries
+    shared by every instance. Any builder with the same API works, so tests
+    can build the identical scene in the JAX package."""
     b = SceneBuilder() if b is None else b
+    side, cells, _, _ = _LAYOUT[scene]
     floor = b.add_lambert_material((0.8, 0.8, 0.8))
     light = b.add_lambert_material((0.0, 0.0, 0.0),
                                    emittance=(300.0, 300.0, 300.0))
-    side = 2.0
     b.add_instance(b.add_rectangle(side, side, floor))
     flip = np.array([[1, 0, 0], [0, -1, 0], [0, 0, -1]], np.float64)
     b.add_instance(b.add_rectangle(0.6 * side / 2, 0.6 * side / 2, light),
                    affine(rotation=flip, translation=[0.0, 1.5, 0.0]))
-    mat_a = b.add_diffuse_specular_material((0.7, 0.4, 0.2), (0.2,) * 3, 0.7)
-    b.add_instance(b.add_sphere(0.25, mat_a),
-                   affine(translation=[-0.3, 0.25, 0.0]))
-    mat_b = b.add_lambert_material((0.3, 0.6, 0.3))
-    b.add_instance(b.add_sphere(0.2, mat_b),
-                   affine(translation=[0.35, 0.2, 0.0]))
+    spheres = {}
+
+    def sphere(key, radius, make_mat):
+        if key not in spheres:
+            spheres[key] = b.add_sphere(radius, make_mat())
+        return spheres[key]
+
+    def pair(tx, tz, bx):
+        a = sphere("a", 0.25, lambda: b.add_diffuse_specular_material(
+            (0.7, 0.4, 0.2), (0.2,) * 3, 0.7))
+        b.add_instance(a, affine(translation=[tx, 0.25, tz]))
+        s = sphere("b", 0.2, lambda: b.add_lambert_material((0.3, 0.6, 0.3)))
+        b.add_instance(s, affine(translation=[bx, 0.2, tz]))
+
+    if cells == 0:
+        pair(-0.3, 0.0, 0.35)
+    for gx in range(cells):
+        for gz in range(cells):
+            tx = (gx - (cells - 1) / 2) * 0.62
+            tz = (gz - (cells - 1) / 2) * 0.62
+            pair(tx, tz, tx + 0.28)
     return b
 
 
-def build_bench_scene():
-    """(SceneData, WideRowBVH) of the bench scene on the CPU."""
-    return compile_scene(bench_scene_builder(), arity=4, max_leaf=4,
-                         traversal="widerow")
+def build_bench_scene(scene: str = "small", rebraid: float = 0.0,
+                      tlas: bool = False):
+    """(SceneData, acceleration structure) of a bench scene on the CPU: a
+    WideRowBVH for "small", an InstancedAccel for "big" and "city"."""
+    if scene == "small":
+        return compile_scene(bench_scene_builder(), arity=4, max_leaf=4,
+                             traversal="widerow")
+    s, acc = compile_scene(bench_scene_builder(scene=scene), arity=4,
+                           max_leaf=4, traversal="instanced",
+                           rebraid=rebraid)
+    acc.use_tlas = tlas
+    return s, acc
 
 
-def bench_camera(width: int, height: int):
-    return make_camera([0.0, 0.8, 1.6], fov_y=np.deg2rad(45),
-                       aspect=width / height, target=[0.0, 0.2, 0.0])
+def bench_camera(width: int, height: int, scene: str = "small"):
+    _, _, position, target = _LAYOUT[scene]
+    return make_camera(position, fov_y=np.deg2rad(45),
+                       aspect=width / height, target=target)
 
 
 def render_frame(scene, bvh, camera, width, height, start_idx, n_samples,
@@ -98,9 +146,17 @@ def render_frame(scene, bvh, camera, width, height, start_idx, n_samples,
     return torch.cat(imgs) / n_samples, rays
 
 
-def measure(size: str, scene=None, bvh=None, device="cuda") -> dict:
-    """Time TIMED_SAMPLES samples at `size` ('512' or '1080p') on `device`.
-    Returns bench.py's JSON fields plus the run's details."""
+def _counts():
+    return {**{f"widerow_{k}": v for k, v in persistent.launch_counts.items()},
+            **{f"instanced_{k}": v
+               for k, v in instanced.launch_counts.items()}}
+
+
+def measure(size: str, scene=None, bvh=None, device="cuda",
+            which: str = "small") -> dict:
+    """Time TIMED_SAMPLES samples of bench scene `which` at `size` ('512'
+    or '1080p') on `device`. Returns bench.py's JSON fields plus the run's
+    details."""
     dev = torch.device(device)
     if dev.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("gfxexp_torch.bench measures on a CUDA device")
@@ -108,26 +164,27 @@ def measure(size: str, scene=None, bvh=None, device="cuda") -> dict:
     torch.backends.cudnn.allow_tf32 = False
     width, height = SIZES[size]
     if scene is None:
-        scene, bvh = build_bench_scene()
+        scene, bvh = build_bench_scene(which)
     scene, bvh = scene.to(dev), bvh.to(dev)
-    camera = bench_camera(width, height).to(dev)
+    camera = bench_camera(width, height, which).to(dev)
     cfg = PTConfig(max_path_length=MAX_PATH_LENGTH, count_rays=True)
 
     # warm-up: nothing compiles in the port, but the first sample builds
     # the kernel and fills the caching allocator
     render_frame(scene, bvh, camera, width, height, 0, 1, cfg)
     torch.cuda.synchronize(dev)
-    before = dict(persistent.launch_counts)
+    before = _counts()
     t0 = time.perf_counter()
     img, rays = render_frame(scene, bvh, camera, width, height, 100,
                              TIMED_SAMPLES, cfg)
     torch.cuda.synchronize(dev)
     elapsed = time.perf_counter() - t0
-    launches = {k: persistent.launch_counts[k] - before[k] for k in before}
+    after = _counts()
+    launches = {k: after[k] - before[k] for k in before}
     total_rays = float(rays)
     mrays = total_rays / elapsed / 1e6
     return {
-        "metric": f"pt_ray_throughput_{size}",
+        "metric": f"pt_ray_throughput_{size if which == 'small' else which}",
         "value": round(mrays, 2),
         "unit": "Mrays/s",
         "vs_baseline": round(mrays / TARGET_MRAYS, 4),
@@ -149,17 +206,26 @@ def _line(row: dict) -> dict:
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    sizes = [s for s in SIZES if s in argv] or list(SIZES)
-    scene, bvh = build_bench_scene()
+    which = next((w for w in ("city", "big") if w in argv), "small")
+    rebraid = 0.0
+    for a in argv:
+        if a.startswith("rebraid"):
+            rebraid = float(a[7:] or 4.0)
+    if "persist" in argv or "nopersist" in argv:
+        instanced.set_persistent("persist" in argv)
+    sizes = [s for s in SIZES if s in argv] or (
+        list(SIZES) if which == "small" else ["512"])
+    scene, bvh = build_bench_scene(which, rebraid, tlas="tlas" in argv)
     rows = {}
     for size in sizes:
-        rows[size] = measure(size, scene, bvh)
+        rows[size] = measure(size, scene, bvh, which=which)
         r = rows[size]
         sys.stderr.write(
-            f"bench: {size} {scene.num_triangles} tris, {TIMED_SAMPLES} "
-            f"samples in {r['seconds']:.3f}s, {r['rays'] / 1e6:.2f} Mrays, "
-            f"mean radiance {r['mean_radiance']:.4f}, launches "
-            f"{r['launches']} on {r['device']}\n")
+            f"bench: {which} {size} {scene.num_triangles} tris, "
+            f"{TIMED_SAMPLES} samples in {r['seconds']:.3f}s, "
+            f"{r['rays'] / 1e6:.2f} Mrays, mean radiance "
+            f"{r['mean_radiance']:.4f}, launches {r['launches']} on "
+            f"{r['device']}\n")
     if len(sizes) == 1:
         print(json.dumps(_line(rows[sizes[0]])))
         return

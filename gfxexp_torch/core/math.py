@@ -104,3 +104,9 @@ def cosine_sample_hemisphere(u0, u1):
 def np_normalize(v):
     n = np.linalg.norm(v, axis=-1, keepdims=True)
     return v / np.maximum(n, 1e-20)
+
+
+def rotate(m, v):
+    """The 3x3 part of per-row 3x4 matrices m [R, 3, 4] applied to v [R, 3]
+    (the JAX package's einsum("nij,nj->ni") at full float32 precision)."""
+    return (m[:, :, :3] * v[:, None, :]).sum(-1)

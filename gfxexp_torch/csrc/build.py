@@ -1,15 +1,17 @@
 """Build the CUDA kernels in this directory with nvcc into shared libraries
 with a plain C interface, and load them with ctypes.
 
-Each `<name>.cu` becomes build/gfxexp_torch/lib<name>.so at first use (or
-when the source is newer than the library). Built for Hopper (`sm_90a`) with
-`--fmad=false`, so each kernel rounds every multiply and add on its own, as
-its plain PyTorch version does.
+Each `<name>.cu` becomes build/gfxexp_torch/lib<name>.so at first use, or
+when the source or any header in this directory (`*.cuh`) is newer than the
+library. Built for Hopper (`sm_90a`) with `--fmad=false`, so each kernel
+rounds every multiply and add on its own, as its plain PyTorch version does.
+`load_libraries` starts one nvcc per source, all at once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -51,35 +53,74 @@ def _declare(name: str, lib: ctypes.CDLL):
             vp, vp, vp, vp, vp,                  # t, u, v, tri, hit
             vp,                                  # stream
         ]
+    elif name == "instanced_traverse":
+        lib.instanced_max_stack.restype = ci
+        lib.instanced_max_stack.argtypes = []
+        lib.instanced_walk_launch.restype = ci
+        lib.instanced_walk_launch.argtypes = [
+            ci, ci, ci,                          # any_hit, nearest, arity
+            vp, ci, ci, ci, ci,                  # nodes .. stack_depth
+            ci, vp, vp, vp, vp, vp,              # entries: count .. hi
+            ci, vp, vp, vp, vp,                  # n, o, d, tmin, tmax
+            vp, vp, vp, vp, vp, vp,              # t, u, v, tri, hit, entry
+            vp,                                  # stream
+        ]
     else:
         raise KeyError(f"no C interface declared for {name!r}")
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load csrc/<name>.cu. Raises when nvcc is
-    missing or the build fails."""
-    if name in _libs:
-        return _libs[name]
-    src = os.path.join(_DIR, name + ".cu")
-    so = os.path.join(BUILD_DIR, f"lib{name}.so")
-    build_seconds[name] = 0.0
-    if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        t0 = time.time()
-        try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                  capture_output=True, text=True)
+def _stale(src: str, so: str) -> bool:
+    if not os.path.exists(so):
+        return True
+    newest = max(os.path.getmtime(p) for p in
+                 [src, *glob.glob(os.path.join(_DIR, "*.cuh"))])
+    return os.path.getmtime(so) < newest
+
+
+def load_libraries(names) -> dict:
+    """Build (where needed) and load csrc/<name>.cu for every name, running
+    one nvcc per stale source in parallel. Raises when nvcc is missing or a
+    build fails."""
+    pending = {}
+    try:
+        for name in names:
+            if name in _libs or name in pending:
+                continue
+            src = os.path.join(_DIR, name + ".cu")
+            so = os.path.join(BUILD_DIR, f"lib{name}.so")
+            build_seconds[name] = 0.0
+            if not _stale(src, so):
+                continue
+            nvcc = _nvcc()
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            pending[name] = (proc, tmp, so, src, time.time())
+        for name, (proc, tmp, so, src, t0) in pending.items():
+            _, err = proc.communicate()
+            build_seconds[name] = time.time() - t0
+            build_log[name] = err
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+                raise RuntimeError(f"nvcc failed for {src}:\n{err}")
             os.replace(tmp, so)
-        finally:
+    finally:
+        for proc, tmp, *_ in pending.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
             if os.path.exists(tmp):
                 os.remove(tmp)
-        build_seconds[name] = time.time() - t0
-        build_log[name] = proc.stderr
-    lib = ctypes.CDLL(so)
-    _declare(name, lib)
-    _libs[name] = lib
-    return lib
+    for name in names:
+        if name not in _libs:
+            lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
+            _declare(name, lib)
+            _libs[name] = lib
+    return {name: _libs[name] for name in names}
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load csrc/<name>.cu."""
+    return load_libraries([name])[name]

@@ -26,6 +26,7 @@ from gfxexp_torch.core.math import (
     make_frame,
     normalize,
     offset_ray_origin,
+    rotate,
     to_local,
     to_world,
 )
@@ -49,6 +50,7 @@ from gfxexp_torch.scene.lights import (
     light_selection_probs,
     pack_light_rows,
     sample_light,
+    surface_light_pdf,
 )
 from gfxexp_torch.scene.types import SceneData
 
@@ -115,13 +117,14 @@ class SurfacePoint(TensorData):
 def pack_tri_attrs(tris, scene: SceneData = None) -> torch.Tensor:
     """[T, 27] per-triangle shading rows, so a surface point is one row
     gather: p0 e1 e2 n0 n1 n2 (0:18) uv0 uv1 uv2 (18:24), bitcast unit id
-    (24), hypothetical NEE area pdf (25, when `scene` is given), texel
+    (24), hypothetical NEE area pdf (25, when `scene` is given and is not
+    instanced; a two-level scene's pdf depends on the instance), texel
     density (26)."""
     cols = [tris.p0, tris.e1, tris.e2, tris.n0, tris.n1, tris.n2,
             tris.uv0, tris.uv1, tris.uv2,
             tris.unit_id.to(torch.int32).view(torch.float32)[:, None]]
     cr_len = length(cross(tris.e1, tris.e2))
-    if scene is not None:
+    if scene is not None and not scene.is_instanced:
         rec_area = 2.0 / torch.clamp(cr_len, min=1e-20)
         pdf = (scene.light_unit_pmf[tris.unit_id.to(torch.int64)]
                * scene.units.light_tri_pmf * rec_area)
@@ -135,21 +138,32 @@ def pack_tri_attrs(tris, scene: SceneData = None) -> torch.Tensor:
     return torch.cat(cols, dim=1)
 
 
-def compute_surface_point(scene: SceneData, tri_idx, u, v,
+def compute_surface_point(scene: SceneData, tri_idx, u, v, inst=None,
                           packed=None) -> SurfacePoint:
     """Hit attributes from one packed-row gather (missed lanes gather row 0
-    and are masked out by the caller)."""
+    and are masked out by the caller). In a two-level scene the triangle is
+    in object space and `inst` [R] (the hit instance) brings it into world
+    space; normals go through the inverse transpose."""
     tri_idx = torch.clamp(tri_idx.to(torch.int64), min=0)
     if packed is None:
         packed = pack_tri_attrs(scene.triangles)
     rows = packed[tri_idx]
     p0, e1, e2 = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
+    if scene.is_instanced:
+        insti = torch.clamp(inst.to(torch.int64), min=0)
+        m = scene.instances.transform[insti]
+        p0 = rotate(m, p0) + m[:, :, 3]
+        e1 = rotate(m, e1)
+        e2 = rotate(m, e2)
     u1, v1 = u[..., None], v[..., None]
     position = p0 + u1 * e1 + v1 * e2
     gn = normalize(cross(e1, e2))
     w1 = (1.0 - u - v)[..., None]
-    sn = normalize(w1 * rows[:, 9:12] + u1 * rows[:, 12:15]
-                   + v1 * rows[:, 15:18])
+    sn = w1 * rows[:, 9:12] + u1 * rows[:, 12:15] + v1 * rows[:, 15:18]
+    if scene.is_instanced:
+        ninv = scene.instances.inv_transform[insti][:, :, :3]
+        sn = (ninv * sn[:, :, None]).sum(1)
+    sn = normalize(sn)
     uv0, uv1, uv2 = rows[:, 18:20], rows[:, 20:22], rows[:, 22:24]
     tc = w1 * uv0 + u1 * uv1 + v1 * uv2
     duv1 = uv1 - uv0
@@ -160,6 +174,8 @@ def compute_surface_point(scene: SceneData, tri_idx, u, v,
     tan = torch.where((torch.abs(det) < 1e-12)[..., None], fallback, tan)
     tan = normalize(tan - dot(tan, sn, keepdim=True) * sn)
     unit = rows[:, 24].contiguous().view(torch.int32).to(torch.int64)
+    if scene.is_instanced:
+        unit = scene.inst_unit_base[insti].to(torch.int64) + unit
     mat = scene.units.material[unit].to(torch.int64)
     return SurfacePoint(
         position=position, geom_normal=gn, shading_normal=sn, texcoord=tc,
@@ -292,7 +308,7 @@ def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
                     0.0)
 
         sp = compute_surface_point(scene, hit.tri, hit.u, hit.v,
-                                   packed=tri_packed)
+                                   inst=hit.inst, packed=tri_packed)
         v_out = -ray_d
         front = dot(v_out, sp.geom_normal) >= 0.0
         gn_signed = torch.where(front[..., None], sp.geom_normal,
@@ -310,8 +326,11 @@ def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
                 mis_w = torch.ones(n, device=dev)
             else:
                 dist2 = torch.clamp(hit.t ** 2, min=1e-12)
-                hyp_area = tri_packed[torch.clamp(hit.tri.to(torch.int64),
-                                                  min=0), 25]
+                tri = torch.clamp(hit.tri.to(torch.int64), min=0)
+                if scene.is_instanced:
+                    hyp_area = surface_light_pdf(scene, tri, inst=hit.inst)
+                else:
+                    hyp_area = tri_packed[tri, 25]
                 light_p = (p_surf_sel * hyp_area * dist2
                            / torch.clamp(v_out_local[..., 2], min=1e-6))
                 mis_w = prev_pdf ** 2 / torch.clamp(

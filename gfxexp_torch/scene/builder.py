@@ -1,10 +1,11 @@
 """Host-side scene construction -> SceneData (port of
 gfxexp_tpu/scene/builder.py: materials, rectangles, spheres, instances, the
-environment light and the non-instanced compile).
+environment light, and both compiles).
 
 `compile()` flattens the instance graph into world-space triangle tables and
 per-unit light distributions with numpy, as the JAX package does, and returns
-them as CPU tensors; move the result with `.to(device)`.
+them as CPU tensors; move the result with `.to(device)`. `compile_instanced()`
+keeps one object-space BLAS per geometry group, shared by its instances.
 """
 
 from __future__ import annotations
@@ -110,10 +111,6 @@ class SceneBuilder:
 
     def add_shell(self, *args, **kw):
         raise NotImplementedError("shell mapping is not ported yet")
-
-    def compile_instanced(self, *args, **kw):
-        raise NotImplementedError("two-level (instanced) scenes are not "
-                                  "ported yet")
 
     # -- materials ---------------------------------------------------------
 
@@ -356,3 +353,206 @@ class SceneBuilder:
             total_emissive_importance=torch.tensor(np.float32(total_imp)),
             env=self._env_light(),
         )
+
+    def compile_instanced(self, arity: int = 4, max_leaf: int = 4,
+                          node_format: str = "widerow",
+                          rebraid: float = 0.0):
+        """Two-level compile: per-group BLAS tables shared by instances.
+
+        Returns (SceneData, InstancedAccel) of CPU tensors. SceneData.
+        triangles hold OBJECT-space BLAS triangles (unit_id = local geometry
+        index within the group); light-order arrays are per UNIT (instance x
+        geometry), for emissive units only, with world-space importances,
+        and light_tri_index maps light-order positions to global BLAS
+        triangle ids."""
+        from gfxexp_torch.accel.instanced import build_instanced
+
+        if node_format != "widerow":
+            raise ValueError(f"unsupported instanced node_format "
+                             f"{node_format!r}")
+        if not self.instances:
+            raise ValueError("scene has no instances")
+        mats = self.materials or [HostMaterial()]
+
+        # ---- dedupe geometry groups -> BLAS ids ----
+        group_key_to_blas = {}
+        blas_groups = []  # geometry-id tuples
+        inst_blas = []
+        for inst in self.instances:
+            key = tuple(inst.geometries)
+            if key not in group_key_to_blas:
+                group_key_to_blas[key] = len(blas_groups)
+                blas_groups.append(key)
+            inst_blas.append(group_key_to_blas[key])
+
+        # ---- per-BLAS object-space triangle arrays (pre-permutation) ----
+        blas_raw = []  # per blas: (SoA chunks, geom local bases, counts)
+        blas_tri_base = []  # global base of each blas in concatenated order
+        cursor = 0
+        for group in blas_groups:
+            chunks = {k: [] for k in ("p0", "e1", "e2", "n0", "n1", "n2",
+                                      "uv0", "uv1", "uv2", "unit")}
+            geom_base, geom_count = [], []
+            local = 0
+            for k, geom_id in enumerate(group):
+                g = self.geometries[geom_id]
+                i0, i1, i2 = g.indices[:, 0], g.indices[:, 1], g.indices[:, 2]
+                p0, p1, p2 = g.positions[i0], g.positions[i1], g.positions[i2]
+                chunks["p0"].append(p0)
+                chunks["e1"].append(p1 - p0)
+                chunks["e2"].append(p2 - p0)
+                chunks["n0"].append(g.normals[i0])
+                chunks["n1"].append(g.normals[i1])
+                chunks["n2"].append(g.normals[i2])
+                chunks["uv0"].append(g.texcoords[i0])
+                chunks["uv1"].append(g.texcoords[i1])
+                chunks["uv2"].append(g.texcoords[i2])
+                nt = len(g.indices)
+                chunks["unit"].append(np.full(nt, k, np.int32))
+                geom_base.append(local)
+                geom_count.append(nt)
+                local += nt
+            cat = {k: np.concatenate(v).astype(
+                np.int32 if k == "unit" else np.float32)
+                for k, v in chunks.items()}
+            blas_raw.append((cat, geom_base, geom_count))
+            blas_tri_base.append(cursor)
+            cursor += local
+
+        # ---- build BLAS BVHs (permutes each blas's triangles) ----
+        acc, perms = build_instanced(
+            [(b[0]["p0"], b[0]["e1"], b[0]["e2"]) for b in blas_raw],
+            [(inst_blas[i], self.instances[i].transform)
+             for i in range(len(self.instances))],
+            arity=arity, max_leaf=max_leaf, rebraid=rebraid)
+        # apply per-blas permutations; light order stays GEOMETRY order
+        blas_cat = {k: [] for k in blas_raw[0][0]}
+        inv_perms = []
+        for b, (cat, _, _) in enumerate(blas_raw):
+            p = perms[b]
+            inv = np.empty_like(p)
+            inv[p] = np.arange(len(p), dtype=p.dtype)
+            inv_perms.append(inv)
+            for k in blas_cat:
+                blas_cat[k].append(np.asarray(cat[k])[p])
+        triangles = TriangleSoA(
+            **{("unit_id" if k == "unit" else k): _t(np.concatenate(v))
+               for k, v in blas_cat.items()})
+
+        # ---- units: instance-major, group order ----
+        unit_material, unit_instance = [], []
+        unit_tri_offset, unit_tri_count, unit_tri_base = [], [], []
+        unit_importance = []
+        tri_pmf_chunks, tri_cdf_chunks, tri_idx_chunks = [], [], []
+        tri_aprob_chunks, tri_aidx_chunks = [], []
+        inst_transform, inst_scale, inst_unit_base = [], [], []
+        light_cursor = 0
+        unit_cursor = 0
+        for inst_id, inst in enumerate(self.instances):
+            b = inst_blas[inst_id]
+            cat, geom_base, geom_count = blas_raw[b]
+            m = inst.transform.astype(np.float64)
+            rot = m[:, :3]
+            inst_transform.append(inst.transform)
+            inst_scale.append(
+                float(np.cbrt(max(abs(np.linalg.det(rot)), 1e-30))))
+            inst_unit_base.append(unit_cursor)
+            for k, geom_id in enumerate(blas_groups[b]):
+                g = self.geometries[geom_id]
+                nt = geom_count[k]
+                lo = geom_base[k]
+                emit_lum = float(np.dot(_LUMA, mats[g.material].emittance))
+                # only emissive units get light-order segments; the others
+                # keep (offset=cursor, count=0) and unit pmf 0
+                if emit_lum > 0.0:
+                    # world-space emissive importance under this instance
+                    e1w = cat["e1"][lo:lo + nt] @ rot.T
+                    e2w = cat["e2"][lo:lo + nt] @ rot.T
+                    area = 0.5 * np.linalg.norm(np.cross(e1w, e2w), axis=-1)
+                    w = area * emit_lum
+                    total = w.sum()
+                    pmf = w / total if total > 0 else np.zeros(nt)
+                    cdf = np.concatenate([[0.0], np.cumsum(pmf)[:-1]])
+                    tri_pmf_chunks.append(pmf.astype(np.float32))
+                    tri_cdf_chunks.append(cdf.astype(np.float32))
+                    _, a_prob, a_idx, _ = vose_alias_arrays(w)
+                    tri_aprob_chunks.append(a_prob.astype(np.float32))
+                    tri_aidx_chunks.append(a_idx.astype(np.int32))
+                    # light-order position -> global blas triangle id
+                    glob = blas_tri_base[b] + inv_perms[b][lo:lo + nt]
+                    tri_idx_chunks.append(glob.astype(np.int32))
+                    nt_light = nt
+                else:
+                    total = 0.0
+                    nt_light = 0
+                unit_material.append(g.material)
+                unit_instance.append(inst_id)
+                unit_tri_offset.append(light_cursor)
+                unit_tri_count.append(nt_light)
+                unit_tri_base.append(lo)  # geometry-order base within blas
+                unit_importance.append(float(total))
+                light_cursor += nt_light
+                unit_cursor += 1
+
+        unit_importance = np.asarray(unit_importance, np.float64)
+        total_imp = unit_importance.sum()
+        unit_pmf = (unit_importance / total_imp if total_imp > 0
+                    else np.zeros_like(unit_importance))
+        unit_cdf = np.concatenate([[0.0], np.cumsum(unit_pmf)])
+        _, unit_aprob, unit_aidx, _ = vose_alias_arrays(unit_importance)
+
+        def cat_or_zero(chunks, dtype):
+            # no emissive unit: 1-element zero arrays keep gathers in range
+            if not chunks:
+                return _t(np.zeros(1, dtype))
+            return _t(np.concatenate(chunks).astype(dtype))
+
+        units = UnitTable(
+            material=_t(np.asarray(unit_material, np.int32)),
+            instance=_t(np.asarray(unit_instance, np.int32)),
+            tri_offset=_t(np.asarray(unit_tri_offset, np.int32)),
+            tri_count=_t(np.asarray(unit_tri_count, np.int32)),
+            light_tri_cdf=cat_or_zero(tri_cdf_chunks, np.float32),
+            light_tri_index=cat_or_zero(tri_idx_chunks, np.int32),
+            # LIGHT-ORDER pmf in instanced scenes (see lights.py)
+            light_tri_pmf=cat_or_zero(tri_pmf_chunks, np.float32),
+            emissive_importance=_t(unit_importance.astype(np.float32)),
+            light_tri_alias_prob=cat_or_zero(tri_aprob_chunks, np.float32),
+            light_tri_alias_local=cat_or_zero(tri_aidx_chunks, np.int32),
+        )
+
+        transforms = np.stack(inst_transform).astype(np.float32)
+        inv = np.zeros_like(transforms)
+        for i, t in enumerate(transforms):
+            r_inv = np.linalg.inv(t[:, :3].astype(np.float64))
+            inv[i, :, :3] = r_inv
+            inv[i, :, 3] = -r_inv @ t[:, 3].astype(np.float64)
+        instances = InstanceTable(
+            transform=_t(transforms), inv_transform=_t(inv),
+            prev_transform=_t(transforms.copy()),
+            uniform_scale=_t(np.asarray(inst_scale, np.float32)))
+
+        # traversal (BVH-permuted) global tri -> blas-wide geometry-order
+        # index
+        tri_light_local = np.empty(cursor, np.int32)
+        for b in range(len(blas_groups)):
+            lo = blas_tri_base[b]
+            tri_light_local[lo:lo + len(perms[b])] = perms[b].astype(
+                np.int32)
+
+        scene = SceneData(
+            materials=self._materials_table(mats),
+            triangles=triangles,
+            units=units,
+            instances=instances,
+            light_unit_cdf=_t(unit_cdf.astype(np.float32)),
+            light_unit_pmf=_t(unit_pmf.astype(np.float32)),
+            light_unit_alias_prob=_t(unit_aprob.astype(np.float32)),
+            light_unit_alias_idx=_t(unit_aidx.astype(np.int32)),
+            total_emissive_importance=torch.tensor(np.float32(total_imp)),
+            env=self._env_light(),
+            inst_unit_base=_t(np.asarray(inst_unit_base, np.int32)),
+            unit_tri_base=_t(np.asarray(unit_tri_base, np.int32)),
+            tri_light_local=_t(tri_light_local),
+        )
+        return scene, acc

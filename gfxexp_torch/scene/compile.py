@@ -1,5 +1,6 @@
 """Scene compilation: SceneBuilder -> (SceneData in traversal order, BVH)
-(port of gfxexp_tpu/scene/compile.py for the wide-row traversal)."""
+(port of gfxexp_tpu/scene/compile.py for the wide-row and the two-level
+traversals)."""
 
 from __future__ import annotations
 
@@ -33,12 +34,18 @@ def apply_triangle_permutation(scene: SceneData, perm) -> SceneData:
 def compile_scene(builder: SceneBuilder, arity: int = 4, max_leaf: int = 4,
                   traversal: str = "widerow",
                   use_probability_texture: bool = False,
-                  spatial_splits: bool = False):
-    """Compile to (SceneData, WideRowBVH) on the CPU. The port walks the
-    wide-row table only; other traversal structures raise."""
+                  spatial_splits: bool = False, rebraid: float = 0.0):
+    """Compile to (SceneData, WideRowBVH) on the CPU, or with
+    traversal="instanced" to (SceneData, InstancedAccel): per-group BLAS
+    tables shared by the instances (`rebraid` > 1 opens the largest
+    instances into subtree entries). Other traversal structures raise."""
+    if traversal == "instanced":
+        return builder.compile_instanced(arity=arity, max_leaf=max_leaf,
+                                         rebraid=rebraid)
     if traversal != "widerow":
         raise NotImplementedError(
-            f"traversal={traversal!r} is not ported; use 'widerow'")
+            f"traversal={traversal!r} is not ported; use 'widerow' or "
+            f"'instanced'")
     scene = builder.compile(use_probability_texture=use_probability_texture)
     tris = scene.triangles
     wrow, perm = build_widerow(tris.p0.numpy(), tris.e1.numpy(),

@@ -1,5 +1,7 @@
-"""Light sampling and pdfs (port of the non-instanced parts of
-gfxexp_tpu/scene/lights.py).
+"""Light sampling and pdfs (port of gfxexp_tpu/scene/lights.py: the surface
+and environment lights of single-level and two-level scenes; in a two-level
+scene a light triangle is an object-space BLAS triangle brought into world
+space through its unit's instance).
 
 Emitters are diffuse (Le = emittance / pi). Surface samples return an area
 pdf, environment samples a solid-angle pdf. Environment direction for
@@ -17,7 +19,7 @@ from gfxexp_torch.core.distributions import (
     continuous_2d_pdf,
     sample_continuous_2d,
 )
-from gfxexp_torch.core.math import cross, length
+from gfxexp_torch.core.math import cross, length, rotate
 from gfxexp_torch.core.tensors import TensorData
 from gfxexp_torch.scene.types import SceneData
 
@@ -108,6 +110,31 @@ def _select_light_pos(scene: SceneData, u_sel):
     return unit, offset + local
 
 
+def _select_emissive_triangle(scene: SceneData, u_sel):
+    """_select_light_pos resolved to a traversal triangle id and pmfs.
+    Returns (unit, tri, unit_pmf, tri_pmf)."""
+    units = scene.units
+    unit, light_pos = _select_light_pos(scene, u_sel)
+    unit_pmf = scene.light_unit_pmf[unit]
+    tri = units.light_tri_index[light_pos].to(torch.int64)
+    # instanced scenes keep the pmf in light order (a BLAS triangle id is
+    # shared by many units)
+    tri_pmf = units.light_tri_pmf[light_pos if scene.is_instanced else tri]
+    return unit, tri, unit_pmf, tri_pmf
+
+
+def _to_world(scene: SceneData, inst, p0, e1, e2, normals):
+    """Object-space triangle(s) of instance `inst` [R] -> world space;
+    normals go through the inverse transpose."""
+    m = scene.instances.transform[inst]
+    ninv = scene.instances.inv_transform[inst][:, :, :3]
+    p0 = rotate(m, p0) + m[:, :, 3]
+    e1 = rotate(m, e1)
+    e2 = rotate(m, e2)
+    normals = [(ninv * n[:, :, None]).sum(1) for n in normals]
+    return p0, e1, e2, normals
+
+
 def pack_light_rows(scene: SceneData) -> torch.Tensor:
     """[T, 22] world-space emissive-triangle rows in light order: p0 e1 e2
     n0 n1 n2 (0:18), pdf = unit_pmf * tri_pmf / area (18), emittance
@@ -123,7 +150,11 @@ def pack_light_rows(scene: SceneData) -> torch.Tensor:
     tri = units.light_tri_index.to(torch.int64)
     p0, e1, e2 = tris.p0[tri], tris.e1[tri], tris.e2[tri]
     n0, n1, n2 = tris.n0[tri], tris.n1[tri], tris.n2[tri]
-    tri_pmf = units.light_tri_pmf[tri]
+    tri_pmf = units.light_tri_pmf[j if scene.is_instanced else tri]
+    if scene.is_instanced:
+        inst = units.instance[unit].to(torch.int64)
+        p0, e1, e2, (n0, n1, n2) = _to_world(scene, inst, p0, e1, e2,
+                                             (n0, n1, n2))
     unit_pmf = scene.light_unit_pmf[unit]
     cr_len = length(cross(e1, e2))
     rec_area = 2.0 / torch.clamp(cr_len, min=1e-20)
@@ -181,9 +212,12 @@ def env_pdf(env, d):
 
 
 def sample_surface_light(scene: SceneData, u_sel, u0, u1,
-                         packed) -> LightSample:
-    """Emissive-surface sample through the packed light rows (the path the
-    tracer takes): unit, triangle, then the square -> triangle map."""
+                         packed=None) -> LightSample:
+    """Emissive-surface sample: unit, triangle, then the square -> triangle
+    map. `packed` is the hoisted pack_light_rows table (the path the tracer
+    takes): everything after selection is then one row gather."""
+    if packed is None:
+        return _sample_surface_light_gather(scene, u_sel, u0, u1)
     _, light_pos = _select_light_pos(scene, u_sel)
     row = packed[light_pos]  # [R, 22]
     b_a, b_b = _square_to_triangle(u0, u1)
@@ -196,6 +230,36 @@ def sample_surface_light(scene: SceneData, u_sel, u0, u1,
     pdf = row[:, 18]
     return LightSample(position=position, normal=normal,
                        emittance=row[:, 19:22], pdf=pdf,
+                       at_infinity=torch.zeros(pdf.shape, dtype=torch.bool,
+                                               device=pdf.device))
+
+
+def _sample_surface_light_gather(scene: SceneData, u_sel, u0,
+                                 u1) -> LightSample:
+    """sample_surface_light without the packed rows: scattered gathers of
+    the selected triangle, through its instance in two-level scenes."""
+    tris = scene.triangles
+    unit, tri, unit_pmf, tri_pmf = _select_emissive_triangle(scene, u_sel)
+    b_a, b_b = _square_to_triangle(u0, u1)
+    p0, e1, e2 = tris.p0[tri], tris.e1[tri], tris.e2[tri]
+    n0, n1, n2 = tris.n0[tri], tris.n1[tri], tris.n2[tri]
+    if scene.is_instanced:
+        # object -> world through the unit's instance; the pdf uses the
+        # world area
+        inst = scene.units.instance[unit].to(torch.int64)
+        p0, e1, e2, (n0, n1, n2) = _to_world(scene, inst, p0, e1, e2,
+                                             (n0, n1, n2))
+    b_c = 1.0 - b_a - b_b
+    position = p0 + b_b[..., None] * e1 + b_c[..., None] * e2
+    cr_len = length(cross(e1, e2))
+    pdf = unit_pmf * tri_pmf * (2.0 / torch.clamp(cr_len, min=1e-20))
+    normal = (b_a[..., None] * n0 + b_b[..., None] * n1
+              + b_c[..., None] * n2)
+    normal = normal / torch.clamp(length(normal, keepdim=True), min=1e-20)
+    mat = scene.units.material[unit].to(torch.int64)
+    return LightSample(position=position, normal=normal,
+                       emittance=scene.materials.emittance[mat],
+                       pdf=torch.where(cr_len > 0, pdf, 0.0),
                        at_infinity=torch.zeros(pdf.shape, dtype=torch.bool,
                                                device=pdf.device))
 
@@ -242,14 +306,34 @@ def sample_light(scene: SceneData, u_light, u0, u1, packed) -> LightSample:
         pdf=pdf, at_infinity=pick_env)
 
 
-def surface_light_pdf(scene: SceneData, tri_idx):
+def surface_light_pdf(scene: SceneData, tri_idx, inst=None):
     """Area pdf of sampling triangle `tri_idx`'s surface through
-    sample_surface_light (implicit-hit MIS), non-instanced scenes."""
+    sample_surface_light (implicit-hit MIS). Two-level scenes need the hit
+    instance: the pmf is per (instance, triangle) and the area is the world
+    one."""
     tris = scene.triangles
     tri_idx = tri_idx.to(torch.int64)
-    unit = tris.unit_id[tri_idx].to(torch.int64)
-    tri_pmf = scene.units.light_tri_pmf[tri_idx]
-    cr_len = length(cross(tris.e1[tri_idx], tris.e2[tri_idx]))
+    if scene.is_instanced:
+        inst = torch.clamp(inst.to(torch.int64), min=0)
+        unit = (scene.inst_unit_base[inst]
+                + tris.unit_id[tri_idx]).to(torch.int64)
+        light_pos = (scene.units.tri_offset[unit]
+                     + scene.tri_light_local[tri_idx]
+                     - scene.unit_tri_base[unit]).to(torch.int64)
+        # non-emissive units have no light-order segment: their position
+        # falls outside (clamped; their unit pmf is 0), as JAX's clamped
+        # gather reads it
+        light_pos = torch.clamp(light_pos, 0,
+                                scene.units.light_tri_pmf.shape[0] - 1)
+        tri_pmf = scene.units.light_tri_pmf[light_pos]
+        m = scene.instances.transform[inst]
+        e1 = rotate(m, tris.e1[tri_idx])
+        e2 = rotate(m, tris.e2[tri_idx])
+    else:
+        unit = tris.unit_id[tri_idx].to(torch.int64)
+        tri_pmf = scene.units.light_tri_pmf[tri_idx]
+        e1, e2 = tris.e1[tri_idx], tris.e2[tri_idx]
+    cr_len = length(cross(e1, e2))
     rec_area = 2.0 / torch.clamp(cr_len, min=1e-20)
     return scene.light_unit_pmf[unit] * tri_pmf * rec_area
 

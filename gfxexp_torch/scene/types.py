@@ -1,7 +1,9 @@
 """Scene data model: dataclasses of tensors (port of gfxexp_tpu/scene/types.py).
 
 Instances are flattened into world-space "units" (instance x geometry) at
-compile time; the light tables keep per-unit windows into flat arrays.
+compile time; the light tables keep per-unit windows into flat arrays. A
+two-level (instanced) scene keeps object-space BLAS triangles instead and
+sets `inst_unit_base` (see SceneData).
 `from_numpy` carries a gfxexp_tpu object (by attribute name, no jax import)
 into the port's classes.
 """
@@ -95,8 +97,8 @@ class EnvLight(TensorData):
 
 @dataclass
 class SceneData(TensorData):
-    """Everything the device code needs for one frame (single-level scenes:
-    the port has no instanced, textured or displaced scenes yet)."""
+    """Everything the device code needs for one frame (the port has no
+    textured or displaced scenes yet)."""
 
     materials: MaterialTable
     triangles: TriangleSoA
@@ -108,8 +110,19 @@ class SceneData(TensorData):
     env: Optional[EnvLight] = None
     light_unit_alias_prob: Optional[torch.Tensor] = None  # [U]
     light_unit_alias_idx: Optional[torch.Tensor] = None  # [U] int32
+    # two-level (instanced) scenes (compile_scene(traversal="instanced")):
+    # `triangles` holds OBJECT-space BLAS triangles shared by the instances
+    # (unit_id = local geometry index within the BLAS group), hits carry an
+    # instance, and unit = inst_unit_base[inst] + triangles.unit_id[tri].
+    inst_unit_base: Optional[torch.Tensor] = None  # [I] int32
+    # light-order position of (unit u, traversal tri t) =
+    #   units.tri_offset[u] + tri_light_local[t] - unit_tri_base[u]
+    unit_tri_base: Optional[torch.Tensor] = None  # [U] int32
+    tri_light_local: Optional[torch.Tensor] = None  # [T] int32
 
-    is_instanced = False
+    @property
+    def is_instanced(self):
+        return self.inst_unit_base is not None
 
     @property
     def num_triangles(self):
@@ -121,16 +134,16 @@ class SceneData(TensorData):
 
 
 def from_numpy(obj):
-    """gfxexp_tpu object (SceneData, its tables, Camera, WideRowBVH, ...) ->
-    the port's object on the CPU. Reads fields by attribute name; fields the
-    port does not model are ignored."""
+    """gfxexp_tpu object (SceneData, its tables, Camera, WideRowBVH,
+    InstancedAccel, ...) -> the port's object on the CPU. Reads fields by
+    attribute name; fields the port does not model are ignored."""
     # containers register on import; make sure the ones outside this module
     # are known
+    import gfxexp_torch.accel.instanced  # noqa: F401
     import gfxexp_torch.accel.widerow  # noqa: F401
     import gfxexp_torch.render.camera  # noqa: F401
 
-    for name in ("textures", "displaced", "inst_unit_base",
-                 "light_unit_probtex"):
+    for name in ("textures", "displaced", "light_unit_probtex"):
         if getattr(obj, name, None) is not None:
             raise NotImplementedError(
                 f"the port does not carry scenes with {name!r} yet")

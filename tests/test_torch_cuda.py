@@ -16,7 +16,13 @@ sys.path.insert(0, "tests")
 import torch_scenes as S  # noqa: E402
 
 import gfxexp_torch.scene.builder as TB  # noqa: E402
-from gfxexp_torch.accel import persistent  # noqa: E402
+from gfxexp_torch.accel import instanced, persistent  # noqa: E402
+from gfxexp_torch.accel.instanced import (  # noqa: E402
+    build_instanced,
+    walk_instanced_cuda,
+    walk_instanced_plain,
+    walk_tlas,
+)
 from gfxexp_torch.accel.persistent import walk_cuda, walk_plain  # noqa: E402
 from gfxexp_torch.accel.traverse import intersect_any  # noqa: E402
 from gfxexp_torch.accel.traverse import intersect_closest  # noqa: E402
@@ -93,6 +99,87 @@ def test_render_on_card_matches_cpu(dev):
     a, na = tpt.render_accumulate(ts.to(dev), tb.to(dev), tc.to(dev), 32, 32,
                                   0, 2, cfg)
     b, nb = tpt.render_accumulate(ts, tb, tc, 32, 32, 0, 2, cfg)
+    assert torch.isfinite(a).all()
+    assert S.image_rel_diff(a.cpu().numpy(), b.numpy()) < 5e-3
+    assert abs(float(na) - float(nb)) <= 5e-3 * float(nb)
+
+
+def _instanced(rebraid):
+    rng = np.random.default_rng(7)
+    p = S.soup(rng, 300, 1.0)
+    q = S.soup(rng, 120, 0.7)
+    inst = S.grid_instances(5, 4)
+    for j in range(0, 20, 3):
+        inst[j] = (1, inst[j][1])
+    return build_instanced([p, q], inst, rebraid=rebraid)[0]
+
+
+def _instanced_rays(n, seed=9):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-3, 13, size=(n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return torch.from_numpy(o), torch.from_numpy(d)
+
+
+@pytest.mark.parametrize("rebraid", [0.0, 3.0])
+@pytest.mark.parametrize("route", ["nearest", "build", "sorted"])
+def test_instanced_kernel_matches_plain(dev, route, rebraid):
+    """Each route of the two-level walk, closest and any hit, dead rays
+    included: kernel and plain version visit the same entries in the same
+    order with the same arithmetic, so their results are identical."""
+    acc = _instanced(rebraid).to(dev)
+    o, d = (x.to(dev) for x in _instanced_rays(20000))
+    t_max = torch.where(torch.arange(20000, device=dev) % 5 == 0, -1.0, 6.0)
+    for any_hit in (False, True):
+        if route == "sorted":
+            k, ke = walk_tlas(walk_instanced_cuda, acc, o, d, 1e-4, t_max,
+                              any_hit)
+            p, pe = walk_tlas(walk_instanced_plain, acc, o, d, 1e-4, t_max,
+                              any_hit)
+        else:
+            k, ke = walk_instanced_cuda(acc, o, d, 1e-4, t_max, any_hit,
+                                        route)
+            p, pe = walk_instanced_plain(acc, o, d, 1e-4, t_max, any_hit,
+                                         route)
+        torch.cuda.synchronize()
+        assert k.hit.any() and not k.hit[t_max < 0].any()
+        assert torch.equal(k.hit, p.hit)
+        if not any_hit:
+            for f in ("t", "u", "v", "tri"):
+                assert torch.equal(getattr(k, f), getattr(p, f)), f
+            assert torch.equal(ke, pe)
+
+
+def test_instanced_wrappers_launch_and_count(dev):
+    acc = _instanced(0.0).to(dev)
+    o, d = (x.to(dev) for x in _instanced_rays(1000))
+    instanced.reset_launch_counts()
+    intersect_closest(acc, None, o, d)
+    intersect_any(acc, None, o, d)
+    acc.use_tlas = True
+    intersect_closest(acc, None, o, d)
+    assert instanced.launch_counts == {
+        "closest_nearest": 1, "any_nearest": 1, "closest_build": 0,
+        "any_build": 0, "closest_sorted": 1, "any_sorted": 0}
+
+
+def test_instanced_oversized_stack_raises(dev):
+    acc = _instanced(0.0).to(dev)
+    acc.max_depth = 100
+    o, d = (x.to(dev) for x in _instanced_rays(16))
+    with pytest.raises(ValueError, match="stack"):
+        walk_instanced_cuda(acc, o, d, 1e-4, 1e30, False, "nearest")
+
+
+def test_instanced_render_on_card_matches_cpu(dev):
+    ts, acc = compile_scene(S.instanced_spheres_scene(TB),
+                            traversal="instanced")
+    tc = make_camera(**S.INSTANCED_CAMERA)
+    cfg = tpt.PTConfig(max_path_length=4, count_rays=True)
+    a, na = tpt.render_accumulate(ts.to(dev), acc.to(dev), tc.to(dev), 32,
+                                  32, 0, 2, cfg)
+    b, nb = tpt.render_accumulate(ts, acc, tc, 32, 32, 0, 2, cfg)
     assert torch.isfinite(a).all()
     assert S.image_rel_diff(a.cpu().numpy(), b.numpy()) < 5e-3
     assert abs(float(na) - float(nb)) <= 5e-3 * float(nb)

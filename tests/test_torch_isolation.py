@@ -1,6 +1,7 @@
 """gfxexp_torch runs without JAX: in a subprocess where importing jax or
-flax fails, every module of the package imports and a 16x16 render of the
-bench scene runs. The package's sources never name jax."""
+flax fails, every module of the package imports and 16x16 renders of the
+small bench scene and of the two-level `big` scene run. The package's
+sources and chip_smoke.py never name jax."""
 
 import os
 import pathlib
@@ -28,6 +29,11 @@ img, nr = render_sample(scene, bvh, bench_camera(16, 16), 16, 16, 0,
                         PTConfig(count_rays=True))
 assert img.shape == (256, 3) and bool(torch.isfinite(img).all())
 assert float(img.mean()) > 0.0 and float(nr) >= 256
+scene, acc = build_bench_scene("big")
+img = render_sample(scene, acc, bench_camera(16, 16, "big"), 16, 16, 0,
+                    PTConfig())
+assert scene.is_instanced and bool(torch.isfinite(img).all())
+assert float(img.mean()) > 0.0
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK", len(names))
@@ -46,7 +52,7 @@ def test_package_imports_and_renders_without_jax():
 
 def test_no_source_names_jax():
     offenders = []
-    for path in PKG.rglob("*.py"):
+    for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1 and (

@@ -51,8 +51,80 @@ def box_scene(mod, albedo=0.7):
     return b
 
 
+def instanced_spheres_scene(mod):
+    """The box with three instances of one sphere on its floor (the scene of
+    tests/test_pathtrace.py's instanced test): compiled two-level, the three
+    share one BLAS."""
+    b = box_scene(mod)
+    mat = b.add_lambert_material((0.6, 0.3, 0.3))
+    sph = b.add_sphere(0.35, mat, n_theta=12, n_phi=24)
+    for t in ([-0.8, -1.2, 0.0], [0.0, -1.4, -0.8], [0.9, -1.1, 0.4]):
+        b.add_instance(sph, mod.affine(translation=t))
+    return b
+
+
+def soup(rng, n, spread):
+    """Random triangle soup (p0, e1, e2) around the origin, as
+    tests/test_persistent_inst.py makes it."""
+    c = rng.uniform(-spread, spread, size=(n, 3)).astype(np.float32)
+    e1 = rng.normal(scale=0.3, size=(n, 3)).astype(np.float32)
+    e2 = rng.normal(scale=0.3, size=(n, 3)).astype(np.float32)
+    return c, e1, e2
+
+
+def grid_instances(nx, nz, spacing=2.5):
+    """(blas 0, translation) instances on an nx x nz grid."""
+    out = []
+    for gx in range(nx):
+        for gz in range(nz):
+            m = np.zeros((3, 4), np.float32)
+            m[0, 0] = m[1, 1] = m[2, 2] = 1.0
+            m[:, 3] = [gx * spacing, 0.0, gz * spacing]
+            out.append((0, m))
+    return out
+
+
+def instanced_walk_cases():
+    """The scenes of tests/test_persistent_inst.py as (BLAS geometries,
+    instances, rebraid, ray origins, ray directions), from numpy seeds."""
+    cases = {}
+    rng = np.random.default_rng(7)
+
+    def rays(n, lo=-4, hi=12):
+        o = rng.uniform(lo, hi, size=(n, 3)).astype(np.float32)
+        d = rng.normal(size=(n, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        return o, d
+
+    # two BLAS on a 3x3 grid
+    p, q = soup(rng, 60, 0.8), soup(rng, 35, 0.6)
+    inst = grid_instances(3, 3)
+    for j in (1, 4, 7):
+        inst[j] = (1, inst[j][1])
+    cases["two_blas"] = ([p, q], inst, 0.0, *rays(500))
+    # grazing rays marching down the rows of a 4x4 grid
+    p = soup(rng, 40, 0.5)
+    n = 512
+    o = np.random.default_rng(3).uniform(-4, 0, size=(n, 3)).astype(
+        np.float32)
+    o[:, 1] *= 0.2
+    d = (np.array([1.0, 0.0, 0.0]) + np.random.default_rng(4).normal(
+        scale=0.05, size=(n, 3))).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    cases["grazing"] = ([p], grid_instances(4, 4), 0.0, o, d)
+    # 333 rays (not a multiple of 128)
+    p = soup(rng, 50, 0.7)
+    cases["ragged"] = ([p], grid_instances(2, 3), 0.0, *rays(333))
+    # rebraided: the largest instances opened into subtree entries
+    p = soup(rng, 80, 1.2)
+    cases["rebraid"] = ([p], grid_instances(3, 2), 3.0, *rays(400))
+    return cases
+
+
 BOX_CAMERA = dict(position=[0, 0.5, 1.9], fov_y=np.deg2rad(75), aspect=1.0,
                   target=[0, 0.3, -1.0])
+INSTANCED_CAMERA = dict(position=[0, 0.5, 1.9], fov_y=np.deg2rad(75),
+                        aspect=1.0, target=[0, 0.0, -1.0])
 FURNACE_CAMERA = dict(position=[0, 0, 3.0], fov_y=np.deg2rad(45),
                       aspect=1.0, target=[0, 0, 0])
 
@@ -62,3 +134,25 @@ def image_rel_diff(a, b):
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
     return np.abs(a - b).mean() / (np.abs(b).mean() + 1e-6)
+
+
+def check_against_jax(h, inst, jh, jinst):
+    """The two-level walk's bars against a JAX kernel: hit and instance
+    equal; triangle ids equal except on ties (|dt| <= 1e-6 t); t within
+    rtol 1e-5 and u, v within 2e-5. XLA on the CPU contracts the transform's
+    and the leaf test's multiply-adds into fused multiply-adds (a*b + c*d +
+    e*f + g becomes fma(e, f, fma(a, b, c*d)) + g), which the port, like its
+    kernel, does not; on tests/test_persistent_inst.py's scenes that moves
+    u, v by up to 1.05e-5."""
+    np.testing.assert_array_equal(h.hit.numpy(), np.asarray(jh.hit))
+    m = np.asarray(jh.hit)
+    np.testing.assert_array_equal(inst.numpy()[m], np.asarray(jinst)[m])
+    t, jt = h.t.numpy()[m], np.asarray(jh.t)[m]
+    tie = np.abs(t - jt) <= 1e-6 * np.abs(jt)
+    same = h.tri.numpy()[m] == np.asarray(jh.tri)[m]
+    assert (same | tie).all()
+    np.testing.assert_allclose(t, jt, rtol=1e-5)
+    for f in ("u", "v"):
+        np.testing.assert_allclose(getattr(h, f).numpy()[m][same],
+                                   np.asarray(getattr(jh, f))[m][same],
+                                   atol=2e-5)
