@@ -30,23 +30,46 @@ Phases, one line each, any failure exits non-zero:
      (nearest-first), `big nopersist` (build order) and `city tlas` (ray
      sorted) at 512x512 with the instanced kernels' launch counts (kernel
      1's must be 0 there), image checks, out/torch_bench_{big,city}.png, the
-     walk kernels' share of device time (torch.profiler) and peak memory.
+     walk kernels' share of device time (torch.profiler) and peak memory;
+ 10. skip build: `big` and `city` flattened into world triangles and
+     compiled with traversal="skip" on the host (nodes, levels, table MB);
+ 11. skip kernels: the skip-link walk on ~1M `big` and `city` rays, every
+     cursor scope (thread, warp, block), closest and any hit, against the
+     plain version (t, u, v, tri exactly equal), the plain version against
+     brute force over the world triangles on 4,096 rays, all again after 8
+     frames of advance_frame (refit boxes); ms per 262,144-ray bounce batch
+     per scope, nodes and triangles visited per ray, and the node and
+     triangle rows the batch reads (the bound's bytes);
+ 12. animated slice: `big` after advance_frame at t = 0.5, 64x64, 2 samples,
+     card against CPU (image rel diff < 5e-3, identical ray counts);
+ 13. animated main path: the path_tracing app's frame loop (advance_frame,
+     render_sample, film) at 512x512 for 16 frames on `city` and `big`:
+     update and pathTrace ms per frame, Mrays/s, peak memory, the skip
+     kernel's launch counts (the thread scope's; kernels 1 and 3-5 must be
+     0, and the warp and block scopes, which no user path takes, are 0 too),
+     the update's per-step breakdown, one frame
+     under torch.profiler, out/torch_anim_{city,big}.png;
+ 14. app CLI: `python -m gfxexp_torch.apps.path_tracing` at 128x128, 4
+     frames, -stats, on a DSL scene with one animated instance; its PNG.
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 
+import dataclasses
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
 
 from gfxexp_torch import bench
-from gfxexp_torch.accel import instanced, native, persistent
+from gfxexp_torch.accel import instanced, native, persistent, skip_traverse
 from gfxexp_torch.accel.instanced import (
     ROUTES,
     walk_instanced_cuda,
@@ -54,17 +77,27 @@ from gfxexp_torch.accel.instanced import (
     walk_tlas,
 )
 from gfxexp_torch.accel.persistent import walk_cuda, walk_plain
+from gfxexp_torch.accel.skip_traverse import SCOPES, walk_skip_cuda
+from gfxexp_torch.accel.skiplink import walk_skip_plain
 from gfxexp_torch.accel.traverse import HitInfo, intersect_closest_brute
+from gfxexp_torch.apps.common import PassTimer
+from gfxexp_torch.apps.path_tracing import frame_loop
 from gfxexp_torch.csrc import build
 from gfxexp_torch.render.camera import generate_rays_for_lanes
-from gfxexp_torch.render.pathtrace import PTConfig, render_accumulate
+from gfxexp_torch.render.pathtrace import (
+    PTConfig,
+    render_accumulate,
+    render_sample,
+)
+from gfxexp_torch.scene import animation
 from gfxexp_torch.utils.image_io import save_png
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+BRUTE_SUB = 4096  # rays of the brute-force subsets (phases 7 and 11)
 SEED = 7
 BATCH = 512 * 512  # the main path's ray batch at 512x512
 IMAGE_BAR = 5e-3  # mean relative image difference (golden-test bar)
-KERNELS = ("widerow_traverse", "instanced_traverse")
+KERNELS = ("widerow_traverse", "instanced_traverse", "skiplink_traverse")
 # the H100 SXM's published peaks (NVIDIA's data sheet: HBM3, fp32 without
 # the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -76,14 +109,36 @@ FP32_OPS_PER_S = 67e12
 OPS_ROW = 100
 OPS_VISIT = 36
 OPS_SLAB = 25
+# the skip-link walk: a node's slab test (6 sub, 6 mul, 12 min/max, 1
+# compare) and a triangle's Moller-Trumbore test (27 mul, 17 add/sub, 1 div,
+# 8 compares and selects)
+OPS_NODE = 25
+OPS_TRI = 53
 RAY_IN, RAY_OUT, ENTRY_OUT = 32, 17, 4  # bytes per ray (o, d, tmin, tmax)
+NODE_BYTES, TRI_BYTES = 32, 48  # a skip node row and a triangle row
 ENTRY_BYTES = 96  # AABB 24, transform 64, BLAS id 4, start row 4
 # the TPU kernel (function reaching pl.pallas_call) each route replaces
 REPLACES = {
     "nearest": "gfxexp_tpu/accel/pallas_persistent_inst.py:378",
     "build": "gfxexp_tpu/accel/pallas_widestack.py:1068",
     "sorted": "gfxexp_tpu/accel/pallas_widestack.py:1189",
+    # the skip-link walk's cursor scopes: per ray (what every query of a
+    # skip-link scene launches, where the TPU ran kernel 6), per warp
+    # (kernel 8's row cursor), per block (kernel 6's tile cursor)
+    "thread": "gfxexp_tpu/accel/pallas_traverse.py:178",
+    "warp": "gfxexp_tpu/accel/pallas_rowcursor.py:206",
+    "block": "gfxexp_tpu/accel/pallas_traverse.py:178",
 }
+ANIM_FRAMES = 16  # frames of the animated main path (phase 13)
+ANIM_RES = 512  # its resolution
+# phase 14's scene: a floor, an emissive sphere, and a sphere that moves
+APP_DSL = ["-cam-pos", "0", "1", "3.2", "-cam-pitch", "-12",
+           "-name", "floor", "-rectangle", "4", "4", "-inst", "floor",
+           "-name", "ball", "-sphere", "0.4", "-inst", "ball",
+           "-begin-pos", "0", "0.4", "0", "-end-pos", "0.3", "0.9", "0",
+           "-freq", "2",
+           "-name", "lamp", "-emittance", "30", "30", "30", "-sphere", "0.3",
+           "-inst", "lamp", "-position", "0", "2", "0"]
 
 
 def check(cond, msg):
@@ -559,21 +614,29 @@ def phase_inst_slice(report, built, dev):
 
 
 def _profile_sample(scene, acc, which, dev):
-    """One 512x512 sample under torch.profiler: CUDA kernels, device busy
-    time (union of kernel intervals) and the walk kernels' share."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """One 512x512 sample under torch.profiler (see _profile)."""
     cam = bench.bench_camera(512, 512, which).to(dev)
     cfg = PTConfig(max_path_length=bench.MAX_PATH_LENGTH, count_rays=True)
-    render_accumulate(scene, acc, cam, 512, 512, 0, 1, cfg)  # warm
+    return _profile(lambda s: render_accumulate(scene, acc, cam, 512, 512, s,
+                                                1, cfg))
+
+
+def _profile(fn):
+    """fn(1) under torch.profiler after a warm fn(0) and a timed fn(1): CUDA
+    kernels, device busy time (union of kernel intervals), the walk
+    kernels' share and the device's idle share of the unprofiled wall
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)  # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    render_accumulate(scene, acc, cam, 512, 512, 1, 1, cfg)
+    fn(1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        render_accumulate(scene, acc, cam, 512, 512, 1, 1, cfg)
+        fn(1)
         torch.cuda.synchronize()
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -598,12 +661,12 @@ def _profile_sample(scene, acc, which, dev):
             "idle_share": 1.0 - busy / 1e3 / (wall * 1e3)}
 
 
-def _print_profile(tag, p):
+def _print_profile(tag, p, what="one 512x512 sample"):
     if p["kernels"] == "not measured":
         print(f"[{tag}] torch.profiler showed no device time: not measured",
               flush=True)
     else:
-        print(f"[{tag}] one 512x512 sample: wall {p['wall_ms']:.2f} ms, "
+        print(f"[{tag}] {what}: wall {p['wall_ms']:.2f} ms, "
               f"{p['kernels']} CUDA kernels, device busy "
               f"{p['device_busy_ms']:.2f} ms (idle share "
               f"{p['idle_share']:.3f}), walk kernels {p['walk_ms']:.3f} ms "
@@ -660,6 +723,343 @@ def phase_inst_main(report, built, dev):
     return launches
 
 
+def phase_skip_build(report):
+    built, rep = {}, {}
+    for which in ("big", "city"):
+        t0 = time.time()
+        scene, bvh = bench.build_bench_scene(which, traversal="skip")
+        secs = time.time() - t0
+        built[which] = (scene, bvh)
+        node_mb = bvh.node_pack.numel() * 4 / 1e6
+        tri_mb = bvh.tri_pack.numel() * 4 / 1e6
+        rep[which] = {"world_triangles": scene.num_triangles,
+                      "nodes": bvh.num_nodes, "levels": bvh.n_levels,
+                      "node_table_mb": node_mb, "tri_table_mb": tri_mb,
+                      "seconds": secs}
+        print(f"[10 skip build] {which}: {scene.num_triangles} world "
+              f"triangles, {bvh.num_nodes} skip nodes, {bvh.n_levels} "
+              f"levels, tables {node_mb:.2f} MB nodes + {tri_mb:.2f} MB "
+              f"triangles, built on the host in {secs:.2f}s", flush=True)
+    report["skip_build"] = rep
+    return built
+
+
+def _skip_rays(scene, bvh, which, dev):
+    def first_hit(o0, d0):
+        h = walk_skip_cuda(bvh, scene.triangles, o0, d0, 0.0, 1e30, False)
+        return h.t, h.hit
+
+    return _scene_rays(first_hit, which, dev)
+
+
+def _skip_check(scene, bvh, which, dev, tag):
+    """Every scope == plain (closest and any hit) on ~1M rays, and the
+    plain version against brute force on 4,096 of them. Returns the max
+    abs errors, the brute-force record and the visit counts."""
+    tris = scene.triangles
+    o, d, t_min, t_max, sd, s_max = _skip_rays(scene, bvh, which, dev)
+    n = o.shape[0]
+    plain, errs, visits = {}, {}, {}
+    for any_hit in (False, True):
+        kind = "any" if any_hit else "closest"
+        dd, tm = (sd, s_max) if any_hit else (d, t_max)
+        p, st = walk_skip_plain(bvh, tris, o, dd, t_min, tm, any_hit,
+                                with_stats=True)
+        live = max(int((tm >= 0).sum()), 1)
+        visits[kind] = {"nodes_per_live_ray": int(st.nodes.sum()) / live,
+                        "tris_per_live_ray": int(st.tris.sum()) / live,
+                        "max_nodes": int(st.nodes.max())}
+        for scope in SCOPES:
+            k = walk_skip_cuda(bvh, tris, o, dd, t_min, tm, any_hit, scope)
+            torch.cuda.synchronize()
+            for f in ("hit", "t", "u", "v", "tri"):
+                diff = getattr(k, f) != getattr(p, f)
+                check(not bool(diff.any()),
+                      f"{tag} {kind} {scope}: {f} differs from plain on "
+                      f"{int(diff.sum())} rays, e.g. "
+                      f"{torch.nonzero(diff)[:8, 0].tolist()}")
+            check(not k.hit[tm < 0].any(), f"{tag} {kind}: a dead ray hit")
+            m = k.hit
+            errs[f"{kind}_{scope}"] = float(torch.stack([
+                (getattr(k, f)[m] - getattr(p, f)[m]).abs().max()
+                for f in ("t", "u", "v")]).max()) if m.any() else 0.0
+        plain[kind] = p
+    sub = torch.arange(0, n, n // BRUTE_SUB, device=dev)[:BRUTE_SUB]
+    brute = _brute_mismatches(tris, plain["closest"], plain["any"], sub, o,
+                              d, sd, t_min, t_max, s_max)
+    b_allowed = max(1, sub.numel() // 1000)
+    check(brute["unexplained"] == 0 and brute["total"] <= b_allowed,
+          f"{tag} brute: {brute} (allowed {b_allowed}, all explained)")
+    return {"rays": n, "max_abs_err": errs, "brute": brute,
+            "brute_allowed": b_allowed, "visits": visits}, (
+        o, d, t_min, t_max, sd, s_max)
+
+
+def _skip_times(scene, bvh, rays):
+    """Each scope's ms on one 262,144-ray bounce batch, the plain version's,
+    and the bound from what the plain version read on those rays: each ray
+    once, each node and triangle row it touched once (32 and 48 bytes), and
+    the operations of its node and triangle tests."""
+    o, d, t_min, t_max, sd, s_max = rays
+    tris = scene.triangles
+    b = slice(BATCH, 2 * BATCH)
+    out = {}
+    for any_hit in (False, True):
+        kind = "any" if any_hit else "closest"
+        args = ((o[b], sd[b], t_min[b], s_max[b]) if any_hit
+                else (o[b], d[b], t_min[b], t_max[b]))
+        plain_ms = time_ms(lambda: walk_skip_plain(bvh, tris, *args,
+                                                   any_hit), 1, warm=False)
+        _, st = walk_skip_plain(bvh, tris, *args, any_hit, with_stats=True)
+        node_rows, tri_rows = int(st.node_rows.sum()), int(st.tri_rows.sum())
+        bms, by = bound(BATCH * (RAY_IN + RAY_OUT) + node_rows * NODE_BYTES
+                        + tri_rows * TRI_BYTES,
+                        int(st.nodes.sum()) * OPS_NODE
+                        + int(st.tris.sum()) * OPS_TRI)
+        live = max(int((args[3] >= 0).sum()), 1)
+        for scope in SCOPES:
+            ms = time_ms(lambda: walk_skip_cuda(bvh, tris, *args, any_hit,
+                                                scope), 10)
+            out[f"{kind}_{scope}"] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                "bound_by": by,
+                "nodes_per_live_ray": int(st.nodes.sum()) / live,
+                "tris_per_live_ray": int(st.tris.sum()) / live,
+                "node_rows_read": node_rows, "tri_rows_read": tri_rows}
+    return out
+
+
+def phase_skip_kernels(report, built, dev):
+    out = {}
+    for which in ("big", "city"):
+        scene, bvh = built[which]
+        ctl = bench.bench_controllers(which)
+        for state in ("frame0", "refit8"):
+            if state == "refit8":
+                t0 = time.perf_counter()
+                for f in range(1, 9):
+                    scene, bvh = animation.advance_frame(scene, bvh, ctl,
+                                                         f / 60.0)
+                torch.cuda.synchronize()
+                refit_s = time.perf_counter() - t0
+            key = f"{which}_{state}"
+            r, rays = _skip_check(scene, bvh, which, dev, key)
+            r["times"] = _skip_times(scene, bvh, rays)
+            if state == "refit8":
+                r["advance_8_frames_s"] = refit_s
+            out[key] = r
+            v = r["visits"]
+            print(f"[11 skip kernels {key}] {r['rays']} rays: thread, warp "
+                  f"and block scopes == plain (t/u/v/tri identical, closest "
+                  f"and any hit); brute {BRUTE_SUB} rays: {r['brute']} "
+                  f"(allowed {r['brute_allowed']}); per live ray: closest "
+                  f"{v['closest']['nodes_per_live_ray']:.1f} nodes "
+                  f"(max {v['closest']['max_nodes']}), "
+                  f"{v['closest']['tris_per_live_ray']:.2f} triangles; any "
+                  f"{v['any']['nodes_per_live_ray']:.1f} nodes, "
+                  f"{v['any']['tris_per_live_ray']:.2f} triangles",
+                  flush=True)
+            t = r["times"]
+            print(f"[11 skip kernels {key}] {BATCH}-ray bounce batch: " +
+                  "; ".join(f"{k} {e['ms']:.4f} ms" for k, e in t.items())
+                  + f"; plain closest {t['closest_thread']['plain_ms']:.1f}"
+                  f" / any {t['any_thread']['plain_ms']:.1f} ms; bound "
+                  f"{t['closest_thread']['bound_ms']:.4f} / "
+                  f"{t['any_thread']['bound_ms']:.4f} ms by "
+                  f"{t['closest_thread']['bound_by']} / "
+                  f"{t['any_thread']['bound_by']} (rows read: "
+                  f"{t['closest_thread']['node_rows_read']} / "
+                  f"{t['any_thread']['node_rows_read']} of {bvh.num_nodes} "
+                  f"nodes, {t['closest_thread']['tri_rows_read']} / "
+                  f"{t['any_thread']['tri_rows_read']} of "
+                  f"{scene.num_triangles} triangles); per live bounce ray "
+                  f"closest {t['closest_thread']['nodes_per_live_ray']:.1f}"
+                  f" nodes, {t['closest_thread']['tris_per_live_ray']:.2f} "
+                  f"triangles, any {t['any_thread']['nodes_per_live_ray']:.1f}"
+                  f" nodes, {t['any_thread']['tris_per_live_ray']:.2f} "
+                  f"triangles", flush=True)
+    report["skip_kernels"] = out
+    return out
+
+
+def phase_skip_slice(report, built, dev):
+    scene, bvh = built["big"]
+    scene, bvh = animation.advance_frame(
+        scene, bvh, bench.bench_controllers("big"), 0.5)
+    r = _render_pair(scene, bvh, "big", dev, "animated slice")
+    check(r["rays_cuda"] == r["rays_cpu"],
+          f"animated slice: ray counts differ {r}")
+    report["skip_slice"] = r
+    print(f"[12 animated slice] big after advance_frame(t=0.5), 64x64 2spp "
+          f"cuda vs cpu: image rel diff {r['image_rel_diff']:.3g} (bar "
+          f"{IMAGE_BAR}), rays {r['rays_cuda']:.0f} vs {r['rays_cpu']:.0f}",
+          flush=True)
+
+
+def phase_anim_main(report, built, dev):
+    runs = (("city", "city"), ("big", "big"))
+    cfg = PTConfig(max_path_length=bench.MAX_PATH_LENGTH, count_rays=True)
+    res = ANIM_RES
+    for mod in (persistent, instanced, skip_traverse):
+        mod.reset_launch_counts()
+    rows = {}
+    frames = ANIM_FRAMES
+    for key, which in runs:
+        scene, bvh = built[which]
+        ctl = bench.bench_controllers(which)
+        cam = bench.bench_camera(res, res, which).to(dev)
+        # one warm-up frame (the caching allocator fills up)
+        frame_loop(scene, bvh, cam, ctl, "skip", res, res, 1, cfg,
+                   PassTimer(device=dev))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        timer = PassTimer(device=dev)
+        t0 = time.perf_counter()
+        film, _, _, rays = frame_loop(scene, bvh, cam, ctl, "skip", res, res,
+                                      frames, cfg, timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        img = film.beauty.reshape(-1, 3)
+        pt = timer.samples["pathTrace"]
+        rows[key] = {
+            "frames": frames, "wall_s": wall,
+            "update_ms": timer.mean_ms("update"),
+            "pathtrace_ms": timer.mean_ms("pathTrace"),
+            "rays": float(rays),
+            "mrays_per_s": float(rays) / (sum(pt) / 1e3) / 1e6,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+            "mean_radiance": float(img.mean()),
+            "finite": bool(torch.isfinite(img).all()),
+            "image": img, "width": res, "height": res}
+        r = rows[key]
+        _check_bench_row(r, f"animated main {key}")
+        print(f"[13 animated main {key}] {frames} frames at {res}x{res}: "
+              f"update {r['update_ms']:.2f} ms/frame, "
+              f"pathTrace {r['pathtrace_ms']:.2f} ms/frame, "
+              f"{r['mrays_per_s']:.2f} Mrays/s ({r['rays']:.0f} rays), "
+              f"wall {r['wall_s']:.3f}s, peak memory "
+              f"{r['peak_memory_bytes'] / 1e9:.2f} GB, mean radiance "
+              f"{r['mean_radiance']:.5f}", flush=True)
+    launches = dict(skip_traverse.launch_counts)
+    check(not any(persistent.launch_counts.values())
+          and not any(instanced.launch_counts.values()),
+          f"animated scenes launched kernels 1/3-5: "
+          f"{persistent.launch_counts} {instanced.launch_counts}")
+    # the main path queries through intersect_*_pallas: the thread scope;
+    # the shared scopes are reached only by their direct entry points
+    check(launches["closest_thread"] > 0 and launches["any_thread"] > 0,
+          f"animated main path left a skip kernel unlaunched: {launches}")
+    print(f"[13 animated main] skip kernel launches: {launches}", flush=True)
+    _save(rows["city"], "torch_anim_city.png")
+    _save(rows["big"], "torch_anim_big.png")
+    prof = {}
+    for which in ("city", "big"):
+        scene, bvh = built[which]
+        ctl = bench.bench_controllers(which)
+        cam = bench.bench_camera(res, res, which).to(dev)
+
+        def frame(f):
+            s, b = animation.advance_frame(scene, bvh, ctl, (f + 1) / 60.0)
+            return render_sample(s, b, cam, res, res, f + 1, cfg)
+
+        prof[which] = _print_profile(f"13 animated profile {which}",
+                                     _profile(frame),
+                                     "one frame (update + pathTrace)")
+    breakdown = {which: _update_breakdown(*built[which], which)
+                 for which in ("city", "big")}
+    for which, b in breakdown.items():
+        print(f"[13 animated update {which}] ms per frame (mean of 4, "
+              f"synchronised after each step; the last, outside the frame, "
+              f"is the refit with its level lists made anew): " +
+              ", ".join(f"{k} {v:.2f}" for k, v in b.items()), flush=True)
+    report["anim_update_breakdown"] = breakdown
+    report["anim_main"] = {k: {f: v for f, v in r.items() if f != "image"}
+                           for k, r in rows.items()}
+    report["anim_launches"] = launches
+    report["anim_profile"] = prof
+    return launches
+
+
+def _update_breakdown(scene, bvh, which):
+    """advance_frame's steps timed one by one (host clock, each ended by
+    torch.cuda.synchronize()), mean over 4 frames after a warm one. Not part
+    of a frame, timed beside it: the refit with its per-level node lists
+    made anew (what it did each frame before they came with the
+    structure)."""
+    ctl = bench.bench_controllers(which)
+    steps = {"controllers": [], "set_transforms": [], "world_geometry": [],
+             "refit_repack": [], "lights": [],
+             "refit_repack_with_level_lists": []}
+
+    def timed(name, fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        if name is not None:
+            steps[name].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for f in range(5):
+        t = (f + 1) / 60.0
+
+        def rec(name):
+            return name if f else None  # frame 0 warms up
+
+        tf = timed(rec("controllers"), animation.controller_transforms, scene,
+                   ctl, t)
+        scene = timed(rec("set_transforms"), animation.set_instance_transforms,
+                      scene, tf)
+        scene = timed(rec("world_geometry"), animation.update_world_geometry,
+                      scene)
+        timed(rec("refit_repack_with_level_lists"),
+              lambda: animation.refit_skip_bvh(
+                  dataclasses.replace(bvh, leaf_ids=None), scene.triangles))
+        bvh = timed(rec("refit_repack"), animation.refit_skip_bvh, bvh,
+                    scene.triangles)
+        scene = timed(rec("lights"), animation.rebuild_light_distributions,
+                      scene)
+    return {k: sum(v) / len(v) for k, v in steps.items()}
+
+
+def _png_pixels(path):
+    """[H, W, 3] uint8 pixels of an RGB PNG written by save_png."""
+    data = open(path, "rb").read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path} is not a PNG")
+    w, h = struct.unpack(">II", data[16:24])
+    raw = zlib.decompress(data[data.index(b"IDAT") + 4:
+                               data.index(b"IEND") - 8])
+    rows = np.frombuffer(raw, np.uint8).reshape(h, 1 + 3 * w)
+    check(not rows[:, 0].any(), f"{path}: unexpected PNG row filter")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def phase_app_cli(report):
+    out = os.path.join(REPO, "out", "app_cli")
+    if os.path.exists(out + ".png"):
+        os.remove(out + ".png")
+    cmd = [sys.executable, "-m", "gfxexp_torch.apps.path_tracing", "-width",
+           "128", "-height", "128", "-frames", "4", "-stats", "-output", out,
+           *APP_DSL]
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          env=dict(os.environ, PYTHONPATH=REPO), timeout=300)
+    secs = time.time() - t0
+    check(proc.returncode == 0,
+          f"app CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    px = _png_pixels(out + ".png")
+    check(px.shape == (128, 128, 3) and px.any(),
+          f"app CLI: PNG {px.shape}, all black {not px.any()}")
+    stats = [ln for ln in proc.stderr.splitlines() if ln.startswith("final:")]
+    check(stats, "app CLI printed no -stats line")
+    report["app_cli"] = {"seconds": secs, "stats": stats[0],
+                         "mean_pixel": float(px.mean())}
+    print(f"[14 app CLI] python -m gfxexp_torch.apps.path_tracing 128x128, "
+          f"4 frames, one animated instance: rc 0 in {secs:.1f}s, "
+          f"out/app_cli.png mean pixel {px.mean():.1f}; {stats[0]}",
+          flush=True)
+
+
 def main():
     t_start = time.time()
     report = {}
@@ -682,6 +1082,12 @@ def main():
     inst = phase_inst_kernels(report, built, world, dev)
     phase_inst_slice(report, built, dev)
     inst_launches = phase_inst_main(report, built, dev)
+    skip_built = {k: (s.to(dev), b.to(dev))
+                  for k, (s, b) in phase_skip_build(report).items()}
+    skip = phase_skip_kernels(report, skip_built, dev)
+    phase_skip_slice(report, skip_built, dev)
+    skip_launches = phase_anim_main(report, skip_built, dev)
+    phase_app_cli(report)
 
     kernels = [
         {"name": f"widerow_walk_{kind}", "route": "cuda",
@@ -704,6 +1110,21 @@ def main():
                 "launches": inst_launches[key],
                 "max_abs_err": max(inst[s]["max_abs_err"][key]
                                    for s in inst),
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None})
+    times = skip["city_frame0"]["times"]
+    for kind in ("closest", "any"):
+        for scope in SCOPES:
+            key = f"{kind}_{scope}"
+            t = times[key]
+            kernels.append({
+                "name": f"skiplink_walk_{key}", "route": "cuda",
+                "source": "gfxexp_torch/csrc/skiplink_traverse.cu",
+                "replaces": REPLACES[scope],
+                "launches": skip_launches[key],
+                "max_abs_err": max(r["max_abs_err"][key]
+                                   for r in skip.values()),
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": None})

@@ -78,15 +78,23 @@ def _prepare(bvh: WideRowBVH, o, d, t_min, t_max):
             or nodes.dtype != torch.float32 or not nodes.is_contiguous()):
         raise ValueError(f"nodes must be a contiguous float32 [R, {WIDTH}] "
                          f"tensor, got {tuple(nodes.shape)} {nodes.dtype}")
+    if nodes.device != o.device:
+        raise ValueError(f"rays on {o.device}, table on {nodes.device}")
+    return (nodes, *prepare_rays(o, d, t_min, t_max))
+
+
+def prepare_rays(o, d, t_min, t_max):
+    """Checks shared by the walks' kernels and plain versions: o, d [N, 3]
+    float32 on one device, made contiguous, and t_min, t_max as contiguous
+    [N] float32 (a scalar is filled on the rays' device)."""
     if o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape:
         raise ValueError(f"o, d must be [N, 3], got {tuple(o.shape)} "
                          f"{tuple(d.shape)}")
     if o.dtype != torch.float32 or d.dtype != torch.float32:
         raise ValueError("o, d must be float32")
     dev = o.device
-    if d.device != dev or nodes.device != dev:
-        raise ValueError(f"rays on {dev}, directions on {d.device}, table "
-                         f"on {nodes.device}")
+    if d.device != dev:
+        raise ValueError(f"rays on {dev}, directions on {d.device}")
     n = o.shape[0]
 
     def per_ray(x):
@@ -96,8 +104,7 @@ def _prepare(bvh: WideRowBVH, o, d, t_min, t_max):
             raise ValueError(f"t_min/t_max must be float32 on {dev}")
         return torch.broadcast_to(x, (n,)).contiguous()
 
-    return (nodes, o.contiguous(), d.contiguous(), per_ray(t_min),
-            per_ray(t_max))
+    return o.contiguous(), d.contiguous(), per_ray(t_min), per_ray(t_max)
 
 
 # ---------------------------------------------------------------------------

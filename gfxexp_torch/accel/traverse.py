@@ -26,28 +26,37 @@ class HitInfo(TensorData):
     inst: Optional[torch.Tensor] = None
 
 
-def _check_structure(bvh):
+def _check_structure(bvh) -> str:
+    """"widerow", "instanced" or "skip"; raises for other structures."""
     from gfxexp_torch.accel.instanced import InstancedAccel
+    from gfxexp_torch.accel.skiplink import SkipBVH
     from gfxexp_torch.accel.widerow import WideRowBVH
 
-    if not isinstance(bvh, (WideRowBVH, InstancedAccel)):
-        raise NotImplementedError(
-            f"the port traverses WideRowBVH and InstancedAccel tables only, "
-            f"got {type(bvh).__name__}")
-    return isinstance(bvh, InstancedAccel)
+    for kind, cls in (("widerow", WideRowBVH), ("instanced", InstancedAccel),
+                      ("skip", SkipBVH)):
+        if isinstance(bvh, cls):
+            return kind
+    raise NotImplementedError(
+        f"the port traverses WideRowBVH, InstancedAccel and SkipBVH tables "
+        f"only, got {type(bvh).__name__}")
 
 
 def intersect_closest(bvh, tris, o, d, t_min=1e-4, t_max=1e30) -> HitInfo:
-    """Closest-hit query for a ray batch; o, d: [R, 3]. `tris` is unused
-    (the row tables bake the triangles) and kept for the reference's
-    signature. Two-level structures also return the hit instance."""
+    """Closest-hit query for a ray batch; o, d: [R, 3]. `tris` (the world
+    triangles in traversal order) is read by the skip-link walk only: the
+    row tables bake their triangles. Two-level structures also return the
+    hit instance."""
     from gfxexp_torch.accel.instanced import intersect_closest_instanced
     from gfxexp_torch.accel.persistent import intersect_closest_widerow
+    from gfxexp_torch.accel.skip_traverse import intersect_closest_pallas
 
-    if _check_structure(bvh):
+    kind = _check_structure(bvh)
+    if kind == "instanced":
         hit, inst = intersect_closest_instanced(bvh, o, d, t_min, t_max)
         hit.inst = inst
         return hit
+    if kind == "skip":
+        return intersect_closest_pallas(bvh, tris, o, d, t_min, t_max)
     return intersect_closest_widerow(bvh, o, d, t_min, t_max)
 
 
@@ -55,9 +64,13 @@ def intersect_any(bvh, tris, o, d, t_min=1e-4, t_max=1e30) -> torch.Tensor:
     """Shadow-ray query: occluded [R] bool."""
     from gfxexp_torch.accel.instanced import intersect_any_instanced
     from gfxexp_torch.accel.persistent import intersect_any_widerow
+    from gfxexp_torch.accel.skip_traverse import intersect_any_pallas
 
-    if _check_structure(bvh):
+    kind = _check_structure(bvh)
+    if kind == "instanced":
         return intersect_any_instanced(bvh, o, d, t_min, t_max)
+    if kind == "skip":
+        return intersect_any_pallas(bvh, tris, o, d, t_min, t_max)
     return intersect_any_widerow(bvh, o, d, t_min, t_max)
 
 

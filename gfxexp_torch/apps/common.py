@@ -1,0 +1,296 @@
+"""Shared app framework: the scene-description CLI, the camera, per-pass
+timers and the outputs (port of gfxexp_tpu/apps/common.py).
+
+The apps are headless: they render N frames, write a PNG and print per-pass
+timings. The reference's scene DSL is accepted so its command lines carry
+over (-name, -emittance, -rectangle, -sphere, -inst with -position,
+-begin-pos/-end-pos, -begin-scale/-end-scale, -freq, -time). `-device`
+picks where the app runs: `cuda` (the default) or `cpu`; without a card,
+`cuda` raises instead of falling back.
+
+Not ported yet, and raising NotImplementedError when asked for: `-obj` (the
+mesh loaders, scene/loaders.py), `-env-texture` and `-exr` (EXR I/O,
+utils/image_io.py), `-live` and its camera rig (utils/viewer.py) and
+`-denoise` (techniques/svgf.py).
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import os
+import time
+from typing import List
+
+import numpy as np
+import torch
+
+
+def make_arg_parser(name: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog=name, description=f"{name} (gfxexp_torch): offline renderer")
+    p.add_argument("-device", type=str, default="cuda",
+                   help="torch device to render on: cuda (default) or cpu")
+    p.add_argument("-width", type=int, default=512)
+    p.add_argument("-height", type=int, default=512)
+    p.add_argument("-frames", type=int, default=32,
+                   help="samples/frames to accumulate")
+    p.add_argument("-max-path-length", type=int, default=5)
+    p.add_argument("-output", type=str, default="output",
+                   help="output basename")
+    p.add_argument("-exr", action="store_true", help="also write HDR EXR")
+    p.add_argument("-no-jitter", action="store_true")
+    p.add_argument("-bump", action="store_true", help="enable normal mapping")
+    p.add_argument("-stats", action="store_true",
+                   help="print per-pass timings")
+    p.add_argument("-live", type=int, nargs="?", const=8716, default=None,
+                   metavar="PORT", help="live progressive view over HTTP")
+    p.add_argument("-traversal", type=str, default=None,
+                   choices=["skip", "widerow", "qrow", "instanced"],
+                   help="acceleration-structure format (default: widerow "
+                        "for static scenes, skip for animated)")
+    p.add_argument("-spatial-splits", action="store_true",
+                   help="SBVH spatial splits at BVH build")
+    p.add_argument("-rebraid", type=float, default=0.0,
+                   help="TLAS rebraiding budget for -traversal instanced")
+    p.add_argument("-fused-shadow-rays", action="store_true")
+    p.add_argument("-texture-lod", action="store_true")
+    p.add_argument("-denoise", action="store_true",
+                   help="denoise the accumulated beauty every frame (SVGF)")
+    p.add_argument("-debug-switches", type=int, default=0)
+    # camera
+    p.add_argument("-cam-pos", type=float, nargs=3, default=[0.0, 0.0, 3.16])
+    p.add_argument("-cam-roll", type=float, default=0.0)
+    p.add_argument("-cam-pitch", type=float, default=0.0)
+    p.add_argument("-cam-yaw", type=float, default=180.0,
+                   help="default 180: identity orientation looks +z, scenes "
+                        "sit toward -z (reference convention)")
+    p.add_argument("-fov", type=float, default=50.0, help="vertical fov (deg)")
+    p.add_argument("-brightness", type=float, default=1.0)
+    p.add_argument("-env-texture", type=str, default=None)
+    p.add_argument("-env-power", type=float, default=1.0)
+    # the scene DSL (-name/-obj/-rectangle/-sphere/-emittance/-inst/...) is
+    # left to build_scene_from_dsl: parse with parse_scene_args
+    return p
+
+
+def parse_scene_args(parser, argv=None):
+    """parse_known_args wrapper: the DSL leftovers land in args.scene_args."""
+    args, rest = parser.parse_known_args(argv)
+    args.scene_args = rest
+    return args
+
+
+def check_unported(args):
+    """Raise for the output and viewer options whose modules the port does
+    not have yet (build_scene_from_dsl raises for the scene's: -obj and
+    -env-texture)."""
+    missing = (("exr", "-exr needs EXR output (utils/image_io.py save_exr)"),
+               ("live", "-live needs the live viewer and its camera rig "
+                        "(utils/viewer.py)"),
+               ("denoise", "-denoise needs the SVGF denoiser "
+                           "(techniques/svgf.py)"))
+    for attr, what in missing:
+        if getattr(args, attr, None) not in (None, False):
+            raise NotImplementedError(f"{what}, which is not ported yet")
+
+
+def resolve_device(args) -> torch.device:
+    """The app's device; `cuda` without a card raises (no CPU fallback)."""
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass -device cpu to render on "
+                           "the CPU")
+    return dev
+
+
+def euler_orientation(roll: float, pitch: float, yaw: float) -> np.ndarray:
+    """Camera-to-world [3, 3] of the reference's roll (z), pitch (x), yaw
+    (y) convention."""
+    cr, sr = math.cos(roll), math.sin(roll)
+    cp, sp = math.cos(pitch), math.sin(pitch)
+    cy, sy = math.cos(yaw), math.sin(yaw)
+    rz = np.array([[cr, -sr, 0], [sr, cr, 0], [0, 0, 1]])
+    rx = np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]])
+    ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+    return (ry @ rx @ rz).astype(np.float32)
+
+
+def build_scene_from_dsl(args, extra_argv: List[str]):
+    """Parse the reference scene DSL from leftover argv and build the scene.
+    Returns (SceneBuilder, controllers)."""
+    from gfxexp_torch.scene.animation import InstanceController
+    from gfxexp_torch.scene.builder import SceneBuilder, affine
+
+    b = SceneBuilder()
+    controllers: List[InstanceController] = []
+    named = {}  # name -> (geometry ids, base scale)
+    pending_name = "unnamed"
+    pending_emittance = (0.0, 0.0, 0.0)
+    argv = list(extra_argv)
+    n_used_instances = 0
+    i = 0
+
+    def floats(k):
+        nonlocal i
+        vals = [float(argv[i + 1 + j]) for j in range(k)]
+        i += k
+        return vals
+
+    while i < len(argv):
+        a = argv[i]
+        if a == "-name":
+            pending_name = argv[i + 1]
+            i += 1
+        elif a == "-emittance":
+            pending_emittance = tuple(floats(3))
+        elif a == "-obj":
+            raise NotImplementedError(
+                "-obj needs the mesh loaders (scene/loaders.py), which are "
+                "not ported yet")
+        elif a in ("-rectangle", "-sphere"):
+            mat = b.add_lambert_material((0.0, 0.0, 0.0),
+                                         emittance=pending_emittance)
+            if a == "-rectangle":
+                w, d = floats(2)
+                geom = b.add_rectangle(w, d, mat)
+            else:
+                (r,) = floats(1)
+                geom = b.add_sphere(r, mat)
+            named[pending_name] = ([geom], 1.0)
+            pending_emittance = (0.0, 0.0, 0.0)
+        elif a == "-inst":
+            name = argv[i + 1]
+            i += 1
+            geoms, base_scale = named[name]
+            pos = [0.0, 0.0, 0.0]
+            begin_pos = end_pos = None
+            begin_scale = end_scale = 1.0
+            freq = 1.0
+            t0 = 0.0
+            while i + 1 < len(argv) and argv[i + 1].startswith("-"):
+                k = argv[i + 1]
+                if k == "-position":
+                    i += 1
+                    pos = floats(3)
+                elif k == "-begin-pos":
+                    i += 1
+                    begin_pos = floats(3)
+                elif k == "-end-pos":
+                    i += 1
+                    end_pos = floats(3)
+                elif k == "-begin-scale":
+                    i += 1
+                    begin_scale = floats(1)[0]
+                elif k == "-end-scale":
+                    i += 1
+                    end_scale = floats(1)[0]
+                elif k == "-freq":
+                    i += 1
+                    freq = floats(1)[0]
+                elif k == "-time":
+                    i += 1
+                    t0 = floats(1)[0]
+                else:
+                    break
+            inst = b.add_instance(geoms,
+                                  affine(scale=base_scale, translation=pos))
+            if begin_pos is not None or end_pos is not None:
+                controllers.append(InstanceController(
+                    instance=inst,
+                    begin_position=tuple(begin_pos or pos),
+                    end_position=tuple(end_pos or begin_pos or pos),
+                    begin_scale=begin_scale * base_scale,
+                    end_scale=end_scale * base_scale,
+                    frequency=freq, initial_time=t0))
+            n_used_instances += 1
+        i += 1
+
+    # groups never instanced explicitly get one instance each
+    if n_used_instances == 0:
+        for geoms, scale in named.values():
+            b.add_instance(geoms, affine(scale=scale))
+    if getattr(args, "env_texture", None):
+        raise NotImplementedError("-env-texture needs EXR input "
+                                  "(utils/image_io.py load_exr), which is "
+                                  "not ported yet")
+    return b, controllers
+
+
+def make_camera_from_args(args):
+    from gfxexp_torch.render.camera import make_camera
+
+    orientation = euler_orientation(
+        math.radians(args.cam_roll), math.radians(args.cam_pitch),
+        math.radians(args.cam_yaw))
+    return make_camera(args.cam_pos, fov_y=math.radians(args.fov),
+                       aspect=args.width / args.height,
+                       orientation=orientation)
+
+
+class PassTimer:
+    """Per-pass wall-clock times with a moving window. On a CUDA device each
+    measured pass ends in torch.cuda.synchronize(), so a time covers the
+    device's work."""
+
+    def __init__(self, window: int = 60, device=None):
+        self.window = window
+        self.samples = {}
+        self.device = None if device is None else torch.device(device)
+
+    def measure(self, name: str, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        if self.device is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt = (time.perf_counter() - t0) * 1000.0
+        vals = self.samples.setdefault(name, [])
+        vals.append(dt)
+        if len(vals) > self.window:
+            vals.pop(0)
+        return out
+
+    def mean_ms(self, name: str) -> float:
+        return float(np.mean(self.samples[name]))
+
+    def report(self) -> str:
+        return ", ".join(f"{name}: {np.mean(vals):.2f} ms"
+                         for name, vals in self.samples.items())
+
+
+def save_outputs(args, hdr_image: np.ndarray):
+    """The PNG of the accumulated HDR image, scaled by -brightness."""
+    from gfxexp_torch.utils.image_io import save_png
+
+    out = args.output
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    sdr = np.clip(hdr_image * args.brightness, 0.0, 1.0)
+    save_png(out + ".png", sdr)
+    print(f"wrote {out}.png")
+
+
+def default_demo_builder():
+    """The scene when no DSL was given: the classic box and lamp."""
+    from gfxexp_torch.scene.builder import SceneBuilder, affine
+
+    b = SceneBuilder()
+    wall = b.add_lambert_material((0.7, 0.7, 0.7))
+    light = b.add_lambert_material((0, 0, 0), emittance=(20.0, 20.0, 20.0))
+    s = 2.0
+    flipx = np.array([[1, 0, 0], [0, -1, 0], [0, 0, -1]], np.float64)
+    b.add_instance(b.add_rectangle(2 * s, 2 * s, wall),
+                   affine(translation=[0, -s, 0]))
+    b.add_instance(b.add_rectangle(2 * s, 2 * s, wall),
+                   affine(rotation=flipx, translation=[0, s, 0]))
+    rot_zp = np.array([[1, 0, 0], [0, 0, -1], [0, 1, 0]], np.float64)
+    b.add_instance(b.add_rectangle(2 * s, 2 * s, wall),
+                   affine(rotation=rot_zp, translation=[0, 0, -s]))
+    rot_xp = np.array([[0, 1, 0], [-1, 0, 0], [0, 0, 1]], np.float64)
+    b.add_instance(b.add_rectangle(2 * s, 2 * s, wall),
+                   affine(rotation=rot_xp, translation=[-s, 0, 0]))
+    rot_xm = np.array([[0, -1, 0], [1, 0, 0], [0, 0, 1]], np.float64)
+    b.add_instance(b.add_rectangle(2 * s, 2 * s, wall),
+                   affine(rotation=rot_xm, translation=[s, 0, 0]))
+    b.add_instance(b.add_rectangle(0.8, 0.8, light),
+                   affine(rotation=flipx, translation=[0, s - 0.01, 0]))
+    return b

@@ -1,0 +1,107 @@
+"""path_tracing app: the NEE+MIS path tracer with progressive accumulation,
+headless (port of gfxexp_tpu/apps/path_tracing.py).
+
+    python -m gfxexp_torch.apps.path_tracing -cam-pos 0 0 3.2 -frames 64 \\
+        -name floor -rectangle 4 4 -inst floor \\
+        -name lamp -emittance 30 30 30 -rectangle 1 1 -inst lamp \\
+            -position 0 2 0 -begin-pos 0 2 0 -end-pos 0 1.5 0
+
+Runs on the card (`-device cuda`, the default) or on the CPU
+(`-device cpu`). Static scenes compile to the wide-row table, animated ones
+(any -begin-pos/-end-pos) to the refittable skip-link BVH; `-traversal`
+overrides. Each frame advances the animation (`update`), renders one sample
+(`pathTrace`) and adds it to the film; `-stats` prints the per-pass times.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+from gfxexp_torch.apps import common
+
+
+def frame_loop(scene, bvh, camera, controllers, traversal: str, width: int,
+               height: int, frames: int, cfg, timer: common.PassTimer,
+               stats: bool = False):
+    """The app's frames f = 0 .. frames - 1 on the scene's device: `update`
+    (advance_frame, or advance_frame_instanced for two-level scenes, at
+    t = f / 60) when there are controllers, `pathTrace` (render_sample with
+    sample index f) and the film's running mean. Returns (film, scene, bvh,
+    rays): rays is the traced-ray count when cfg.count_rays, else None."""
+    from gfxexp_torch.render.film import add_sample, make_film
+    from gfxexp_torch.render.pathtrace import render_sample
+    from gfxexp_torch.scene.animation import (
+        advance_frame,
+        advance_frame_instanced,
+    )
+
+    if controllers and traversal not in ("skip", "instanced"):
+        raise ValueError(f"animated scenes need -traversal skip or "
+                         f"instanced, got {traversal!r}")
+    advance = (advance_frame_instanced if traversal == "instanced"
+               else advance_frame)
+    dev = scene.device
+    film = make_film(width, height, dev)
+    rays = torch.zeros((), device=dev) if cfg.count_rays else None
+    for f in range(frames):
+        if controllers:
+            scene, bvh = timer.measure("update", advance, scene, bvh,
+                                       controllers, f / 60.0)
+        out = timer.measure("pathTrace", render_sample, scene, bvh, camera,
+                            width, height, f, cfg)
+        if cfg.count_rays:
+            out, nr = out
+            rays = rays + nr
+        film = add_sample(film, out.reshape(height, width, 3))
+        if stats and f % 16 == 15:
+            print(f"frame {f + 1}/{frames}: {timer.report()}",
+                  file=sys.stderr)
+    return film, scene, bvh, rays
+
+
+def main(argv=None):
+    """Render, write `<output>.png`, and return the accumulated HDR image
+    [H, W, 3] (numpy)."""
+    from gfxexp_torch.render.pathtrace import PTConfig
+    from gfxexp_torch.scene.compile import compile_scene
+
+    args = common.parse_scene_args(common.make_arg_parser("path_tracing"),
+                                   argv)
+    common.check_unported(args)
+    dev = common.resolve_device(args)
+    builder, controllers = common.build_scene_from_dsl(args, args.scene_args)
+    if not builder.instances:
+        builder = common.default_demo_builder()
+    # static scenes default to the wide-row walk; animated ones need the
+    # refittable skip-link structure
+    traversal = args.traversal or ("skip" if controllers else "widerow")
+    scene, bvh = compile_scene(
+        builder, traversal=traversal,
+        spatial_splits=(args.spatial_splits
+                        if traversal in ("widerow", "qrow") else False),
+        rebraid=args.rebraid if traversal == "instanced" else 0.0)
+    scene, bvh = scene.to(dev), bvh.to(dev)
+    camera = common.make_camera_from_args(args).to(dev)
+    cfg = PTConfig(max_path_length=args.max_path_length,
+                   enable_jitter=not args.no_jitter,
+                   enable_bump_mapping=args.bump,
+                   fuse_shadow_rays=args.fused_shadow_rays,
+                   texture_lod=args.texture_lod)
+    if args.debug_switches:
+        raise NotImplementedError("debug switches are not ported yet")
+    timer = common.PassTimer(device=dev)
+    film, _, _, _ = frame_loop(scene, bvh, camera, controllers, traversal,
+                               args.width, args.height, args.frames, cfg,
+                               timer, stats=args.stats)
+    hdr = film.beauty.cpu().numpy()
+    common.save_outputs(args, hdr)
+    if args.stats:
+        print("final:", timer.report(), file=sys.stderr)
+    return np.asarray(hdr)
+
+
+if __name__ == "__main__":
+    main()

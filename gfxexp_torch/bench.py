@@ -105,9 +105,14 @@ def bench_scene_builder(b=None, scene: str = "small"):
 
 
 def build_bench_scene(scene: str = "small", rebraid: float = 0.0,
-                      tlas: bool = False):
+                      tlas: bool = False, traversal: str = None):
     """(SceneData, acceleration structure) of a bench scene on the CPU: a
-    WideRowBVH for "small", an InstancedAccel for "big" and "city"."""
+    WideRowBVH for "small", an InstancedAccel for "big" and "city"; with
+    traversal="skip" the scene flattened into world triangles under a
+    SkipBVH (the structure of the animated cells)."""
+    if traversal == "skip":
+        return compile_scene(bench_scene_builder(scene=scene), arity=4,
+                             max_leaf=4, traversal="skip")
     if scene == "small":
         return compile_scene(bench_scene_builder(), arity=4, max_leaf=4,
                              traversal="widerow")
@@ -116,6 +121,31 @@ def build_bench_scene(scene: str = "small", rebraid: float = 0.0,
                            rebraid=rebraid)
     acc.use_tlas = tlas
     return s, acc
+
+
+def bench_controllers(scene: str = "big"):
+    """The animated cells' controllers (t = frame / 60, as the app runs
+    them): the light (instance 1) moves from y 1.5 to 1.2 and back at 0.5
+    Hz, keeping its downward orientation; every Lambert sphere bobs between
+    y 0.20 and 0.45 at 0.5 Hz with phase (gx + gz) / 32."""
+    from gfxexp_torch.scene.animation import InstanceController
+
+    flip = (1.0, 0.0, 0.0, 0.0)  # pi about x, the light's orientation
+    out = [InstanceController(instance=1, begin_position=(0.0, 1.5, 0.0),
+                              end_position=(0.0, 1.2, 0.0),
+                              begin_orientation=flip, end_orientation=flip,
+                              frequency=0.5)]
+    cells = _LAYOUT[scene][1]
+    for gx in range(cells):
+        for gz in range(cells):
+            tx = (gx - (cells - 1) / 2) * 0.62
+            tz = (gz - (cells - 1) / 2) * 0.62
+            out.append(InstanceController(
+                instance=2 + 2 * (gx * cells + gz) + 1,
+                begin_position=(tx + 0.28, 0.20, tz),
+                end_position=(tx + 0.28, 0.45, tz), frequency=0.5,
+                initial_time=(gx + gz) / 32.0))
+    return out
 
 
 def bench_camera(width: int, height: int, scene: str = "small"):

@@ -101,6 +101,12 @@ def cosine_sample_hemisphere(u0, u1):
     return torch.stack([x, y, z], dim=-1)
 
 
+def linear_to_srgb(c):
+    c = torch.clamp(c, 0.0, 1.0)
+    return torch.where(c <= 0.0031308, c * 12.92,
+                       1.055 * torch.pow(c, 1.0 / 2.4) - 0.055)
+
+
 def np_normalize(v):
     n = np.linalg.norm(v, axis=-1, keepdims=True)
     return v / np.maximum(n, 1e-20)
@@ -110,3 +116,130 @@ def rotate(m, v):
     """The 3x3 part of per-row 3x4 matrices m [R, 3, 4] applied to v [R, 3]
     (the JAX package's einsum("nij,nj->ni") at full float32 precision)."""
     return (m[:, :, :3] * v[:, None, :]).sum(-1)
+
+
+# ---------------------------------------------------------------------------
+# affine transforms [..., 3, 4] (rotation | translation); sums written out so
+# the CPU and the card round them alike
+# ---------------------------------------------------------------------------
+
+
+def transform_vector(m, v):
+    """m [..., 3, 4] (or [..., 3, 3]), v [..., 3] -> the 3x3 part applied
+    to v."""
+    return torch.stack([m[..., i, 0] * v[..., 0] + m[..., i, 1] * v[..., 1]
+                        + m[..., i, 2] * v[..., 2] for i in range(3)], dim=-1)
+
+
+def transform_point(m, p):
+    return transform_vector(m, p) + m[..., 3]
+
+
+def transform_normal(m_inv, n):
+    """A normal through the inverse transform's transpose."""
+    return torch.stack([m_inv[..., 0, i] * n[..., 0]
+                        + m_inv[..., 1, i] * n[..., 1]
+                        + m_inv[..., 2, i] * n[..., 2] for i in range(3)],
+                       dim=-1)
+
+
+def det3(r):
+    """Determinant of [..., 3, 3] by cofactors along the first row."""
+    return (r[..., 0, 0] * (r[..., 1, 1] * r[..., 2, 2]
+                            - r[..., 1, 2] * r[..., 2, 1])
+            - r[..., 0, 1] * (r[..., 1, 0] * r[..., 2, 2]
+                              - r[..., 1, 2] * r[..., 2, 0])
+            + r[..., 0, 2] * (r[..., 1, 0] * r[..., 2, 1]
+                              - r[..., 1, 1] * r[..., 2, 0]))
+
+
+def inverse3(r):
+    """Inverse of [..., 3, 3] as adjugate / determinant (elementwise, so the
+    CPU and the card give the same bits; the JAX package uses an LU
+    inverse, equal to ~1e-7 on the well-conditioned instance matrices)."""
+    c = [[None] * 3 for _ in range(3)]
+    for i in range(3):
+        for j in range(3):
+            i1, i2 = [k for k in range(3) if k != i]
+            j1, j2 = [k for k in range(3) if k != j]
+            minor = (r[..., i1, j1] * r[..., i2, j2]
+                     - r[..., i1, j2] * r[..., i2, j1])
+            c[i][j] = minor if (i + j) % 2 == 0 else -minor
+    inv_det = 1.0 / det3(r)
+    # inverse[i][j] = cofactor[j][i] / det
+    return torch.stack([torch.stack([c[j][i] * inv_det for j in range(3)],
+                                    dim=-1) for i in range(3)], dim=-2)
+
+
+def invert_transform(m):
+    """Inverse of a [..., 3, 4] affine."""
+    r_inv = inverse3(m[..., :3])
+    t = -transform_vector(r_inv, m[..., 3])
+    return torch.cat([r_inv, t[..., None]], dim=-1)
+
+
+def quaternion_to_matrix(q):
+    """Quaternion [..., 4] (x, y, z, w) -> rotation matrix [..., 3, 3]."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack([
+        1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+        2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+        2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], dim=-1)
+    return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def slerp(q0, q1, t):
+    """Spherical interpolation of unit quaternions [..., 4] at t [...]."""
+    t = torch.as_tensor(t, dtype=q0.dtype, device=q0.device)[..., None]
+    d = (q0 * q1).sum(-1, keepdim=True)
+    q1 = torch.where(d < 0.0, -q1, q1)
+    d = torch.abs(d)
+    theta = torch.arccos(torch.clamp(d, -1.0, 1.0))
+    sin_theta = torch.sin(theta)
+    use_lerp = sin_theta < 1e-5
+    den = torch.where(use_lerp, 1.0, sin_theta)
+    w0 = torch.where(use_lerp, 1.0 - t, torch.sin((1.0 - t) * theta) / den)
+    w1 = torch.where(use_lerp, t, torch.sin(t * theta) / den)
+    q = w0 * q0 + w1 * q1
+    return q * (1.0 / torch.sqrt(torch.clamp((q * q).sum(-1, keepdim=True),
+                                             min=1e-20)))
+
+
+# numpy twins of the two above, in float32, for host code (animation
+# controllers); batched over leading dimensions
+
+
+def np_quaternion_to_matrix(q):
+    q = np.asarray(q, np.float32)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    one, two = np.float32(1), np.float32(2)
+    m = np.stack([
+        one - two * (yy + zz), two * (xy - wz), two * (xz + wy),
+        two * (xy + wz), one - two * (xx + zz), two * (yz - wx),
+        two * (xz - wy), two * (yz + wx), one - two * (xx + yy)], axis=-1)
+    return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def np_slerp(q0, q1, t):
+    q0 = np.asarray(q0, np.float32)
+    q1 = np.asarray(q1, np.float32)
+    t = np.asarray(t, np.float32)[..., None]
+    one = np.float32(1)
+    d = (q0 * q1).sum(-1, keepdims=True)
+    q1 = np.where(d < 0, -q1, q1)
+    d = np.abs(d)
+    theta = np.arccos(np.clip(d, -one, one))
+    sin_theta = np.sin(theta)
+    use_lerp = sin_theta < np.float32(1e-5)
+    den = np.where(use_lerp, one, sin_theta)
+    w0 = np.where(use_lerp, one - t, np.sin((one - t) * theta) / den)
+    w1 = np.where(use_lerp, t, np.sin(t * theta) / den)
+    q = w0 * q0 + w1 * q1
+    return (q / np.sqrt(np.maximum((q * q).sum(-1, keepdims=True),
+                                   np.float32(1e-20)))).astype(np.float32)

@@ -65,6 +65,15 @@ def _declare(name: str, lib: ctypes.CDLL):
             vp, vp, vp, vp, vp, vp,              # t, u, v, tri, hit, entry
             vp,                                  # stream
         ]
+    elif name == "skiplink_traverse":
+        lib.skiplink_walk_launch.restype = ci
+        lib.skiplink_walk_launch.argtypes = [
+            ci, ci,                              # any_hit, scope
+            vp, ci, vp, ci, ci,                  # nodes .. max_leaf
+            ci, vp, vp, vp, vp,                  # n, o, d, tmin, tmax
+            vp, vp, vp, vp, vp,                  # t, u, v, tri, hit
+            vp,                                  # stream
+        ]
     else:
         raise KeyError(f"no C interface declared for {name!r}")
 

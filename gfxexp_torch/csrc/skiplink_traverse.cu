@@ -1,0 +1,278 @@
+// Skip-link BVH walk: closest hit and any hit over the packed tables of a
+// SkipBVH (gfxexp_torch/accel/skiplink.py), with the cursor kept at one of
+// three scopes.
+//
+// Replaces two TPU kernels that compute the same function:
+//   - gfxexp_tpu/accel/pallas_traverse.py:63 _make_kernel (launched by _run
+//     :178): one skip-link cursor per 4,096-ray tile, the TPU path of every
+//     traversal="skip" scene (animated scenes);
+//   - gfxexp_tpu/accel/pallas_rowcursor.py:76 _make_kernel (launched by _run
+//     :206): one cursor per 128-lane row.
+// Scopes (one template parameter):
+//   - kThread: one cursor per ray (the default on the main path);
+//   - kWarp: one cursor per 32 rays, descending when __any_sync of the
+//     lanes' box tests hits (kernel 8's row cursor);
+//   - kBlock: one cursor per 128-thread block, with __syncthreads_or (kernel
+//     6's tile cursor); under any hit the block stops once no ray of it is
+//     still live.
+// A shared cursor changes which nodes are visited, never the result: a
+// node's box contains its descendants' and the slab test rounds
+// monotonically, so a ray that misses a node misses every leaf below it, and
+// a lane tests a leaf only when its own box test hits.
+//
+// The step: descend (cur + 1) iff the slab test against [t_min, best_t] hits
+// an internal node, else jump to its skip link; a leaf runs Moller-Trumbore
+// on its count (<= max_leaf) triangles, accepting
+// det_ok & u >= 0 & v >= 0 & u + v <= 1 & t > t_min & t < best_t. Any hit
+// stops at the first accepted triangle; a ray with t_max < 0 does no work.
+// The plain PyTorch version is walk_skip_plain in accel/skiplink.py; both
+// apply the same operations in the same order, so with --fmad=false the
+// results are equal bit for bit.
+//
+// What bounds it: one dependent 32-byte node load per step (two float4
+// loads through the read-only path) and, at leaves, 48-byte triangle rows;
+// a walk is latency bound. There is no stack, so nothing spills to local
+// memory. Tables of large scenes (city: 29 MB of nodes, 97.5 MB of
+// triangles) do not fit the 50 MB L2.
+//
+// Built by gfxexp_torch/csrc/build.py with nvcc into a shared library with a
+// plain C interface (ctypes); it launches on the caller's stream, does not
+// synchronise and allocates nothing.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBlock = 128;
+constexpr int kCountShift = 24;
+constexpr int kMaxLeaf = 127;
+constexpr int kThread = 0;
+constexpr int kWarp = 1;
+constexpr int kBlockScope = 2;
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz, tmin;
+};
+
+struct Best {
+  float t, u, v;
+  int tri;
+};
+
+__device__ __forceinline__ float safe_inv(float v) {
+  const float tiny = v < 0.0f ? -1e-12f : 1e-12f;
+  return 1.0f / (fabsf(v) < 1e-12f ? tiny : v);
+}
+
+// node row: a = lo.x lo.y lo.z hi.x, b = hi.y hi.z packed skip
+__device__ __forceinline__ bool slab(const float4& a, const float4& b,
+                                     const Ray& r, float best_t) {
+  const float tx0 = (a.x - r.ox) * r.ix;
+  const float tx1 = (a.w - r.ox) * r.ix;
+  const float ty0 = (a.y - r.oy) * r.iy;
+  const float ty1 = (b.x - r.oy) * r.iy;
+  const float tz0 = (a.z - r.oz) * r.iz;
+  const float tz1 = (b.y - r.oz) * r.iz;
+  const float near = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
+                           fmaxf(fminf(tz0, tz1), r.tmin));
+  const float far = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
+                          fminf(fmaxf(tz0, tz1), best_t));
+  return near <= far;
+}
+
+// Moller-Trumbore on triangles [fst, fst + cnt). Returns true when kAnyHit
+// and a triangle was accepted (the walk then stops).
+template <bool kAnyHit>
+__device__ __forceinline__ bool leaf(const float4* __restrict__ tris,
+                                     int fst, int cnt, const Ray& r,
+                                     Best& best) {
+  for (int j = 0; j < cnt; ++j) {
+    const float4* row = tris + 3 * (fst + j);
+    const float4 q0 = __ldg(row + 0);
+    const float4 q1 = __ldg(row + 1);
+    const float4 q2 = __ldg(row + 2);
+    const float p0x = q0.x, p0y = q0.y, p0z = q0.z;
+    const float e1x = q0.w, e1y = q1.x, e1z = q1.y;
+    const float e2x = q1.z, e2y = q1.w, e2z = q2.x;
+    const float pvx = r.dy * e2z - r.dz * e2y;
+    const float pvy = r.dz * e2x - r.dx * e2z;
+    const float pvz = r.dx * e2y - r.dy * e2x;
+    const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+    const bool det_ok = fabsf(det) > 1e-12f;
+    const float inv_det = 1.0f / (det_ok ? det : 1.0f);
+    const float tvx = r.ox - p0x;
+    const float tvy = r.oy - p0y;
+    const float tvz = r.oz - p0z;
+    const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+    const float qvx = tvy * e1z - tvz * e1y;
+    const float qvy = tvz * e1x - tvx * e1z;
+    const float qvz = tvx * e1y - tvy * e1x;
+    const float v = (r.dx * qvx + r.dy * qvy + r.dz * qvz) * inv_det;
+    const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+    if (det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > r.tmin &&
+        t < best.t) {
+      best.t = t;
+      best.u = u;
+      best.v = v;
+      best.tri = fst + j;
+      if (kAnyHit) return true;
+    }
+  }
+  return false;
+}
+
+template <int kScope>
+__device__ __forceinline__ bool any_of(bool x) {
+  if (kScope == kWarp) return __any_sync(0xffffffffu, x);
+  return __syncthreads_or(x) != 0;
+}
+
+template <bool kAnyHit, int kScope>
+__global__ void __launch_bounds__(kBlock)
+skiplink_walk(const float4* __restrict__ nodes, int n_nodes,
+              const float4* __restrict__ tris, int n,
+              const float* __restrict__ o,
+              const float* __restrict__ d, const float* __restrict__ tmin_in,
+              const float* __restrict__ tmax_in, float* __restrict__ out_t,
+              float* __restrict__ out_u, float* __restrict__ out_v,
+              int* __restrict__ out_tri, unsigned char* __restrict__ out_hit) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  // in the shared scopes every lane of the warp / block takes part in the
+  // votes, rays past n included (as dead rays)
+  const bool valid = i < n;
+  if (kScope == kThread && !valid) return;
+  const float tmax = valid ? tmax_in[i] : -1.0f;
+  Best best{tmax, 0.0f, 0.0f, -1};
+  const bool live = tmax >= 0.0f;
+  Ray r{};
+  if (live) {
+    r.ox = o[3 * i + 0];
+    r.oy = o[3 * i + 1];
+    r.oz = o[3 * i + 2];
+    r.dx = d[3 * i + 0];
+    r.dy = d[3 * i + 1];
+    r.dz = d[3 * i + 2];
+    r.ix = safe_inv(r.dx);
+    r.iy = safe_inv(r.dy);
+    r.iz = safe_inv(r.dz);
+    r.tmin = tmin_in[i];
+  }
+  if (kScope == kThread) {
+    int cur = live ? 0 : n_nodes;
+    while (cur < n_nodes) {
+      const float4 a = __ldg(nodes + 2 * cur);
+      const float4 b = __ldg(nodes + 2 * cur + 1);
+      int nxt = __float_as_int(b.w);
+      if (slab(a, b, r, best.t)) {
+        const int packed = __float_as_int(b.z);
+        const int cnt = packed >> kCountShift;
+        if (cnt > 0) {
+          if (leaf<kAnyHit>(tris, packed & ((1 << kCountShift) - 1), cnt, r,
+                            best)) {
+            break;
+          }
+        } else {
+          nxt = cur + 1;
+        }
+      }
+      cur = nxt;
+    }
+  } else {
+    bool done = !live;  // done: the ray takes no further part
+    int cur = 0;        // uniform over the warp / block
+    while (cur < n_nodes) {
+      const float4 a = __ldg(nodes + 2 * cur);
+      const float4 b = __ldg(nodes + 2 * cur + 1);
+      const bool h = !done && slab(a, b, r, best.t);
+      int nxt = __float_as_int(b.w);
+      if (any_of<kScope>(h)) {
+        const int packed = __float_as_int(b.z);
+        const int cnt = packed >> kCountShift;
+        if (cnt > 0) {
+          if (h && leaf<kAnyHit>(tris, packed & ((1 << kCountShift) - 1),
+                                 cnt, r, best)) {
+            done = true;
+          }
+        } else {
+          nxt = cur + 1;
+        }
+      }
+      if (kAnyHit && !any_of<kScope>(!done)) break;
+      cur = nxt;
+    }
+  }
+  if (valid) {
+    out_t[i] = best.t;
+    out_u[i] = best.u;
+    out_v[i] = best.v;
+    out_tri[i] = best.tri;
+    out_hit[i] = best.tri >= 0 ? 1 : 0;
+  }
+}
+
+template <bool kAnyHit, int kScope>
+cudaError_t launch(const float4* nodes, int n_nodes, const float4* tris,
+                   int n, const float* o, const float* d, const float* tmin,
+                   const float* tmax, float* t, float* u, float* v, int* tri,
+                   unsigned char* hit, cudaStream_t stream) {
+  const int grid = (n + kBlock - 1) / kBlock;
+  skiplink_walk<kAnyHit, kScope><<<grid, kBlock, 0, stream>>>(
+      nodes, n_nodes, tris, n, o, d, tmin, tmax, t, u, v, tri, hit);
+  return cudaGetLastError();
+}
+
+template <bool kAnyHit>
+cudaError_t dispatch(int scope, const float4* nodes, int n_nodes,
+                     const float4* tris, int n, const float* o,
+                     const float* d, const float* tmin, const float* tmax,
+                     float* t, float* u, float* v, int* tri,
+                     unsigned char* hit, cudaStream_t stream) {
+  switch (scope) {
+    case kThread:
+      return launch<kAnyHit, kThread>(nodes, n_nodes, tris, n, o, d, tmin,
+                                      tmax, t, u, v, tri, hit, stream);
+    case kWarp:
+      return launch<kAnyHit, kWarp>(nodes, n_nodes, tris, n, o, d, tmin,
+                                    tmax, t, u, v, tri, hit, stream);
+    case kBlockScope:
+      return launch<kAnyHit, kBlockScope>(nodes, n_nodes, tris, n, o, d,
+                                          tmin, tmax, t, u, v, tri, hit,
+                                          stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns 0 on success, else the CUDA error code of the launch (or
+// cudaErrorInvalidValue for arguments the kernel does not take).
+// nodes: [n_nodes + 1, 8] float32; tris: [n_tri_rows, 12] float32 with
+// n_tri_rows = triangles + max_leaf; scope 0 thread, 1 warp, 2 block.
+int skiplink_walk_launch(int any_hit, int scope, const float* nodes,
+                         int n_nodes, const float* tris, int n_tri_rows,
+                         int max_leaf, int n, const float* o, const float* d,
+                         const float* tmin, const float* tmax, float* t,
+                         float* u, float* v, int* tri, unsigned char* hit,
+                         cudaStream_t stream) {
+  if (n <= 0) return 0;
+  if (n_nodes <= 0 || max_leaf <= 0 || max_leaf > kMaxLeaf ||
+      n_tri_rows < max_leaf || n_tri_rows >= (1 << kCountShift) ||
+      (reinterpret_cast<uintptr_t>(nodes) & 15) ||
+      (reinterpret_cast<uintptr_t>(tris) & 15)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const float4* nodes4 = reinterpret_cast<const float4*>(nodes);
+  const float4* tris4 = reinterpret_cast<const float4*>(tris);
+  if (any_hit) {
+    return (int)dispatch<true>(scope, nodes4, n_nodes, tris4, n, o, d, tmin,
+                               tmax, t, u, v, tri, hit, stream);
+  }
+  return (int)dispatch<false>(scope, nodes4, n_nodes, tris4, n, o, d, tmin,
+                              tmax, t, u, v, tri, hit, stream);
+}
+
+}  // extern "C"

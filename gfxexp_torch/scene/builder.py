@@ -27,6 +27,7 @@ from gfxexp_torch.scene.types import (
     EnvLight,
     InstanceTable,
     MaterialTable,
+    ObjectTriangles,
     SceneData,
     TriangleSoA,
     UnitTable,
@@ -238,8 +239,9 @@ class SceneBuilder:
             raise ValueError("scene has no instances")
         mats = self.materials or [HostMaterial()]
 
-        tri_chunks = {k: [] for k in ("p0", "e1", "e2", "n0", "n1", "n2",
-                                      "uv0", "uv1", "uv2", "unit")}
+        tri_chunks = {k: [] for k in (
+            "p0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2", "unit",
+            "op0", "oe1", "oe2", "on0", "on1", "on2", "inst")}
         unit_material, unit_instance = [], []
         unit_tri_offset, unit_tri_count = [], []
         unit_importance = []
@@ -273,6 +275,15 @@ class SceneBuilder:
                 tri_chunks["uv2"].append(g.texcoords[i2])
                 nt = len(g.indices)
                 tri_chunks["unit"].append(np.full(nt, unit_cursor, np.int32))
+                # object-space copies for animation (types.ObjectTriangles)
+                op0 = g.positions[i0]
+                tri_chunks["op0"].append(op0)
+                tri_chunks["oe1"].append(g.positions[i1] - op0)
+                tri_chunks["oe2"].append(g.positions[i2] - op0)
+                tri_chunks["on0"].append(g.normals[i0])
+                tri_chunks["on1"].append(g.normals[i1])
+                tri_chunks["on2"].append(g.normals[i2])
+                tri_chunks["inst"].append(np.full(nt, inst_id, np.int32))
 
                 # per-triangle emissive importance = world area x luminance
                 area = 0.5 * np.linalg.norm(np.cross(p1 - p0, p2 - p0),
@@ -298,7 +309,7 @@ class SceneBuilder:
 
         def cat(key):
             return _t(np.concatenate(tri_chunks[key]).astype(
-                np.int32 if key == "unit" else np.float32))
+                np.int32 if key in ("unit", "inst") else np.float32))
 
         triangles = TriangleSoA(
             p0=cat("p0"), e1=cat("e1"), e2=cat("e2"),
@@ -352,6 +363,9 @@ class SceneBuilder:
             light_unit_alias_idx=_t(unit_aidx.astype(np.int32)),
             total_emissive_importance=torch.tensor(np.float32(total_imp)),
             env=self._env_light(),
+            object_triangles=ObjectTriangles(
+                p0=cat("op0"), e1=cat("oe1"), e2=cat("oe2"), n0=cat("on0"),
+                n1=cat("on1"), n2=cat("on2"), instance=cat("inst")),
         )
 
     def compile_instanced(self, arity: int = 4, max_leaf: int = 4,

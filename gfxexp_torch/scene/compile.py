@@ -1,6 +1,6 @@
 """Scene compilation: SceneBuilder -> (SceneData in traversal order, BVH)
-(port of gfxexp_tpu/scene/compile.py for the wide-row and the two-level
-traversals)."""
+(port of gfxexp_tpu/scene/compile.py for the wide-row, skip-link and
+two-level traversals)."""
 
 from __future__ import annotations
 
@@ -9,6 +9,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from gfxexp_torch.accel.bvh_build import build_bvh
+from gfxexp_torch.accel.skiplink import build_skip_links, pack_tables
 from gfxexp_torch.accel.widerow import build_widerow
 from gfxexp_torch.scene.builder import SceneBuilder
 from gfxexp_torch.scene.types import SceneData
@@ -28,26 +30,41 @@ def apply_triangle_permutation(scene: SceneData, perm) -> SceneData:
         light_tri_index=inv[scene.units.light_tri_index.long()].to(
             torch.int32),
         light_tri_pmf=scene.units.light_tri_pmf[p])
-    return dataclasses.replace(scene, triangles=new_tris, units=units)
+    ot = scene.object_triangles
+    if ot is not None:
+        ot = dataclasses.replace(ot, **{
+            f.name: getattr(ot, f.name)[p] for f in dataclasses.fields(ot)})
+    return dataclasses.replace(scene, triangles=new_tris, units=units,
+                               object_triangles=ot)
 
 
 def compile_scene(builder: SceneBuilder, arity: int = 4, max_leaf: int = 4,
                   traversal: str = "widerow",
                   use_probability_texture: bool = False,
                   spatial_splits: bool = False, rebraid: float = 0.0):
-    """Compile to (SceneData, WideRowBVH) on the CPU, or with
+    """Compile to (SceneData, WideRowBVH) on the CPU; with
     traversal="instanced" to (SceneData, InstancedAccel): per-group BLAS
     tables shared by the instances (`rebraid` > 1 opens the largest
-    instances into subtree entries). Other traversal structures raise."""
+    instances into subtree entries); with traversal="skip" to (SceneData,
+    SkipBVH), the refittable structure of animated scenes, its walk tables
+    packed. Other traversal structures raise."""
     if traversal == "instanced":
         return builder.compile_instanced(arity=arity, max_leaf=max_leaf,
                                          rebraid=rebraid)
-    if traversal != "widerow":
+    if traversal not in ("widerow", "skip"):
         raise NotImplementedError(
-            f"traversal={traversal!r} is not ported; use 'widerow' or "
-            f"'instanced'")
+            f"traversal={traversal!r} is not ported; use 'widerow', 'skip' "
+            f"or 'instanced'")
     scene = builder.compile(use_probability_texture=use_probability_texture)
     tris = scene.triangles
+    if traversal == "skip":
+        bvh, perm = build_bvh(tris.p0.numpy(), tris.e1.numpy(),
+                              tris.e2.numpy(), arity=arity,
+                              max_leaf=max_leaf)
+        scene = apply_triangle_permutation(scene, perm)
+        skip = build_skip_links(bvh.child_min, bvh.child_max, bvh.child_idx,
+                                bvh.child_count, max_leaf=max_leaf)
+        return scene, pack_tables(skip, scene.triangles)
     wrow, perm = build_widerow(tris.p0.numpy(), tris.e1.numpy(),
                                tris.e2.numpy(), arity=arity,
                                max_leaf=max_leaf,

@@ -3,7 +3,8 @@
 Instances are flattened into world-space "units" (instance x geometry) at
 compile time; the light tables keep per-unit windows into flat arrays. A
 two-level (instanced) scene keeps object-space BLAS triangles instead and
-sets `inst_unit_base` (see SceneData).
+sets `inst_unit_base` (see SceneData); a flattened scene also keeps an
+object-space copy of its triangles for animation (`object_triangles`).
 `from_numpy` carries a gfxexp_tpu object (by attribute name, no jax import)
 into the port's classes.
 """
@@ -96,6 +97,21 @@ class EnvLight(TensorData):
 
 
 @dataclass
+class ObjectTriangles(TensorData):
+    """Object-space copy of the triangles in traversal order, kept for
+    animation: each frame's world geometry is the instance transforms
+    applied to these (scene/animation.py update_world_geometry)."""
+
+    p0: torch.Tensor  # [T, 3]
+    e1: torch.Tensor
+    e2: torch.Tensor
+    n0: torch.Tensor
+    n1: torch.Tensor
+    n2: torch.Tensor
+    instance: torch.Tensor  # [T] int32 owning instance
+
+
+@dataclass
 class SceneData(TensorData):
     """Everything the device code needs for one frame (the port has no
     textured or displaced scenes yet)."""
@@ -108,6 +124,8 @@ class SceneData(TensorData):
     light_unit_pmf: torch.Tensor  # [U]
     total_emissive_importance: torch.Tensor  # []
     env: Optional[EnvLight] = None
+    # flattened scenes (compile()): object-space triangles for animation
+    object_triangles: Optional[ObjectTriangles] = None
     light_unit_alias_prob: Optional[torch.Tensor] = None  # [U]
     light_unit_alias_idx: Optional[torch.Tensor] = None  # [U] int32
     # two-level (instanced) scenes (compile_scene(traversal="instanced")):

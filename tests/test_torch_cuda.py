@@ -16,7 +16,11 @@ sys.path.insert(0, "tests")
 import torch_scenes as S  # noqa: E402
 
 import gfxexp_torch.scene.builder as TB  # noqa: E402
-from gfxexp_torch.accel import instanced, persistent  # noqa: E402
+from gfxexp_torch.accel import (  # noqa: E402
+    instanced,
+    persistent,
+    skip_traverse,
+)
 from gfxexp_torch.accel.instanced import (  # noqa: E402
     build_instanced,
     walk_instanced_cuda,
@@ -24,11 +28,15 @@ from gfxexp_torch.accel.instanced import (  # noqa: E402
     walk_tlas,
 )
 from gfxexp_torch.accel.persistent import walk_cuda, walk_plain  # noqa: E402
+from gfxexp_torch.accel.rowcursor import intersect_any_rowcursor  # noqa: E402
+from gfxexp_torch.accel.skip_traverse import walk_skip_cuda  # noqa: E402
+from gfxexp_torch.accel.skiplink import walk_skip_plain  # noqa: E402
 from gfxexp_torch.accel.traverse import intersect_any  # noqa: E402
 from gfxexp_torch.accel.traverse import intersect_closest  # noqa: E402
 from gfxexp_torch.accel.widerow import build_widerow  # noqa: E402
 from gfxexp_torch.render import pathtrace as tpt  # noqa: E402
 from gfxexp_torch.render.camera import make_camera  # noqa: E402
+from gfxexp_torch.scene import animation  # noqa: E402
 from gfxexp_torch.scene.compile import compile_scene  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -183,3 +191,65 @@ def test_instanced_render_on_card_matches_cpu(dev):
     assert torch.isfinite(a).all()
     assert S.image_rel_diff(a.cpu().numpy(), b.numpy()) < 5e-3
     assert abs(float(na) - float(nb)) <= 5e-3 * float(nb)
+
+
+def _skip_frames(dev):
+    """The box with three spheres compiled skip, at frame 0 and after two
+    frames of animation (refit boxes), on the card."""
+    ts, tb = compile_scene(S.instanced_spheres_scene(TB), traversal="skip")
+    ts, tb = ts.to(dev), tb.to(dev)
+    out = [(ts, tb)]
+    for t in (0.4, 0.9):
+        ts, tb = animation.advance_frame(
+            ts, tb, S.spheres_controllers(animation), t)
+    out.append((ts, tb))
+    return out
+
+
+@pytest.mark.parametrize("scope", ["thread", "warp", "block"])
+def test_skip_kernel_matches_plain(dev, scope):
+    """Each cursor scope, closest and any hit, dead rays and a ragged last
+    block included, before and after a refit: the kernel equals the plain
+    version bit for bit (a shared cursor visits more nodes, never finds
+    other hits)."""
+    n = 20000
+    rng = np.random.default_rng(13)
+    o = torch.from_numpy(rng.uniform(-1.8, 1.8, (n, 3)).astype(
+        np.float32)).to(dev)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d = torch.from_numpy(d / np.linalg.norm(d, axis=1, keepdims=True)).to(dev)
+    t_max = torch.where(torch.arange(n, device=dev) % 5 == 0, -1.0, 3.0)
+    for ts, tb in _skip_frames(dev):
+        for any_hit in (False, True):
+            k = walk_skip_cuda(tb, ts.triangles, o, d, 1e-4, t_max, any_hit,
+                               scope)
+            p = walk_skip_plain(tb, ts.triangles, o, d, 1e-4, t_max, any_hit)
+            torch.cuda.synchronize()
+            assert k.hit.any() and not k.hit[t_max < 0].any()
+            for f in ("hit", "t", "u", "v", "tri"):
+                assert torch.equal(getattr(k, f), getattr(p, f)), f
+
+
+def test_skip_wrappers_launch_and_count(dev):
+    ts, tb = _skip_frames(dev)[0]
+    o, d = (x.to(dev) for x in _rays(1000))
+    skip_traverse.reset_launch_counts()
+    intersect_closest(tb, ts.triangles, o, d)
+    intersect_any(tb, ts.triangles, o, d)
+    intersect_any_rowcursor(tb, ts.triangles, o, d)
+    walk_skip_cuda(tb, ts.triangles, o, d, 1e-4, 1e30, False, "block")
+    assert skip_traverse.launch_counts == {
+        "closest_thread": 1, "any_thread": 1, "closest_warp": 0,
+        "any_warp": 1, "closest_block": 1, "any_block": 0}
+
+
+def test_animated_render_on_card_matches_cpu(dev):
+    ts, tb = _skip_frames(dev)[1]
+    tc = make_camera(**S.INSTANCED_CAMERA)
+    cfg = tpt.PTConfig(max_path_length=4, count_rays=True)
+    a, na = tpt.render_accumulate(ts, tb, tc.to(dev), 32, 32, 0, 2, cfg)
+    b, nb = tpt.render_accumulate(ts.to("cpu"), tb.to("cpu"), tc, 32, 32, 0,
+                                  2, cfg)
+    assert torch.isfinite(a).all()
+    assert S.image_rel_diff(a.cpu().numpy(), b.numpy()) < 5e-3
+    assert float(na) == float(nb)

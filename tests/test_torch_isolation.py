@@ -1,7 +1,9 @@
 """gfxexp_torch runs without JAX: in a subprocess where importing jax or
-flax fails, every module of the package imports and 16x16 renders of the
-small bench scene and of the two-level `big` scene run. The package's
-sources and chip_smoke.py never name jax."""
+flax fails, every module of the package (the apps included) imports, 16x16
+renders of the small bench scene, of the two-level `big` scene and of an
+animated frame of the flattened `big` scene run, and the path_tracing app
+renders on the CPU. The package's sources and chip_smoke.py never name
+jax."""
 
 import os
 import pathlib
@@ -22,7 +24,8 @@ names = [m.name for m in pkgutil.walk_packages(gfxexp_torch.__path__,
                                                "gfxexp_torch.")]
 for name in names:
     importlib.import_module(name)
-from gfxexp_torch.bench import bench_camera, build_bench_scene
+from gfxexp_torch.bench import (bench_camera, bench_controllers,
+                                build_bench_scene)
 from gfxexp_torch.render.pathtrace import PTConfig, render_sample
 scene, bvh = build_bench_scene()
 img, nr = render_sample(scene, bvh, bench_camera(16, 16), 16, 16, 0,
@@ -34,20 +37,34 @@ img = render_sample(scene, acc, bench_camera(16, 16, "big"), 16, 16, 0,
                     PTConfig())
 assert scene.is_instanced and bool(torch.isfinite(img).all())
 assert float(img.mean()) > 0.0
+from gfxexp_torch.apps import path_tracing
+from gfxexp_torch.scene.animation import advance_frame
+scene, skip = build_bench_scene("big", traversal="skip")
+scene, skip = advance_frame(scene, skip, bench_controllers("big"), 0.5)
+img = render_sample(scene, skip, bench_camera(16, 16, "big"), 16, 16, 0,
+                    PTConfig())
+assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0
+hdr = path_tracing.main(["-device", "cpu", "-width", "8", "-height", "8",
+                         "-frames", "2", "-output", OUT,
+                         "-name", "b", "-sphere", "0.5", "-inst", "b",
+                         "-begin-pos", "0", "0", "0", "-end-pos", "0", "1",
+                         "0"])
+assert hdr.shape == (8, 8, 3)
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK", len(names))
 """
 
 
-def test_package_imports_and_renders_without_jax():
+def test_package_imports_and_renders_without_jax(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=str(REPO),
+    script = _SCRIPT.replace("OUT", repr(str(tmp_path / "app")))
+    out = subprocess.run([sys.executable, "-c", script], cwd=str(REPO),
                          env=env, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert out.stdout.startswith("OK")
-    assert int(out.stdout.split()[1]) >= 20  # every module was imported
+    assert out.stdout.splitlines()[-1].startswith("OK")
+    assert int(out.stdout.splitlines()[-1].split()[1]) >= 28  # every module
 
 
 def test_no_source_names_jax():

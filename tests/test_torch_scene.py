@@ -139,7 +139,7 @@ def test_primary_rays_match_jax():
 def test_unported_paths_raise():
     b = S.box_scene(TB)
     with pytest.raises(NotImplementedError):
-        tcompile(b, traversal="skip")
+        tcompile(b, traversal="qrow")
     with pytest.raises(NotImplementedError):
         tcompile(b, spatial_splits=True)
     with pytest.raises(NotImplementedError):

@@ -63,6 +63,30 @@ def instanced_spheres_scene(mod):
     return b
 
 
+def spheres_controllers(mod):
+    """Controllers for instanced_spheres_scene, given an animation module
+    (gfxexp_tpu.scene.animation or gfxexp_torch.scene.animation): the lamp
+    (instance 6) moves down keeping its downward orientation, one sphere (7)
+    moves and grows, one (8) turns about a tilted axis; phases and
+    frequencies differ."""
+    q = np.asarray([0.3, 0.5, -0.2, 0.8])
+    q = tuple(float(x) for x in q / np.linalg.norm(q))
+    flip = (1.0, 0.0, 0.0, 0.0)  # pi about x
+    return [
+        mod.InstanceController(instance=6, begin_position=(0, 1.99, 0),
+                               end_position=(0, 1.4, 0),
+                               begin_orientation=flip, end_orientation=flip,
+                               frequency=0.5),
+        mod.InstanceController(instance=7, begin_position=(-0.8, -1.2, 0.0),
+                               end_position=(-0.4, -1.0, 0.4),
+                               end_scale=1.5, frequency=0.8,
+                               initial_time=0.1),
+        mod.InstanceController(instance=8, begin_position=(0.0, -1.4, -0.8),
+                               end_position=(0.0, -1.4, -0.8),
+                               end_orientation=q, frequency=1.3),
+    ]
+
+
 def soup(rng, n, spread):
     """Random triangle soup (p0, e1, e2) around the origin, as
     tests/test_persistent_inst.py makes it."""
