@@ -17,8 +17,9 @@ source's note.
 
 Routing, as in the JAX package: `tlas=True` or `acc.use_tlas` -> the rays
 are argsorted by their nearest entry and walked nearest-first (the same
-function; on the GPU its point is coherence); else `set_persistent` /
-GFXEXP_PERSIST on (the default) -> nearest-first; off -> build order. The
+function; on the GPU its point is coherence); else the switch of the
+single-level walks (`widerow.set_persistent`, GFXEXP_PERSIST) on (the
+default) -> nearest-first; off -> build order. The
 JAX package also leaves the persistent route when the tables exceed 24 MB
 of VMEM; the GPU has no such limit, so the port does not.
 
@@ -31,7 +32,6 @@ from __future__ import annotations
 
 import ctypes
 import heapq
-import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -40,14 +40,24 @@ import torch
 
 from gfxexp_torch.accel.bvh_build import build_bvh
 from gfxexp_torch.accel.persistent import (
+    _outputs,
     _prepare,
     _ptr,
     _safe_inv,
+    entry_slabs,
+    slab_rows,
     stack_depth,
+    walk_entries_plain,
     walk_plain,
 )
 from gfxexp_torch.accel.traverse import HitInfo
-from gfxexp_torch.accel.widerow import WIDTH, WideRowBVH, _pack_one
+from gfxexp_torch.accel.widerow import (  # noqa: F401 (set_persistent)
+    WIDTH,
+    WideRowBVH,
+    _pack_one,
+    persist_on,
+    set_persistent,
+)
 from gfxexp_torch.core.tensors import TensorData
 
 # The walk's routes, one per TPU kernel it replaces: "nearest" (nearest-
@@ -57,30 +67,10 @@ ROUTES = ("nearest", "build", "sorted")
 # kernel launches per (query, route), counted where the kernel is launched
 launch_counts = {f"{q}_{r}": 0 for q in ("closest", "any") for r in ROUTES}
 
-# nearest-first (True) or build-order (False) routing; None defers to the
-# environment variable GFXEXP_PERSIST ("1", the default, is nearest-first)
-PERSISTENT: Optional[bool] = None
-
-# rays per chunk of the [n, C] entry slab tests: bounds the temporaries
-_SLAB_ELEMS = 1 << 24
-
 
 def reset_launch_counts():
     for k in launch_counts:
         launch_counts[k] = 0
-
-
-def set_persistent(on: Optional[bool]) -> None:
-    """Override the routing (None = environment GFXEXP_PERSIST)."""
-    global PERSISTENT
-    PERSISTENT = on
-
-
-def _persist_on() -> bool:
-    on = PERSISTENT
-    if on is None:
-        on = os.environ.get("GFXEXP_PERSIST", "1") == "1"
-    return on
 
 
 @dataclass
@@ -261,9 +251,9 @@ def build_instanced(blas_geoms, instances, arity: int = 4, max_leaf: int = 4,
 
 
 def _flat(acc: InstancedAccel) -> WideRowBVH:
-    """The BLAS tables as one flat [B*R, 64] table (a view)."""
+    """The BLAS tables as one flat [1, B*R, 64] table (a view)."""
     b, r, w = acc.nodes.shape
-    return WideRowBVH(nodes=acc.nodes.reshape(b * r, w), arity=acc.arity,
+    return WideRowBVH(nodes=acc.nodes.reshape(1, b * r, w), arity=acc.arity,
                       width=acc.width, max_leaf=acc.max_leaf,
                       max_depth=acc.max_depth)
 
@@ -302,60 +292,17 @@ def _prepare_inst(acc: InstancedAccel, o, d, t_min, t_max, route):
     return flat, ents, o, d, t_min, t_max
 
 
-def _entry_slabs(lo, hi, o, inv, t_min, t_max):
-    """Entry distance and hit mask of rays [n] against entries [C]: the
-    kernel's slab test, [n, C] each."""
-    t0 = (lo[None] - o[:, None]) * inv[:, None]
-    t1 = (hi[None] - o[:, None]) * inv[:, None]
-    mn = torch.minimum(t0, t1)
-    mx = torch.maximum(t0, t1)
-    near = torch.maximum(torch.maximum(mn[..., 0], mn[..., 1]),
-                         torch.maximum(mn[..., 2], t_min[:, None]))
-    far = torch.minimum(torch.minimum(mx[..., 0], mx[..., 1]),
-                        torch.minimum(mx[..., 2], t_max[:, None]))
-    return near, near <= far
-
-
 def _instance_entry_dists(chunk_lo, chunk_hi, o, d, t_min, t_max):
     """Entry distance of every ray into every entry's world AABB: [N, C]
     float32, +inf where the slab test misses."""
-    near, ok = _entry_slabs(chunk_lo, chunk_hi, o, _safe_inv(d), t_min,
-                            t_max)
+    near, ok = entry_slabs(chunk_lo, chunk_hi, o, _safe_inv(d), t_min,
+                           t_max)
     return torch.where(ok, near, torch.inf)
-
-
-def _chunk(n_c: int) -> int:
-    return max(1, _SLAB_ELEMS // max(n_c, 1))
 
 
 # ---------------------------------------------------------------------------
 # plain PyTorch version: one entry per live ray per iteration
 # ---------------------------------------------------------------------------
-
-
-def _pick(lo, hi, o, inv, t_min, best_t, nearest, last_near, last_c, nxt_c):
-    """The next entry of each ray, as the kernel picks it. Returns (entry,
-    its distance, found) [n] each."""
-    n_c = lo.shape[0]
-    cidx = torch.arange(n_c, device=o.device)
-    outs = []
-    step = _chunk(n_c)
-    for s in range(0, o.shape[0], step):
-        sl = slice(s, s + step)
-        near, cand = _entry_slabs(lo, hi, o[sl], inv[sl], t_min[sl],
-                                  best_t[sl])
-        if nearest:
-            ln = last_near[sl, None]
-            cand = cand & ((near > ln)
-                           | ((near == ln) & (cidx > last_c[sl, None])))
-            masked = torch.where(cand, near, torch.inf)
-            pick = torch.argmin(masked, dim=1)  # first index among ties
-        else:
-            cand = cand & (cidx >= nxt_c[sl, None])
-            pick = torch.argmax(cand.to(torch.uint8), dim=1)  # first True
-        pnear = torch.gather(near, 1, pick[:, None])[:, 0]
-        outs.append((pick, pnear, cand.any(dim=1)))
-    return tuple(torch.cat(x) for x in zip(*outs))
 
 
 def walk_instanced_plain(acc: InstancedAccel, o, d, t_min, t_max,
@@ -370,63 +317,24 @@ def walk_instanced_plain(acc: InstancedAccel, o, d, t_min, t_max,
     [N], entries visited [N])."""
     flat, ents, o, d, t_min, t_max = _prepare_inst(acc, o, d, t_min, t_max,
                                                    route)
-    nearest = route != "build"
     blas, start, tf, lo, hi = ents
-    n, dev = o.shape[0], o.device
     n_blas_rows = acc.nodes.shape[1]
-    inv = _safe_inv(d)
-    best_t = t_max.clone()
-    best_u = torch.zeros(n, device=dev)
-    best_v = torch.zeros(n, device=dev)
-    best_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    best_ent = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    last_near = torch.full((n,), -torch.inf, device=dev)
-    last_c = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    nxt_c = torch.zeros(n, dtype=torch.int64, device=dev)
-    rows = torch.zeros(n, dtype=torch.int64, device=dev)
-    visits = torch.zeros(n, dtype=torch.int64, device=dev)
 
-    live = torch.nonzero(t_max >= 0.0).squeeze(1)
-    while live.numel():
-        pick, pnear, found = _pick(lo, hi, o[live], inv[live], t_min[live],
-                                   best_t[live], nearest, last_near[live],
-                                   last_c[live], nxt_c[live])
-        go = found & (pnear < best_t[live]) if nearest else found
-        live, pick, pnear = live[go], pick[go], pnear[go]
-        if not live.numel():
-            break
+    def visit(rays, pick, best_t):
         m = tf[pick]
-        ox, oy, oz = o[live].unbind(1)
-        dx, dy, dz = d[live].unbind(1)
+        ox, oy, oz = o[rays].unbind(1)
+        dx, dy, dz = d[rays].unbind(1)
         o2 = torch.stack([m[:, 4 * k] * ox + m[:, 4 * k + 1] * oy
                           + m[:, 4 * k + 2] * oz + m[:, 4 * k + 3]
                           for k in range(3)], 1)
         d2 = torch.stack([m[:, 4 * k] * dx + m[:, 4 * k + 1] * dy
                           + m[:, 4 * k + 2] * dz for k in range(3)], 1)
-        out = walk_plain(flat, o2, d2, t_min[live], best_t[live], any_hit,
-                         base=blas[pick].to(torch.int64) * n_blas_rows,
-                         start=start[pick], with_stats=with_stats)
-        h = out[0] if with_stats else out
-        if with_stats:
-            rows[live] += out[1]
-            visits[live] += 1
-        took = h.hit
-        idx = live[took]
-        best_t[idx] = h.t[took]
-        best_u[idx] = h.u[took]
-        best_v[idx] = h.v[took]
-        best_tri[idx] = h.tri[took]
-        best_ent[idx] = pick[took].to(torch.int32)
-        if any_hit:  # the kernel returns on the first accepted triangle
-            live, pick, pnear = live[~took], pick[~took], pnear[~took]
-        last_near[live] = pnear
-        last_c[live] = pick
-        nxt_c[live] = pick + 1
-    hit = HitInfo(t=best_t, tri=best_tri, u=best_u, v=best_v,
-                  hit=best_tri >= 0)
-    if with_stats:
-        return hit, best_ent, rows, visits
-    return hit, best_ent
+        return walk_plain(flat, o2, d2, t_min[rays], best_t, any_hit,
+                          base=blas[pick].to(torch.int64) * n_blas_rows,
+                          start=start[pick], with_stats=with_stats)
+
+    return walk_entries_plain(lo, hi, o, d, t_min, t_max, any_hit,
+                              route != "build", visit, with_stats)
 
 
 # ---------------------------------------------------------------------------
@@ -459,19 +367,15 @@ def walk_instanced_cuda(acc: InstancedAccel, o, d, t_min, t_max,
         raise ValueError(f"stack depth {depth} exceeds the kernel's bound "
                          f"{lib.instanced_max_stack()}")
     n, dev = o.shape[0], o.device
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    u = torch.empty(n, dtype=torch.float32, device=dev)
-    v = torch.empty(n, dtype=torch.float32, device=dev)
-    tri = torch.empty(n, dtype=torch.int32, device=dev)
-    hit = torch.empty(n, dtype=torch.bool, device=dev)
+    t, u, v, tri, hit = _outputs(n, dev)
     entry = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
-        nodes = flat.nodes
+        nodes = flat.nodes  # [1, B*R, 64]
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.instanced_walk_launch(
                 int(any_hit), int(route != "build"), acc.arity, _ptr(nodes),
-                nodes.shape[0], acc.nodes.shape[1], acc.max_leaf, depth,
+                nodes.shape[1], acc.nodes.shape[1], acc.max_leaf, depth,
                 acc.num_entries, _ptr(blas), _ptr(start), _ptr(tf), _ptr(lo),
                 _ptr(hi), n, _ptr(o), _ptr(d), _ptr(t_min), _ptr(t_max),
                 _ptr(t), _ptr(u), _ptr(v), _ptr(tri), _ptr(hit), _ptr(entry),
@@ -506,7 +410,7 @@ def _nearest_entry(acc: InstancedAccel, o, d, t_min, t_max):
     """Each ray's nearest entry and whether it enters any, chunked over
     rays."""
     firsts, has = [], []
-    step = _chunk(acc.num_entries)
+    step = slab_rows(acc.num_entries)
     for s in range(0, o.shape[0], step):
         sl = slice(s, s + step)
         nears = _instance_entry_dists(acc.chunk_lo, acc.chunk_hi, o[sl],
@@ -551,7 +455,7 @@ def _traverse(acc: InstancedAccel, o, d, t_min, t_max, any_hit: bool,
         hit, ent = walk_tlas(walk, acc, o, d, t_min, t_max, any_hit)
     else:
         hit, ent = walk(acc, o, d, t_min, t_max, any_hit,
-                        route="nearest" if _persist_on() else "build")
+                        route="nearest" if persist_on() else "build")
     inst = torch.where(ent >= 0,
                        acc.inst_of_chunk[torch.clamp(ent, min=0).long()],
                        -1).to(torch.int32)

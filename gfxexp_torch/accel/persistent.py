@@ -1,19 +1,33 @@
-"""Wide-row BVH walk: the wrappers of the CUDA kernel and its plain version.
+"""Single-level wide-row walks: the wrappers of the two CUDA kernels, their
+plain versions, and the routing between them.
 
-Replaces the TPU kernel `_make_persistent_kernel`
-(gfxexp_tpu/accel/pallas_persistent.py:102, launched by `_run_persistent`
-:352) in both its instantiations, closest hit and any hit.
+Replaces two TPU kernels:
+- kernel 1, `_make_persistent_kernel` (gfxexp_tpu/accel/pallas_persistent.py:
+  102, launched by `_run_persistent` :352), closest and any hit over a
+  single-chunk table: csrc/widerow_traverse.cu;
+- kernel 2, `_make_kernel` (gfxexp_tpu/accel/pallas_widestack.py:307,
+  launched by `_run` :659), closest and any hit over the C chunk tables of
+  a large scene, chunks nearest first: csrc/chunked_traverse.cu.
 
-The kernel (csrc/widerow_traverse.cu) runs one thread per ray with a
-per-thread stack over the [R, 64] row table in HBM. A walk step is one
-dependent load of a 256-byte row followed by a few dozen FLOPs, so the kernel
-is bound by the latency of those dependent loads, not by arithmetic; the
-design keeps every thread's loads independent of the others (no packets)
-and leans on the 50 MB L2, which holds the bench scene's table whole. The
-TPU kernel's pools, row slots, `sched_k` batching and 128-lane packets
-existed to keep VMEM busy and carry no meaning here.
+Kernel 1 runs one thread per ray with a per-thread stack over the row table
+in HBM. A walk step is one dependent load of a 256-byte row followed by a
+few dozen FLOPs, so the kernel is bound by the latency of those dependent
+loads, not by arithmetic; the design keeps every thread's loads independent
+of the others (no packets) and leans on the 50 MB L2, which holds the bench
+scene's table whole. The TPU kernel's pools, row slots, `sched_k` batching
+and 128-lane packets existed to keep VMEM busy and carry no meaning here.
 
-Semantics shared by kernel and plain version (and the TPU kernel): slab
+Kernel 2 runs kernel 1's walk per chunk, one thread per ray: each step
+scans the C chunk boxes and takes the chunk with the smallest (entry
+distance, index) after the last one taken, among the boxes the ray enters
+within [t_min, best_t]; the walk stops when that distance is >= best_t, and
+best_t carries across chunks (the pick is the two-level walk's, shared
+through csrc/widerow_walk.cuh). The TPU kernel's per-tile worklists, step
+skip and double-buffered chunk DMA streamed the chunk tables through VMEM;
+here the tables stay in HBM and every ray culls for itself. A table without
+chunk boxes (one chunk, reached with the switch off) is walked whole.
+
+Semantics shared by kernels and plain versions (and the TPU kernels): slab
 tests against [t_min, best_t] with `_safe_inv` reciprocals, hit children
 descended nearest first (a 4- or 8-wide sorting network on the entry
 distance, the rest pushed far to near), Baldwin-Weber leaf tests
@@ -21,8 +35,13 @@ distance, the rest pushed far to near), Baldwin-Weber leaf tests
 first accepted triangle. A ray with t_max < 0 does no work. Misses return
 t = t_max, tri = -1, u = v = 0.
 
-On a CUDA tensor the wrappers launch the kernel or raise; the plain version
-runs only for tensors on the CPU (and in tests and chip_smoke.py, which
+Routing, as in the JAX package (`_use_persistent`, pallas_widestack.py:798):
+a single-chunk table with the switch on (widerow.set_persistent,
+GFXEXP_PERSIST, the default) takes kernel 1; a chunked table, or any table
+with the switch off, takes kernel 2.
+
+On a CUDA tensor the wrappers launch a kernel or raise; the plain versions
+run only for tensors on the CPU (and in tests and chip_smoke.py, which
 compare the two).
 """
 
@@ -33,10 +52,20 @@ import ctypes
 import torch
 
 from gfxexp_torch.accel.traverse import HitInfo
-from gfxexp_torch.accel.widerow import COUNT_SHIFT, WIDTH, WideRowBVH
+from gfxexp_torch.accel.widerow import (
+    COUNT_SHIFT,
+    WIDTH,
+    WideRowBVH,
+    persist_on,
+)
 
-# kernel launches per instantiation, counted where the kernel is launched
+# kernel launches per instantiation, counted where each kernel is launched:
+# kernel 1 (one table) and kernel 2 (chunk tables)
 launch_counts = {"closest": 0, "any": 0}
+chunked_launch_counts = {"closest": 0, "any": 0}
+
+# rays per slice of the [n, C] box slab tests: bounds the temporaries
+_SLAB_ELEMS = 1 << 24
 
 # sorting networks (ascending), pairs applied in sequence; the kernel
 # applies the same ones so ties order identically
@@ -50,8 +79,9 @@ _NET8 = (
 
 
 def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, chunked_launch_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 def stack_depth(bvh: WideRowBVH) -> int:
@@ -74,13 +104,15 @@ def _prepare(bvh: WideRowBVH, o, d, t_min, t_max):
         raise ValueError(f"bad row format width={bvh.width} "
                          f"max_leaf={bvh.max_leaf}")
     nodes = bvh.nodes
-    if (nodes.dim() != 2 or nodes.shape[1] != WIDTH
+    if (nodes.dim() != 3 or nodes.shape[2] != WIDTH
             or nodes.dtype != torch.float32 or not nodes.is_contiguous()):
-        raise ValueError(f"nodes must be a contiguous float32 [R, {WIDTH}] "
-                         f"tensor, got {tuple(nodes.shape)} {nodes.dtype}")
+        raise ValueError(f"nodes must be a contiguous float32 "
+                         f"[C, R, {WIDTH}] tensor, got "
+                         f"{tuple(nodes.shape)} {nodes.dtype}")
     if nodes.device != o.device:
         raise ValueError(f"rays on {o.device}, table on {nodes.device}")
-    return (nodes, *prepare_rays(o, d, t_min, t_max))
+    # the chunks as one flat [C*R, 64] table (a view)
+    return (nodes.reshape(-1, WIDTH), *prepare_rays(o, d, t_min, t_max))
 
 
 def prepare_rays(o, d, t_min, t_max):
@@ -110,6 +142,28 @@ def prepare_rays(o, d, t_min, t_max):
 # ---------------------------------------------------------------------------
 # plain PyTorch version: every active ray takes one step per iteration
 # ---------------------------------------------------------------------------
+
+
+def order_children(nears, metas, valids, net, stack, rows, sp):
+    """The ordered descent of the rows being walked: sort the children
+    (entry distances, child entries and valid masks, one [A] tensor per
+    child) with the sorting network `net` (ties keep their order), push
+    every valid child but the nearest onto stack[rows] far to near, and
+    return (the nearest valid child or -1, the new stack pointers), [A]
+    each."""
+    for a, b in net:
+        swap = nears[a] > nears[b]
+        nears[a], nears[b] = (torch.where(swap, nears[b], nears[a]),
+                              torch.where(swap, nears[a], nears[b]))
+        metas[a], metas[b] = (torch.where(swap, metas[b], metas[a]),
+                              torch.where(swap, metas[a], metas[b]))
+        valids[a], valids[b] = (torch.where(swap, valids[b], valids[a]),
+                                torch.where(swap, valids[a], valids[b]))
+    for s in range(len(nears) - 1, 0, -1):
+        push = torch.nonzero(valids[s]).squeeze(1)
+        stack[rows[push], sp[push]] = metas[s][push]
+        sp = sp + valids[s].to(torch.int64)
+    return torch.where(valids[0], metas[0], -1), sp
 
 
 def walk_plain(bvh: WideRowBVH, o, d, t_min, t_max, any_hit: bool,
@@ -157,7 +211,6 @@ def walk_plain(bvh: WideRowBVH, o, d, t_min, t_max, any_hit: bool,
         tmin = t_min[act]
         bt = best_t[act]
         a_sp = sp[act]
-        nxt = torch.full_like(cur, -1)
         done = torch.zeros(act.shape, dtype=torch.bool, device=dev)
         leaf = row[:, WIDTH - 1] > 0.5
 
@@ -182,19 +235,8 @@ def walk_plain(bvh: WideRowBVH, o, d, t_min, t_max, any_hit: bool,
             nears.append(torch.where(ok, near, torch.inf))
             metas.append(meta)
             valids.append(ok)
-        for a, b in net:
-            swap = nears[a] > nears[b]
-            nears[a], nears[b] = (torch.where(swap, nears[b], nears[a]),
-                                  torch.where(swap, nears[a], nears[b]))
-            metas[a], metas[b] = (torch.where(swap, metas[b], metas[a]),
-                                  torch.where(swap, metas[a], metas[b]))
-            valids[a], valids[b] = (torch.where(swap, valids[b], valids[a]),
-                                    torch.where(swap, valids[a], valids[b]))
-        for s in range(K - 1, 0, -1):
-            push = torch.nonzero(valids[s]).squeeze(1)
-            stack[act[push], a_sp[push]] = metas[s][push]
-            a_sp = a_sp + valids[s].to(torch.int64)
-        nxt = torch.where(valids[0], metas[0], nxt)
+        nxt, a_sp = order_children(nears, metas, valids, net, stack, act,
+                                   a_sp)
 
         # leaf rows: Baldwin-Weber tests of the row's triangles
         packed = row_i[:, WIDTH - 4]
@@ -237,7 +279,162 @@ def walk_plain(bvh: WideRowBVH, o, d, t_min, t_max, any_hit: bool,
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernel
+# plain PyTorch version of the entry loop: chunks (kernel 2) and two-level
+# entries (accel/instanced.py) picked one per live ray per iteration
+# ---------------------------------------------------------------------------
+
+
+def entry_slabs(lo, hi, o, inv, t_min, t_max):
+    """Entry distance and hit mask of rays [n] against boxes [C]: the
+    kernels' slab test, [n, C] each."""
+    t0 = (lo[None] - o[:, None]) * inv[:, None]
+    t1 = (hi[None] - o[:, None]) * inv[:, None]
+    mn = torch.minimum(t0, t1)
+    mx = torch.maximum(t0, t1)
+    near = torch.maximum(torch.maximum(mn[..., 0], mn[..., 1]),
+                         torch.maximum(mn[..., 2], t_min[:, None]))
+    far = torch.minimum(torch.minimum(mx[..., 0], mx[..., 1]),
+                        torch.minimum(mx[..., 2], t_max[:, None]))
+    return near, near <= far
+
+
+def slab_rows(n_c: int) -> int:
+    """Rays per slice of an [n, n_c] slab test."""
+    return max(1, _SLAB_ELEMS // max(n_c, 1))
+
+
+def _pick(lo, hi, o, inv, t_min, best_t, nearest, last_near, last_c, nxt_c):
+    """The next entry of each ray, as the kernels pick it. Returns (entry,
+    its distance, found) [n] each."""
+    n_c = lo.shape[0]
+    cidx = torch.arange(n_c, device=o.device)
+    outs = []
+    step = slab_rows(n_c)
+    for s in range(0, o.shape[0], step):
+        sl = slice(s, s + step)
+        near, cand = entry_slabs(lo, hi, o[sl], inv[sl], t_min[sl],
+                                 best_t[sl])
+        if nearest:
+            ln = last_near[sl, None]
+            cand = cand & ((near > ln)
+                           | ((near == ln) & (cidx > last_c[sl, None])))
+            masked = torch.where(cand, near, torch.inf)
+            pick = torch.argmin(masked, dim=1)  # first index among ties
+        else:
+            cand = cand & (cidx >= nxt_c[sl, None])
+            pick = torch.argmax(cand.to(torch.uint8), dim=1)  # first True
+        pnear = torch.gather(near, 1, pick[:, None])[:, 0]
+        outs.append((pick, pnear, cand.any(dim=1)))
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def walk_entries_plain(lo, hi, o, d, t_min, t_max, any_hit: bool,
+                       nearest: bool, visit, with_stats: bool = False):
+    """The kernels' entry loop as tensor code, over prepared rays (o, d
+    [N, 3], t_min, t_max [N]) and boxes lo, hi [C, 3]. Each iteration picks
+    the next entry of every live ray: nearest-first, the smallest (entry
+    distance, index) after the last one taken among the boxes the ray
+    enters within [t_min, best_t], ending the ray's walk when that distance
+    is >= best_t; else build order, the next box the ray enters. Then
+    `visit(rays, entries, best_t)` walks the picked entries of those rays
+    (rays [n] indices, returning a HitInfo, and rows visited [n] when
+    with_stats) and the hits are merged: best_t carries across entries, and
+    any hit stops at the first accepted triangle. Returns (HitInfo, entry
+    [N] int32), with_stats=True adds (rows visited [N], entries visited
+    [N])."""
+    n, dev = o.shape[0], o.device
+    inv = _safe_inv(d)
+    best_t = t_max.clone()
+    best_u = torch.zeros(n, device=dev)
+    best_v = torch.zeros(n, device=dev)
+    best_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best_ent = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    last_near = torch.full((n,), -torch.inf, device=dev)
+    last_c = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    nxt_c = torch.zeros(n, dtype=torch.int64, device=dev)
+    rows = torch.zeros(n, dtype=torch.int64, device=dev)
+    visits = torch.zeros(n, dtype=torch.int64, device=dev)
+
+    live = torch.nonzero(t_max >= 0.0).squeeze(1)
+    while live.numel():
+        pick, pnear, found = _pick(lo, hi, o[live], inv[live], t_min[live],
+                                   best_t[live], nearest, last_near[live],
+                                   last_c[live], nxt_c[live])
+        go = found & (pnear < best_t[live]) if nearest else found
+        live, pick, pnear = live[go], pick[go], pnear[go]
+        if not live.numel():
+            break
+        out = visit(live, pick, best_t[live])
+        h = out[0] if with_stats else out
+        if with_stats:
+            rows[live] += out[1]
+            visits[live] += 1
+        took = h.hit
+        idx = live[took]
+        best_t[idx] = h.t[took]
+        best_u[idx] = h.u[took]
+        best_v[idx] = h.v[took]
+        best_tri[idx] = h.tri[took]
+        best_ent[idx] = pick[took].to(torch.int32)
+        if any_hit:  # the kernels return on the first accepted triangle
+            live, pick, pnear = live[~took], pick[~took], pnear[~took]
+        last_near[live] = pnear
+        last_c[live] = pick
+        nxt_c[live] = pick + 1
+    hit = HitInfo(t=best_t, tri=best_tri, u=best_u, v=best_v,
+                  hit=best_tri >= 0)
+    if with_stats:
+        return hit, best_ent, rows, visits
+    return hit, best_ent
+
+
+def _chunk_boxes(bvh, dev):
+    """The chunk boxes [C, 3] each, checked; None for a table walked whole
+    (one chunk without boxes)."""
+    if bvh.chunk_lo is None or bvh.chunk_hi is None:
+        if bvh.num_chunks != 1:
+            raise ValueError(f"a table of {bvh.num_chunks} chunks needs its "
+                             "chunk boxes (chunk_lo, chunk_hi)")
+        return None
+    shape = (bvh.num_chunks, 3)
+    for x in (bvh.chunk_lo, bvh.chunk_hi):
+        if (tuple(x.shape) != shape or x.dtype != torch.float32
+                or x.device != dev or not x.is_contiguous()):
+            raise ValueError(
+                f"chunk boxes must be contiguous float32 {shape} tensors on "
+                f"{dev}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+    return bvh.chunk_lo, bvh.chunk_hi
+
+
+def walk_chunked_plain(bvh: WideRowBVH, o, d, t_min, t_max, any_hit: bool,
+                       with_stats: bool = False):
+    """Kernel 2's walk as tensor code: walk_plain over each ray's chunks in
+    its nearest-first order (walk_entries_plain), chunk c from row c * R of
+    the flat table, best_t carried across chunks; a table without chunk
+    boxes is walked whole. with_stats=True returns (HitInfo, rows visited
+    [N], chunks visited [N])."""
+    _, o, d, t_min, t_max = _prepare(bvh, o, d, t_min, t_max)
+    flat = bvh.flat()
+    boxes = _chunk_boxes(bvh, o.device)
+    if boxes is None:
+        out = walk_plain(flat, o, d, t_min, t_max, any_hit,
+                         with_stats=with_stats)
+        if with_stats:
+            return out[0], out[1], (t_max >= 0.0).to(torch.int64)
+        return out
+    r = bvh.rows_per_chunk
+
+    def visit(rays, chunks, best_t):
+        return walk_plain(flat, o[rays], d[rays], t_min[rays], best_t,
+                          any_hit, base=chunks * r, with_stats=with_stats)
+
+    out = walk_entries_plain(*boxes, o, d, t_min, t_max, any_hit, True,
+                             visit, with_stats)
+    return (out[0], out[2], out[3]) if with_stats else out[0]
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
 # ---------------------------------------------------------------------------
 
 
@@ -245,29 +442,41 @@ def _ptr(x: torch.Tensor):
     return ctypes.c_void_p(x.data_ptr())
 
 
+def _null_or_ptr(x):
+    return ctypes.c_void_p(None if x is None else x.data_ptr())
+
+
+def _outputs(n, dev):
+    """Empty (t, u, v, tri, hit) tensors a walk kernel writes."""
+    return (torch.empty(n, dtype=torch.float32, device=dev),
+            torch.empty(n, dtype=torch.float32, device=dev),
+            torch.empty(n, dtype=torch.float32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(n, dtype=torch.bool, device=dev))
+
+
 def walk_cuda(bvh: WideRowBVH, o, d, t_min, t_max, any_hit: bool) -> HitInfo:
-    """Launch csrc/widerow_traverse.cu on PyTorch's current stream. Raises
-    if the kernel cannot be built or the launch is refused."""
+    """Launch kernel 1 (csrc/widerow_traverse.cu) on PyTorch's current
+    stream over a single-chunk table. Raises if the kernel cannot be built
+    or the launch is refused."""
     from gfxexp_torch.csrc.build import load_library
 
     nodes, o, d, t_min, t_max = _prepare(bvh, o, d, t_min, t_max)
     if o.device.type != "cuda":
         raise ValueError(f"walk_cuda needs CUDA tensors, got {o.device}")
+    if bvh.num_chunks != 1:
+        raise ValueError(f"kernel 1 walks one table, got {bvh.num_chunks} "
+                         "chunks (walk_chunked_cuda walks them)")
     lib = load_library("widerow_traverse")
     depth = stack_depth(bvh)
     if depth > lib.widerow_max_stack():
         raise ValueError(f"stack depth {depth} exceeds the kernel's bound "
                          f"{lib.widerow_max_stack()}")
     n = o.shape[0]
-    dev = o.device
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    u = torch.empty(n, dtype=torch.float32, device=dev)
-    v = torch.empty(n, dtype=torch.float32, device=dev)
-    tri = torch.empty(n, dtype=torch.int32, device=dev)
-    hit = torch.empty(n, dtype=torch.bool, device=dev)
+    t, u, v, tri, hit = _outputs(n, o.device)
     if n:
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(o.device):
+            stream = torch.cuda.current_stream(o.device).cuda_stream
             rc = lib.widerow_walk_launch(
                 int(any_hit), bvh.arity, _ptr(nodes), nodes.shape[0],
                 bvh.max_leaf, depth, n, _ptr(o), _ptr(d), _ptr(t_min),
@@ -279,12 +488,62 @@ def walk_cuda(bvh: WideRowBVH, o, d, t_min, t_max, any_hit: bool) -> HitInfo:
     return HitInfo(t=t, tri=tri, u=u, v=v, hit=hit)
 
 
+def walk_chunked_cuda(bvh: WideRowBVH, o, d, t_min, t_max,
+                      any_hit: bool) -> HitInfo:
+    """Launch kernel 2 (csrc/chunked_traverse.cu) on PyTorch's current
+    stream: the chunks nearest first, or the one table of a table without
+    chunk boxes. Raises if the kernel cannot be built or the launch is
+    refused."""
+    from gfxexp_torch.csrc.build import load_library
+
+    nodes, o, d, t_min, t_max = _prepare(bvh, o, d, t_min, t_max)
+    if o.device.type != "cuda":
+        raise ValueError(f"walk_chunked_cuda needs CUDA tensors, got "
+                         f"{o.device}")
+    boxes = _chunk_boxes(bvh, o.device)
+    lo, hi = boxes if boxes is not None else (None, None)
+    lib = load_library("chunked_traverse")
+    depth = stack_depth(bvh)
+    if depth > lib.chunked_max_stack():
+        raise ValueError(f"stack depth {depth} exceeds the kernel's bound "
+                         f"{lib.chunked_max_stack()}")
+    n = o.shape[0]
+    t, u, v, tri, hit = _outputs(n, o.device)
+    if n:
+        with torch.cuda.device(o.device):
+            stream = torch.cuda.current_stream(o.device).cuda_stream
+            rc = lib.chunked_walk_launch(
+                int(any_hit), bvh.arity, _ptr(nodes), bvh.num_chunks,
+                bvh.rows_per_chunk, bvh.max_leaf, depth, _null_or_ptr(lo),
+                _null_or_ptr(hi), n, _ptr(o), _ptr(d), _ptr(t_min),
+                _ptr(t_max), _ptr(t), _ptr(u), _ptr(v), _ptr(tri), _ptr(hit),
+                ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(f"chunked_walk launch failed: CUDA error {rc}")
+        chunked_launch_counts["any" if any_hit else "closest"] += 1
+    return HitInfo(t=t, tri=tri, u=u, v=v, hit=hit)
+
+
+# ---------------------------------------------------------------------------
+# routing
+# ---------------------------------------------------------------------------
+
+
+def use_kernel1(bvh: WideRowBVH) -> bool:
+    """Kernel 1 for a single-chunk table with the switch on, else kernel 2
+    (pallas_widestack.py `_use_persistent`)."""
+    return persist_on() and bvh.num_chunks == 1
+
+
 def _walk(bvh, o, d, t_min, t_max, any_hit):
+    one = use_kernel1(bvh)
     if o.device.type == "cuda":
-        return walk_cuda(bvh, o, d, t_min, t_max, any_hit)
-    if o.device.type == "cpu":
-        return walk_plain(bvh, o, d, t_min, t_max, any_hit)
-    raise ValueError(f"no wide-row walk for device {o.device}")
+        walk = walk_cuda if one else walk_chunked_cuda
+    elif o.device.type == "cpu":
+        walk = walk_plain if one else walk_chunked_plain
+    else:
+        raise ValueError(f"no wide-row walk for device {o.device}")
+    return walk(bvh, o, d, t_min, t_max, any_hit)
 
 
 def intersect_closest_widerow(bvh: WideRowBVH, o, d, t_min=1e-4,

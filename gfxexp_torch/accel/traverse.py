@@ -27,18 +27,21 @@ class HitInfo(TensorData):
 
 
 def _check_structure(bvh) -> str:
-    """"widerow", "instanced" or "skip"; raises for other structures."""
+    """"widerow", "qrow", "instanced" or "skip"; raises for other
+    structures."""
     from gfxexp_torch.accel.instanced import InstancedAccel
+    from gfxexp_torch.accel.qrow import QRowBVH
     from gfxexp_torch.accel.skiplink import SkipBVH
     from gfxexp_torch.accel.widerow import WideRowBVH
 
-    for kind, cls in (("widerow", WideRowBVH), ("instanced", InstancedAccel),
-                      ("skip", SkipBVH)):
+    for kind, cls in (("widerow", WideRowBVH), ("qrow", QRowBVH),
+                      ("instanced", InstancedAccel), ("skip", SkipBVH)):
         if isinstance(bvh, cls):
             return kind
     raise NotImplementedError(
-        f"the port traverses WideRowBVH, InstancedAccel and SkipBVH tables "
-        f"only, got {type(bvh).__name__}")
+        f"the port traverses WideRowBVH (one table or chunked), QRowBVH, "
+        f"InstancedAccel and SkipBVH structures, got {type(bvh).__name__} "
+        f"(the stack-based wide BVH of traversal='wide' is not ported)")
 
 
 def intersect_closest(bvh, tris, o, d, t_min=1e-4, t_max=1e30) -> HitInfo:
@@ -48,6 +51,7 @@ def intersect_closest(bvh, tris, o, d, t_min=1e-4, t_max=1e30) -> HitInfo:
     hit instance."""
     from gfxexp_torch.accel.instanced import intersect_closest_instanced
     from gfxexp_torch.accel.persistent import intersect_closest_widerow
+    from gfxexp_torch.accel.qrow import intersect_closest_qrow
     from gfxexp_torch.accel.skip_traverse import intersect_closest_pallas
 
     kind = _check_structure(bvh)
@@ -57,6 +61,8 @@ def intersect_closest(bvh, tris, o, d, t_min=1e-4, t_max=1e30) -> HitInfo:
         return hit
     if kind == "skip":
         return intersect_closest_pallas(bvh, tris, o, d, t_min, t_max)
+    if kind == "qrow":
+        return intersect_closest_qrow(bvh, tris, o, d, t_min, t_max)
     return intersect_closest_widerow(bvh, o, d, t_min, t_max)
 
 
@@ -64,6 +70,7 @@ def intersect_any(bvh, tris, o, d, t_min=1e-4, t_max=1e30) -> torch.Tensor:
     """Shadow-ray query: occluded [R] bool."""
     from gfxexp_torch.accel.instanced import intersect_any_instanced
     from gfxexp_torch.accel.persistent import intersect_any_widerow
+    from gfxexp_torch.accel.qrow import intersect_any_qrow
     from gfxexp_torch.accel.skip_traverse import intersect_any_pallas
 
     kind = _check_structure(bvh)
@@ -71,6 +78,8 @@ def intersect_any(bvh, tris, o, d, t_min=1e-4, t_max=1e30) -> torch.Tensor:
         return intersect_any_instanced(bvh, o, d, t_min, t_max)
     if kind == "skip":
         return intersect_any_pallas(bvh, tris, o, d, t_min, t_max)
+    if kind == "qrow":
+        return intersect_any_qrow(bvh, tris, o, d, t_min, t_max)
     return intersect_any_widerow(bvh, o, d, t_min, t_max)
 
 

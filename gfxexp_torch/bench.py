@@ -9,11 +9,19 @@ length 5, 16 timed samples.
   (render_accumulate) and at 1920x1080 (8 tiles of 259,200 lanes through
   render_tile_accumulate), traced through the wide-row table;
 - `big`: a 6x6 grid of sphere pairs (74 instances) on a 4x4 floor, and
-  `city`: a 16x16 grid (514 instances) on a 10x10 floor, both compiled
-  two-level (traversal="instanced") and rendered at 512x512. `rebraid<k>`
+  `city`: a 16x16 grid (514 instances) on a 10x10 floor, compiled two-level
+  (traversal="instanced") by default and rendered at 512x512. `rebraid<k>`
   opens the largest instances into about k entries per instance (k = 4 when
-  omitted), `tlas` routes the queries through the ray-sorted pass, and
-  `persist` / `nopersist` pick the nearest-first or the build-order walk.
+  omitted) and `tlas` routes the queries through the ray-sorted pass.
+
+Format tokens, as bench.py takes them: `widerow` or `qrow` compile the
+scene single-level (`big` and `city` flattened into world triangles:
+chunked tables over 13,000 wide rows or 26,000 quantized rows),
+`instanced` two-level; `a8` builds arity 8 (wide rows and two-level
+tables). `persist` / `nopersist` set the one routing switch
+(widerow.set_persistent): on, single-chunk wide-row tables take kernel 1
+and two-level tables the nearest-first walk; off, every wide-row table
+takes kernel 2 and two-level tables the build-order walk.
 
 Mrays/s counts the closest-hit and shadow rays the integrator traced
 (cfg.count_rays), divided by the wall time of the timed run fenced with
@@ -24,6 +32,9 @@ torch.cuda.synchronize().
     python -m gfxexp_torch.bench 1080p
     python -m gfxexp_torch.bench big        # 512x512
     python -m gfxexp_torch.bench city rebraid4 tlas
+    python -m gfxexp_torch.bench big widerow
+    python -m gfxexp_torch.bench city qrow
+    python -m gfxexp_torch.bench 512 nopersist
 
 Prints one JSON line of bench.py's shape: metric, value, unit, vs_baseline.
 Needs a CUDA device; it does not fall back to the CPU.
@@ -38,7 +49,7 @@ import time
 import numpy as np
 import torch
 
-from gfxexp_torch.accel import instanced, persistent
+from gfxexp_torch.accel import instanced, lanegroup, persistent, qrow, widerow
 from gfxexp_torch.render.camera import make_camera
 from gfxexp_torch.render.pathtrace import (
     PTConfig,
@@ -105,19 +116,19 @@ def bench_scene_builder(b=None, scene: str = "small"):
 
 
 def build_bench_scene(scene: str = "small", rebraid: float = 0.0,
-                      tlas: bool = False, traversal: str = None):
-    """(SceneData, acceleration structure) of a bench scene on the CPU: a
-    WideRowBVH for "small", an InstancedAccel for "big" and "city"; with
-    traversal="skip" the scene flattened into world triangles under a
-    SkipBVH (the structure of the animated cells)."""
-    if traversal == "skip":
-        return compile_scene(bench_scene_builder(scene=scene), arity=4,
-                             max_leaf=4, traversal="skip")
-    if scene == "small":
-        return compile_scene(bench_scene_builder(), arity=4, max_leaf=4,
-                             traversal="widerow")
-    s, acc = compile_scene(bench_scene_builder(scene=scene), arity=4,
-                           max_leaf=4, traversal="instanced",
+                      tlas: bool = False, traversal: str = None,
+                      arity: int = 4):
+    """(SceneData, acceleration structure) of a bench scene on the CPU, as
+    bench.py builds it: by default a WideRowBVH for "small" and an
+    InstancedAccel for "big" and "city"; `traversal` "widerow", "qrow" or
+    "skip" compiles the scene single-level (flattened into world
+    triangles), "instanced" two-level."""
+    if traversal is None:
+        traversal = "widerow" if scene == "small" else "instanced"
+    b = bench_scene_builder(scene=scene)
+    if traversal != "instanced":
+        return compile_scene(b, arity=arity, max_leaf=4, traversal=traversal)
+    s, acc = compile_scene(b, arity=arity, max_leaf=4, traversal="instanced",
                            rebraid=rebraid)
     acc.use_tlas = tlas
     return s, acc
@@ -177,9 +188,18 @@ def render_frame(scene, bvh, camera, width, height, start_idx, n_samples,
 
 
 def _counts():
+    """Launches so far of every kernel a single- or two-level scene can
+    reach: kernel 1 (widerow_*), kernel 2 (chunked_*), the quantized walk
+    (qrow_*), the two-level walk (instanced_*) and the lane-group walk
+    (lanegroup_g*), which no bench route takes."""
     return {**{f"widerow_{k}": v for k, v in persistent.launch_counts.items()},
+            **{f"chunked_{k}": v
+               for k, v in persistent.chunked_launch_counts.items()},
+            **{f"qrow_{k}": v for k, v in qrow.launch_counts.items()},
             **{f"instanced_{k}": v
-               for k, v in instanced.launch_counts.items()}}
+               for k, v in instanced.launch_counts.items()},
+            **{f"lanegroup_g{k}": v
+               for k, v in lanegroup.launch_counts.items()}}
 
 
 def measure(size: str, scene=None, bvh=None, device="cuda",
@@ -238,14 +258,21 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     which = next((w for w in ("city", "big") if w in argv), "small")
     rebraid = 0.0
+    fmt = None
+    arity = 4
     for a in argv:
         if a.startswith("rebraid"):
             rebraid = float(a[7:] or 4.0)
+        elif a in ("widerow", "qrow", "instanced"):
+            fmt = a
+        elif a == "a8":
+            arity = 8
     if "persist" in argv or "nopersist" in argv:
-        instanced.set_persistent("persist" in argv)
+        widerow.set_persistent("persist" in argv)
     sizes = [s for s in SIZES if s in argv] or (
         list(SIZES) if which == "small" else ["512"])
-    scene, bvh = build_bench_scene(which, rebraid, tlas="tlas" in argv)
+    scene, bvh = build_bench_scene(which, rebraid, tlas="tlas" in argv,
+                                   traversal=fmt, arity=arity)
     rows = {}
     for size in sizes:
         rows[size] = measure(size, scene, bvh, which=which)

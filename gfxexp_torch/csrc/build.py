@@ -65,6 +65,38 @@ def _declare(name: str, lib: ctypes.CDLL):
             vp, vp, vp, vp, vp, vp,              # t, u, v, tri, hit, entry
             vp,                                  # stream
         ]
+    elif name == "chunked_traverse":
+        lib.chunked_max_stack.restype = ci
+        lib.chunked_max_stack.argtypes = []
+        lib.chunked_walk_launch.restype = ci
+        lib.chunked_walk_launch.argtypes = [
+            ci, ci, vp, ci, ci, ci, ci,          # any_hit .. stack_depth
+            vp, vp,                              # chunk boxes lo, hi
+            ci, vp, vp, vp, vp,                  # n, o, d, tmin, tmax
+            vp, vp, vp, vp, vp,                  # t, u, v, tri, hit
+            vp,                                  # stream
+        ]
+    elif name == "qrow_traverse":
+        lib.qrow_max_stack.restype = ci
+        lib.qrow_max_stack.argtypes = []
+        lib.qrow_walk_launch.restype = ci
+        lib.qrow_walk_launch.argtypes = [
+            ci, vp, ci, ci, ci,                  # any_hit .. stack_depth
+            vp, vp,                              # chunk boxes lo, hi
+            ci, vp, vp, vp, vp,                  # n, o, d, tmin, tmax
+            vp, vp, vp, vp, vp,                  # t, u, v, tri, hit
+            vp,                                  # stream
+        ]
+    elif name == "lanegroup_traverse":
+        lib.lanegroup_max_stack.restype = ci
+        lib.lanegroup_max_stack.argtypes = []
+        lib.lanegroup_walk_launch.restype = ci
+        lib.lanegroup_walk_launch.argtypes = [
+            ci, ci, vp, ci, ci, ci,              # groups .. stack_depth
+            ci, vp, vp, vp, vp,                  # n, o, d, tmin, tmax
+            vp, vp, vp, vp, vp, vp,              # t, u, v, tri, hit, rows
+            vp,                                  # stream
+        ]
     elif name == "skiplink_traverse":
         lib.skiplink_walk_launch.restype = ci
         lib.skiplink_walk_launch.argtypes = [

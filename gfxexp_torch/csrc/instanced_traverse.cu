@@ -17,8 +17,8 @@
 //   - kNearest: each step scans every entry and takes the one with the
 //     smallest key (entry distance, entry index) strictly after the last key
 //     taken, among entries whose world AABB the ray enters within
-//     [t_min, best_t]; the walk stops when that distance is >= best_t. No
-//     visited set and no per-thread sort: each pick is an O(C) scan.
+//     [t_min, best_t]; the walk stops when that distance is >= best_t
+//     (widerow::nearest_first, shared with the chunked walk).
 //   - build order: entries in their stored (BLAS-sorted) order, each visited
 //     when the ray enters its world AABB within [t_min, best_t].
 // A visited entry transforms the ray into object space with the 12 floats of
@@ -60,26 +60,6 @@ struct Entries {
   const float* __restrict__ lo;   // [C, 3] world AABB
   const float* __restrict__ hi;   // [C, 3]
 };
-
-// Entry distance of the ray into entry c's world AABB; `ok` when it enters
-// within [tmin, best_t]. Same slab test as a BVH child.
-__device__ __forceinline__ float entry_near(const Entries& e, int c, float ox,
-                                            float oy, float oz, float ix,
-                                            float iy, float iz, float tmin,
-                                            float best_t, bool& ok) {
-  const float tx0 = (__ldg(e.lo + 3 * c + 0) - ox) * ix;
-  const float tx1 = (__ldg(e.hi + 3 * c + 0) - ox) * ix;
-  const float ty0 = (__ldg(e.lo + 3 * c + 1) - oy) * iy;
-  const float ty1 = (__ldg(e.hi + 3 * c + 1) - oy) * iy;
-  const float tz0 = (__ldg(e.lo + 3 * c + 2) - oz) * iz;
-  const float tz1 = (__ldg(e.hi + 3 * c + 2) - oz) * iz;
-  const float near = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
-                           fmaxf(fminf(tz0, tz1), tmin));
-  const float far = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
-                          fminf(fmaxf(tz0, tz1), best_t));
-  ok = near <= far;
-  return near;
-}
 
 // Transform the ray into entry c's object space and walk its BLAS. Returns
 // true when kAnyHit and a triangle was accepted.
@@ -130,36 +110,22 @@ instanced_walk(const float* __restrict__ nodes, int n_rows, int n_blas_rows,
     const float iz = widerow::safe_inv(dz);
     int stack[kMaxStack];
     if (kNearest) {
-      float last_near = -CUDART_INF_F;
-      int last_c = -1;
-      while (true) {
-        float pick_near = CUDART_INF_F;
-        int pick = -1;
-        for (int c = 0; c < e.count; ++c) {
-          bool ok;
-          const float nr =
-              entry_near(e, c, ox, oy, oz, ix, iy, iz, tmin, best.t, ok);
-          const bool after =
-              nr > last_near || (nr == last_near && c > last_c);
-          if (ok && after && nr < pick_near) {
-            pick_near = nr;
-            pick = c;
-          }
-        }
-        if (pick < 0 || pick_near >= best.t) break;
-        const float before = best.t;
-        const bool stop =
-            visit<kAnyHit, K>(nodes, n_rows, n_blas_rows, max_leaf, e, pick,
-                              ox, oy, oz, dx, dy, dz, tmin, best, stack);
-        if (best.t < before) best_entry = pick;
-        if (stop) break;
-        last_near = pick_near;
-        last_c = pick;
-      }
+      widerow::nearest_first(
+          e.lo, e.hi, e.count, ox, oy, oz, ix, iy, iz, tmin, best,
+          [&](int c) {
+            const float before = best.t;
+            const bool stop = visit<kAnyHit, K>(nodes, n_rows, n_blas_rows,
+                                                max_leaf, e, c, ox, oy, oz,
+                                                dx, dy, dz, tmin, best,
+                                                stack);
+            if (best.t < before) best_entry = c;
+            return stop;
+          });
     } else {
       for (int c = 0; c < e.count; ++c) {
         bool ok;
-        entry_near(e, c, ox, oy, oz, ix, iy, iz, tmin, best.t, ok);
+        widerow::box_near(e.lo, e.hi, c, ox, oy, oz, ix, iy, iz, tmin,
+                          best.t, ok);
         if (!ok) continue;
         const float before = best.t;
         const bool stop =

@@ -1,5 +1,8 @@
-// The per-ray wide-row walk shared by widerow_traverse.cu (one table) and
-// instanced_traverse.cu (one BLAS table per entry of a two-level scene).
+// The per-ray wide-row walk shared by widerow_traverse.cu (one table),
+// chunked_traverse.cu (the chunk tables of a large scene) and
+// instanced_traverse.cu (one BLAS table per entry of a two-level scene), and
+// the nearest-first pick over boxes shared by the last two and
+// qrow_traverse.cu.
 //
 // Row format: gfxexp_torch/accel/widerow.py. The walk's plain PyTorch version
 // is walk_plain in gfxexp_torch/accel/persistent.py; both apply the same
@@ -72,6 +75,43 @@ struct Best {
   int tri;
 };
 
+// The triangles of a leaf row (tail = its cols 60..63): Baldwin-Weber
+// tests, ids first | count << 24. Returns true when kAnyHit and a triangle
+// was accepted (the walk stops there).
+template <bool kAnyHit>
+__device__ __forceinline__ bool leaf_hits(const float4* __restrict__ row,
+                                          float4 tail, int max_leaf,
+                                          float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          float tmin, Best& best) {
+  const int packed = __float_as_int(tail.x);
+  const int fst = packed & 0xFFFFFF;
+  const int cnt = packed >> 24;
+  for (int j = 0; j < max_leaf && j < cnt; ++j) {
+    const float4 pn = __ldg(row + 3 * j + 0);  // n.xyz d0
+    const float4 pu = __ldg(row + 3 * j + 1);  // U.xyz Ud
+    const float4 pv = __ldg(row + 3 * j + 2);  // V.xyz Vd
+    const float den = pn.x * dx + pn.y * dy + pn.z * dz;
+    const float num = pn.x * ox + pn.y * oy + pn.z * oz + pn.w;
+    const bool den_ok = fabsf(den) > 1e-12f;
+    const float t = -num / (den_ok ? den : 1.0f);
+    const float px = ox + t * dx;
+    const float py = oy + t * dy;
+    const float pz = oz + t * dz;
+    const float u = pu.x * px + pu.y * py + pu.z * pz + pu.w;
+    const float v = pv.x * px + pv.y * py + pv.z * pz + pv.w;
+    if (den_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tmin &&
+        t < best.t) {
+      best.t = t;
+      best.u = u;
+      best.v = v;
+      best.tri = fst + j;
+      if (kAnyHit) return true;
+    }
+  }
+  return false;
+}
+
 // Walk the table from row `start`. Child rows in the table are relative to
 // `base` (a BLAS's first row in the flat [B*R, 64] table; 0 for one table);
 // row addresses are clamped to the table as the plain version clamps them.
@@ -94,31 +134,9 @@ __device__ __forceinline__ bool walk(const float* __restrict__ nodes,
     const float4 tail = __ldg(row + 15);  // cols 60..63
     int nxt = -1;
     if (tail.w > 0.5f) {
-      // leaf: Baldwin-Weber triangles inline, ids first | count << 24
-      const int packed = __float_as_int(tail.x);
-      const int fst = packed & 0xFFFFFF;
-      const int cnt = packed >> 24;
-      for (int j = 0; j < max_leaf && j < cnt; ++j) {
-        const float4 pn = __ldg(row + 3 * j + 0);  // n.xyz d0
-        const float4 pu = __ldg(row + 3 * j + 1);  // U.xyz Ud
-        const float4 pv = __ldg(row + 3 * j + 2);  // V.xyz Vd
-        const float den = pn.x * dx + pn.y * dy + pn.z * dz;
-        const float num = pn.x * ox + pn.y * oy + pn.z * oz + pn.w;
-        const bool den_ok = fabsf(den) > 1e-12f;
-        const float t = -num / (den_ok ? den : 1.0f);
-        const float px = ox + t * dx;
-        const float py = oy + t * dy;
-        const float pz = oz + t * dz;
-        const float u = pu.x * px + pu.y * py + pu.z * pz + pu.w;
-        const float v = pv.x * px + pv.y * py + pv.z * pz + pv.w;
-        if (den_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tmin &&
-            t < best.t) {
-          best.t = t;
-          best.u = u;
-          best.v = v;
-          best.tri = fst + j;
-          if (kAnyHit) return true;
-        }
+      if (leaf_hits<kAnyHit>(row, tail, max_leaf, ox, oy, oz, dx, dy, dz,
+                             tmin, best)) {
+        return true;
       }
     } else {
       // internal: K children of 7 floats (lo.xyz hi.xyz child row)
@@ -170,6 +188,62 @@ __device__ __forceinline__ bool walk(const float* __restrict__ nodes,
     cur = nxt;
   }
   return false;
+}
+
+// Entry distance of the ray into box c of lo, hi ([C, 3] each); `ok` when it
+// enters within [tmin, best_t]. The same slab test as a BVH child.
+__device__ __forceinline__ float box_near(const float* __restrict__ lo,
+                                          const float* __restrict__ hi,
+                                          int c, float ox, float oy, float oz,
+                                          float ix, float iy, float iz,
+                                          float tmin, float best_t, bool& ok) {
+  const float tx0 = (__ldg(lo + 3 * c + 0) - ox) * ix;
+  const float tx1 = (__ldg(hi + 3 * c + 0) - ox) * ix;
+  const float ty0 = (__ldg(lo + 3 * c + 1) - oy) * iy;
+  const float ty1 = (__ldg(hi + 3 * c + 1) - oy) * iy;
+  const float tz0 = (__ldg(lo + 3 * c + 2) - oz) * iz;
+  const float tz1 = (__ldg(hi + 3 * c + 2) - oz) * iz;
+  const float near = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
+                           fmaxf(fminf(tz0, tz1), tmin));
+  const float far = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
+                          fminf(fmaxf(tz0, tz1), best_t));
+  ok = near <= far;
+  return near;
+}
+
+// Nearest-first order over `count` boxes (the chunks of a large table, the
+// TLAS entries of a two-level scene): each step takes the box with the
+// smallest key (entry distance, index) strictly after the last key taken,
+// among the boxes the ray enters within [tmin, best.t], and stops when that
+// distance is >= best.t. visit(c) walks box c (updating best) and returns
+// true to stop (an accepted any hit). No visited set and no per-thread sort:
+// each pick is an O(C) scan of the boxes, which every thread of a warp reads
+// alike (a broadcast from L1/L2).
+template <class Visit>
+__device__ __forceinline__ void nearest_first(
+    const float* __restrict__ lo, const float* __restrict__ hi, int count,
+    float ox, float oy, float oz, float ix, float iy, float iz, float tmin,
+    const Best& best, Visit visit) {
+  float last_near = -CUDART_INF_F;
+  int last_c = -1;
+  while (true) {
+    float pick_near = CUDART_INF_F;
+    int pick = -1;
+    for (int c = 0; c < count; ++c) {
+      bool ok;
+      const float nr =
+          box_near(lo, hi, c, ox, oy, oz, ix, iy, iz, tmin, best.t, ok);
+      const bool after = nr > last_near || (nr == last_near && c > last_c);
+      if (ok && after && nr < pick_near) {
+        pick_near = nr;
+        pick = c;
+      }
+    }
+    if (pick < 0 || pick_near >= best.t) break;
+    if (visit(pick)) break;
+    last_near = pick_near;
+    last_c = pick;
+  }
 }
 
 }  // namespace widerow

@@ -22,7 +22,9 @@ class Film(TensorData):
     num_accum: torch.Tensor  # [] int32
 
 
-def make_film(width: int, height: int, device="cpu") -> Film:
+def make_film(width: int, height: int, device="cuda") -> Film:
+    """An empty film on `device` (the card unless the caller asks for the
+    CPU)."""
     z = torch.zeros((height, width, 3), dtype=torch.float32, device=device)
     return Film(beauty=z, albedo=z, normal=z,
                 num_accum=torch.zeros((), dtype=torch.int32, device=device))

@@ -1,6 +1,6 @@
 """Scene compilation: SceneBuilder -> (SceneData in traversal order, BVH)
-(port of gfxexp_tpu/scene/compile.py for the wide-row, skip-link and
-two-level traversals)."""
+(port of gfxexp_tpu/scene/compile.py for the skip-link, wide-row,
+quantized-row and two-level traversals)."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from gfxexp_torch.accel.bvh_build import build_bvh
+from gfxexp_torch.accel.qrow import build_qrow
 from gfxexp_torch.accel.skiplink import build_skip_links, pack_tables
 from gfxexp_torch.accel.widerow import build_widerow
 from gfxexp_torch.scene.builder import SceneBuilder
@@ -39,22 +40,30 @@ def apply_triangle_permutation(scene: SceneData, perm) -> SceneData:
 
 
 def compile_scene(builder: SceneBuilder, arity: int = 4, max_leaf: int = 4,
-                  traversal: str = "widerow",
+                  traversal: str = "skip",
                   use_probability_texture: bool = False,
                   spatial_splits: bool = False, rebraid: float = 0.0):
-    """Compile to (SceneData, WideRowBVH) on the CPU; with
-    traversal="instanced" to (SceneData, InstancedAccel): per-group BLAS
-    tables shared by the instances (`rebraid` > 1 opens the largest
-    instances into subtree entries); with traversal="skip" to (SceneData,
-    SkipBVH), the refittable structure of animated scenes, its walk tables
-    packed. Other traversal structures raise."""
+    """Compile a scene on the CPU to (SceneData, structure), as the JAX
+    package does:
+    - traversal="skip" (the default): a SkipBVH, the refittable structure
+      of animated scenes, its walk tables packed;
+    - "widerow": a WideRowBVH, one table or, over 13,000 rows, Morton-
+      ordered chunk tables;
+    - "qrow": a QRowBVH of quantized arity-8 rows (chunked over 26,000
+      rows); the scene's triangles become the dequantized ones, in
+      traversal order, so shading sees the geometry that is traced;
+    - "instanced": an InstancedAccel, per-group BLAS tables shared by the
+      instances (`rebraid` > 1 opens the largest instances into subtree
+      entries).
+    Other structures (the stack-based wide BVH of traversal="wide") raise
+    NotImplementedError."""
     if traversal == "instanced":
         return builder.compile_instanced(arity=arity, max_leaf=max_leaf,
                                          rebraid=rebraid)
-    if traversal not in ("widerow", "skip"):
+    if traversal not in ("widerow", "qrow", "skip"):
         raise NotImplementedError(
-            f"traversal={traversal!r} is not ported; use 'widerow', 'skip' "
-            f"or 'instanced'")
+            f"traversal={traversal!r} is not ported; use 'skip', 'widerow', "
+            f"'qrow' or 'instanced'")
     scene = builder.compile(use_probability_texture=use_probability_texture)
     tris = scene.triangles
     if traversal == "skip":
@@ -65,6 +74,14 @@ def compile_scene(builder: SceneBuilder, arity: int = 4, max_leaf: int = 4,
         skip = build_skip_links(bvh.child_min, bvh.child_max, bvh.child_idx,
                                 bvh.child_count, max_leaf=max_leaf)
         return scene, pack_tables(skip, scene.triangles)
+    if traversal == "qrow":
+        qb, perm, (dq0, dqe1, dqe2) = build_qrow(
+            tris.p0.numpy(), tris.e1.numpy(), tris.e2.numpy(),
+            spatial_splits=spatial_splits)
+        scene = apply_triangle_permutation(scene, perm)
+        return dataclasses.replace(scene, triangles=dataclasses.replace(
+            scene.triangles, p0=torch.from_numpy(dq0),
+            e1=torch.from_numpy(dqe1), e2=torch.from_numpy(dqe2))), qb
     wrow, perm = build_widerow(tris.p0.numpy(), tris.e1.numpy(),
                                tris.e2.numpy(), arity=arity,
                                max_leaf=max_leaf,

@@ -152,12 +152,14 @@ class SceneData(TensorData):
 
 
 def from_numpy(obj):
-    """gfxexp_tpu object (SceneData, its tables, Camera, WideRowBVH,
-    InstancedAccel, ...) -> the port's object on the CPU. Reads fields by
-    attribute name; fields the port does not model are ignored."""
+    """gfxexp_tpu object (SceneData, its tables, Camera, WideRowBVH one table
+    or chunked, QRowBVH, InstancedAccel, ...) -> the port's object on the
+    CPU. Reads fields by attribute name; fields the port does not model are
+    ignored."""
     # containers register on import; make sure the ones outside this module
     # are known
     import gfxexp_torch.accel.instanced  # noqa: F401
+    import gfxexp_torch.accel.qrow  # noqa: F401
     import gfxexp_torch.accel.widerow  # noqa: F401
     import gfxexp_torch.render.camera  # noqa: F401
 

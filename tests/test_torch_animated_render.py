@@ -61,7 +61,7 @@ def test_animated_frame_matches_jax():
 
 def test_static_skip_render_matches_widerow():
     ts_s, tb_s = tcompile(S.instanced_spheres_scene(TB), traversal="skip")
-    ts_w, tb_w = tcompile(S.instanced_spheres_scene(TB))
+    ts_w, tb_w = tcompile(S.instanced_spheres_scene(TB), traversal="widerow")
     # one BVH build behind both: the same triangle order
     assert torch.equal(ts_s.triangles.p0, ts_w.triangles.p0)
     tc = t_camera(**S.INSTANCED_CAMERA)

@@ -1,7 +1,8 @@
 """The port's app framework against gfxexp_tpu's: the scene DSL builds the
 same scene and controllers, and `python -m gfxexp_torch.apps.path_tracing`
 (`main`) renders an animated scene on the CPU (`-device cpu`) into a PNG,
-through the skip-link refit and through the two-level rigid update."""
+through the skip-link refit and through the two-level rigid update, and a
+static one through the wide-row and the quantized-row tables."""
 
 import dataclasses
 import struct
@@ -83,6 +84,23 @@ def test_main_renders_an_animated_scene_on_the_cpu(tmp_path, traversal,
     assert _read_png_size(str(out) + ".png") == (24, 16)
     err = capsys.readouterr().err
     assert "update:" in err and "pathTrace:" in err
+
+
+@pytest.mark.parametrize("traversal", ["widerow", "qrow"])
+def test_main_renders_a_static_scene_on_the_cpu(tmp_path, traversal):
+    """`-traversal widerow` and `-traversal qrow` on a scene without
+    animation (the lamp and the floor of DSL, the ball at rest)."""
+    static = list(DSL)
+    i = static.index("-begin-pos")
+    del static[i:i + 16]  # the ball's -begin-pos ... -time 0.25
+    out = tmp_path / traversal
+    hdr = tpt_app.main(["-device", "cpu", "-width", "24", "-height", "16",
+                        "-frames", "2", "-max-path-length", "3",
+                        "-traversal", traversal, "-output", str(out), *VIEW,
+                        *static])
+    assert hdr.shape == (16, 24, 3) and np.isfinite(hdr).all()
+    assert hdr.mean() > 0.0
+    assert _read_png_size(str(out) + ".png") == (24, 16)
 
 
 def test_unported_options_raise(tmp_path):

@@ -18,8 +18,11 @@ import torch_scenes as S  # noqa: E402
 import gfxexp_torch.scene.builder as TB  # noqa: E402
 from gfxexp_torch.accel import (  # noqa: E402
     instanced,
+    lanegroup,
     persistent,
+    qrow,
     skip_traverse,
+    widerow,
 )
 from gfxexp_torch.accel.instanced import (  # noqa: E402
     build_instanced,
@@ -27,7 +30,22 @@ from gfxexp_torch.accel.instanced import (  # noqa: E402
     walk_instanced_plain,
     walk_tlas,
 )
-from gfxexp_torch.accel.persistent import walk_cuda, walk_plain  # noqa: E402
+from gfxexp_torch.accel.lanegroup import (  # noqa: E402
+    intersect_closest_lanegroup,
+    walk_lanegroup_cuda,
+    walk_lanegroup_plain,
+)
+from gfxexp_torch.accel.persistent import (  # noqa: E402
+    walk_chunked_cuda,
+    walk_chunked_plain,
+    walk_cuda,
+    walk_plain,
+)
+from gfxexp_torch.accel.qrow import (  # noqa: E402
+    build_qrow,
+    walk_qrow_cuda,
+    walk_qrow_plain,
+)
 from gfxexp_torch.accel.rowcursor import intersect_any_rowcursor  # noqa: E402
 from gfxexp_torch.accel.skip_traverse import walk_skip_cuda  # noqa: E402
 from gfxexp_torch.accel.skiplink import walk_skip_plain  # noqa: E402
@@ -101,7 +119,7 @@ def test_oversized_stack_raises(dev):
 
 
 def test_render_on_card_matches_cpu(dev):
-    ts, tb = compile_scene(S.box_scene(TB))
+    ts, tb = compile_scene(S.box_scene(TB), traversal="widerow")
     tc = make_camera(**S.BOX_CAMERA)
     cfg = tpt.PTConfig(max_path_length=4, count_rays=True)
     a, na = tpt.render_accumulate(ts.to(dev), tb.to(dev), tc.to(dev), 32, 32,
@@ -253,3 +271,136 @@ def test_animated_render_on_card_matches_cpu(dev):
     assert torch.isfinite(a).all()
     assert S.image_rel_diff(a.cpu().numpy(), b.numpy()) < 5e-3
     assert float(na) == float(nb)
+
+
+def _chunked_table(arity, max_rows):
+    rng = np.random.default_rng(17)
+    p0, e1, e2 = S.soup(rng, 3000, 6.0)
+    return build_widerow(p0, e1, e2, arity=arity, max_rows=max_rows)[0], (
+        p0, e1, e2)
+
+
+def _aimed(soup, n=20000, seed=19):
+    o, d = S.aimed_rays(np.random.default_rng(seed), n, *soup)
+    return torch.from_numpy(o), torch.from_numpy(d)
+
+
+def _dead_every_fifth(n, dev, t=1e30):
+    return torch.where(torch.arange(n, device=dev) % 5 == 0, -1.0, t)
+
+
+@pytest.mark.parametrize("arity", [4, 8])
+@pytest.mark.parametrize("max_rows", [300, 13000])
+def test_chunked_kernel_matches_plain(dev, arity, max_rows):
+    """Kernel 2 over chunk tables (nearest-first chunks) and over one table
+    without chunk boxes (the route with the switch off), closest and any
+    hit: identical to the plain walk."""
+    tb, soup = _chunked_table(arity, max_rows)
+    assert (tb.num_chunks > 4) == (max_rows == 300)
+    tb = tb.to(dev)
+    o, d = (x.to(dev) for x in _aimed(soup))
+    t_max = _dead_every_fifth(o.shape[0], dev)
+    for any_hit in (False, True):
+        k = walk_chunked_cuda(tb, o, d, 1e-4, t_max, any_hit)
+        p = walk_chunked_plain(tb, o, d, 1e-4, t_max, any_hit)
+        torch.cuda.synchronize()
+        assert k.hit.any() and not k.hit[t_max < 0].any()
+        for f in ("hit", "t", "u", "v", "tri"):
+            assert torch.equal(getattr(k, f), getattr(p, f)), f
+
+
+@pytest.mark.parametrize("max_rows", [200, 26000])
+def test_qrow_kernel_matches_plain(dev, max_rows):
+    rng = np.random.default_rng(23)
+    soup = S.soup(rng, 3000, 6.0)
+    qb = build_qrow(*soup, max_rows=max_rows)[0]
+    assert (qb.num_chunks > 4) == (max_rows == 200)
+    qb = qb.to(dev)
+    o, d = (x.to(dev) for x in _aimed(soup))
+    n = o.shape[0]
+    t_max = _dead_every_fifth(n, dev)
+    t_max[torch.arange(n, device=dev) % 11 == 5] = 0.0
+    for any_hit in (False, True):
+        k = walk_qrow_cuda(qb, o, d, 1e-4, t_max, any_hit)
+        p = walk_qrow_plain(qb, o, d, 1e-4, t_max, any_hit)
+        torch.cuda.synchronize()
+        assert k.hit.any() and not k.hit[t_max < 0].any()
+        for f in ("hit", "t", "u", "v", "tri"):
+            assert torch.equal(getattr(k, f), getattr(p, f)), f
+
+
+@pytest.mark.parametrize("arity", [4, 8])
+@pytest.mark.parametrize("groups", [1, 2, 4])
+def test_lanegroup_kernel_matches_plain(dev, groups, arity):
+    """Each group count, a ragged last block and dead rays included: the
+    kernel equals its plain version bit for bit, and the per-ray walk in
+    hits and t."""
+    tb = _soup_table(arity, n=3000).to(dev)
+    o, d = (x.to(dev) for x in _rays(20001))
+    t_max = _dead_every_fifth(20001, dev, 4.0)
+    k, kr = walk_lanegroup_cuda(tb, o, d, 1e-4, t_max, groups,
+                                with_stats=True)
+    p, pr = walk_lanegroup_plain(tb, o, d, 1e-4, t_max, groups,
+                                 with_stats=True)
+    r = walk_plain(tb, o, d, 1e-4, t_max, False)
+    torch.cuda.synchronize()
+    assert k.hit.any() and not k.hit[t_max < 0].any()
+    for f in ("hit", "t", "u", "v", "tri"):
+        assert torch.equal(getattr(k, f), getattr(p, f)), f
+    assert torch.equal(kr, pr)
+    assert torch.equal(k.hit, r.hit) and torch.equal(k.t, r.t)
+
+
+def test_single_level_routes_launch_and_count(dev):
+    """Single-chunk tables take kernel 1, chunked ones (and any table with
+    the switch off) kernel 2, QRowBVH the quantized walk; the lane-group
+    walk only by its own entry point."""
+    one = _soup_table(4, n=300).to(dev)
+    chunked = _chunked_table(4, 300)[0].to(dev)
+    q = build_qrow(*S.soup(np.random.default_rng(2), 300, 3.0))[0].to(dev)
+    o, d = (x.to(dev) for x in _rays(1000))
+    for mod in (persistent, qrow, lanegroup):
+        mod.reset_launch_counts()
+    intersect_closest(one, None, o, d)
+    intersect_closest(chunked, None, o, d)
+    intersect_any(chunked, None, o, d)
+    intersect_closest(q, None, o, d)
+    intersect_any(q, None, o, d)
+    widerow.set_persistent(False)
+    try:
+        intersect_any(one, None, o, d)
+    finally:
+        widerow.set_persistent(None)
+    intersect_closest_lanegroup(one, None, o, d, groups=4)
+    assert persistent.launch_counts == {"closest": 1, "any": 0}
+    assert persistent.chunked_launch_counts == {"closest": 1, "any": 2}
+    assert qrow.launch_counts == {"closest": 1, "any": 1}
+    assert lanegroup.launch_counts == {1: 0, 2: 0, 4: 1}
+
+
+def test_new_kernels_refuse_oversized_stacks(dev):
+    chunked = _chunked_table(4, 300)[0].to(dev)
+    chunked.max_depth = 100
+    q = build_qrow(*S.soup(np.random.default_rng(2), 300, 3.0))[0].to(dev)
+    q.max_depth = 100  # (100 + 2) * 7 entries > the kernel's bound
+    one = _soup_table(4, n=300).to(dev)
+    one.max_depth = 100
+    o, d = (x.to(dev) for x in _rays(16))
+    with pytest.raises(ValueError, match="stack"):
+        walk_chunked_cuda(chunked, o, d, 1e-4, 1e30, False)
+    with pytest.raises(ValueError, match="stack"):
+        walk_qrow_cuda(q, o, d, 1e-4, 1e30, False)
+    with pytest.raises(ValueError, match="stack"):
+        walk_lanegroup_cuda(one, o, d, 1e-4, 1e30, 2)
+
+
+def test_qrow_render_on_card_matches_cpu(dev):
+    ts, qb = compile_scene(S.box_scene(TB), traversal="qrow")
+    tc = make_camera(**S.BOX_CAMERA)
+    cfg = tpt.PTConfig(max_path_length=4, count_rays=True)
+    a, na = tpt.render_accumulate(ts.to(dev), qb.to(dev), tc.to(dev), 32, 32,
+                                  0, 2, cfg)
+    b, nb = tpt.render_accumulate(ts, qb, tc, 32, 32, 0, 2, cfg)
+    assert torch.isfinite(a).all()
+    assert S.image_rel_diff(a.cpu().numpy(), b.numpy()) < 5e-3
+    assert abs(float(na) - float(nb)) <= 5e-3 * float(nb)

@@ -90,7 +90,8 @@ def test_bench_big_matches_jax(jax_static_route):
 
 def test_instanced_matches_flattened():
     """The two-level compile renders the image of the flattened one."""
-    ts_f, tb_f = tcompile(S.instanced_spheres_scene(TB))
+    ts_f, tb_f = tcompile(S.instanced_spheres_scene(TB),
+                          traversal="widerow")
     ts_i, tacc = tcompile(S.instanced_spheres_scene(TB),
                           traversal="instanced")
     assert ts_i.num_triangles < ts_f.num_triangles
@@ -107,7 +108,7 @@ def test_instanced_light_sampling_matches_flattened():
     """Light rows, surface samples and the implicit-hit pdf through the
     instance transforms equal the flattened scene's (the box's lamp is an
     instanced emitter)."""
-    ts_f, _ = tcompile(S.instanced_spheres_scene(TB))
+    ts_f, _ = tcompile(S.instanced_spheres_scene(TB), traversal="widerow")
     ts_i, _ = tcompile(S.instanced_spheres_scene(TB), traversal="instanced")
     rng = np.random.default_rng(11)
     u = [torch.from_numpy(rng.random(4096, np.float32)) for _ in range(3)]

@@ -1,9 +1,11 @@
 """gfxexp_torch runs without JAX: in a subprocess where importing jax or
-flax fails, every module of the package (the apps included) imports, 16x16
-renders of the small bench scene, of the two-level `big` scene and of an
-animated frame of the flattened `big` scene run, and the path_tracing app
-renders on the CPU. The package's sources and chip_smoke.py never name
-jax."""
+flax fails, every module of the package (the apps included; among them the
+quantized rows, accel/qrow.py, and the lane-group walk, accel/lanegroup.py)
+imports, 16x16 renders of the small bench scene (wide rows and quantized
+rows), of the two-level `big` scene and of an animated frame of the
+flattened `big` scene run, a chunked wide-row table is built and walked,
+the lane-group walk runs, and the path_tracing app renders on the CPU. The
+package's sources and chip_smoke.py never name jax."""
 
 import os
 import pathlib
@@ -24,6 +26,8 @@ names = [m.name for m in pkgutil.walk_packages(gfxexp_torch.__path__,
                                                "gfxexp_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {"gfxexp_torch.accel.qrow", "gfxexp_torch.accel.lanegroup"} <= set(
+    names)
 from gfxexp_torch.bench import (bench_camera, bench_controllers,
                                 build_bench_scene)
 from gfxexp_torch.render.pathtrace import PTConfig, render_sample
@@ -32,6 +36,24 @@ img, nr = render_sample(scene, bvh, bench_camera(16, 16), 16, 16, 0,
                         PTConfig(count_rays=True))
 assert img.shape == (256, 3) and bool(torch.isfinite(img).all())
 assert float(img.mean()) > 0.0 and float(nr) >= 256
+scene, qb = build_bench_scene(traversal="qrow")
+img = render_sample(scene, qb, bench_camera(16, 16), 16, 16, 0, PTConfig())
+assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0
+from gfxexp_torch.accel.lanegroup import intersect_closest_lanegroup
+from gfxexp_torch.accel.traverse import intersect_closest
+from gfxexp_torch.accel.widerow import build_widerow
+tris = scene.triangles
+wb, _ = build_widerow(tris.p0.numpy(), tris.e1.numpy(), tris.e2.numpy(),
+                      max_rows=500)
+assert wb.num_chunks > 1
+o = torch.zeros(64, 3) + torch.tensor([0.0, 0.8, 1.6])
+d = torch.nn.functional.normalize(torch.randn(64, 3) * 0.2
+                                  + torch.tensor([0.0, -0.6, -1.6]), dim=1)
+h = intersect_closest(wb, None, o, d)
+assert bool(h.hit.any())
+one, _ = build_widerow(tris.p0.numpy(), tris.e1.numpy(), tris.e2.numpy())
+hg = intersect_closest_lanegroup(one, None, o, d, groups=4)
+assert torch.equal(hg.hit, h.hit)
 scene, acc = build_bench_scene("big")
 img = render_sample(scene, acc, bench_camera(16, 16, "big"), 16, 16, 0,
                     PTConfig())

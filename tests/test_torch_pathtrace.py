@@ -60,7 +60,7 @@ def rendered():
             img, nr = jpt.render_sample(js, jb, jc, RES, RES, jnp.uint32(s),
                                         _jcfg())
             jimgs.append((np.asarray(img), float(nr)))
-        ts, tb = tcompile(make(TB))
+        ts, tb = tcompile(make(TB), traversal="widerow")
         out[key] = (ts, tb, t_camera(**cam), jimgs)
     return out
 
@@ -106,7 +106,7 @@ def test_golden_box_image():
     tolerance."""
     golden = np.load(os.path.join(os.path.dirname(__file__), "golden",
                                   "box_8spp_48.npz"))["img"]
-    ts, tb = tcompile(S.box_scene(TB))
+    ts, tb = tcompile(S.box_scene(TB), traversal="widerow")
     tc = t_camera(**S.BOX_CAMERA)
     img = tpt.render_accumulate(ts, tb, tc, 48, 48, 0, 8,
                                 tpt.PTConfig(max_path_length=4))

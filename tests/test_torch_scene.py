@@ -53,7 +53,7 @@ def compiled():
     out = {}
     for key, make in SCENES.items():
         out[key] = (jcompile(make(JB), traversal="widerow"),
-                    tcompile(make(TB)))
+                    tcompile(make(TB), traversal="widerow"))
     return out
 
 
@@ -61,8 +61,7 @@ def compiled():
 def test_compile_scene_matches_jax(compiled, key):
     (js, jb), (ts, tb) = compiled[key]
     assert jb.nodes.shape[0] == 1
-    np.testing.assert_array_equal(_bits(tb.nodes.numpy()),
-                                  _bits(jb.nodes[0]))
+    np.testing.assert_array_equal(_bits(tb.nodes.numpy()), _bits(jb.nodes))
     assert (tb.arity, tb.width, tb.max_leaf, tb.max_depth) == (
         jb.arity, jb.width, jb.max_leaf, jb.max_depth)
     _assert_tables_equal(js.triangles, ts.triangles, "triangles")
@@ -97,10 +96,11 @@ def test_from_numpy_equals_port_build(compiled, key):
 
 
 def test_from_numpy_moves_with_to():
-    scene, bvh = tcompile(S.box_scene(TB))
+    scene, bvh = tcompile(S.box_scene(TB), traversal="widerow")
     moved = scene.to("cpu")
     assert moved.device == torch.device("cpu")
-    assert moved.triangles.p0 is not None and bvh.to("cpu").nodes.shape[1] == 64
+    assert moved.triangles.p0 is not None
+    assert bvh.to("cpu").nodes.shape[-1] == 64
 
 
 @pytest.mark.parametrize("w,h", [(64, 64), (48, 32), (20, 12), (1920, 1080)])
@@ -139,9 +139,9 @@ def test_primary_rays_match_jax():
 def test_unported_paths_raise():
     b = S.box_scene(TB)
     with pytest.raises(NotImplementedError):
-        tcompile(b, traversal="qrow")
+        tcompile(b, traversal="wide")
     with pytest.raises(NotImplementedError):
-        tcompile(b, spatial_splits=True)
+        tcompile(b, traversal="widerow", spatial_splits=True)
     with pytest.raises(NotImplementedError):
         b.add_texture(np.zeros((4, 4, 3), np.float32))
     with pytest.raises(NotImplementedError):

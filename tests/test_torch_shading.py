@@ -141,7 +141,7 @@ def lit_scene():
         return b
 
     js, _ = jcompile(make(JB), traversal="widerow")
-    ts, _ = tcompile(make(TB))
+    ts, _ = tcompile(make(TB), traversal="widerow")
     return js, ts
 
 

@@ -160,14 +160,16 @@ def image_rel_diff(a, b):
     return np.abs(a - b).mean() / (np.abs(b).mean() + 1e-6)
 
 
-def check_against_jax(h, inst, jh, jinst):
+def check_against_jax(h, inst, jh, jinst, uv_atol=2e-5, t_rtol=1e-5):
     """The two-level walk's bars against a JAX kernel: hit and instance
     equal; triangle ids equal except on ties (|dt| <= 1e-6 t); t within
     rtol 1e-5 and u, v within 2e-5. XLA on the CPU contracts the transform's
     and the leaf test's multiply-adds into fused multiply-adds (a*b + c*d +
     e*f + g becomes fma(e, f, fma(a, b, c*d)) + g), which the port, like its
     kernel, does not; on tests/test_persistent_inst.py's scenes that moves
-    u, v by up to 1.05e-5."""
+    u, v by up to 1.05e-5. Random soups seen from afar, with sliver
+    triangles (|U|, |V| up to ~1e2), move them more: those tests pass a
+    larger uv_atol (or t_rtol) and say why."""
     np.testing.assert_array_equal(h.hit.numpy(), np.asarray(jh.hit))
     m = np.asarray(jh.hit)
     np.testing.assert_array_equal(inst.numpy()[m], np.asarray(jinst)[m])
@@ -175,8 +177,27 @@ def check_against_jax(h, inst, jh, jinst):
     tie = np.abs(t - jt) <= 1e-6 * np.abs(jt)
     same = h.tri.numpy()[m] == np.asarray(jh.tri)[m]
     assert (same | tie).all()
-    np.testing.assert_allclose(t, jt, rtol=1e-5)
+    np.testing.assert_allclose(t, jt, rtol=t_rtol)
     for f in ("u", "v"):
         np.testing.assert_allclose(getattr(h, f).numpy()[m][same],
                                    np.asarray(getattr(jh, f))[m][same],
-                                   atol=2e-5)
+                                   atol=uv_atol)
+
+
+def check_single_against_jax(h, jh, uv_atol=2e-5, t_rtol=1e-5):
+    """check_against_jax's bars for a single-level walk (no instances)."""
+    import torch
+
+    none = np.full(np.asarray(jh.hit).shape, -1, np.int32)
+    check_against_jax(h, torch.from_numpy(none), jh, none, uv_atol, t_rtol)
+
+
+def aimed_rays(rng, n, p0, e1, e2, box=10.0):
+    """n rays from origins uniform in [-box, box]^3 aimed at random points
+    of random triangles of the soup (p0, e1, e2): most of them hit."""
+    o = rng.uniform(-box, box, size=(n, 3)).astype(np.float32)
+    j = rng.integers(0, p0.shape[0], n)
+    a, b = rng.random((2, n, 1)) * 0.5
+    d = p0[j] + a * e1[j] + b * e2[j] - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o, d.astype(np.float32)
