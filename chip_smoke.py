@@ -19,12 +19,14 @@ Phases, one line each, any failure exits non-zero:
      kernel 1's launch counts, image checks and out/torch_bench_512.png;
   6. two-level build: bench.py's `big` and `city` (and `city rebraid4`)
      compiled instanced on the host;
-  7. two-level kernel vs plain: the instanced walk on ~1M `city` rays, with
-     and without rebraid, for each route (nearest-first, build order, the
-     ray-sorted tlas route), closest and any hit, against the plain version
-     (exactly equal), the routes against each other, and brute force over
-     the flattened world triangles on a 4,096-ray subset; times and bounds
-     at one 262,144-ray bounce batch;
+  7. two-level kernel vs plain: the instanced walk on ~1M rays of `city`,
+     with and without rebraid, and of `big`, for each route (nearest-first,
+     build order, the ray-sorted tlas route), closest and any hit, against
+     the plain version (exactly equal), the routes against each other, and
+     brute force over the flattened world triangles on a 4,096-ray subset;
+     times and bounds at one 262,144-ray bounce batch, the candidate entry
+     boxes per live ray against the pick's kPick, and ptxas's registers,
+     spills and shared memory;
   8. two-level slice: `big` at 64x64, 2 samples, card against CPU;
   9. two-level main path: gfxexp_torch.bench.measure on `big` and `city`
      (nearest-first), `big nopersist` (build order) and `city tlas` (ray
@@ -64,7 +66,8 @@ Phases, one line each, any failure exits non-zero:
      and 4 groups on ~1M small-scene rays against its plain version
      (exactly equal) and against the per-ray walk (equal t, tri only on
      ties); ms per 262,144-ray bounce batch, rows and chunks per ray, the
-     rows the batch reads and the bound;
+     rows the batch reads, the bound, the candidate chunk boxes per live ray
+     against kPick, and ptxas's report of both kernels;
  17. single-level slice: `big` as chunked wide rows and as quantized rows at
      64x64, 2 samples, card against CPU;
  18. single-level main path: gfxexp_torch.bench.measure at 512x512 on `big
@@ -122,8 +125,8 @@ from gfxexp_torch.accel.skiplink import walk_skip_plain
 from gfxexp_torch.accel.traverse import HitInfo, intersect_closest_brute
 from gfxexp_torch.apps.common import PassTimer
 from gfxexp_torch.apps.path_tracing import frame_loop
+from gfxexp_torch.bench import device_ms as time_ms
 from gfxexp_torch.csrc import build
-from gfxexp_torch.render.camera import generate_rays_for_lanes
 from gfxexp_torch.render.pathtrace import (
     PTConfig,
     render_accumulate,
@@ -201,21 +204,6 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def time_ms(fn, reps, warm=True):
-    """Mean device time of fn() over reps launches (after one warm call)."""
-    if warm:
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def bound(nbytes, ops):
     """(least time in ms, what bounds it) for moving nbytes through HBM and
     doing ops float32 operations on the card."""
@@ -241,6 +229,13 @@ def phase_environment(report):
           f" | {smi}", flush=True)
 
 
+def _ptxas(name):
+    """nvcc's -Xptxas -v report of a kernel's build: registers, spills,
+    stack and static shared memory per instantiation."""
+    return [ln.strip() for ln in build.build_log.get(name, "").splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
 def phase_build(report):
     t0 = time.time()
     build.load_libraries(KERNELS)
@@ -252,8 +247,7 @@ def phase_build(report):
                        "nvcc_seconds": dict(build.build_seconds),
                        "ptxas": {}}
     for name in KERNELS:
-        ptxas = [ln.strip() for ln in build.build_log.get(name, "")
-                 .splitlines() if "registers" in ln or "spill" in ln]
+        ptxas = _ptxas(name)
         report["build"]["ptxas"][name] = ptxas
         print(f"[2 build] gfxexp_torch/csrc/{name}.cu: nvcc "
               f"{build.build_seconds[name]:.2f}s; ptxas: "
@@ -263,35 +257,10 @@ def phase_build(report):
 
 
 def _scene_rays(first_hit, which, dev):
-    """~1M rays over a bench scene: one batch of jittered primary rays at
-    512x512, three batches of random bounce directions from the primary
-    hits; every 7th ray dead (t_max < 0). Shadow rays from the same origins
-    to random points on the light, every 5th dead. `first_hit(o, d)` gives
-    the primary hits' t and hit mask."""
-    rng = np.random.default_rng(SEED)
-    cam = bench.bench_camera(512, 512, which).to(dev)
-    jit = torch.from_numpy(rng.random((2, BATCH), np.float32)).to(dev)
-    lane = torch.arange(BATCH, device=dev)
-    o0, d0 = generate_rays_for_lanes(cam, 512, 512, lane, jit[0], jit[1])
-    t0, h0 = first_hit(o0, d0)
-    p = torch.where(h0[:, None], o0 + t0[:, None] * d0, o0)
-    dirs = rng.normal(size=(3 * BATCH, 3)).astype(np.float32)
-    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
-    o = torch.cat([o0, p, p, p]).contiguous()
-    d = torch.cat([d0, torch.from_numpy(dirs).to(dev)]).contiguous()
-    n = o.shape[0]
-    idx = torch.arange(n, device=dev)
-    t_min = torch.where(idx < BATCH, 0.0, 1e-4)
-    t_max = torch.where(idx % 7 == 3, -1.0, 1e30)
-    # shadow rays towards the light: 0.3 x the floor's side, at y = 1.5
-    half = 0.3 * bench._LAYOUT[which][0] / 2
-    xz = torch.from_numpy(rng.uniform(-half, half, (n, 2)).astype(np.float32))
-    target = torch.stack([xz[:, 0], torch.full((n,), 1.5), xz[:, 1]], 1)
-    vec = target.to(dev) - o
-    dist = torch.linalg.vector_norm(vec, dim=1)
-    sd = (vec / dist[:, None]).contiguous()
-    s_max = torch.where(idx % 5 == 1, -1.0, dist * 0.9999)
-    return o, d, t_min, t_max, sd, s_max
+    """~1M rays over a bench scene (bench.walk_rays): primary rays at
+    512x512 and three batches of bounce rays, every 7th dead; shadow rays
+    to the light, every 5th dead."""
+    return bench.walk_rays(first_hit, which, dev, SEED, BATCH)
 
 
 def phase_kernels(report, scene, bvh, dev):
@@ -456,11 +425,15 @@ def phase_inst_build(report):
         t0 = time.time()
         out[key] = bench.build_bench_scene(which, rb)
         secs[key] = time.time() - t0
-    t0 = time.time()
-    world = bench.bench_scene_builder(scene="city").compile().triangles
-    secs["city_flattened"] = time.time() - t0
+    worlds = {}
+    for which in ("big", "city"):
+        t0 = time.time()
+        worlds[which] = bench.bench_scene_builder(
+            scene=which).compile().triangles
+        secs[f"{which}_flattened"] = time.time() - t0
     report["inst_build"] = {
-        "seconds": secs, "city_world_triangles": world.count,
+        "seconds": secs,
+        **{f"{w}_world_triangles": t.count for w, t in worlds.items()},
         **{k: {"entries": a.num_entries, "blas_rows": list(a.nodes.shape),
                "blas_triangles": s.num_triangles, "max_depth": a.max_depth}
            for k, (s, a) in out.items()}}
@@ -469,9 +442,10 @@ def phase_inst_build(report):
               f"{tuple(a.nodes.shape)} ({a.nodes.numel() * 4 / 1e6:.2f} MB),"
               f" {s.num_triangles} BLAS triangles, built in "
               f"{secs[k]:.3f}s", flush=True)
-    print(f"[6 inst build] city flattened: {world.count} world triangles in "
-          f"{secs['city_flattened']:.2f}s", flush=True)
-    return out, world
+    for w, t in worlds.items():
+        print(f"[6 inst build] {w} flattened: {t.count} world triangles in "
+              f"{secs[w + '_flattened']:.2f}s", flush=True)
+    return out, worlds
 
 
 def _walk_route(acc, route, o, d, t_min, t_max, any_hit, plain=False):
@@ -567,12 +541,52 @@ def _check_brute(brute, sub, tag):
     return allowed
 
 
-def _inst_kernels_one(acc, world, dev, tag, timing):
+def _candidates(lo, hi, o, d, t_min, t_max, visits):
+    """The boxes lo, hi a live ray enters within [t_min, t_max), the keys
+    the pick's first scan keeps (from the plain entry distances): p50, p90,
+    p99 and max per live ray, the share of live rays with more than kPick
+    (their buffer overflows) and the share that visited more than kPick
+    boxes (`visits`, so the walk took keys of a refill)."""
+    counts = []
+    step = persistent.slab_rows(lo.shape[0])
+    for s in range(0, o.shape[0], step):
+        sl = slice(s, s + step)
+        near = instanced._instance_entry_dists(lo, hi, o[sl], d[sl],
+                                               t_min[sl], t_max[sl])
+        counts.append((near < t_max[sl, None]).sum(1))
+    live = t_max >= 0
+    c = torch.cat(counts)[live].double()
+    k = build.header_constant("kPick")
+    q = torch.quantile(c, torch.tensor([0.5, 0.9, 0.99], dtype=c.dtype,
+                                       device=c.device)).tolist()
+    return {"p50": q[0], "p90": q[1], "p99": q[2], "max": int(c.max()),
+            "k": k, "over_k_share": float((c > k).double().mean()),
+            "visited_over_k_share": float((visits[live] > k).double()
+                                          .mean())}
+
+
+def _cand_line(c):
+    return (f"candidate boxes per live ray p50/p90/p99/max {c['p50']:.0f}/"
+            f"{c['p90']:.0f}/{c['p99']:.0f}/{c['max']}, over kPick="
+            f"{c['k']}: {c['over_k_share']:.4f} of live rays, "
+            f"{c['visited_over_k_share']:.5f} visited more than kPick")
+
+
+def _pick_smem_line(what, count):
+    """The shared memory a block of the pick stages `count` boxes in
+    (pick_smem_bytes in widerow_walk.cuh: 32 B a box, kBoxTile at a time);
+    ptxas reports only static shared memory."""
+    tile = build.header_constant("kBoxTile")
+    return (f"{count} {what}: {32 * min(count, tile)} B of dynamic shared "
+            f"memory per block, {math.ceil(count / tile)} tile(s)")
+
+
+def _inst_kernels_one(acc, world, dev, tag, which):
     def first_hit(o0, d0):
         h, _ = walk_instanced_cuda(acc, o0, d0, 0.0, 1e30, False, "nearest")
         return h.t, h.hit
 
-    o, d, t_min, t_max, sd, s_max = _scene_rays(first_hit, "city", dev)
+    o, d, t_min, t_max, sd, s_max = _scene_rays(first_hit, which, dev)
     n = o.shape[0]
     allowed = math.ceil(n / 10000)
     res, errs = {}, {}
@@ -585,19 +599,17 @@ def _inst_kernels_one(acc, world, dev, tag, timing):
                                 plain=True)
             torch.cuda.synchronize()
             key = f"{kind}_{route}"
-            check(torch.equal(k.hit, p.hit), f"{tag} {key}: hit != plain")
             check(not k.hit[tm < 0].any(), f"{tag} {key}: a dead ray hit")
-            if any_hit:
-                errs[key] = float((k.hit != p.hit).float().max())
-            else:
-                for f in ("t", "u", "v", "tri"):
-                    check(torch.equal(getattr(k, f), getattr(p, f)),
-                          f"{tag} {key}: {f} != plain")
-                check(torch.equal(ke, pe), f"{tag} {key}: entry != plain")
-                m = k.hit
-                errs[key] = float(torch.stack([
-                    (getattr(k, f)[m] - getattr(p, f)[m]).abs().max()
-                    for f in ("t", "u", "v")]).max()) if m.any() else 0.0
+            for f in ("hit", "t", "u", "v", "tri"):
+                diff = getattr(k, f) != getattr(p, f)
+                check(not bool(diff.any()),
+                      f"{tag} {key}: {f} differs from plain on "
+                      f"{int(diff.sum())} rays")
+            check(torch.equal(ke, pe), f"{tag} {key}: entry != plain")
+            m = k.hit
+            errs[key] = float(torch.stack([
+                (getattr(k, f)[m] - getattr(p, f)[m]).abs().max()
+                for f in ("t", "u", "v")]).max()) if m.any() else 0.0
             res[key] = k
     # the routes compute one function: they agree up to exact ties in t
     route_mis = {}
@@ -621,7 +633,8 @@ def _inst_kernels_one(acc, world, dev, tag, timing):
     b_allowed = _check_brute(brute, sub, tag)
     out = {"rays": n, "allowed": allowed, "route_mismatches": route_mis,
            "max_abs_err": errs, "brute_subset": sub.numel(),
-           "brute": brute, "brute_allowed": b_allowed, "times": {}}
+           "brute": brute, "brute_allowed": b_allowed, "times": {},
+           "candidates": {}}
 
     # times at one 262,144-ray bounce batch
     b = slice(BATCH, 2 * BATCH)
@@ -649,52 +662,60 @@ def _inst_kernels_one(acc, world, dev, tag, timing):
             ms = time_ms(lambda: walk_instanced_cuda(
                 acc, *args, any_hit, route), 10)
             entry = {"ms": ms, "route_ms": route_ms}
-            if timing:
-                entry["plain_ms"] = time_ms(lambda: walk_instanced_plain(
-                    acc, *args, any_hit, route), 1, warm=False)
-                _, _, rows, visits = walk_instanced_plain(
-                    acc, *args, any_hit, route, with_stats=True)
-                # the entry boxes need one scan per live ray, whatever
-                # the route rescans
-                live = int((args[3] >= 0).sum())
-                ops = (int(rows.sum()) * OPS_ROW
-                       + int(visits.sum()) * OPS_VISIT
-                       + live * acc.num_entries * OPS_SLAB)
-                bms, by = bound(BATCH * (RAY_IN + RAY_OUT + ENTRY_OUT)
-                                + tables, ops)
-                entry.update(bound_ms=bms, bound_by=by,
-                             rows_per_live_ray=int(rows.sum()) / max(live, 1),
-                             entries_per_live_ray=int(visits.sum())
-                             / max(live, 1))
+            entry["plain_ms"] = time_ms(lambda: walk_instanced_plain(
+                acc, *args, any_hit, route), 1, warm=False)
+            _, _, rows, visits = walk_instanced_plain(
+                acc, *args, any_hit, route, with_stats=True)
+            # the entry boxes need one scan per live ray, whatever the
+            # route rescans
+            live = int((args[3] >= 0).sum())
+            ops = (int(rows.sum()) * OPS_ROW
+                   + int(visits.sum()) * OPS_VISIT
+                   + live * acc.num_entries * OPS_SLAB)
+            bms, by = bound(BATCH * (RAY_IN + RAY_OUT + ENTRY_OUT)
+                            + tables, ops)
+            entry.update(bound_ms=bms, bound_by=by,
+                         rows_per_live_ray=int(rows.sum()) / max(live, 1),
+                         entries_per_live_ray=int(visits.sum())
+                         / max(live, 1))
             out["times"][f"{kind}_{route}"] = entry
+            if route == "nearest":
+                out["candidates"][kind] = _candidates(
+                    acc.chunk_lo, acc.chunk_hi, *args, visits)
     return out
 
 
-def phase_inst_kernels(report, built, world, dev):
-    world = world.to(dev)
+def phase_inst_kernels(report, built, worlds, dev):
+    worlds = {w: t.to(dev) for w, t in worlds.items()}
     out = {}
-    for key in ("city", "city_rebraid4"):
-        acc = built[key][1].to(dev)
-        out[key] = _inst_kernels_one(acc, world, dev, key,
-                                     timing=key == "city")
+    print(f"[7 inst kernels] ptxas instanced_traverse: "
+          f"{' | '.join(_ptxas('instanced_traverse'))}", flush=True)
+    for key, which in (("city", "city"), ("city_rebraid4", "city"),
+                       ("big", "big")):
+        acc = built[key][1]
+        out[key] = _inst_kernels_one(acc, worlds[which], dev, key, which)
         r = out[key]
         t = r["times"]
         print(f"[7 inst kernels {key}] {r['rays']} rays: every route == "
-              f"plain (closest t/u/v/tri/entry identical, any hit "
-              f"identical); routes disagree on {r['route_mismatches']} "
+              f"plain (t/u/v/tri/entry identical, closest and any hit); "
+              f"routes disagree on {r['route_mismatches']} "
               f"(allowed {r['allowed']}); brute {r['brute_subset']} rays: "
               f"{r['brute']} (allowed {r['brute_allowed']}, each at an edge "
               f"or within 1e-2 of the origin)", flush=True)
+        print(f"[7 inst kernels {key}] pick: "
+              f"{_pick_smem_line('entries', acc.num_entries)}", flush=True)
+        for kind, c in r["candidates"].items():
+            print(f"[7 inst kernels {key}] {BATCH}-ray bounce batch {kind}: "
+                  f"{_cand_line(c)}", flush=True)
         for name, e in t.items():
-            extra = (f", plain {e['plain_ms']:.1f} ms, bound "
-                     f"{e['bound_ms']:.4f} ms by {e['bound_by']}, "
-                     f"{e['rows_per_live_ray']:.1f} rows and "
-                     f"{e['entries_per_live_ray']:.2f} entries per live ray"
-                     if "plain_ms" in e else "")
             route = (f", whole route {e['route_ms']:.3f} ms"
                      if e["route_ms"] is not None else "")
             print(f"[7 inst kernels {key}] {BATCH}-ray bounce batch "
-                  f"{name}: {e['ms']:.4f} ms{route}{extra}", flush=True)
+                  f"{name}: {e['ms']:.4f} ms{route}, plain "
+                  f"{e['plain_ms']:.1f} ms, bound {e['bound_ms']:.4f} ms by "
+                  f"{e['bound_by']}, {e['rows_per_live_ray']:.1f} rows and "
+                  f"{e['entries_per_live_ray']:.2f} entries per live ray",
+                  flush=True)
     report["inst_kernels"] = out
     return out
 
@@ -1278,7 +1299,9 @@ def _sl_times(bvh, fmt, rays, stats):
         out[kind] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                      "bound_by": by, "rows_read": rows_read,
                      "rows_per_live_ray": int(rows.sum()) / live,
-                     "chunks_per_live_ray": int(chunks.sum()) / live}
+                     "chunks_per_live_ray": int(chunks.sum()) / live,
+                     "candidates": _candidates(bvh.chunk_lo, bvh.chunk_hi,
+                                               *args, chunks)}
     return out
 
 
@@ -1330,6 +1353,9 @@ def _lanegroup_check(bvh, dev):
 
 def phase_sl_kernels(report, built, small_bvh, dev):
     out = {}
+    for name in ("chunked_traverse", "qrow_traverse"):
+        print(f"[16 single-level kernels] ptxas {name}: "
+              f"{' | '.join(_ptxas(name))}", flush=True)
     for key, (scene, bvh) in built.items():
         which, fmt = key.split("_")
         r, rays, stats = _sl_check(scene, bvh, which, fmt, dev, key)
@@ -1340,7 +1366,8 @@ def phase_sl_kernels(report, built, small_bvh, dev):
         print(f"[16 single-level kernels {key}] {r['rays']} rays: kernel == "
               f"plain (t/u/v/tri identical, closest and any hit); brute "
               f"{BRUTE_SUB} rays: {r['brute']} (allowed "
-              f"{r['brute_allowed']})", flush=True)
+              f"{r['brute_allowed']}); pick: "
+              f"{_pick_smem_line('chunks', bvh.num_chunks)}", flush=True)
         for kind, e in t.items():
             print(f"[16 single-level kernels {key}] {BATCH}-ray bounce "
                   f"batch {kind}: {e['ms']:.4f} ms (plain "
@@ -1348,8 +1375,8 @@ def phase_sl_kernels(report, built, small_bvh, dev):
                   f"{e['bound_by']}); per live ray "
                   f"{e['rows_per_live_ray']:.1f} rows, "
                   f"{e['chunks_per_live_ray']:.2f} chunks; rows read "
-                  f"{e['rows_read']} of {bvh.num_chunks * bvh.rows_per_chunk}",
-                  flush=True)
+                  f"{e['rows_read']} of {bvh.num_chunks * bvh.rows_per_chunk}"
+                  f"; {_cand_line(e['candidates'])}", flush=True)
     lg = _lanegroup_check(small_bvh, dev)
     out["lanegroup_small"] = lg
     for g in lanegroup.GROUPS:
@@ -1467,9 +1494,9 @@ def main():
     phase_slice(report, scene, bvh, dev)
     launches = phase_main(report, scene, bvh, dev)
     mark(report, t_start, "5")
-    built, world = phase_inst_build(report)
+    built, worlds = phase_inst_build(report)
     built = {k: (s.to(dev), a.to(dev)) for k, (s, a) in built.items()}
-    inst = phase_inst_kernels(report, built, world, dev)
+    inst = phase_inst_kernels(report, built, worlds, dev)
     mark(report, t_start, "7")
     phase_inst_slice(report, built, dev)
     inst_launches = phase_inst_main(report, built, dev)

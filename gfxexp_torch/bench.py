@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from gfxexp_torch.accel import instanced, lanegroup, persistent, qrow, widerow
-from gfxexp_torch.render.camera import make_camera
+from gfxexp_torch.render.camera import generate_rays_for_lanes, make_camera
 from gfxexp_torch.render.pathtrace import (
     PTConfig,
     render_accumulate,
@@ -163,6 +163,57 @@ def bench_camera(width: int, height: int, scene: str = "small"):
     _, _, position, target = _LAYOUT[scene]
     return make_camera(position, fov_y=np.deg2rad(45),
                        aspect=width / height, target=target)
+
+
+def walk_rays(first_hit, scene: str, device, seed: int = 7,
+              batch: int = 512 * 512):
+    """Four batches of `batch` rays over a bench scene, for timing and
+    checking the walks: jittered primary rays at 512x512, then three batches
+    of random bounce directions from the primary hits; every 7th ray dead
+    (t_max < 0). Shadow rays from the same origins to random points on the
+    light, every 5th dead. `first_hit(o, d)` gives the primary hits' t and
+    hit mask. Returns (o, d, t_min, t_max, shadow d, shadow t_max)."""
+    rng = np.random.default_rng(seed)
+    dev = torch.device(device)
+    cam = bench_camera(512, 512, scene).to(dev)
+    jit = torch.from_numpy(rng.random((2, batch), np.float32)).to(dev)
+    lane = torch.arange(batch, device=dev)
+    o0, d0 = generate_rays_for_lanes(cam, 512, 512, lane, jit[0], jit[1])
+    t0, h0 = first_hit(o0, d0)
+    p = torch.where(h0[:, None], o0 + t0[:, None] * d0, o0)
+    dirs = rng.normal(size=(3 * batch, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    o = torch.cat([o0, p, p, p]).contiguous()
+    d = torch.cat([d0, torch.from_numpy(dirs).to(dev)]).contiguous()
+    n = o.shape[0]
+    idx = torch.arange(n, device=dev)
+    t_min = torch.where(idx < batch, 0.0, 1e-4)
+    t_max = torch.where(idx % 7 == 3, -1.0, 1e30)
+    # shadow rays towards the light: 0.3 x the floor's side, at y = 1.5
+    half = 0.3 * _LAYOUT[scene][0] / 2
+    xz = torch.from_numpy(rng.uniform(-half, half, (n, 2)).astype(np.float32))
+    target = torch.stack([xz[:, 0], torch.full((n,), 1.5), xz[:, 1]], 1)
+    vec = target.to(dev) - o
+    dist = torch.linalg.vector_norm(vec, dim=1)
+    sd = (vec / dist[:, None]).contiguous()
+    s_max = torch.where(idx % 5 == 1, -1.0, dist * 0.9999)
+    return o, d, t_min, t_max, sd, s_max
+
+
+def device_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean device time in ms of fn() over reps launches (after one warm
+    call), from CUDA events on the current stream."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def render_frame(scene, bvh, camera, width, height, start_idx, n_samples,

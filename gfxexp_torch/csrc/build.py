@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import glob
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -160,6 +161,17 @@ def load_libraries(names) -> dict:
             _declare(name, lib)
             _libs[name] = lib
     return {name: _libs[name] for name in names}
+
+
+def header_constant(name: str, header: str = "widerow_walk.cuh") -> int:
+    """N of `constexpr int <name> = N;` in csrc/<header>: the nearest-first
+    pick's kPick (keys a ray keeps in registers) and kSpill (keys it keeps
+    in local memory), for the tests and the chip report."""
+    with open(os.path.join(_DIR, header)) as f:
+        m = re.search(rf"constexpr int {name} = (\d+);", f.read())
+    if m is None:
+        raise KeyError(f"{name} is not a constexpr int of {header}")
+    return int(m.group(1))
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -9,10 +9,10 @@
 // of chunks in nearest-first order, skipping a step once every lane's best
 // t beat its entry distance, and streamed each chunk's table through VMEM.
 // Here each thread takes its own chunks nearest first
-// (widerow::nearest_first, the pick of the two-level walk): each step scans
-// the C chunk boxes and takes the one with the smallest (entry distance,
-// index) after the last one taken, among the boxes the ray enters within
-// [t_min, best_t], and stops when that distance is >= best_t. Chunk c is
+// (widerow::nearest_first, the pick of the two-level walk): the chunk boxes
+// the ray enters within [t_min, best_t] in ascending (entry distance,
+// index), stopping at the first whose distance is >= best_t; one scan of
+// the boxes, staged in shared memory, feeds the whole walk. Chunk c is
 // walked with kernel 1's walk (widerow_walk.cuh) from row c * R of the flat
 // [C*R, 64] table; leaf rows hold global triangle ids, so no remap. Without
 // chunk boxes (lo == nullptr, a single table) the table is walked whole.
@@ -20,13 +20,12 @@
 // no work.
 //
 // What bounds it: the latency of the dependent 256-byte row loads of each
-// chunk walk, plus the chunk scans (24 bytes of box per chunk, read alike
-// by every thread of a warp). The tables of the flattened bench scenes do
-// not fit the 50 MB L2 (big: 11 chunks, about 37 MB; city: about 79 chunks,
-// 263 MB). The plain PyTorch version is walk_chunked_plain in
-// gfxexp_torch/accel/persistent.py; it visits the same chunks in the same
-// order with the same arithmetic, so with --fmad=false the results are
-// equal.
+// chunk walk, plus the one scan of the chunk boxes per ray. The tables of
+// the flattened bench scenes do not fit the 50 MB L2 (big: 11 chunks, about
+// 37 MB; city: about 79 chunks, 263 MB). The plain PyTorch version is
+// walk_chunked_plain in gfxexp_torch/accel/persistent.py; it visits the
+// same chunks in the same order with the same arithmetic, so with
+// --fmad=false the results are equal.
 //
 // Built by gfxexp_torch/csrc/build.py with nvcc into a shared library with a
 // plain C interface (ctypes); it launches on the caller's stream, does not
@@ -53,31 +52,34 @@ chunked_walk(const float* __restrict__ nodes, int n_chunks,
              const float* __restrict__ tmax_in, float* __restrict__ out_t,
              float* __restrict__ out_u, float* __restrict__ out_v,
              int* __restrict__ out_tri, unsigned char* __restrict__ out_hit) {
+  extern __shared__ float4 pick_tile[];  // pick_smem_bytes(n_chunks)
+  // no early return: every thread reaches the pick's barriers
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float tmax = tmax_in[i];
+  const float tmax = i < n ? tmax_in[i] : -1.0f;
+  const bool live = tmax >= 0.0f;
   Best best{tmax, 0.0f, 0.0f, -1};
-  if (tmax >= 0.0f) {
-    const float ox = o[3 * i + 0], oy = o[3 * i + 1], oz = o[3 * i + 2];
-    const float dx = d[3 * i + 0], dy = d[3 * i + 1], dz = d[3 * i + 2];
-    const float tmin = tmin_in[i];
-    const int n_rows = n_chunks * rows_per_chunk;
-    int stack[kMaxStack];
-    if (lo == nullptr) {
+  const int j = live ? i : 0;
+  const float ox = o[3 * j + 0], oy = o[3 * j + 1], oz = o[3 * j + 2];
+  const float dx = d[3 * j + 0], dy = d[3 * j + 1], dz = d[3 * j + 2];
+  const float tmin = tmin_in[j];
+  const int n_rows = n_chunks * rows_per_chunk;
+  int stack[kMaxStack];
+  if (lo == nullptr) {
+    if (live) {
       widerow::walk<kAnyHit, K>(nodes, n_rows, 0, 0, max_leaf, ox, oy, oz,
                                 dx, dy, dz, tmin, best, stack);
-    } else {
-      widerow::nearest_first(
-          lo, hi, n_chunks, ox, oy, oz, widerow::safe_inv(dx),
-          widerow::safe_inv(dy), widerow::safe_inv(dz), tmin, best,
-          [&](int c) {
-            return widerow::walk<kAnyHit, K>(nodes, n_rows,
-                                             c * rows_per_chunk, 0,
-                                             max_leaf, ox, oy, oz, dx, dy,
-                                             dz, tmin, best, stack);
-          });
     }
+  } else {
+    widerow::nearest_first(
+        lo, hi, n_chunks, pick_tile, live, ox, oy, oz, widerow::safe_inv(dx),
+        widerow::safe_inv(dy), widerow::safe_inv(dz), tmin, best,
+        [&](int c) {
+          return widerow::walk<kAnyHit, K>(nodes, n_rows, c * rows_per_chunk,
+                                           0, max_leaf, ox, oy, oz, dx, dy,
+                                           dz, tmin, best, stack);
+        });
   }
+  if (i >= n) return;
   out_t[i] = best.t;
   out_u[i] = best.u;
   out_v[i] = best.v;
@@ -92,7 +94,8 @@ cudaError_t launch(const float* nodes, int n_chunks, int rows_per_chunk,
                    const float* tmax, float* t, float* u, float* v, int* tri,
                    unsigned char* hit, cudaStream_t stream) {
   const int grid = (n + kBlock - 1) / kBlock;
-  chunked_walk<kAnyHit, K><<<grid, kBlock, 0, stream>>>(
+  const int smem = lo != nullptr ? widerow::pick_smem_bytes(n_chunks) : 0;
+  chunked_walk<kAnyHit, K><<<grid, kBlock, smem, stream>>>(
       nodes, n_chunks, rows_per_chunk, max_leaf, lo, hi, n, o, d, tmin, tmax,
       t, u, v, tri, hit);
   return cudaGetLastError();

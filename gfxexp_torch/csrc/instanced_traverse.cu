@@ -14,11 +14,10 @@
 // The TPU kernels' row slots, pools, sched_k batching and per-128-lane
 // worklists existed to keep VMEM rows busy; here each thread takes its own
 // entries. Two instantiations:
-//   - kNearest: each step scans every entry and takes the one with the
-//     smallest key (entry distance, entry index) strictly after the last key
-//     taken, among entries whose world AABB the ray enters within
-//     [t_min, best_t]; the walk stops when that distance is >= best_t
-//     (widerow::nearest_first, shared with the chunked walk).
+//   - kNearest: the entries whose world AABB the ray enters within
+//     [t_min, best_t], in ascending key (entry distance, entry index),
+//     stopping at the first whose distance is >= best_t
+//     (widerow::nearest_first, shared with the chunked and quantized walks).
 //   - build order: entries in their stored (BLAS-sorted) order, each visited
 //     when the ray enters its world AABB within [t_min, best_t].
 // A visited entry transforms the ray into object space with the 12 floats of
@@ -27,15 +26,24 @@
 // start_rows[c] of the flat [B*R, 64] table (widerow_walk.cuh); best_t
 // carries across entries. Any hit stops at the first accepted triangle.
 //
-// What bounds it: the latency of the dependent row loads of each BLAS walk,
-// plus the entry scans (about 96 bytes of entry data per entry: AABB,
-// transform, BLAS id, start row, read with __ldg; every thread of a warp
-// reads the same entry, so a scan is a broadcast from L1/L2). The bench
-// scenes' four BLAS tables hold 7,940 triangles and, padded to the largest
-// BLAS's row count, about 2 MB, which stays in L2. The plain PyTorch version
-// is walk_instanced_plain in gfxexp_torch/accel/instanced.py; it visits
-// entries in the same order with the same arithmetic, so with --fmad=false
-// the results are equal.
+// What bounded it: the nearest-first pick rescanned every entry box at every
+// pick, so a ray that visited v entries paid v + 1 scans of all C boxes (514
+// on `city`, 2,056 with rebraid4), which took most of the kernel's time. Now
+// the block stages the boxes in shared memory and a ray scans them once,
+// keeping its nearest kPick keys in registers (widerow_walk.cuh says why it
+// still visits exactly what the rescan visited, in the same order). What
+// bounds it now: that one scan (two shared-memory loads and about 30
+// operations a box per ray, so it grows with C) and the dependent row loads
+// of the BLAS walks; lanes of a warp that walk different BLASes diverge
+// (rays sorted by their nearest entry, the ray-sorted route, run about a
+// fifth faster). The BLAS stack stays in local memory: a shared-memory top
+// of 32 entries with overflow in local memory was slower on the card (L1
+// holds the stack's top as it is). The bench scenes' four BLAS tables hold
+// 7,940 triangles and, padded to the largest BLAS's row count, about 2 MB,
+// which stays in L2. The plain PyTorch version is walk_instanced_plain in
+// gfxexp_torch/accel/instanced.py; it visits entries in the same order with
+// the same arithmetic, so with --fmad=false the results are equal, bit for
+// bit.
 //
 // Built by gfxexp_torch/csrc/build.py with nvcc into a shared library with a
 // plain C interface (ctypes); it launches on the caller's stream, does not
@@ -86,8 +94,11 @@ __device__ __forceinline__ bool visit(const float* __restrict__ nodes,
                                    tmin, best, stack);
 }
 
+// At least 6 blocks a SM: the compiler's own choice (about 95 registers)
+// leaves room for 5, and the walk, bound by the latency of its dependent
+// loads, ran faster on the card with the registers capped for 6.
 template <bool kAnyHit, int K, bool kNearest>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, 6)
 instanced_walk(const float* __restrict__ nodes, int n_rows, int n_blas_rows,
                int max_leaf, Entries e, int n, const float* __restrict__ o,
                const float* __restrict__ d,
@@ -96,46 +107,47 @@ instanced_walk(const float* __restrict__ nodes, int n_rows, int n_blas_rows,
                float* __restrict__ out_u, float* __restrict__ out_v,
                int* __restrict__ out_tri, unsigned char* __restrict__ out_hit,
                int* __restrict__ out_entry) {
+  extern __shared__ float4 pick_tile[];  // pick_smem_bytes(e.count)
+  // no early return: every thread reaches the pick's barriers
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float tmax = tmax_in[i];
+  const float tmax = i < n ? tmax_in[i] : -1.0f;
+  const bool live = tmax >= 0.0f;
   Best best{tmax, 0.0f, 0.0f, -1};
   int best_entry = -1;
-  if (tmax >= 0.0f) {
-    const float ox = o[3 * i + 0], oy = o[3 * i + 1], oz = o[3 * i + 2];
-    const float dx = d[3 * i + 0], dy = d[3 * i + 1], dz = d[3 * i + 2];
-    const float tmin = tmin_in[i];
-    const float ix = widerow::safe_inv(dx);
-    const float iy = widerow::safe_inv(dy);
-    const float iz = widerow::safe_inv(dz);
-    int stack[kMaxStack];
-    if (kNearest) {
-      widerow::nearest_first(
-          e.lo, e.hi, e.count, ox, oy, oz, ix, iy, iz, tmin, best,
-          [&](int c) {
-            const float before = best.t;
-            const bool stop = visit<kAnyHit, K>(nodes, n_rows, n_blas_rows,
-                                                max_leaf, e, c, ox, oy, oz,
-                                                dx, dy, dz, tmin, best,
-                                                stack);
-            if (best.t < before) best_entry = c;
-            return stop;
-          });
-    } else {
-      for (int c = 0; c < e.count; ++c) {
-        bool ok;
-        widerow::box_near(e.lo, e.hi, c, ox, oy, oz, ix, iy, iz, tmin,
-                          best.t, ok);
-        if (!ok) continue;
-        const float before = best.t;
-        const bool stop =
-            visit<kAnyHit, K>(nodes, n_rows, n_blas_rows, max_leaf, e, c, ox,
-                              oy, oz, dx, dy, dz, tmin, best, stack);
-        if (best.t < before) best_entry = c;
-        if (stop) break;
-      }
+  const int j = live ? i : 0;
+  const float ox = o[3 * j + 0], oy = o[3 * j + 1], oz = o[3 * j + 2];
+  const float dx = d[3 * j + 0], dy = d[3 * j + 1], dz = d[3 * j + 2];
+  const float tmin = tmin_in[j];
+  const float ix = widerow::safe_inv(dx);
+  const float iy = widerow::safe_inv(dy);
+  const float iz = widerow::safe_inv(dz);
+  int stack[kMaxStack];
+  if (kNearest) {
+    widerow::nearest_first(
+        e.lo, e.hi, e.count, pick_tile, live, ox, oy, oz, ix, iy, iz, tmin,
+        best, [&](int c) {
+          const float before = best.t;
+          const bool stop = visit<kAnyHit, K>(nodes, n_rows, n_blas_rows,
+                                              max_leaf, e, c, ox, oy, oz, dx,
+                                              dy, dz, tmin, best, stack);
+          if (best.t < before) best_entry = c;
+          return stop;
+        });
+  } else if (live) {
+    for (int c = 0; c < e.count; ++c) {
+      bool ok;
+      widerow::box_near(e.lo, e.hi, c, ox, oy, oz, ix, iy, iz, tmin, best.t,
+                        ok);
+      if (!ok) continue;
+      const float before = best.t;
+      const bool stop =
+          visit<kAnyHit, K>(nodes, n_rows, n_blas_rows, max_leaf, e, c, ox,
+                            oy, oz, dx, dy, dz, tmin, best, stack);
+      if (best.t < before) best_entry = c;
+      if (stop) break;
     }
   }
+  if (i >= n) return;
   out_t[i] = best.t;
   out_u[i] = best.u;
   out_v[i] = best.v;
@@ -151,7 +163,8 @@ cudaError_t launch(const float* nodes, int n_rows, int n_blas_rows,
                    float* t, float* u, float* v, int* tri,
                    unsigned char* hit, int* entry, cudaStream_t stream) {
   const int grid = (n + kBlock - 1) / kBlock;
-  instanced_walk<kAnyHit, K, kNearest><<<grid, kBlock, 0, stream>>>(
+  const int smem = kNearest ? widerow::pick_smem_bytes(e.count) : 0;
+  instanced_walk<kAnyHit, K, kNearest><<<grid, kBlock, smem, stream>>>(
       nodes, n_rows, n_blas_rows, max_leaf, e, n, o, d, tmin, tmax, t, u, v,
       tri, hit, entry);
   return cudaGetLastError();

@@ -5,8 +5,8 @@
 // :302, launched by _run_q :560), the walk of compile_scene(traversal=
 // "qrow"). The TPU kernel walked each 128-lane row of rays with one cursor
 // over per-tile chunk worklists; here each thread walks its own ray and
-// takes the chunks nearest first as the chunked wide-row walk does
-// (widerow::nearest_first in widerow_walk.cuh).
+// takes the chunks nearest first, from one scan of the chunk boxes, as the
+// chunked wide-row walk does (widerow::nearest_first in widerow_walk.cuh).
 //
 // A step reads one row as 8 float4 (the internal rows' first 7). Internal:
 // the scales 2^(e-127) come from moving each exponent byte into a float32,
@@ -21,11 +21,32 @@
 // triangle. A ray with t_max < 0 does no work, under any hit one with
 // t_max <= 0 (the TPU kernel's rule).
 //
-// What bounds it: the latency of the dependent 128-byte row loads (half the
-// wide-row format's bytes a step, with twice the arity) and the chunk
-// scans. The plain PyTorch version is walk_qrow_plain in
+// What bounded it: the chunk pick rescanned every chunk box at every pick
+// (see widerow_walk.cuh), and a row cost twice a wide row's time for half
+// its bytes: each of the 8 children paid 6 byte extracts and 6 int->float
+// conversions before its slab test, each leaf triangle 9 short extracts
+// and conversions, and every internal row the 19 compare-swaps of the
+// 8-wide sort network. What bounds it now: the latency of the dependent
+// 128-byte row loads and the decode's remaining instructions (a byte
+// permute, a subtraction and a fused multiply-add a value). The row is
+// cheaper without a changed bit:
+//   - every quantized value q is below 2^23, so one byte permute builds the
+//     float 2^23 + q (0x4B000000 | q) exactly, and subtracting 2^23 (or
+//     2^23 - 1 for the hi corners' q + 1) gives exactly (float)q (or
+//     (float)(q + 1)): no conversion instruction is left;
+//   - q * 2^(e-127) is exact, so the box corners' multiply and add round
+//     once either way and one fused multiply-add gives the plain version's
+//     bits;
+//   - a row with at most one hit child skips the sort network
+//     (widerow::descend says why the order is the same).
+// Measured on the card and dropped, because they did not pay: a loop that
+// runs the internal and leaf steps of a warp in separate inner loops (the
+// while-while loop, without speculation), a shared-memory stack top, and
+// capping the registers for more blocks a SM; the 256-entry stack stays in
+// local memory. The plain PyTorch version is walk_qrow_plain in
 // gfxexp_torch/accel/qrow.py; both apply the same operations in the same
-// order, so with --fmad=false their results are equal.
+// order (the pick's order by widerow_walk.cuh's argument), so with
+// --fmad=false their results are equal, bit for bit.
 //
 // Built by gfxexp_torch/csrc/build.py with nvcc into a shared library with a
 // plain C interface (ctypes); it launches on the caller's stream, does not
@@ -49,6 +70,35 @@ __device__ __forceinline__ float exp_scale(int e) {
   return __int_as_float((e & 0xFF) << 23);
 }
 
+// Exact int -> float of a value q < 2^23 without the conversion
+// instruction: `bits` is 0x4B000000 | q (the float 2^23 + q, exact), so
+// subtracting 2^23 gives q and subtracting 2^23 - 1 gives q + 1, both
+// exactly, as (float)q and (float)(q + 1) do.
+__device__ __forceinline__ float q_float(unsigned bits) {
+  return __uint_as_float(bits) - 8388608.0f;
+}
+
+__device__ __forceinline__ float q_float_plus1(unsigned bits) {
+  return __uint_as_float(bits) - 8388607.0f;
+}
+
+// 0x4B000000 | byte b of w, and | short h of w (PRMT selectors)
+__device__ __forceinline__ unsigned byte_bits(int w, int b) {
+  return __byte_perm(static_cast<unsigned>(w), 0x4B000000u, 0x7440u | b);
+}
+
+__device__ __forceinline__ unsigned short_bits(int w, int h) {
+  return __byte_perm(static_cast<unsigned>(w), 0x4B000000u,
+                     h ? 0x7432u : 0x7410u);
+}
+
+// plo + q * s for a scale s = 2^(e-127) (or 0, or inf): q * s is exact, so
+// one rounding (a fused multiply-add) gives the bits of the two roundings
+// of the plain version's multiply and add.
+__device__ __forceinline__ float dequant(float q, float s, float plo) {
+  return __fmaf_rn(q, s, plo);
+}
+
 // Walk the table whose root is row `base` of the flat [C*R, 32] table.
 // Returns true when kAnyHit and a triangle was accepted.
 template <bool kAnyHit>
@@ -66,7 +116,48 @@ __device__ __forceinline__ bool qwalk(const float4* __restrict__ nodes,
     const int r = min(max(base + (cur & (kLeafBit - 1)), 0), n_rows - 1);
     const float4* row = nodes + (size_t)r * (kQWidth / 4);
     int nxt = -1;
-    if (cur & kLeafBit) {
+    if (!(cur & kLeafBit)) {
+      float4 q[7];  // cols 0..27
+#pragma unroll
+      for (int k = 0; k < 7; ++k) q[k] = __ldg(row + k);
+      const float* f = reinterpret_cast<const float*>(q);
+      auto w = [f](int c) { return __float_as_int(f[c]); };
+      const float plx = f[0], ply = f[1], plz = f[2];
+      const int sc = w(3);
+      const float sx = exp_scale(sc);
+      const float sy = exp_scale(sc >> 8);
+      const float sz = exp_scale(sc >> 16);
+      float nr[8];
+      int mt[8];
+      bool vd[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int meta = w(4 + k);
+        const int c0 = w(12 + 2 * k);
+        const int c1 = w(13 + 2 * k);
+        const float lox = dequant(q_float(byte_bits(c0, 0)), sx, plx);
+        const float loy = dequant(q_float(byte_bits(c0, 1)), sy, ply);
+        const float loz = dequant(q_float(byte_bits(c0, 2)), sz, plz);
+        const float hix = dequant(q_float_plus1(byte_bits(c0, 3)), sx, plx);
+        const float hiy = dequant(q_float_plus1(byte_bits(c1, 0)), sy, ply);
+        const float hiz = dequant(q_float_plus1(byte_bits(c1, 1)), sz, plz);
+        const float tx0 = (lox - ox) * ix;
+        const float tx1 = (hix - ox) * ix;
+        const float ty0 = (loy - oy) * iy;
+        const float ty1 = (hiy - oy) * iy;
+        const float tz0 = (loz - oz) * iz;
+        const float tz1 = (hiz - oz) * iz;
+        const float near = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
+                                 fmaxf(fminf(tz0, tz1), tmin));
+        const float far = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
+                                fminf(fmaxf(tz0, tz1), best.t));
+        const bool ok = near <= far && meta >= 0;
+        nr[k] = ok ? near : CUDART_INF_F;
+        mt[k] = meta;
+        vd[k] = ok;
+      }
+      nxt = widerow::descend<8, kQMaxStack>(nr, mt, vd, stack, sp);
+    } else {
       float4 q[8];
 #pragma unroll
       for (int k = 0; k < 8; ++k) q[k] = __ldg(row + k);
@@ -84,8 +175,7 @@ __device__ __forceinline__ bool qwalk(const float4* __restrict__ nodes,
 #pragma unroll
         for (int k = 0; k < 9; ++k) {
           const int s = 9 * j + k;
-          const int h = (w(6 + (s >> 1)) >> (16 * (s & 1))) & 0xFFFF;
-          c[k] = (float)h;
+          c[k] = q_float(short_bits(w(6 + (s >> 1)), s & 1));
         }
         const float ax = bx + c[0] * sx;
         const float ay = by + c[1] * sy;
@@ -120,55 +210,6 @@ __device__ __forceinline__ bool qwalk(const float4* __restrict__ nodes,
           if (kAnyHit) return true;
         }
       }
-    } else {
-      float4 q[7];  // cols 0..27
-#pragma unroll
-      for (int k = 0; k < 7; ++k) q[k] = __ldg(row + k);
-      const float* f = reinterpret_cast<const float*>(q);
-      auto w = [f](int c) { return __float_as_int(f[c]); };
-      const float plx = f[0], ply = f[1], plz = f[2];
-      const int sc = w(3);
-      const float sx = exp_scale(sc);
-      const float sy = exp_scale(sc >> 8);
-      const float sz = exp_scale(sc >> 16);
-      float nr[8];
-      int mt[8];
-      bool vd[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int meta = w(4 + k);
-        const int c0 = w(12 + 2 * k);
-        const int c1 = w(13 + 2 * k);
-        const float lox = plx + (float)(c0 & 0xFF) * sx;
-        const float loy = ply + (float)((c0 >> 8) & 0xFF) * sy;
-        const float loz = plz + (float)((c0 >> 16) & 0xFF) * sz;
-        const float hix = plx + (float)(((c0 >> 24) & 0xFF) + 1) * sx;
-        const float hiy = ply + (float)((c1 & 0xFF) + 1) * sy;
-        const float hiz = plz + (float)(((c1 >> 8) & 0xFF) + 1) * sz;
-        const float tx0 = (lox - ox) * ix;
-        const float tx1 = (hix - ox) * ix;
-        const float ty0 = (loy - oy) * iy;
-        const float ty1 = (hiy - oy) * iy;
-        const float tz0 = (loz - oz) * iz;
-        const float tz1 = (hiz - oz) * iz;
-        const float near = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
-                                 fmaxf(fminf(tz0, tz1), tmin));
-        const float far = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
-                                fminf(fmaxf(tz0, tz1), best.t));
-        const bool ok = near <= far && meta >= 0;
-        nr[k] = ok ? near : CUDART_INF_F;
-        mt[k] = meta;
-        vd[k] = ok;
-      }
-      widerow::sort_children<8>(nr, mt, vd);
-#pragma unroll
-      for (int s = 7; s >= 1; --s) {
-        if (vd[s]) {
-          if (sp < kQMaxStack) stack[sp] = mt[s];
-          ++sp;
-        }
-      }
-      nxt = vd[0] ? mt[0] : -1;
     }
     if (nxt < 0 && sp > 0) {
       --sp;
@@ -188,29 +229,33 @@ qrow_walk(const float4* __restrict__ nodes, int n_chunks, int rows_per_chunk,
           const float* __restrict__ tmax_in, float* __restrict__ out_t,
           float* __restrict__ out_u, float* __restrict__ out_v,
           int* __restrict__ out_tri, unsigned char* __restrict__ out_hit) {
+  extern __shared__ float4 pick_tile[];  // pick_smem_bytes(n_chunks)
+  // no early return: every thread reaches the pick's barriers
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float tmax = tmax_in[i];
+  const float tmax = i < n ? tmax_in[i] : -1.0f;
+  const bool live = kAnyHit ? tmax > 0.0f : tmax >= 0.0f;
   Best best{tmax, 0.0f, 0.0f, -1};
-  if (kAnyHit ? tmax > 0.0f : tmax >= 0.0f) {
-    const float ox = o[3 * i + 0], oy = o[3 * i + 1], oz = o[3 * i + 2];
-    const float dx = d[3 * i + 0], dy = d[3 * i + 1], dz = d[3 * i + 2];
-    const float tmin = tmin_in[i];
-    const int n_rows = n_chunks * rows_per_chunk;
-    int stack[kQMaxStack];
-    if (lo == nullptr) {
+  const int j = live ? i : 0;
+  const float ox = o[3 * j + 0], oy = o[3 * j + 1], oz = o[3 * j + 2];
+  const float dx = d[3 * j + 0], dy = d[3 * j + 1], dz = d[3 * j + 2];
+  const float tmin = tmin_in[j];
+  const int n_rows = n_chunks * rows_per_chunk;
+  int stack[kQMaxStack];
+  if (lo == nullptr) {
+    if (live) {
       qwalk<kAnyHit>(nodes, n_rows, 0, ox, oy, oz, dx, dy, dz, tmin, best,
                      stack);
-    } else {
-      widerow::nearest_first(
-          lo, hi, n_chunks, ox, oy, oz, widerow::safe_inv(dx),
-          widerow::safe_inv(dy), widerow::safe_inv(dz), tmin, best,
-          [&](int c) {
-            return qwalk<kAnyHit>(nodes, n_rows, c * rows_per_chunk, ox, oy,
-                                  oz, dx, dy, dz, tmin, best, stack);
-          });
     }
+  } else {
+    widerow::nearest_first(
+        lo, hi, n_chunks, pick_tile, live, ox, oy, oz, widerow::safe_inv(dx),
+        widerow::safe_inv(dy), widerow::safe_inv(dz), tmin, best,
+        [&](int c) {
+          return qwalk<kAnyHit>(nodes, n_rows, c * rows_per_chunk, ox, oy,
+                                oz, dx, dy, dz, tmin, best, stack);
+        });
   }
+  if (i >= n) return;
   out_t[i] = best.t;
   out_u[i] = best.u;
   out_v[i] = best.v;
@@ -225,7 +270,8 @@ cudaError_t launch(const float4* nodes, int n_chunks, int rows_per_chunk,
                    float* t, float* u, float* v, int* tri, unsigned char* hit,
                    cudaStream_t stream) {
   const int grid = (n + kBlock - 1) / kBlock;
-  qrow_walk<kAnyHit><<<grid, kBlock, 0, stream>>>(
+  const int smem = lo != nullptr ? widerow::pick_smem_bytes(n_chunks) : 0;
+  qrow_walk<kAnyHit><<<grid, kBlock, smem, stream>>>(
       nodes, n_chunks, rows_per_chunk, lo, hi, n, o, d, tmin, tmax, t, u, v,
       tri, hit);
   return cudaGetLastError();

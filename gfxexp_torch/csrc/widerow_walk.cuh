@@ -14,7 +14,35 @@
 // not by arithmetic. Every thread walks on its own (no packets) and reads
 // rows as float4 through the read-only path; the tables of the bench scenes
 // (about 1 MB for one table, about 2 MB for the padded BLAS tables) stay
-// resident in the 50 MB L2. The stack lives in local memory.
+// resident in the 50 MB L2. The stack lives in local memory. An internal
+// row with at most one hit child skips the sort network (descend).
+//
+// What bounded the pick: it rescanned all C boxes at every pick, six __ldg
+// and about 30 operations a box, so a ray that visited v boxes paid v + 1
+// scans (514 boxes each on two-level `city`). nearest_first now scans once:
+// the block stages the boxes in shared memory, tile by tile, and each ray
+// keeps the kPick smallest keys (entry distance, index) of the boxes it
+// enters within [t_min, t_max) in registers, sorted, and takes them in key
+// order. Only when those run out while more boxes passed the first scan
+// does it look again, for the keys after the last one taken: among the
+// keys it kept in local memory, or, past kSpill of them, in every box.
+// kPick = 8 was timed on the card against 4 and 16 keys, the spill list
+// against refilling from a scan of every box, and the staged first scan
+// against one through __ldg (PERF.md); what bounds the pick now is
+// its one scan, a slab test of every box per ray.
+//
+// Why it visits exactly what the rescanning pick visited, in the same order:
+// the plain version (walk_entries_plain in accel/persistent.py) takes, at
+// each step, the smallest key after the last one taken among the boxes the
+// ray enters within [t_min, best_t], and stops when that distance is >=
+// best_t. A box's entry distance does not depend on best_t, and its test
+// near <= min(far_x, far_y, far_z, best_t) splits into near <= the box's
+// own far (fixed) and near <= best_t. As best_t only falls, the boxes that
+// pass at a later step are those of the first scan with near <= best_t. So
+// the next pick is the next buffered key; if its distance is >= best_t, the
+// plain version stops there or finds nothing (every later key is as far),
+// and the walk stops too. The boxes with near == t_max that the plain
+// version admits would stop it on the spot, so the scan leaves them out.
 
 #pragma once
 
@@ -25,6 +53,9 @@ namespace widerow {
 
 constexpr int kWidth = 64;       // floats per row
 constexpr int kMaxStack = 128;   // compile-time stack bound (entries)
+constexpr int kPick = 8;         // keys a ray keeps in registers
+constexpr int kSpill = 32;       // keys a ray keeps in local memory
+constexpr int kBoxTile = 512;    // boxes staged in shared memory at a time
 
 __device__ __forceinline__ float safe_inv(float v) {
   const float tiny = v < 0.0f ? -1e-12f : 1e-12f;
@@ -66,6 +97,37 @@ __device__ __forceinline__ void sort_children<8>(float* nr, int* mt,
   cswap(nr, mt, vd, 3, 6); cswap(nr, mt, vd, 2, 4);
   cswap(nr, mt, vd, 1, 2); cswap(nr, mt, vd, 3, 5);
   cswap(nr, mt, vd, 4, 5); cswap(nr, mt, vd, 3, 4);
+}
+
+// The next row after an internal row whose K children have entry distance
+// nr, child entry mt and hit flag vd: the nearest hit child, the other hit
+// children pushed far to near, in the order of the plain version's K-wide
+// network (whose tie order this shares). With at most one hit child the
+// network would leave that child first and push nothing (or, at an entry
+// distance as infinite as the misses', push it and pop it straight back),
+// so the network is skipped. A push past kCap entries would be dropped;
+// the launch wrappers check the table's depth against kCap, so none is.
+template <int K, int kCap>
+__device__ __forceinline__ int descend(float* nr, int* mt, bool* vd,
+                                       int* stack, int& sp) {
+  int n_hit = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) n_hit += vd[k] ? 1 : 0;
+  if (n_hit <= 1) {
+    int nxt = -1;
+#pragma unroll
+    for (int k = 0; k < K; ++k) nxt = vd[k] ? mt[k] : nxt;
+    return nxt;
+  }
+  sort_children<K>(nr, mt, vd);
+#pragma unroll
+  for (int s = K - 1; s >= 1; --s) {
+    if (vd[s]) {
+      if (sp < kCap) stack[sp] = mt[s];
+      ++sp;
+    }
+  }
+  return vd[0] ? mt[0] : -1;
 }
 
 // The best hit a ray has found so far; carried across walks (the entries of
@@ -171,15 +233,7 @@ __device__ __forceinline__ bool walk(const float* __restrict__ nodes,
         mt[k] = meta;
         vd[k] = ok;
       }
-      sort_children<K>(nr, mt, vd);
-#pragma unroll
-      for (int s = K - 1; s >= 1; --s) {
-        if (vd[s]) {
-          if (sp < kMaxStack) stack[sp] = mt[s];
-          ++sp;
-        }
-      }
-      nxt = vd[0] ? mt[0] : -1;
+      nxt = descend<K, kMaxStack>(nr, mt, vd, stack, sp);
     }
     if (nxt < 0 && sp > 0) {
       --sp;
@@ -190,19 +244,19 @@ __device__ __forceinline__ bool walk(const float* __restrict__ nodes,
   return false;
 }
 
-// Entry distance of the ray into box c of lo, hi ([C, 3] each); `ok` when it
-// enters within [tmin, best_t]. The same slab test as a BVH child.
-__device__ __forceinline__ float box_near(const float* __restrict__ lo,
-                                          const float* __restrict__ hi,
-                                          int c, float ox, float oy, float oz,
-                                          float ix, float iy, float iz,
-                                          float tmin, float best_t, bool& ok) {
-  const float tx0 = (__ldg(lo + 3 * c + 0) - ox) * ix;
-  const float tx1 = (__ldg(hi + 3 * c + 0) - ox) * ix;
-  const float ty0 = (__ldg(lo + 3 * c + 1) - oy) * iy;
-  const float ty1 = (__ldg(hi + 3 * c + 1) - oy) * iy;
-  const float tz0 = (__ldg(lo + 3 * c + 2) - oz) * iz;
-  const float tz1 = (__ldg(hi + 3 * c + 2) - oz) * iz;
+// The slab test of a box lo, hi against a ray: its entry distance `near`
+// and whether the ray enters it within [tmin, best_t] (`near <= far`), in
+// the order of operations of a BVH child's test.
+__device__ __forceinline__ float slab(float lx, float ly, float lz, float hx,
+                                      float hy, float hz, float ox, float oy,
+                                      float oz, float ix, float iy, float iz,
+                                      float tmin, float best_t, bool& ok) {
+  const float tx0 = (lx - ox) * ix;
+  const float tx1 = (hx - ox) * ix;
+  const float ty0 = (ly - oy) * iy;
+  const float ty1 = (hy - oy) * iy;
+  const float tz0 = (lz - oz) * iz;
+  const float tz1 = (hz - oz) * iz;
   const float near = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
                            fmaxf(fminf(tz0, tz1), tmin));
   const float far = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
@@ -211,38 +265,156 @@ __device__ __forceinline__ float box_near(const float* __restrict__ lo,
   return near;
 }
 
-// Nearest-first order over `count` boxes (the chunks of a large table, the
-// TLAS entries of a two-level scene): each step takes the box with the
-// smallest key (entry distance, index) strictly after the last key taken,
-// among the boxes the ray enters within [tmin, best.t], and stops when that
-// distance is >= best.t. visit(c) walks box c (updating best) and returns
-// true to stop (an accepted any hit). No visited set and no per-thread sort:
-// each pick is an O(C) scan of the boxes, which every thread of a warp reads
-// alike (a broadcast from L1/L2).
+// Entry distance of the ray into box c of lo, hi ([C, 3] each, read through
+// __ldg); `ok` when it enters within [tmin, best_t].
+__device__ __forceinline__ float box_near(const float* __restrict__ lo,
+                                          const float* __restrict__ hi,
+                                          int c, float ox, float oy, float oz,
+                                          float ix, float iy, float iz,
+                                          float tmin, float best_t, bool& ok) {
+  return slab(__ldg(lo + 3 * c + 0), __ldg(lo + 3 * c + 1),
+              __ldg(lo + 3 * c + 2), __ldg(hi + 3 * c + 0),
+              __ldg(hi + 3 * c + 1), __ldg(hi + 3 * c + 2), ox, oy, oz, ix,
+              iy, iz, tmin, best_t, ok);
+}
+
+// Insert key (n, c) into the ascending buffer bn, bc of kPick keys, dropping
+// the largest. Keys arrive in increasing c, so a new key is smaller than a
+// buffered one exactly when its distance is: ties keep the smaller index
+// first. Static indices only, so the buffer stays in registers.
+__device__ __forceinline__ void pick_insert(float* bn, int* bc, float n,
+                                            int c) {
+  if (!(n < bn[kPick - 1])) return;
+#pragma unroll
+  for (int j = kPick - 1; j > 0; --j) {
+    const bool up = n < bn[j - 1];
+    const bool here = !up && n < bn[j];
+    bn[j] = up ? bn[j - 1] : (here ? n : bn[j]);
+    bc[j] = up ? bc[j - 1] : (here ? c : bc[j]);
+  }
+  if (n < bn[0]) {
+    bn[0] = n;
+    bc[0] = c;
+  }
+}
+
+// Shared memory nearest_first needs for `count` boxes: a tile of up to
+// kBoxTile boxes, 8 floats each (lo.xyz hi.x | hi.yz and 2 unused, read as
+// two float4). Sized to the boxes, so a small set leaves the L1 its room.
+__host__ __device__ __forceinline__ int pick_smem_bytes(int count) {
+  return 32 * (count < kBoxTile ? count : kBoxTile);
+}
+
+// Nearest-first order over `count` boxes lo, hi ([C, 3] each: the chunks of
+// a large table, the TLAS entries of a two-level scene): the boxes the ray
+// enters within [tmin, best.t] in ascending (entry distance, index),
+// stopping at the first whose distance is >= best.t. visit(c) walks box c
+// (updating best) and returns true to stop (an accepted any hit). Every
+// thread of the block must call it, with `tile` the block's
+// pick_smem_bytes(count) of shared memory: it stages the boxes between
+// barriers; threads with live == false only help to stage.
+//
+// The first scan keeps the kPick smallest keys in registers and the keys of
+// up to kSpill boxes that passed it in local memory, in scan order. When
+// the buffer runs dry while more boxes passed, it refills from those keys,
+// or, when more than kSpill passed, by a scan of every box through __ldg;
+// either way it takes the smallest keys after the last one taken among the
+// boxes still entered before best.t.
 template <class Visit>
 __device__ __forceinline__ void nearest_first(
     const float* __restrict__ lo, const float* __restrict__ hi, int count,
-    float ox, float oy, float oz, float ix, float iy, float iz, float tmin,
-    const Best& best, Visit visit) {
-  float last_near = -CUDART_INF_F;
-  int last_c = -1;
-  while (true) {
-    float pick_near = CUDART_INF_F;
-    int pick = -1;
-    for (int c = 0; c < count; ++c) {
-      bool ok;
-      const float nr =
-          box_near(lo, hi, c, ox, oy, oz, ix, iy, iz, tmin, best.t, ok);
-      const bool after = nr > last_near || (nr == last_near && c > last_c);
-      if (ok && after && nr < pick_near) {
-        pick_near = nr;
-        pick = c;
+    float4* tile, bool live, float ox, float oy, float oz, float ix,
+    float iy, float iz, float tmin, const Best& best, Visit visit) {
+  float bn[kPick];
+  int bc[kPick];
+#pragma unroll
+  for (int j = 0; j < kPick; ++j) {
+    bn[j] = CUDART_INF_F;
+    bc[j] = 0;
+  }
+  float spill_n[kSpill];
+  int spill_c[kSpill];
+  // the first scan, against t_max (= best.t before any visit)
+  int passed = 0;
+  float* s = reinterpret_cast<float*>(tile);
+  for (int c0 = 0; c0 < count; c0 += kBoxTile) {
+    const int m = min(kBoxTile, count - c0);
+    __syncthreads();  // every thread is done with the last tile
+    for (int j = threadIdx.x; j < 3 * m; j += blockDim.x) {
+      const int b = j / 3, k = j - 3 * b;
+      s[8 * b + k] = __ldg(lo + 3 * c0 + j);
+      s[8 * b + 3 + k] = __ldg(hi + 3 * c0 + j);
+    }
+    __syncthreads();
+    if (live) {
+#pragma unroll 4
+      for (int b = 0; b < m; ++b) {
+        const float4 p = tile[2 * b];
+        const float4 q = tile[2 * b + 1];
+        bool ok;
+        const float nr = slab(p.x, p.y, p.z, p.w, q.x, q.y, ox, oy, oz, ix,
+                              iy, iz, tmin, best.t, ok);
+        if (ok && nr < best.t) {
+          if (passed < kSpill) {
+            spill_n[passed] = nr;
+            spill_c[passed] = c0 + b;
+          }
+          ++passed;
+          pick_insert(bn, bc, nr, c0 + b);
+        }
       }
     }
-    if (pick < 0 || pick_near >= best.t) break;
-    if (visit(pick)) break;
-    last_near = pick_near;
-    last_c = pick;
+  }
+  if (!live) return;
+  int left = min(passed, kPick);  // buffered keys not yet taken
+  bool more = passed > kPick;     // keys of the scan beyond the buffer
+  float last_n = 0.0f;
+  int last_c = -1;
+  while (true) {
+    if (left == 0) {
+      if (!more) break;
+      // refill: the smallest keys after the last one taken among the boxes
+      // still entered before best.t
+#pragma unroll
+      for (int j = 0; j < kPick; ++j) bn[j] = CUDART_INF_F;
+      int found = 0;
+      if (passed <= kSpill) {
+        for (int j = 0; j < passed; ++j) {
+          const float nr = spill_n[j];
+          const int c = spill_c[j];
+          if ((nr > last_n || (nr == last_n && c > last_c)) && nr < best.t) {
+            ++found;
+            pick_insert(bn, bc, nr, c);
+          }
+        }
+      } else {
+        for (int c = 0; c < count; ++c) {
+          bool ok;
+          const float nr =
+              box_near(lo, hi, c, ox, oy, oz, ix, iy, iz, tmin, best.t, ok);
+          if (ok && (nr > last_n || (nr == last_n && c > last_c)) &&
+              nr < best.t) {
+            ++found;
+            pick_insert(bn, bc, nr, c);
+          }
+        }
+      }
+      left = min(found, kPick);
+      more = found > kPick;
+      if (left == 0) break;
+    }
+    const float nr = bn[0];
+    const int c = bc[0];
+#pragma unroll
+    for (int j = 0; j + 1 < kPick; ++j) {
+      bn[j] = bn[j + 1];
+      bc[j] = bc[j + 1];
+    }
+    --left;
+    if (nr >= best.t) break;
+    if (visit(c)) break;
+    last_n = nr;
+    last_c = c;
   }
 }
 

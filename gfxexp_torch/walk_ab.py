@@ -1,0 +1,242 @@
+"""Time the wide-row, two-level, chunked and quantized walks of several CUDA
+source trees on the same rays, in turns, on one CUDA device.
+
+    python -m gfxexp_torch.walk_ab parent=/path/to/parent/gfxexp_torch/csrc \\
+        change=gfxexp_torch/csrc [--reps 20] [--out out/walk_ab.json]
+
+Each NAME=DIR names a directory that holds widerow_traverse.cu,
+instanced_traverse.cu, chunked_traverse.cu and qrow_traverse.cu (and their
+headers) with the C interface of gfxexp_torch/csrc; the first tree is the
+reference. Every source is built with build.NVCC_FLAGS, one nvcc each, all
+at once, into build/walk_ab/<NAME>/. One process then builds bench.py's
+small scene (one wide-row table), `big`, `city` and `city rebraid4`
+two-level and `big` and `city` flattened (chunked wide rows, quantized
+rows), makes bench.walk_rays' rays, and times each walk on one
+262,144-ray bounce batch (closest hit) and its shadow rays (any hit) with
+CUDA events, in turns: the trees in order, then in reverse (parent, change,
+change, parent for two trees). Every tree's results must equal the
+reference's bit for bit (t, u, v, tri, hit, and the entry of the two-level
+walk). Prints one line per case and writes the times, nvcc's -Xptxas -v
+reports and SASS instruction counts (conversions I2F*, local loads and
+stores, where cuobjdump is found) to --out.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import torch
+
+from gfxexp_torch import bench
+from gfxexp_torch.accel import instanced
+from gfxexp_torch.accel.instanced import walk_instanced_cuda, walk_tlas
+from gfxexp_torch.accel.persistent import walk_chunked_cuda, walk_cuda
+from gfxexp_torch.accel.qrow import walk_qrow_cuda
+from gfxexp_torch.csrc import build
+
+KERNELS = ("widerow_traverse", "instanced_traverse", "chunked_traverse",
+           "qrow_traverse")
+BATCH = 512 * 512
+SEED = 7
+_SASS_OPS = ("I2F", "LDL", "STL")
+
+
+def build_trees(trees: dict) -> tuple[dict, dict]:
+    """Build every kernel of every tree ({name: csrc dir}) with one nvcc
+    each, all at once. Returns ({name: {kernel: CDLL}}, {name: {kernel:
+    ptxas lines}}); raises when a build fails."""
+    nvcc = build._nvcc()
+    root = os.path.join(os.path.dirname(build.BUILD_DIR), "walk_ab")
+    procs = {}
+    for name, src_dir in trees.items():
+        os.makedirs(os.path.join(root, name), exist_ok=True)
+        for k in KERNELS:
+            so = os.path.join(root, name, f"lib{k}.so")
+            src = os.path.join(src_dir, k + ".cu")
+            procs[name, k] = (so, subprocess.Popen(
+                [nvcc, *build.NVCC_FLAGS, "-o", so, src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    libs, ptxas = {}, {}
+    for (name, k), (so, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {trees[name]}/{k}.cu:\n{err}")
+        lib = ctypes.CDLL(so)
+        build._declare(k, lib)
+        libs.setdefault(name, {})[k] = lib
+        ptxas.setdefault(name, {})[k] = [
+            ln.strip() for ln in err.splitlines()
+            if "registers" in ln or "spill" in ln]
+    return libs, ptxas
+
+
+def sass_counts(trees: dict) -> dict:
+    """{name: {kernel: {opcode: count}}} from cuobjdump -sass of each built
+    library; empty when cuobjdump is not found."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    root = os.path.join(os.path.dirname(build.BUILD_DIR), "walk_ab")
+    out = {}
+    for name in trees:
+        for k in KERNELS:
+            sass = subprocess.run(
+                [tool, "-sass", os.path.join(root, name, f"lib{k}.so")],
+                capture_output=True, text=True).stdout
+            out.setdefault(name, {})[k] = {
+                op: len(re.findall(rf"\b{op}[.A-Z0-9]*\s", sass))
+                for op in _SASS_OPS}
+    return out
+
+
+def use(libs: dict, name: str):
+    """Route the wrappers to tree `name`'s libraries."""
+    for k, lib in libs[name].items():
+        build._libs[k] = lib
+
+
+def _bounce_args(rays):
+    o, d, t_min, t_max, sd, s_max = rays
+    b = slice(BATCH, 2 * BATCH)
+    return {"closest": (o[b], d[b], t_min[b], t_max[b]),
+            "any": (o[b], sd[b], t_min[b], s_max[b])}
+
+
+def cases(dev):
+    """[(case name, (closure) -> results)] over every scene, walk and
+    kind, with the reference tree's libraries in use for the rays."""
+    out = []
+    small = bench.build_bench_scene()[1].to(dev)
+
+    def small_hit(o0, d0):
+        h = walk_cuda(small, o0, d0, 0.0, 1e30, False)
+        return h.t, h.hit
+
+    rays = bench.walk_rays(small_hit, "small", dev, SEED, BATCH)
+    for kind, args in _bounce_args(rays).items():
+        def fn(a=args, any_hit=kind == "any"):
+            h = walk_cuda(small, *a, any_hit)
+            return (h.t, h.u, h.v, h.tri, h.hit)
+
+        out.append((f"widerow small {kind}", fn))
+    del rays
+    for key, which, rb in (("city", "city", 0.0),
+                           ("city_rebraid4", "city", 4.0),
+                           ("big", "big", 0.0)):
+        acc = bench.build_bench_scene(which, rb)[1].to(dev)
+
+        def first_hit(o0, d0, acc=acc):
+            h, _ = walk_instanced_cuda(acc, o0, d0, 0.0, 1e30, False,
+                                       "nearest")
+            return h.t, h.hit
+
+        rays = bench.walk_rays(first_hit, which, dev, SEED, BATCH)
+        for kind, args in _bounce_args(rays).items():
+            any_hit = kind == "any"
+            routes = ("nearest", "sorted", "build") if key == "city" else (
+                "nearest",)
+            for route in routes:
+                a = args
+                if route == "sorted":
+                    # the kernel on the rays the tlas route has sorted
+                    ob, dd, tmin, tm = args
+                    first, has = instanced._nearest_entry(acc, ob, dd, tmin,
+                                                          tm)
+                    perm = torch.argsort(torch.where(has, first,
+                                                     acc.num_entries),
+                                         stable=True)
+                    a = (ob[perm].contiguous(), dd[perm].contiguous(),
+                         tmin[perm].contiguous(),
+                         torch.where(has, tm, -1.0)[perm].contiguous())
+
+                def fn(acc=acc, a=a, any_hit=any_hit, route=route):
+                    h, ent = walk_instanced_cuda(acc, *a, any_hit, route)
+                    return (h.t, h.u, h.v, h.tri, h.hit, ent)
+
+                out.append((f"instanced_{route} {key} {kind}", fn))
+        del rays
+    for which in ("big", "city"):
+        for fmt, walk in (("widerow", walk_chunked_cuda),
+                          ("qrow", walk_qrow_cuda)):
+            bvh = bench.build_bench_scene(which, traversal=fmt)[1].to(dev)
+
+            def first_hit(o0, d0, bvh=bvh, walk=walk):
+                h = walk(bvh, o0, d0, 0.0, 1e30, False)
+                return h.t, h.hit
+
+            rays = bench.walk_rays(first_hit, which, dev, SEED, BATCH)
+            name = "chunked" if fmt == "widerow" else "qrow"
+            for kind, args in _bounce_args(rays).items():
+                def fn(bvh=bvh, a=args, any_hit=kind == "any", walk=walk):
+                    h = walk(bvh, *a, any_hit)
+                    return (h.t, h.u, h.v, h.tri, h.hit)
+
+                out.append((f"{name} {which} {kind}", fn))
+            del rays
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("trees", nargs="+", help="NAME=CSRC_DIR, reference first")
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--out", default=os.path.join("out",
+                                                  "walk_ab.json"))
+    args = ap.parse_args(argv)
+    trees = dict(t.split("=", 1) for t in args.trees)
+    names = list(trees)
+    if not torch.cuda.is_available():
+        raise RuntimeError("gfxexp_torch.walk_ab needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"walk_ab: {smi}; trees {trees}", flush=True)
+    libs, ptxas = build_trees(trees)
+    for name in names:
+        for k in KERNELS:
+            print(f"walk_ab: {name} {k}: {' | '.join(ptxas[name][k])}",
+                  flush=True)
+    sass = sass_counts(trees)
+    for name, per in sass.items():
+        print(f"walk_ab: {name} SASS {per}", flush=True)
+    use(libs, names[0])
+    rows = {}
+    order = names + names[::-1]
+    for case, fn in cases(dev):
+        use(libs, names[0])
+        ref = fn()
+        times = {name: [] for name in names}
+        for name in order:
+            use(libs, name)
+            got = fn()
+            torch.cuda.synchronize()
+            for x, y in zip(got, ref):
+                if not torch.equal(x, y):
+                    raise RuntimeError(f"walk_ab: {case}: tree {name} differs "
+                                       f"from {names[0]}")
+            times[name].append(bench.device_ms(fn, args.reps))
+        rows[case] = times
+        base = sum(times[names[0]]) / len(times[names[0]])
+        print(f"walk_ab: {case}: " + "; ".join(
+            f"{name} {' / '.join(f'{t:.4f}' for t in ts)} ms "
+            f"(x{sum(ts) / len(ts) / base:.3f})"
+            for name, ts in times.items()), flush=True)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump({"nvidia_smi": smi, "trees": trees, "order": order,
+                   "reps": args.reps, "ms": rows, "ptxas": ptxas,
+                   "sass": sass}, f, indent=1)
+    print(f"walk_ab: every tree equals {names[0]} on every case; "
+          f"{args.out}", flush=True)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -52,6 +52,7 @@ from gfxexp_torch.accel.skiplink import walk_skip_plain  # noqa: E402
 from gfxexp_torch.accel.traverse import intersect_any  # noqa: E402
 from gfxexp_torch.accel.traverse import intersect_closest  # noqa: E402
 from gfxexp_torch.accel.widerow import build_widerow  # noqa: E402
+from gfxexp_torch.csrc.build import header_constant  # noqa: E402
 from gfxexp_torch.render import pathtrace as tpt  # noqa: E402
 from gfxexp_torch.render.camera import make_camera  # noqa: E402
 from gfxexp_torch.scene import animation  # noqa: E402
@@ -153,7 +154,8 @@ def _instanced_rays(n, seed=9):
 def test_instanced_kernel_matches_plain(dev, route, rebraid):
     """Each route of the two-level walk, closest and any hit, dead rays
     included: kernel and plain version visit the same entries in the same
-    order with the same arithmetic, so their results are identical."""
+    order with the same arithmetic, so their results (t, u, v, tri, hit,
+    entry) are identical."""
     acc = _instanced(rebraid).to(dev)
     o, d = (x.to(dev) for x in _instanced_rays(20000))
     t_max = torch.where(torch.arange(20000, device=dev) % 5 == 0, -1.0, 6.0)
@@ -170,11 +172,77 @@ def test_instanced_kernel_matches_plain(dev, route, rebraid):
                                          route)
         torch.cuda.synchronize()
         assert k.hit.any() and not k.hit[t_max < 0].any()
-        assert torch.equal(k.hit, p.hit)
-        if not any_hit:
-            for f in ("t", "u", "v", "tri"):
-                assert torch.equal(getattr(k, f), getattr(p, f)), f
-            assert torch.equal(ke, pe)
+        for f in ("hit", "t", "u", "v", "tri"):
+            assert torch.equal(getattr(k, f), getattr(p, f)), f
+        assert torch.equal(ke, pe)
+
+
+def _stacked_rays(o, d, dev):
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    return o, d, _dead_every_fifth(o.shape[0], dev)
+
+
+def _overflow_share(lo, hi, o, d, t_max):
+    """Share of live rays that enter more boxes than the pick keeps."""
+    near = instanced._instance_entry_dists(lo, hi, o, d,
+                                           torch.full_like(t_max, 1e-4),
+                                           t_max)
+    over = (near < t_max[:, None]).sum(1) > header_constant("kPick")
+    return float(over[t_max >= 0].float().mean())
+
+
+@pytest.mark.parametrize("route", ["nearest", "sorted"])
+def test_instanced_overflow_matches_plain(dev, route):
+    """300 open frames stacked along the rays: most rays enter more entry
+    boxes than the pick keeps and miss most frames, so its buffer runs dry
+    and refills. The nearest-first kernel (and the ray-sorted route's) still
+    equals the plain version, closest and any hit."""
+    blas, inst, o, d = S.stacked_frames()
+    acc = build_instanced(blas, inst)[0].to(dev)
+    o, d, t_max = _stacked_rays(o, d, dev)
+    assert _overflow_share(acc.chunk_lo, acc.chunk_hi, o, d, t_max) > 0.5
+    for any_hit in (False, True):
+        if route == "sorted":
+            k, ke = walk_tlas(walk_instanced_cuda, acc, o, d, 1e-4, t_max,
+                              any_hit)
+            p, pe = walk_tlas(walk_instanced_plain, acc, o, d, 1e-4, t_max,
+                              any_hit)
+        else:
+            k, ke = walk_instanced_cuda(acc, o, d, 1e-4, t_max, any_hit,
+                                        route)
+            p, pe = walk_instanced_plain(acc, o, d, 1e-4, t_max, any_hit,
+                                         route)
+        torch.cuda.synchronize()
+        assert k.hit.any() and not k.hit[t_max >= 0].all()
+        for f in ("hit", "t", "u", "v", "tri"):
+            assert torch.equal(getattr(k, f), getattr(p, f)), f
+        assert torch.equal(ke, pe)
+
+
+@pytest.mark.parametrize("fmt", ["widerow", "qrow"])
+def test_chunked_overflow_matches_plain(dev, fmt):
+    """The stacked frames flattened into chunk tables at a small max_rows
+    (75-85 chunks along the rays): kernel 2 and the quantized walk equal
+    their plain versions on rays that enter more chunk boxes than the pick
+    keeps, closest and any hit."""
+    blas, inst, o, d = S.stacked_frames()
+    soup = S.flatten(blas, inst)
+    if fmt == "widerow":
+        tb = build_widerow(*soup, arity=4, max_rows=60)[0]
+        kwalk, pwalk = walk_chunked_cuda, walk_chunked_plain
+    else:
+        tb = build_qrow(*soup, max_rows=40)[0]
+        kwalk, pwalk = walk_qrow_cuda, walk_qrow_plain
+    tb = tb.to(dev)
+    o, d, t_max = _stacked_rays(o, d, dev)
+    assert _overflow_share(tb.chunk_lo, tb.chunk_hi, o, d, t_max) > 0.5
+    for any_hit in (False, True):
+        k = kwalk(tb, o, d, 1e-4, t_max, any_hit)
+        p = pwalk(tb, o, d, 1e-4, t_max, any_hit)
+        torch.cuda.synchronize()
+        assert k.hit.any() and not k.hit[t_max >= 0].all()
+        for f in ("hit", "t", "u", "v", "tri"):
+            assert torch.equal(getattr(k, f), getattr(p, f)), f
 
 
 def test_instanced_wrappers_launch_and_count(dev):

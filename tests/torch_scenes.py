@@ -145,6 +145,57 @@ def instanced_walk_cases():
     return cases
 
 
+def frame_soup(rng, n=24, inner=0.6, outer=1.0):
+    """A soup (p0, e1, e2) of n small triangles in the square ring
+    inner <= max(|x|, |y|) <= outer around the z axis: an open frame, which
+    a ray through its middle misses."""
+    pts = []
+    while len(pts) < n:
+        p = rng.uniform(-outer, outer, 2)
+        if np.abs(p).max() >= inner:
+            pts.append(p)
+    c = np.concatenate([np.asarray(pts), rng.uniform(-0.05, 0.05, (n, 1))],
+                       axis=1).astype(np.float32)
+    e1 = rng.normal(scale=0.1, size=(n, 3)).astype(np.float32)
+    e2 = rng.normal(scale=0.1, size=(n, 3)).astype(np.float32)
+    return c, e1, e2
+
+
+def stacked_frames(n_inst=300, spacing=0.2, n_rays=4096, seed=11):
+    """(BLAS geometries, instances, ray origins, ray directions): n_inst open
+    frames stacked along +z, each shifted a little in x and y, and rays
+    from in front of the stack along the axis. A ray enters hundreds of
+    entry boxes and misses most frames before it hits one, so the
+    nearest-first pick runs through its buffer and refills it."""
+    rng = np.random.default_rng(seed)
+    blas = [frame_soup(rng)]
+    inst = []
+    for k in range(n_inst):
+        m = np.zeros((3, 4), np.float32)
+        m[0, 0] = m[1, 1] = m[2, 2] = 1.0
+        m[:, 3] = [*rng.uniform(-0.35, 0.35, 2), k * spacing]
+        inst.append((0, m))
+    o = np.concatenate([rng.uniform(-0.8, 0.8, (n_rays, 2)),
+                        np.full((n_rays, 1), -2.0)], axis=1)
+    d = np.concatenate([rng.normal(scale=0.02, size=(n_rays, 2)),
+                        np.ones((n_rays, 1))], axis=1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return blas, inst, o.astype(np.float32), d.astype(np.float32)
+
+
+def flatten(blas, inst):
+    """The world triangle soup (p0, e1, e2) of instances (blas id, 3x4
+    object->world matrix)."""
+    out = [[], [], []]
+    for b, m in inst:
+        p0, e1, e2 = blas[b]
+        r = m[:, :3].astype(np.float64)
+        out[0].append(p0 @ r.T + m[:, 3])
+        out[1].append(e1 @ r.T)
+        out[2].append(e2 @ r.T)
+    return tuple(np.concatenate(x).astype(np.float32) for x in out)
+
+
 BOX_CAMERA = dict(position=[0, 0.5, 1.9], fov_y=np.deg2rad(75), aspect=1.0,
                   target=[0, 0.3, -1.0])
 INSTANCED_CAMERA = dict(position=[0, 0.5, 1.9], fov_y=np.deg2rad(75),
