@@ -40,8 +40,10 @@ Phases, one line each, any failure exits non-zero:
      plain version (t, u, v, tri exactly equal), the plain version against
      brute force over the world triangles on 4,096 rays, all again after 8
      frames of advance_frame (refit boxes); ms per 262,144-ray bounce batch
-     per scope, nodes and triangles visited per ray, and the node and
-     triangle rows the batch reads (the bound's bytes);
+     per scope, nodes and triangles visited per ray, the node and triangle
+     rows the batch reads (the bound's bytes), and the per-ray scope's
+     dependent round trips to memory per live ray (mean, p99, max) under
+     the parent's schedule and the kernel's (skiplink.skip_trips);
  12. animated slice: `big` after advance_frame at t = 0.5, 64x64, 2 samples,
      card against CPU (image rel diff < 5e-3, identical ray counts);
  13. animated main path: the path_tracing app's frame loop (advance_frame,
@@ -67,7 +69,9 @@ Phases, one line each, any failure exits non-zero:
      (exactly equal) and against the per-ray walk (equal t, tri only on
      ties); ms per 262,144-ray bounce batch, rows and chunks per ray, the
      rows the batch reads, the bound, the candidate chunk boxes per live ray
-     against kPick, and ptxas's report of both kernels;
+     against kPick, kernel 2's dependent round trips to memory per live ray
+     (mean, p99, max) under the parent's schedule and the kernel's
+     (persistent.chunked_trips), and ptxas's report of both kernels;
  17. single-level slice: `big` as chunked wide rows and as quantized rows at
      64x64, 2 samples, card against CPU;
  18. single-level main path: gfxexp_torch.bench.measure at 512x512 on `big
@@ -114,6 +118,7 @@ from gfxexp_torch.accel.lanegroup import (
     walk_lanegroup_plain,
 )
 from gfxexp_torch.accel.persistent import (
+    chunked_trips,
     walk_chunked_cuda,
     walk_chunked_plain,
     walk_cuda,
@@ -121,7 +126,7 @@ from gfxexp_torch.accel.persistent import (
 )
 from gfxexp_torch.accel.qrow import walk_qrow_cuda, walk_qrow_plain
 from gfxexp_torch.accel.skip_traverse import SCOPES, walk_skip_cuda
-from gfxexp_torch.accel.skiplink import walk_skip_plain
+from gfxexp_torch.accel.skiplink import skip_trips, walk_skip_plain
 from gfxexp_torch.accel.traverse import HitInfo, intersect_closest_brute
 from gfxexp_torch.apps.common import PassTimer
 from gfxexp_torch.apps.path_tracing import frame_loop
@@ -202,6 +207,25 @@ APP_DSL = ["-cam-pos", "0", "1", "3.2", "-cam-pitch", "-12",
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def _trips(parent, new, live):
+    """Round trips per live ray, mean / p99 / max, under the parent's
+    schedule and the kernel's."""
+    out = {}
+    for name, x in (("parent", parent), ("kernel", new)):
+        x = x[live].double()
+        out[name] = ({"mean": float(x.mean()),
+                      "p99": float(torch.quantile(x, 0.99)),
+                      "max": float(x.max())} if x.numel() else
+                     {"mean": 0.0, "p99": 0.0, "max": 0.0})
+    return out
+
+
+def _trip_line(t):
+    return "round trips per live ray mean/p99/max: parent " + "; kernel ".join(
+        f"{e['mean']:.2f}/{e['p99']:.0f}/{e['max']:.0f}"
+        for e in (t["parent"], t["kernel"]))
 
 
 def bound(nbytes, ops):
@@ -925,6 +949,9 @@ def _skip_times(scene, bvh, rays):
         plain_ms = time_ms(lambda: walk_skip_plain(bvh, tris, *args,
                                                    any_hit), 1, warm=False)
         _, st = walk_skip_plain(bvh, tris, *args, any_hit, with_stats=True)
+        # the kernel batches a hit leaf's rows for closest hit only
+        trips = _trips(*skip_trips(st, leaf_batch=not any_hit),
+                       args[3] >= 0)
         node_rows, tri_rows = int(st.node_rows.sum()), int(st.tri_rows.sum())
         bms, by = bound(BATCH * (RAY_IN + RAY_OUT) + node_rows * NODE_BYTES
                         + tri_rows * TRI_BYTES,
@@ -940,6 +967,7 @@ def _skip_times(scene, bvh, rays):
                 "nodes_per_live_ray": int(st.nodes.sum()) / live,
                 "tris_per_live_ray": int(st.tris.sum()) / live,
                 "node_rows_read": node_rows, "tri_rows_read": tri_rows}
+        out[f"{kind}_thread"]["trips"] = trips
     return out
 
 
@@ -992,6 +1020,11 @@ def phase_skip_kernels(report, built, dev):
                   f"triangles, any {t['any_thread']['nodes_per_live_ray']:.1f}"
                   f" nodes, {t['any_thread']['tris_per_live_ray']:.2f} "
                   f"triangles", flush=True)
+            for kind in ("closest", "any"):
+                e = t[f"{kind}_thread"]
+                print(f"[11 skip kernels {key}] {BATCH}-ray bounce batch "
+                      f"{kind}, thread scope: {e['ms']:.4f} ms; "
+                      f"{_trip_line(e['trips'])}", flush=True)
     report["skip_kernels"] = out
     return out
 
@@ -1243,9 +1276,9 @@ def _sl_check(scene, bvh, which, fmt, dev, tag):
         kind = "any" if any_hit else "closest"
         dd, tm = (sd, s_max) if any_hit else (d, t_max)
         k = kwalk(bvh, o, dd, t_min, tm, any_hit)
-        p, rows, chunks = pwalk(bvh, o, dd, t_min, tm, any_hit,
+        # kernel 2's plain version adds each ray's leaf tests
+        p, *stats[kind] = pwalk(bvh, o, dd, t_min, tm, any_hit,
                                 with_stats=True)
-        stats[kind] = (rows, chunks)
         torch.cuda.synchronize()
         for f in ("hit", "t", "u", "v", "tri"):
             diff = getattr(k, f) != getattr(p, f)
@@ -1289,7 +1322,7 @@ def _sl_times(bvh, fmt, rays, stats):
         logged, read = _row_log(bvh)
         plain_ms = time_ms(lambda: pwalk(logged, *args, any_hit), 1,
                            warm=False)
-        rows, chunks = (x[b] for x in stats[kind])
+        rows, chunks, *tests = (x[b] for x in stats[kind])
         live = max(int((args[3] >= 0).sum()), 1)
         rows_read = int(read.sum())
         ops = (int(rows.sum()) * (OPS_ROW if fmt == "widerow" else OPS_QROW)
@@ -1302,6 +1335,9 @@ def _sl_times(bvh, fmt, rays, stats):
                      "chunks_per_live_ray": int(chunks.sum()) / live,
                      "candidates": _candidates(bvh.chunk_lo, bvh.chunk_hi,
                                                *args, chunks)}
+        if tests:
+            out[kind]["trips"] = _trips(
+                *chunked_trips(rows, tests[0], bvh.arity), args[3] >= 0)
     return out
 
 
@@ -1376,7 +1412,9 @@ def phase_sl_kernels(report, built, small_bvh, dev):
                   f"{e['rows_per_live_ray']:.1f} rows, "
                   f"{e['chunks_per_live_ray']:.2f} chunks; rows read "
                   f"{e['rows_read']} of {bvh.num_chunks * bvh.rows_per_chunk}"
-                  f"; {_cand_line(e['candidates'])}", flush=True)
+                  f"; {_cand_line(e['candidates'])}"
+                  + (f"; {_trip_line(e['trips'])}" if "trips" in e else ""),
+                  flush=True)
     lg = _lanegroup_check(small_bvh, dev)
     out["lanegroup_small"] = lg
     for g in lanegroup.GROUPS:

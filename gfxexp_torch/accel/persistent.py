@@ -63,6 +63,9 @@ from gfxexp_torch.accel.widerow import (
 # kernel 1 (one table) and kernel 2 (chunk tables)
 launch_counts = {"closest": 0, "any": 0}
 chunked_launch_counts = {"closest": 0, "any": 0}
+# kernel 2's grid counters, one pair per (device, stream): zeroed once here,
+# left at zero by every launch (its last warp resets them)
+_chunked_counters: dict = {}
 
 # rays per slice of the [n, C] box slab tests: bounds the temporaries
 _SLAB_ELEMS = 1 << 24
@@ -167,7 +170,8 @@ def order_children(nears, metas, valids, net, stack, rows, sp):
 
 
 def walk_plain(bvh: WideRowBVH, o, d, t_min, t_max, any_hit: bool,
-               base=None, start=None, with_stats: bool = False):
+               base=None, start=None, with_stats: bool = False,
+               leaf_tests=None):
     """The kernel's walk written as tensor code: each iteration loads the
     current row of every active ray, tests its children or triangles, and
     descends, pops or retires the ray. Same arithmetic, same order.
@@ -175,7 +179,10 @@ def walk_plain(bvh: WideRowBVH, o, d, t_min, t_max, any_hit: bool,
     `start` [N] is the row each ray starts at and `base` [N] the row its
     child indices count from (a BLAS's first row in a flat table of several
     BLAS, as the two-level walk uses it); both default to 0. with_stats=True
-    also returns the number of rows each ray visited [N] int64."""
+    also returns the number of rows each ray visited [N] int64. Given
+    `leaf_tests` ([N, max_leaf + 1] int64), the walk adds one to
+    leaf_tests[i, c] for each leaf row ray i visits where it tests c
+    triangles."""
     nodes, o, d, t_min, t_max = _prepare(bvh, o, d, t_min, t_max)
     nodes_i = nodes.view(torch.int32)
     K, L = bvh.arity, bvh.max_leaf
@@ -243,7 +250,10 @@ def walk_plain(bvh: WideRowBVH, o, d, t_min, t_max, any_hit: bool,
         fst = packed & ((1 << COUNT_SHIFT) - 1)
         cnt = torch.where(leaf, packed >> COUNT_SHIFT, 0)
         bu, bv, btri = best_u[act], best_v[act], best_tri[act]
+        n_tested = None if leaf_tests is None else torch.zeros_like(cnt)
         for j in range(L):
+            if n_tested is not None:
+                n_tested += ((j < cnt) & ~done).to(n_tested.dtype)
             r = row[:, 12 * j:12 * j + 12]
             den = r[:, 0] * dx + r[:, 1] * dy + r[:, 2] * dz
             num = r[:, 0] * ox + r[:, 1] * oy + r[:, 2] * oz + r[:, 3]
@@ -264,6 +274,11 @@ def walk_plain(bvh: WideRowBVH, o, d, t_min, t_max, any_hit: bool,
             bv = torch.where(ok, v, bv)
             btri = torch.where(ok, (fst + j).to(torch.int32), btri)
         best_t[act], best_u[act], best_v[act], best_tri[act] = bt, bu, bv, btri
+        if leaf_tests is not None:
+            leaf_tests.index_put_(
+                (act[leaf], n_tested[leaf].to(torch.int64)),
+                torch.ones((), dtype=leaf_tests.dtype, device=dev),
+                accumulate=True)
 
         # descend, else pop, else retire
         pop = (nxt < 0) & (a_sp > 0) & ~done
@@ -412,25 +427,53 @@ def walk_chunked_plain(bvh: WideRowBVH, o, d, t_min, t_max, any_hit: bool,
     its nearest-first order (walk_entries_plain), chunk c from row c * R of
     the flat table, best_t carried across chunks; a table without chunk
     boxes is walked whole. with_stats=True returns (HitInfo, rows visited
-    [N], chunks visited [N])."""
+    [N], chunks visited [N], leaf tests [N, max_leaf + 1]: the leaf rows
+    each ray visited by the number of triangles it tested there)."""
     _, o, d, t_min, t_max = _prepare(bvh, o, d, t_min, t_max)
     flat = bvh.flat()
     boxes = _chunk_boxes(bvh, o.device)
+    tests = (torch.zeros((o.shape[0], bvh.max_leaf + 1), dtype=torch.int64,
+                         device=o.device) if with_stats else None)
     if boxes is None:
         out = walk_plain(flat, o, d, t_min, t_max, any_hit,
-                         with_stats=with_stats)
+                         with_stats=with_stats, leaf_tests=tests)
         if with_stats:
-            return out[0], out[1], (t_max >= 0.0).to(torch.int64)
+            return out[0], out[1], (t_max >= 0.0).to(torch.int64), tests
         return out
     r = bvh.rows_per_chunk
 
     def visit(rays, chunks, best_t):
-        return walk_plain(flat, o[rays], d[rays], t_min[rays], best_t,
-                          any_hit, base=chunks * r, with_stats=with_stats)
+        here = None if tests is None else torch.zeros_like(tests[rays])
+        out = walk_plain(flat, o[rays], d[rays], t_min[rays], best_t,
+                         any_hit, base=chunks * r, with_stats=with_stats,
+                         leaf_tests=here)
+        if here is not None:
+            tests[rays] += here
+        return out
 
     out = walk_entries_plain(*boxes, o, d, t_min, t_max, any_hit, True,
                              visit, with_stats)
-    return (out[0], out[2], out[3]) if with_stats else out[0]
+    return (out[0], out[2], out[3], tests) if with_stats else out[0]
+
+
+def chunked_trips(rows, leaf_tests, arity: int):
+    """Dependent round trips to memory per ray of kernel 2's walk, from a
+    plain walk's counts on the same rays (walk_chunked_plain(...,
+    with_stats=True): rows visited [N], leaf tests [N, max_leaf + 1]).
+    Returns (parent, new), [N] int64 each:
+    - parent: an internal row loads its tail, then its children (two
+      trips); a leaf row loads its tail, then one triangle at a time (one
+      trip and one a triangle tested);
+    - new (csrc/widerow_walk.cuh `walk` with kBatch): a row's tail and its
+      first 7 * arity / 4 float4 come in one batch (one trip a row); a leaf
+      that tests a triangle past those float4 waits for one more batch."""
+    n_tests = torch.arange(leaf_tests.shape[1], device=rows.device)
+    leaves = leaf_tests.sum(1)
+    tris = (leaf_tests * n_tests).sum(1)
+    parent = 2 * (rows - leaves) + leaves + tris
+    head_tris = (7 * arity // 4) // 3  # triangles wholly in the first batch
+    new = rows + leaf_tests[:, head_tris + 1:].sum(1)
+    return parent, new
 
 
 # ---------------------------------------------------------------------------
@@ -512,12 +555,17 @@ def walk_chunked_cuda(bvh: WideRowBVH, o, d, t_min, t_max,
     if n:
         with torch.cuda.device(o.device):
             stream = torch.cuda.current_stream(o.device).cuda_stream
+            key = (o.device.index, stream)
+            counters = _chunked_counters.get(key)
+            if counters is None:
+                counters = _chunked_counters[key] = torch.zeros(
+                    2, dtype=torch.int32, device=o.device)
             rc = lib.chunked_walk_launch(
                 int(any_hit), bvh.arity, _ptr(nodes), bvh.num_chunks,
                 bvh.rows_per_chunk, bvh.max_leaf, depth, _null_or_ptr(lo),
                 _null_or_ptr(hi), n, _ptr(o), _ptr(d), _ptr(t_min),
                 _ptr(t_max), _ptr(t), _ptr(u), _ptr(v), _ptr(tri), _ptr(hit),
-                ctypes.c_void_p(stream))
+                ctypes.c_void_p(stream), _ptr(counters))
         if rc != 0:
             raise RuntimeError(f"chunked_walk launch failed: CUDA error {rc}")
         chunked_launch_counts["any" if any_hit else "closest"] += 1

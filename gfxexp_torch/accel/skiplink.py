@@ -218,13 +218,15 @@ def packed(bvh: SkipBVH, tris) -> SkipBVH:
 
 
 class SkipStats(NamedTuple):
-    """What a plain walk visited: per ray, the nodes and the triangle tests;
-    over the tables, the rows read at least once."""
+    """What a plain walk visited: per ray, the nodes, the triangle tests and
+    the leaves where it tested a triangle; over the tables, the rows read at
+    least once."""
 
     nodes: torch.Tensor  # [N] int64
     tris: torch.Tensor  # [N] int64
     node_rows: torch.Tensor  # [M+1] bool
     tri_rows: torch.Tensor  # [T+max_leaf] bool
+    leaves: torch.Tensor  # [N] int64
 
 
 def walk_skip_plain(bvh: SkipBVH, tris, o, d, t_min, t_max, any_hit: bool,
@@ -235,8 +237,8 @@ def walk_skip_plain(bvh: SkipBVH, tris, o, d, t_min, t_max, any_hit: bool,
     skips. A ray with t_max < 0 does no work; any hit stops at the first
     accepted triangle. Misses return t = t_max, tri = -1, u = v = 0.
 
-    with_stats=True returns (HitInfo, SkipStats): the nodes and the
-    triangles each ray visited, and the table rows the walk read."""
+    with_stats=True returns (HitInfo, SkipStats): the nodes, triangles and
+    leaves each ray visited, and the table rows the walk read."""
     bvh = packed(bvh, tris)
     o, d, t_min, t_max = prepare_rays(o, d, t_min, t_max)
     nodes, tp = bvh.node_pack, bvh.tri_pack
@@ -251,6 +253,7 @@ def walk_skip_plain(bvh: SkipBVH, tris, o, d, t_min, t_max, any_hit: bool,
     best_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
     nodes_seen = torch.zeros(n, dtype=torch.int64, device=dev)
     tris_seen = torch.zeros(n, dtype=torch.int64, device=dev)
+    leaves_seen = torch.zeros(n, dtype=torch.int64, device=dev)
     node_rows = torch.zeros(nodes.shape[0], dtype=torch.bool, device=dev)
     tri_rows = torch.zeros(tp.shape[0], dtype=torch.bool, device=dev)
 
@@ -284,6 +287,8 @@ def walk_skip_plain(bvh: SkipBVH, tris, o, d, t_min, t_max, any_hit: bool,
         fst = packed_fc & ((1 << COUNT_SHIFT) - 1)
         cnt = packed_fc >> COUNT_SHIFT
         leaf = cnt > 0
+        if with_stats:  # a hit leaf tests its first triangle at least
+            leaves_seen[act] += (box_hit & leaf).to(torch.int64)
 
         bu, bv, btri = best_u[act], best_v[act], best_tri[act]
         done = torch.zeros(act.shape, dtype=torch.bool, device=dev)
@@ -330,5 +335,20 @@ def walk_skip_plain(bvh: SkipBVH, tris, o, d, t_min, t_max, any_hit: bool,
     hit = HitInfo(t=best_t, tri=best_tri, u=best_u, v=best_v,
                   hit=best_tri >= 0)
     if with_stats:
-        return hit, SkipStats(nodes_seen, tris_seen, node_rows, tri_rows)
+        return hit, SkipStats(nodes_seen, tris_seen, node_rows, tri_rows,
+                              leaves_seen)
     return hit
+
+
+def skip_trips(stats: SkipStats, leaf_batch: bool = True):
+    """Dependent round trips to memory per ray of the skip-link walk's
+    per-ray scope, from a plain walk's stats on the same rays
+    (walk_skip_plain(..., with_stats=True)). Returns (parent, new), [N]
+    int64 each:
+    - parent: one trip per node and one per triangle tested (each load
+      waits for the last);
+    - new (csrc/skiplink_traverse.cu): with `leaf_batch` (closest hit) a hit
+      leaf's triangle rows come in one batch, one trip a leaf; without it
+      (any hit) the parent's schedule."""
+    parent = stats.nodes + stats.tris
+    return parent, (stats.nodes + stats.leaves if leaf_batch else parent)

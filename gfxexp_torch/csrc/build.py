@@ -75,7 +75,7 @@ def _declare(name: str, lib: ctypes.CDLL):
             vp, vp,                              # chunk boxes lo, hi
             ci, vp, vp, vp, vp,                  # n, o, d, tmin, tmax
             vp, vp, vp, vp, vp,                  # t, u, v, tri, hit
-            vp,                                  # stream
+            vp, vp,                              # stream, counters
         ]
     elif name == "qrow_traverse":
         lib.qrow_max_stack.restype = ci

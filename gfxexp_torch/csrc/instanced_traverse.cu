@@ -89,9 +89,11 @@ __device__ __forceinline__ bool visit(const float* __restrict__ nodes,
   const float dy2 = r1.x * dx + r1.y * dy + r1.z * dz;
   const float dz2 = r2.x * dx + r2.y * dy + r2.z * dz;
   const int base = __ldg(e.blas + c) * n_blas_rows;
-  return widerow::walk<kAnyHit, K>(nodes, n_rows, base, __ldg(e.start + c),
-                                   max_leaf, ox2, oy2, oz2, dx2, dy2, dz2,
-                                   tmin, best, stack);
+  // without the row batch: its registers spill under the cap of 6 blocks a
+  // SM below, and the walks ran 10-25% slower with it (PERF.md)
+  return widerow::walk<kAnyHit, K, false>(
+      nodes, n_rows, base, __ldg(e.start + c), max_leaf, ox2, oy2, oz2, dx2,
+      dy2, dz2, tmin, best, stack);
 }
 
 // At least 6 blocks a SM: the compiler's own choice (about 95 registers)

@@ -30,10 +30,26 @@
 // results are equal bit for bit.
 //
 // What bounds it: one dependent 32-byte node load per step (two float4
-// loads through the read-only path) and, at leaves, 48-byte triangle rows;
-// a walk is latency bound. There is no stack, so nothing spills to local
-// memory. Tables of large scenes (city: 29 MB of nodes, 97.5 MB of
-// triangles) do not fit the 50 MB L2.
+// loads through the read-only path) and, at leaves, 48-byte triangle rows,
+// and the warps resident to hide those chains: each step does little else.
+// There is no stack, so nothing spills to local memory. Tables of large
+// scenes (city: 29 MB of nodes, 97.5 MB of triangles) do not fit the 50 MB
+// L2. The earlier walk loaded a hit leaf's triangles one dependent row at a
+// time; the closest-hit walk now loads a leaf's rows in one batch (`leaf`
+// with kLeaf = the table's max_leaf of 4 or 8), which cut city's round
+// trips per live ray from 83.2 to 73.6 (gfxexp_torch/walk_trips.py) and its
+// time to 0.859 of the earlier walk's (big 0.897; H100 80GB HBM3 at 700 W,
+// gfxexp_torch/walk_ab.py, PERF.md). Any hit keeps the one-row loop, its
+// registers capped at 40 (12 blocks a SM, as the earlier walk held them;
+// uncapped it took 45 and ran 1.09x slower). Timed and dropped (thread
+// scope, city, closest / any): runs of 2 and 4 nodes loaded at once so a
+// descent to cur + 1 costs no trip (1.02 / 1.30 and 1.24 / 1.52: they fetch
+// nodes the walk does not take and raise registers to 88-150), the same
+// runs held in an array (nvcc put it in local memory: 1.65 / 2.21 and 2.78
+// / 3.90), the run from skip(cur) loaded as soon as node cur arrives (1.25
+// / 1.51 with runs of 2), the leaf batch for any hit (1.045 at 72
+// registers, 1.41-1.78 capped: spills), and closest hit capped for 8
+// blocks a SM (1.12).
 //
 // Built by gfxexp_torch/csrc/build.py with nvcc into a shared library with a
 // plain C interface (ctypes); it launches on the caller's stream, does not
@@ -50,6 +66,9 @@ constexpr int kMaxLeaf = 127;
 constexpr int kThread = 0;
 constexpr int kWarp = 1;
 constexpr int kBlockScope = 2;
+// Blocks a SM the per-ray any-hit walk keeps: its registers capped at 40,
+// as the earlier walk held them without a cap.
+constexpr int kAnyBlocks = 12;
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz, tmin;
@@ -81,42 +100,77 @@ __device__ __forceinline__ bool slab(const float4& a, const float4& b,
   return near <= far;
 }
 
-// Moller-Trumbore on triangles [fst, fst + cnt). Returns true when kAnyHit
-// and a triangle was accepted (the walk then stops).
-template <bool kAnyHit>
+// Moller-Trumbore on one triangle row (q0 = p0.xyz e1.x, q1 = e1.yz e2.xy,
+// e2z = e2.z) against [t_min, best_t]; updates best and returns true when
+// the triangle `id` is accepted.
+__device__ __forceinline__ bool tri_hit(float4 q0, float4 q1, float e2z,
+                                        int id, const Ray& r, Best& best) {
+  const float p0x = q0.x, p0y = q0.y, p0z = q0.z;
+  const float e1x = q0.w, e1y = q1.x, e1z = q1.y;
+  const float e2x = q1.z, e2y = q1.w;
+  const float pvx = r.dy * e2z - r.dz * e2y;
+  const float pvy = r.dz * e2x - r.dx * e2z;
+  const float pvz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+  const bool det_ok = fabsf(det) > 1e-12f;
+  const float inv_det = 1.0f / (det_ok ? det : 1.0f);
+  const float tvx = r.ox - p0x;
+  const float tvy = r.oy - p0y;
+  const float tvz = r.oz - p0z;
+  const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+  const float qvx = tvy * e1z - tvz * e1y;
+  const float qvy = tvz * e1x - tvx * e1z;
+  const float qvz = tvx * e1y - tvy * e1x;
+  const float v = (r.dx * qvx + r.dy * qvy + r.dz * qvz) * inv_det;
+  const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+  if (det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > r.tmin &&
+      t < best.t) {
+    best.t = t;
+    best.u = u;
+    best.v = v;
+    best.tri = id;
+    return true;
+  }
+  return false;
+}
+
+// Moller-Trumbore on triangles [fst, fst + cnt), in order. Returns true when
+// kAnyHit and a triangle was accepted (the walk then stops). kLeaf > 0 (the
+// table's max_leaf, so cnt <= kLeaf): the rows j < cnt are loaded in one
+// batch, issued before the first test. kLeaf == 0: one row at a time.
+template <bool kAnyHit, int kLeaf>
 __device__ __forceinline__ bool leaf(const float4* __restrict__ tris,
                                      int fst, int cnt, const Ray& r,
                                      Best& best) {
-  for (int j = 0; j < cnt; ++j) {
-    const float4* row = tris + 3 * (fst + j);
-    const float4 q0 = __ldg(row + 0);
-    const float4 q1 = __ldg(row + 1);
-    const float4 q2 = __ldg(row + 2);
-    const float p0x = q0.x, p0y = q0.y, p0z = q0.z;
-    const float e1x = q0.w, e1y = q1.x, e1z = q1.y;
-    const float e2x = q1.z, e2y = q1.w, e2z = q2.x;
-    const float pvx = r.dy * e2z - r.dz * e2y;
-    const float pvy = r.dz * e2x - r.dx * e2z;
-    const float pvz = r.dx * e2y - r.dy * e2x;
-    const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-    const bool det_ok = fabsf(det) > 1e-12f;
-    const float inv_det = 1.0f / (det_ok ? det : 1.0f);
-    const float tvx = r.ox - p0x;
-    const float tvy = r.oy - p0y;
-    const float tvz = r.oz - p0z;
-    const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-    const float qvx = tvy * e1z - tvz * e1y;
-    const float qvy = tvz * e1x - tvx * e1z;
-    const float qvz = tvx * e1y - tvy * e1x;
-    const float v = (r.dx * qvx + r.dy * qvy + r.dz * qvz) * inv_det;
-    const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-    if (det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > r.tmin &&
-        t < best.t) {
-      best.t = t;
-      best.u = u;
-      best.v = v;
-      best.tri = fst + j;
-      if (kAnyHit) return true;
+  if (kLeaf == 0) {
+    for (int j = 0; j < cnt; ++j) {
+      const float4* row = tris + 3 * (fst + j);
+      if (tri_hit(__ldg(row), __ldg(row + 1),
+                  __ldg(reinterpret_cast<const float*>(row + 2)), fst + j, r,
+                  best) &&
+          kAnyHit) {
+        return true;
+      }
+    }
+    return false;
+  }
+  constexpr int kL = kLeaf > 0 ? kLeaf : 1;
+  float4 q0[kL], q1[kL];
+  float e2z[kL];
+#pragma unroll
+  for (int j = 0; j < kL; ++j) {
+    if (j < cnt) {
+      const float4* row = tris + 3 * (fst + j);
+      q0[j] = __ldg(row);
+      q1[j] = __ldg(row + 1);
+      e2z[j] = __ldg(reinterpret_cast<const float*>(row + 2));
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kL; ++j) {
+    if (j < cnt && tri_hit(q0[j], q1[j], e2z[j], fst + j, r, best) &&
+        kAnyHit) {
+      return true;
     }
   }
   return false;
@@ -128,8 +182,10 @@ __device__ __forceinline__ bool any_of(bool x) {
   return __syncthreads_or(x) != 0;
 }
 
-template <bool kAnyHit, int kScope>
-__global__ void __launch_bounds__(kBlock)
+template <bool kAnyHit, int kScope, int kLeaf>
+__global__ void __launch_bounds__(kBlock,
+                                  kScope == kThread && kAnyHit ? kAnyBlocks
+                                                               : 1)
 skiplink_walk(const float4* __restrict__ nodes, int n_nodes,
               const float4* __restrict__ tris, int n,
               const float* __restrict__ o,
@@ -168,8 +224,8 @@ skiplink_walk(const float4* __restrict__ nodes, int n_nodes,
         const int packed = __float_as_int(b.z);
         const int cnt = packed >> kCountShift;
         if (cnt > 0) {
-          if (leaf<kAnyHit>(tris, packed & ((1 << kCountShift) - 1), cnt, r,
-                            best)) {
+          if (leaf<kAnyHit, kLeaf>(tris, packed & ((1 << kCountShift) - 1),
+                                   cnt, r, best)) {
             break;
           }
         } else {
@@ -190,8 +246,9 @@ skiplink_walk(const float4* __restrict__ nodes, int n_nodes,
         const int packed = __float_as_int(b.z);
         const int cnt = packed >> kCountShift;
         if (cnt > 0) {
-          if (h && leaf<kAnyHit>(tris, packed & ((1 << kCountShift) - 1),
-                                 cnt, r, best)) {
+          if (h && leaf<kAnyHit, kLeaf>(tris,
+                                        packed & ((1 << kCountShift) - 1),
+                                        cnt, r, best)) {
             done = true;
           }
         } else {
@@ -211,37 +268,62 @@ skiplink_walk(const float4* __restrict__ nodes, int n_nodes,
   }
 }
 
-template <bool kAnyHit, int kScope>
+template <bool kAnyHit, int kScope, int kLeaf>
 cudaError_t launch(const float4* nodes, int n_nodes, const float4* tris,
                    int n, const float* o, const float* d, const float* tmin,
                    const float* tmax, float* t, float* u, float* v, int* tri,
                    unsigned char* hit, cudaStream_t stream) {
   const int grid = (n + kBlock - 1) / kBlock;
-  skiplink_walk<kAnyHit, kScope><<<grid, kBlock, 0, stream>>>(
+  skiplink_walk<kAnyHit, kScope, kLeaf><<<grid, kBlock, 0, stream>>>(
       nodes, n_nodes, tris, n, o, d, tmin, tmax, t, u, v, tri, hit);
   return cudaGetLastError();
 }
 
-template <bool kAnyHit>
+template <bool kAnyHit, int kLeaf>
 cudaError_t dispatch(int scope, const float4* nodes, int n_nodes,
                      const float4* tris, int n, const float* o,
                      const float* d, const float* tmin, const float* tmax,
                      float* t, float* u, float* v, int* tri,
                      unsigned char* hit, cudaStream_t stream) {
+#define GFX_LAUNCH(S)                                                        \
+  launch<kAnyHit, S, kLeaf>(nodes, n_nodes, tris, n, o, d, tmin, tmax, t, u, \
+                            v, tri, hit, stream)
   switch (scope) {
     case kThread:
-      return launch<kAnyHit, kThread>(nodes, n_nodes, tris, n, o, d, tmin,
-                                      tmax, t, u, v, tri, hit, stream);
+      return GFX_LAUNCH(kThread);
     case kWarp:
-      return launch<kAnyHit, kWarp>(nodes, n_nodes, tris, n, o, d, tmin,
-                                    tmax, t, u, v, tri, hit, stream);
+      return GFX_LAUNCH(kWarp);
     case kBlockScope:
-      return launch<kAnyHit, kBlockScope>(nodes, n_nodes, tris, n, o, d,
-                                          tmin, tmax, t, u, v, tri, hit,
-                                          stream);
+      return GFX_LAUNCH(kBlockScope);
     default:
       return cudaErrorInvalidValue;
   }
+#undef GFX_LAUNCH
+}
+
+// The leaf batch's size: for closest hit the table's max_leaf where it is
+// instantiated (the bench tables' 4, and 8), else 0 (one row at a time).
+// Any hit tests one row at a time: it stops at its first accepted triangle,
+// and the batch's registers (72 a thread, with its cap 40 spills) cost more
+// than the trips it saves (PERF.md).
+template <bool kAnyHit>
+cudaError_t dispatch_leaf(int max_leaf, int scope, const float4* nodes,
+                          int n_nodes, const float4* tris, int n,
+                          const float* o, const float* d, const float* tmin,
+                          const float* tmax, float* t, float* u, float* v,
+                          int* tri, unsigned char* hit, cudaStream_t stream) {
+#define GFX_DISPATCH(L)                                                      \
+  dispatch<kAnyHit, L>(scope, nodes, n_nodes, tris, n, o, d, tmin, tmax, t, \
+                       u, v, tri, hit, stream)
+  switch (max_leaf) {
+    case 4:
+      return GFX_DISPATCH(kAnyHit ? 0 : 4);
+    case 8:
+      return GFX_DISPATCH(kAnyHit ? 0 : 8);
+    default:
+      return GFX_DISPATCH(0);
+  }
+#undef GFX_DISPATCH
 }
 
 }  // namespace
@@ -268,11 +350,13 @@ int skiplink_walk_launch(int any_hit, int scope, const float* nodes,
   const float4* nodes4 = reinterpret_cast<const float4*>(nodes);
   const float4* tris4 = reinterpret_cast<const float4*>(tris);
   if (any_hit) {
-    return (int)dispatch<true>(scope, nodes4, n_nodes, tris4, n, o, d, tmin,
-                               tmax, t, u, v, tri, hit, stream);
+    return (int)dispatch_leaf<true>(max_leaf, scope, nodes4, n_nodes, tris4,
+                                    n, o, d, tmin, tmax, t, u, v, tri, hit,
+                                    stream);
   }
-  return (int)dispatch<false>(scope, nodes4, n_nodes, tris4, n, o, d, tmin,
-                              tmax, t, u, v, tri, hit, stream);
+  return (int)dispatch_leaf<false>(max_leaf, scope, nodes4, n_nodes, tris4, n,
+                                   o, d, tmin, tmax, t, u, v, tri, hit,
+                                   stream);
 }
 
 }  // extern "C"

@@ -35,10 +35,10 @@ widerow_walk(const float* __restrict__ nodes, int n_rows, int max_leaf,
   Best best{tmax, 0.0f, 0.0f, -1};
   if (tmax >= 0.0f) {
     int stack[kMaxStack];
-    widerow::walk<kAnyHit, K>(nodes, n_rows, 0, 0, max_leaf, o[3 * i + 0],
-                              o[3 * i + 1], o[3 * i + 2], d[3 * i + 0],
-                              d[3 * i + 1], d[3 * i + 2], tmin_in[i], best,
-                              stack);
+    widerow::walk<kAnyHit, K, true>(
+        nodes, n_rows, 0, 0, max_leaf, o[3 * i + 0], o[3 * i + 1],
+        o[3 * i + 2], d[3 * i + 0], d[3 * i + 1], d[3 * i + 2], tmin_in[i],
+        best, stack);
   }
   out_t[i] = best.t;
   out_u[i] = best.u;

@@ -8,14 +8,23 @@
 // is walk_plain in gfxexp_torch/accel/persistent.py; both apply the same
 // operations in the same order, so with --fmad=false their results are equal.
 //
-// What bounds it: each step is one dependent load of a 256-byte row (internal
-// rows read 7*K floats, leaf rows 12 floats a triangle) followed by a few
-// dozen FLOPs, so a walk is bound by the latency of those dependent loads,
-// not by arithmetic. Every thread walks on its own (no packets) and reads
-// rows as float4 through the read-only path; the tables of the bench scenes
-// (about 1 MB for one table, about 2 MB for the padded BLAS tables) stay
-// resident in the 50 MB L2. The stack lives in local memory. An internal
-// row with at most one hit child skips the sort network (descend).
+// What bounds it: each step loads a 256-byte row (internal rows read 7*K
+// floats, leaf rows 12 floats a triangle) and does a few dozen FLOPs, so a
+// walk is bound by its chain of dependent loads and by the warps resident
+// to hide them, not by arithmetic. Every thread walks on its own (no
+// packets) and reads rows as float4 through the read-only path; the tables
+// of the bench scenes (about 1 MB for one table, about 2 MB for the padded
+// BLAS tables) stay resident in the 50 MB L2. The stack lives in local
+// memory. An internal row with at most one hit child skips the sort
+// network (descend). With kBatch a step issues the row's tail and its
+// first head_quads<K>() float4 together, before it branches on the row's
+// kind, and a leaf tests its first triangles from those registers: an
+// internal row costs one round trip where it cost two (tail, then
+// children), a leaf one or two where it cost one and one a triangle.
+// Kernels 1 and 2 take it (0.92 / 0.88 of the time without it on the small
+// scene, closest / any; kernel 2 in chunked_traverse.cu); the two-level walk
+// does not: its registers, capped for 6 blocks a SM, spill with it, and
+// kernels 3-5 ran 1.10-1.25x slower (PERF.md).
 //
 // What bounded the pick: it rescanned all C boxes at every pick, six __ldg
 // and about 30 operations a box, so a ray that visited v boxes paid v + 1
@@ -137,9 +146,35 @@ struct Best {
   int tri;
 };
 
+// One Baldwin-Weber test of triangle `id` (n.xyz d0 | U.xyz Ud | V.xyz Vd)
+// against [tmin, best.t]; updates best and returns true when accepted.
+__device__ __forceinline__ bool tri_hit(float4 pn, float4 pu, float4 pv,
+                                        int id, float ox, float oy, float oz,
+                                        float dx, float dy, float dz,
+                                        float tmin, Best& best) {
+  const float den = pn.x * dx + pn.y * dy + pn.z * dz;
+  const float num = pn.x * ox + pn.y * oy + pn.z * oz + pn.w;
+  const bool den_ok = fabsf(den) > 1e-12f;
+  const float t = -num / (den_ok ? den : 1.0f);
+  const float px = ox + t * dx;
+  const float py = oy + t * dy;
+  const float pz = oz + t * dz;
+  const float u = pu.x * px + pu.y * py + pu.z * pz + pu.w;
+  const float v = pv.x * px + pv.y * py + pv.z * pz + pv.w;
+  if (den_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tmin &&
+      t < best.t) {
+    best.t = t;
+    best.u = u;
+    best.v = v;
+    best.tri = id;
+    return true;
+  }
+  return false;
+}
+
 // The triangles of a leaf row (tail = its cols 60..63): Baldwin-Weber
-// tests, ids first | count << 24. Returns true when kAnyHit and a triangle
-// was accepted (the walk stops there).
+// tests, ids first | count << 24, one load of a triangle at a time. Returns
+// true when kAnyHit and a triangle was accepted (the walk stops there).
 template <bool kAnyHit>
 __device__ __forceinline__ bool leaf_hits(const float4* __restrict__ row,
                                           float4 tail, int max_leaf,
@@ -150,25 +185,48 @@ __device__ __forceinline__ bool leaf_hits(const float4* __restrict__ row,
   const int fst = packed & 0xFFFFFF;
   const int cnt = packed >> 24;
   for (int j = 0; j < max_leaf && j < cnt; ++j) {
-    const float4 pn = __ldg(row + 3 * j + 0);  // n.xyz d0
-    const float4 pu = __ldg(row + 3 * j + 1);  // U.xyz Ud
-    const float4 pv = __ldg(row + 3 * j + 2);  // V.xyz Vd
-    const float den = pn.x * dx + pn.y * dy + pn.z * dz;
-    const float num = pn.x * ox + pn.y * oy + pn.z * oz + pn.w;
-    const bool den_ok = fabsf(den) > 1e-12f;
-    const float t = -num / (den_ok ? den : 1.0f);
-    const float px = ox + t * dx;
-    const float py = oy + t * dy;
-    const float pz = oz + t * dz;
-    const float u = pu.x * px + pu.y * py + pu.z * pz + pu.w;
-    const float v = pv.x * px + pv.y * py + pv.z * pz + pv.w;
-    if (den_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tmin &&
-        t < best.t) {
-      best.t = t;
-      best.u = u;
-      best.v = v;
-      best.tri = fst + j;
-      if (kAnyHit) return true;
+    if (tri_hit(__ldg(row + 3 * j + 0), __ldg(row + 3 * j + 1),
+                __ldg(row + 3 * j + 2), fst + j, ox, oy, oz, dx, dy, dz, tmin,
+                best) &&
+        kAnyHit) {
+      return true;
+    }
+  }
+  return false;
+}
+
+// float4 of a row loaded with its tail before the walk knows the row's
+// kind: an internal row's K children (7 floats each), which also hold a leaf
+// row's first triangles (12 floats each).
+template <int K>
+__host__ __device__ constexpr int head_quads() {
+  return 7 * K / 4;
+}
+
+// The triangles of a leaf row from registers: q[0, kHead) came with the
+// tail; the float4 a leaf of more triangles still needs (up to 3 * count - 1,
+// at most 14, all inside the 256-byte row) are loaded in one batch, issued
+// before the first test. Then the tests run in order, as leaf_hits runs
+// them, so best keeps its bits.
+template <bool kAnyHit, int kHead>
+__device__ __forceinline__ bool leaf_rows(const float4* __restrict__ row,
+                                          float4 (&q)[15], float4 tail,
+                                          int max_leaf, float ox, float oy,
+                                          float oz, float dx, float dy,
+                                          float dz, float tmin, Best& best) {
+  const int packed = __float_as_int(tail.x);
+  const int fst = packed & 0xFFFFFF;
+  const int n = min(packed >> 24, max_leaf);
+#pragma unroll
+  for (int i = kHead; i < 15; ++i) {
+    if (i < 3 * n) q[i] = __ldg(row + i);
+  }
+#pragma unroll
+  for (int j = 0; j < 5; ++j) {
+    if (j < n && tri_hit(q[3 * j], q[3 * j + 1], q[3 * j + 2], fst + j, ox,
+                         oy, oz, dx, dy, dz, tmin, best) &&
+        kAnyHit) {
+      return true;
     }
   }
   return false;
@@ -180,12 +238,20 @@ __device__ __forceinline__ bool leaf_hits(const float4* __restrict__ row,
 // Slab tests run against [tmin, best.t]; leaf triangles are Baldwin-Weber
 // tests `den_ok & u>=0 & v>=0 & u+v<=1 & t>tmin & t<best.t`. Returns true
 // when kAnyHit and a triangle was accepted (the caller stops there).
-template <bool kAnyHit, int K>
+//
+// kBatch: a step issues the row's tail and its first head_quads<K>() float4
+// in one batch, before it branches on the row's kind, and a leaf tests its
+// triangles from registers (leaf_rows): an internal row costs one round
+// trip to memory, a leaf row one, or two when it holds more triangles than
+// the batch did. Without it, a step loads the tail, then the children, and
+// a leaf loads one triangle at a time.
+template <bool kAnyHit, int K, bool kBatch>
 __device__ __forceinline__ bool walk(const float* __restrict__ nodes,
                                      int n_rows, int base, int start,
                                      int max_leaf, float ox, float oy,
                                      float oz, float dx, float dy, float dz,
                                      float tmin, Best& best, int* stack) {
+  constexpr int kHead = head_quads<K>();
   const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
   int sp = 0;
   int cur = start;
@@ -193,23 +259,33 @@ __device__ __forceinline__ bool walk(const float* __restrict__ nodes,
     const int r = min(base + cur, n_rows - 1);
     const float4* row =
         reinterpret_cast<const float4*>(nodes + (size_t)r * kWidth);
+    float4 q[15];
+    if (kBatch) {
+#pragma unroll
+      for (int i = 0; i < kHead; ++i) q[i] = __ldg(row + i);
+    }
     const float4 tail = __ldg(row + 15);  // cols 60..63
     int nxt = -1;
     if (tail.w > 0.5f) {
-      if (leaf_hits<kAnyHit>(row, tail, max_leaf, ox, oy, oz, dx, dy, dz,
-                             tmin, best)) {
+      if (kBatch ? leaf_rows<kAnyHit, kHead>(row, q, tail, max_leaf, ox, oy,
+                                             oz, dx, dy, dz, tmin, best)
+                 : leaf_hits<kAnyHit>(row, tail, max_leaf, ox, oy, oz, dx,
+                                      dy, dz, tmin, best)) {
         return true;
       }
     } else {
       // internal: K children of 7 floats (lo.xyz hi.xyz child row)
+      if (!kBatch) {
+#pragma unroll
+        for (int i = 0; i < kHead; ++i) q[i] = __ldg(row + i);
+      }
       float c[7 * K];
 #pragma unroll
-      for (int q = 0; q < 7 * K / 4; ++q) {
-        const float4 f = __ldg(row + q);
-        c[4 * q + 0] = f.x;
-        c[4 * q + 1] = f.y;
-        c[4 * q + 2] = f.z;
-        c[4 * q + 3] = f.w;
+      for (int i = 0; i < kHead; ++i) {
+        c[4 * i + 0] = q[i].x;
+        c[4 * i + 1] = q[i].y;
+        c[4 * i + 2] = q[i].z;
+        c[4 * i + 3] = q[i].w;
       }
       float nr[K];
       int mt[K];
@@ -305,14 +381,33 @@ __host__ __device__ __forceinline__ int pick_smem_bytes(int count) {
   return 32 * (count < kBoxTile ? count : kBoxTile);
 }
 
+// Boxes c0 .. c0 + m - 1 of lo, hi into the tile s (m <= kBoxTile), 8 floats
+// each, the block's threads together.
+__device__ __forceinline__ void stage_boxes(const float* __restrict__ lo,
+                                            const float* __restrict__ hi,
+                                            int c0, int m, float* s) {
+  for (int j = threadIdx.x; j < 3 * m; j += blockDim.x) {
+    const int b = j / 3, k = j - 3 * b;
+    s[8 * b + k] = __ldg(lo + 3 * c0 + j);
+    s[8 * b + 3 + k] = __ldg(hi + 3 * c0 + j);
+  }
+}
+
+// Where nearest_first's first scan finds the boxes: staged by the block
+// tile by tile between barriers; staged whole in `tile` before (count <=
+// kBoxTile, stage_boxes); or read through __ldg (`tile` unused).
+enum class BoxScan { kStageTiles, kStaged, kLdg };
+
 // Nearest-first order over `count` boxes lo, hi ([C, 3] each: the chunks of
 // a large table, the TLAS entries of a two-level scene): the boxes the ray
 // enters within [tmin, best.t] in ascending (entry distance, index),
 // stopping at the first whose distance is >= best.t. visit(c) walks box c
-// (updating best) and returns true to stop (an accepted any hit). Every
-// thread of the block must call it, with `tile` the block's
+// (updating best) and returns true to stop (an accepted any hit). kScan
+// says where the first scan finds the boxes (BoxScan). With kStageTiles
+// every thread of the block must call it, with `tile` the block's
 // pick_smem_bytes(count) of shared memory: it stages the boxes between
-// barriers; threads with live == false only help to stage.
+// barriers; threads with live == false only help to stage. With kStaged or
+// kLdg a thread calls it alone, without barriers.
 //
 // The first scan keeps the kPick smallest keys in registers and the keys of
 // up to kSpill boxes that passed it in local memory, in scan order. When
@@ -320,7 +415,7 @@ __host__ __device__ __forceinline__ int pick_smem_bytes(int count) {
 // or, when more than kSpill passed, by a scan of every box through __ldg;
 // either way it takes the smallest keys after the last one taken among the
 // boxes still entered before best.t.
-template <class Visit>
+template <BoxScan kScan = BoxScan::kStageTiles, class Visit>
 __device__ __forceinline__ void nearest_first(
     const float* __restrict__ lo, const float* __restrict__ hi, int count,
     float4* tile, bool live, float ox, float oy, float oz, float ix,
@@ -339,21 +434,25 @@ __device__ __forceinline__ void nearest_first(
   float* s = reinterpret_cast<float*>(tile);
   for (int c0 = 0; c0 < count; c0 += kBoxTile) {
     const int m = min(kBoxTile, count - c0);
-    __syncthreads();  // every thread is done with the last tile
-    for (int j = threadIdx.x; j < 3 * m; j += blockDim.x) {
-      const int b = j / 3, k = j - 3 * b;
-      s[8 * b + k] = __ldg(lo + 3 * c0 + j);
-      s[8 * b + 3 + k] = __ldg(hi + 3 * c0 + j);
+    if (kScan == BoxScan::kStageTiles) {
+      __syncthreads();  // every thread is done with the last tile
+      stage_boxes(lo, hi, c0, m, s);
+      __syncthreads();
     }
-    __syncthreads();
     if (live) {
 #pragma unroll 4
       for (int b = 0; b < m; ++b) {
-        const float4 p = tile[2 * b];
-        const float4 q = tile[2 * b + 1];
         bool ok;
-        const float nr = slab(p.x, p.y, p.z, p.w, q.x, q.y, ox, oy, oz, ix,
-                              iy, iz, tmin, best.t, ok);
+        float nr;
+        if (kScan == BoxScan::kLdg) {
+          nr = box_near(lo, hi, c0 + b, ox, oy, oz, ix, iy, iz, tmin, best.t,
+                        ok);
+        } else {
+          const float4 p = tile[2 * b];
+          const float4 q = tile[2 * b + 1];
+          nr = slab(p.x, p.y, p.z, p.w, q.x, q.y, ox, oy, oz, ix, iy, iz,
+                    tmin, best.t, ok);
+        }
         if (ok && nr < best.t) {
           if (passed < kSpill) {
             spill_n[passed] = nr;

@@ -1,23 +1,32 @@
-"""Time the wide-row, two-level, chunked and quantized walks of several CUDA
-source trees on the same rays, in turns, on one CUDA device.
+"""Time the wide-row, two-level, chunked, quantized and skip-link walks of
+several CUDA source trees on the same rays, in turns, on one CUDA device.
 
     python -m gfxexp_torch.walk_ab parent=/path/to/parent/gfxexp_torch/csrc \\
-        change=gfxexp_torch/csrc [--reps 20] [--out out/walk_ab.json]
+        change=gfxexp_torch/csrc [--reps 20] [--only chunked,skip]
+        [--out out/walk_ab.json]
 
 Each NAME=DIR names a directory that holds widerow_traverse.cu,
-instanced_traverse.cu, chunked_traverse.cu and qrow_traverse.cu (and their
-headers) with the C interface of gfxexp_torch/csrc; the first tree is the
-reference. Every source is built with build.NVCC_FLAGS, one nvcc each, all
-at once, into build/walk_ab/<NAME>/. One process then builds bench.py's
-small scene (one wide-row table), `big`, `city` and `city rebraid4`
-two-level and `big` and `city` flattened (chunked wide rows, quantized
-rows), makes bench.walk_rays' rays, and times each walk on one
-262,144-ray bounce batch (closest hit) and its shadow rays (any hit) with
-CUDA events, in turns: the trees in order, then in reverse (parent, change,
-change, parent for two trees). Every tree's results must equal the
-reference's bit for bit (t, u, v, tri, hit, and the entry of the two-level
-walk). Prints one line per case and writes the times, nvcc's -Xptxas -v
-reports and SASS instruction counts (conversions I2F*, local loads and
+instanced_traverse.cu, chunked_traverse.cu, qrow_traverse.cu and
+skiplink_traverse.cu (and their headers) with the C interface of
+gfxexp_torch/csrc; the first tree is the reference. Every source is built
+with build.NVCC_FLAGS, one nvcc each, up to 16 at once, into
+build/walk_ab/<NAME>/. One process then builds bench.py's small scene (one
+wide-row table, walked by kernel 1 and, whole, by kernel 2), `big`, `city`
+and `city rebraid4` two-level, `big` and `city` flattened (chunked wide
+rows, quantized rows) and `big` and `city` as skip-link scenes (animated, frame 0; the per-ray scope), makes
+bench.walk_rays' rays, and times each walk on one 262,144-ray bounce batch
+(closest hit) and its shadow rays (any hit) with CUDA events, in turns: the
+trees in order, then in reverse (parent, change, change, parent for two
+trees). A reading is the mean of --reps launches, each timed by its own
+event pair after a spin of the card (so no host time between launches
+counts). Warm readings leave the last launch's rows in L2; the `chunked
+city` and `skip city` cases add a cold reading, where a 256 MB scratch
+tensor is written before each launch (outside the timed events, so the
+tables' rows are no longer in the 50 MB L2). Every tree's results must
+equal the reference's bit for bit (t, u, v, tri, hit, and the entry of the
+two-level walk). --only keeps the cases whose name starts with one of the
+given words. Prints one line per case and writes the times, nvcc's -Xptxas
+-v reports and SASS instruction counts (conversions I2F*, local loads and
 stores, where cuobjdump is found) to --out.
 """
 
@@ -39,35 +48,45 @@ from gfxexp_torch.accel import instanced
 from gfxexp_torch.accel.instanced import walk_instanced_cuda, walk_tlas
 from gfxexp_torch.accel.persistent import walk_chunked_cuda, walk_cuda
 from gfxexp_torch.accel.qrow import walk_qrow_cuda
+from gfxexp_torch.accel.skip_traverse import walk_skip_cuda
 from gfxexp_torch.csrc import build
 
 KERNELS = ("widerow_traverse", "instanced_traverse", "chunked_traverse",
-           "qrow_traverse")
+           "qrow_traverse", "skiplink_traverse")
 BATCH = 512 * 512
 SEED = 7
+MAX_NVCC = 16  # nvcc processes at once
+COLD = ("chunked city", "skip city")  # cases with a cold-L2 reading too
+SCRATCH_BYTES = 256 << 20  # written before each cold launch: > 5x the L2
 _SASS_OPS = ("I2F", "LDL", "STL")
 
 
 def build_trees(trees: dict) -> tuple[dict, dict]:
     """Build every kernel of every tree ({name: csrc dir}) with one nvcc
-    each, all at once. Returns ({name: {kernel: CDLL}}, {name: {kernel:
-    ptxas lines}}); raises when a build fails."""
+    each, up to MAX_NVCC at once. Returns ({name: {kernel: CDLL}}, {name:
+    {kernel: ptxas lines}}); raises when a build fails."""
     nvcc = build._nvcc()
     root = os.path.join(os.path.dirname(build.BUILD_DIR), "walk_ab")
-    procs = {}
+    jobs = []
     for name, src_dir in trees.items():
         os.makedirs(os.path.join(root, name), exist_ok=True)
         for k in KERNELS:
-            so = os.path.join(root, name, f"lib{k}.so")
-            src = os.path.join(src_dir, k + ".cu")
-            procs[name, k] = (so, subprocess.Popen(
-                [nvcc, *build.NVCC_FLAGS, "-o", so, src],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            jobs.append((name, k, os.path.join(root, name, f"lib{k}.so"),
+                         os.path.join(src_dir, k + ".cu")))
+    errs = {}
+    for i in range(0, len(jobs), MAX_NVCC):
+        procs = [(name, k, subprocess.Popen(
+            [nvcc, *build.NVCC_FLAGS, "-o", so, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            for name, k, so, src in jobs[i:i + MAX_NVCC]]
+        for name, k, proc in procs:
+            errs[name, k] = proc.communicate()[1]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {trees[name]}/{k}.cu:\n"
+                                   f"{errs[name, k]}")
     libs, ptxas = {}, {}
-    for (name, k), (so, proc) in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {trees[name]}/{k}.cu:\n{err}")
+    for name, k, so, _ in jobs:
+        err = errs[name, k]
         lib = ctypes.CDLL(so)
         build._declare(k, lib)
         libs.setdefault(name, {})[k] = lib
@@ -109,9 +128,34 @@ def _bounce_args(rays):
             "any": (o[b], sd[b], t_min[b], s_max[b])}
 
 
-def cases(dev):
+def cases(dev, only=None):
     """[(case name, (closure) -> results)] over every scene, walk and
-    kind, with the reference tree's libraries in use for the rays."""
+    kind, with the reference tree's libraries in use for the rays; with
+    `only`, the cases whose name starts with one of its words (scenes no
+    case needs are not built)."""
+    def wanted(*prefixes):
+        return only is None or any(p.startswith(w) or w.startswith(p)
+                                   for p in prefixes for w in only)
+
+    out = []
+    if wanted("widerow", "chunked small"):
+        out += _small_cases(dev)
+    if wanted("instanced"):
+        out += _instanced_cases(dev)
+    for which in ("big", "city"):
+        for fmt in ("widerow", "qrow"):
+            name = "chunked" if fmt == "widerow" else "qrow"
+            if wanted(f"{name} {which}"):
+                out += _flat_cases(dev, which, fmt, name)
+        if wanted(f"skip {which}"):
+            out += _skip_cases(dev, which)
+    if only is not None:
+        out = [(c, fn) for c, fn in out
+               if any(c.startswith(w) for w in only)]
+    return out
+
+
+def _small_cases(dev):
     out = []
     small = bench.build_bench_scene()[1].to(dev)
 
@@ -121,12 +165,20 @@ def cases(dev):
 
     rays = bench.walk_rays(small_hit, "small", dev, SEED, BATCH)
     for kind, args in _bounce_args(rays).items():
-        def fn(a=args, any_hit=kind == "any"):
-            h = walk_cuda(small, *a, any_hit)
-            return (h.t, h.u, h.v, h.tri, h.hit)
+        # kernel 1, and kernel 2 walking the one table whole (the route
+        # with the persistent switch off)
+        for name, walk in (("widerow", walk_cuda),
+                           ("chunked", walk_chunked_cuda)):
+            def fn(a=args, any_hit=kind == "any", walk=walk):
+                h = walk(small, *a, any_hit)
+                return (h.t, h.u, h.v, h.tri, h.hit)
 
-        out.append((f"widerow small {kind}", fn))
-    del rays
+            out.append((f"{name} small {kind}", fn))
+    return out
+
+
+def _instanced_cases(dev):
+    out = []
     for key, which, rb in (("city", "city", 0.0),
                            ("city_rebraid4", "city", 4.0),
                            ("big", "big", 0.0)):
@@ -162,31 +214,80 @@ def cases(dev):
 
                 out.append((f"instanced_{route} {key} {kind}", fn))
         del rays
-    for which in ("big", "city"):
-        for fmt, walk in (("widerow", walk_chunked_cuda),
-                          ("qrow", walk_qrow_cuda)):
-            bvh = bench.build_bench_scene(which, traversal=fmt)[1].to(dev)
-
-            def first_hit(o0, d0, bvh=bvh, walk=walk):
-                h = walk(bvh, o0, d0, 0.0, 1e30, False)
-                return h.t, h.hit
-
-            rays = bench.walk_rays(first_hit, which, dev, SEED, BATCH)
-            name = "chunked" if fmt == "widerow" else "qrow"
-            for kind, args in _bounce_args(rays).items():
-                def fn(bvh=bvh, a=args, any_hit=kind == "any", walk=walk):
-                    h = walk(bvh, *a, any_hit)
-                    return (h.t, h.u, h.v, h.tri, h.hit)
-
-                out.append((f"{name} {which} {kind}", fn))
-            del rays
     return out
+
+
+def _flat_cases(dev, which, fmt, name):
+    walk = walk_chunked_cuda if fmt == "widerow" else walk_qrow_cuda
+    bvh = bench.build_bench_scene(which, traversal=fmt)[1].to(dev)
+
+    def first_hit(o0, d0):
+        h = walk(bvh, o0, d0, 0.0, 1e30, False)
+        return h.t, h.hit
+
+    rays = bench.walk_rays(first_hit, which, dev, SEED, BATCH)
+    out = []
+    for kind, args in _bounce_args(rays).items():
+        def fn(a=args, any_hit=kind == "any"):
+            h = walk(bvh, *a, any_hit)
+            return (h.t, h.u, h.v, h.tri, h.hit)
+
+        out.append((f"{name} {which} {kind}", fn))
+    return out
+
+
+def _skip_cases(dev, which):
+    """The skip-link walk's per-ray scope on the animated scene at frame 0
+    (what every query of a skip-link scene launches)."""
+    scene, bvh = bench.build_bench_scene(which, traversal="skip")
+    scene, bvh = scene.to(dev), bvh.to(dev)
+    tris = scene.triangles
+
+    def first_hit(o0, d0):
+        h = walk_skip_cuda(bvh, tris, o0, d0, 0.0, 1e30, False)
+        return h.t, h.hit
+
+    rays = bench.walk_rays(first_hit, which, dev, SEED, BATCH)
+    out = []
+    for kind, args in _bounce_args(rays).items():
+        def fn(a=args, any_hit=kind == "any"):
+            h = walk_skip_cuda(bvh, tris, *a, any_hit, "thread")
+            return (h.t, h.u, h.v, h.tri, h.hit)
+
+        out.append((f"skip {which} {kind}", fn))
+    return out
+
+
+def launch_ms(fn, reps: int, scratch: torch.Tensor = None) -> float:
+    """Mean device time in ms of fn() over reps launches (after one warm
+    call), each timed by its own event pair. A spin of the card before each
+    start event gives the host time to enqueue the launch, so the pair
+    holds the launch alone, however long the wrapper takes on the host.
+    With `scratch`, it is written before each launch (outside the events),
+    so the launch starts with none of its rows in L2 (cold); without, the
+    last launch's rows stay there (warm)."""
+    fn()
+    pairs = []
+    for i in range(reps):
+        if scratch is not None:
+            scratch.fill_(float(i))
+        torch.cuda._sleep(1 << 20)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="+", help="NAME=CSRC_DIR, reference first")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--only", default=None,
+                    help="comma-separated case name prefixes")
     ap.add_argument("--out", default=os.path.join("out",
                                                   "walk_ab.json"))
     args = ap.parse_args(argv)
@@ -208,12 +309,17 @@ def main(argv=None):
     for name, per in sass.items():
         print(f"walk_ab: {name} SASS {per}", flush=True)
     use(libs, names[0])
+    only = args.only.split(",") if args.only else None
+    scratch = torch.empty(SCRATCH_BYTES // 4, device=dev)
     rows = {}
     order = names + names[::-1]
-    for case, fn in cases(dev):
+    for case, fn in cases(dev, only):
         use(libs, names[0])
         ref = fn()
-        times = {name: [] for name in names}
+        readings = {"": launch_ms}
+        if any(case.startswith(c) for c in COLD):
+            readings[" cold"] = lambda f, reps: launch_ms(f, reps, scratch)
+        times = {tag: {name: [] for name in names} for tag in readings}
         for name in order:
             use(libs, name)
             got = fn()
@@ -222,13 +328,15 @@ def main(argv=None):
                 if not torch.equal(x, y):
                     raise RuntimeError(f"walk_ab: {case}: tree {name} differs "
                                        f"from {names[0]}")
-            times[name].append(bench.device_ms(fn, args.reps))
-        rows[case] = times
-        base = sum(times[names[0]]) / len(times[names[0]])
-        print(f"walk_ab: {case}: " + "; ".join(
-            f"{name} {' / '.join(f'{t:.4f}' for t in ts)} ms "
-            f"(x{sum(ts) / len(ts) / base:.3f})"
-            for name, ts in times.items()), flush=True)
+            for tag, timer in readings.items():
+                times[tag][name].append(timer(fn, args.reps))
+        for tag, per in times.items():
+            rows[case + tag] = per
+            base = sum(per[names[0]]) / len(per[names[0]])
+            print(f"walk_ab: {case}{tag}: " + "; ".join(
+                f"{name} {' / '.join(f'{t:.4f}' for t in ts)} ms "
+                f"(x{sum(ts) / len(ts) / base:.3f})"
+                for name, ts in per.items()), flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"nvidia_smi": smi, "trees": trees, "order": order,

@@ -179,8 +179,8 @@ def test_chunked_walk_matches_brute(arity):
     o, d, t_max = _rays(7, (p0, e1, e2), n=400)
     args = (torch.from_numpy(o), torch.from_numpy(d), 1e-4,
             torch.from_numpy(t_max))
-    h, rows, chunks = walk_chunked_plain(tb, *args, any_hit=False,
-                                         with_stats=True)
+    h, rows, chunks, _ = walk_chunked_plain(tb, *args, any_hit=False,
+                                            with_stats=True)
     ref = intersect_closest_brute(_tsoa(p0[perm], e1[perm], e2[perm]),
                                   *args)
     assert torch.equal(h.hit, ref.hit) and int(h.hit.sum()) > 100

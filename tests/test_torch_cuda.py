@@ -7,6 +7,7 @@ JAX (the card's machine has none); run it there with
 """
 
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ from gfxexp_torch.accel import (  # noqa: E402
     skip_traverse,
     widerow,
 )
+from gfxexp_torch.accel.bvh_build import build_bvh  # noqa: E402
 from gfxexp_torch.accel.instanced import (  # noqa: E402
     build_instanced,
     walk_instanced_cuda,
@@ -48,7 +50,10 @@ from gfxexp_torch.accel.qrow import (  # noqa: E402
 )
 from gfxexp_torch.accel.rowcursor import intersect_any_rowcursor  # noqa: E402
 from gfxexp_torch.accel.skip_traverse import walk_skip_cuda  # noqa: E402
-from gfxexp_torch.accel.skiplink import walk_skip_plain  # noqa: E402
+from gfxexp_torch.accel.skiplink import (  # noqa: E402
+    build_skip_links,
+    walk_skip_plain,
+)
 from gfxexp_torch.accel.traverse import intersect_any  # noqa: E402
 from gfxexp_torch.accel.traverse import intersect_closest  # noqa: E402
 from gfxexp_torch.accel.widerow import build_widerow  # noqa: E402
@@ -472,3 +477,139 @@ def test_qrow_render_on_card_matches_cpu(dev):
     assert torch.isfinite(a).all()
     assert S.image_rel_diff(a.cpu().numpy(), b.numpy()) < 5e-3
     assert abs(float(na) - float(nb)) <= 5e-3 * float(nb)
+
+
+def _aimed_at(rng, n, soup, idx):
+    """n rays from origins in [-10, 10]^3 aimed at points of the triangles
+    `idx` of the soup."""
+    p0, e1, e2 = soup
+    o = rng.uniform(-10.0, 10.0, size=(n, 3)).astype(np.float32)
+    j = rng.choice(idx, n)
+    a, b = rng.random((2, n, 1)) * 0.5
+    d = p0[j] + a * e1[j] + b * e2[j] - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o, d.astype(np.float32)
+
+
+@pytest.mark.parametrize("max_leaf", [1, 4, 8, 16])
+def test_skip_kernel_load_batches_match_plain(dev, max_leaf):
+    """The per-ray scope's load batches at their edges, every scope, closest
+    and any hit, 20,001 rays (not a multiple of the block): leaf batches of
+    4 and 8 rows and the one-row loop (1, 16), rays aimed at the leaf that
+    holds the table's last triangles (its batch ends at the padding rows)
+    and at the last node in preorder (runs clamped at the sentinel row),
+    dead rays included: equal to the plain version bit for bit."""
+    rng = np.random.default_rng(29)
+    soup = S.soup(rng, 3000, 6.0)
+    b, perm = build_bvh(*soup, arity=4, max_leaf=max_leaf)
+    soup = tuple(x[perm] for x in soup)
+    tb = build_skip_links(b.child_min, b.child_max, b.child_idx,
+                          b.child_count, max_leaf=max_leaf).to(dev)
+    tris = types.SimpleNamespace(
+        **{k: torch.from_numpy(x).to(dev)
+           for k, x in zip(("p0", "e1", "e2"), soup)})
+    first, count = tb.first.cpu().numpy(), tb.count.cpu().numpy()
+    leaves = np.nonzero(count > 0)[0]
+    end = leaves[np.argmax(first[leaves] + count[leaves])]
+    assert first[end] + count[end] == 3000
+    edge = np.concatenate([np.arange(first[end], 3000),
+                           np.arange(first[leaves[-1]],
+                                     first[leaves[-1]] + count[leaves[-1]])])
+    n = 20001
+    o0, d0 = S.aimed_rays(rng, n // 2, *soup)
+    o1, d1 = _aimed_at(rng, n - n // 2, soup, edge)
+    o = torch.from_numpy(np.concatenate([o0, o1])).to(dev)
+    d = torch.from_numpy(np.concatenate([d0, d1])).to(dev)
+    t_max = _dead_every_fifth(n, dev)
+    for any_hit in (False, True):
+        p = walk_skip_plain(tb, tris, o, d, 1e-4, t_max, any_hit)
+        assert p.hit[n // 2:].sum() > n // 4
+        for scope in ("thread", "warp", "block"):
+            k = walk_skip_cuda(tb, tris, o, d, 1e-4, t_max, any_hit, scope)
+            torch.cuda.synchronize()
+            for f in ("hit", "t", "u", "v", "tri"):
+                assert torch.equal(getattr(k, f), getattr(p, f)), (scope, f)
+
+
+@pytest.mark.parametrize("arity", [4, 8])
+@pytest.mark.parametrize("max_rows", [300, 13000])
+def test_chunked_kernel_leaf_rows_match_plain(dev, arity, max_rows):
+    """Kernel 2's one load batch a row: leaf rows of 1 to 5 triangles
+    (max_leaf 5, so a leaf of more than the first batch's triangles loads
+    the rest), arity 4 and 8, chunk tables and one table walked whole (no
+    chunk boxes), 20,001 rays with dead ones, closest and any hit: equal to
+    the plain version bit for bit."""
+    rng = np.random.default_rng(31)
+    soup = S.soup(rng, 3000, 6.0)
+    tb, perm = build_widerow(*soup, arity=arity, max_leaf=5,
+                             max_rows=max_rows)
+    assert (tb.num_chunks > 1) == (max_rows == 300)
+    rows = tb.nodes.reshape(-1, 64)
+    counts = rows.view(torch.int32)[rows[:, 63] > 0.5, 60] >> 24
+    assert set(range(1, 6)) <= set(counts.tolist())
+    tb = tb.to(dev)
+    o, d = S.aimed_rays(rng, 20001, *(x[perm] for x in soup))
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    t_max = _dead_every_fifth(o.shape[0], dev)
+    for any_hit in (False, True):
+        k = walk_chunked_cuda(tb, o, d, 1e-4, t_max, any_hit)
+        p = walk_chunked_plain(tb, o, d, 1e-4, t_max, any_hit)
+        torch.cuda.synchronize()
+        assert k.hit.any() and not k.hit[t_max < 0].any()
+        for f in ("hit", "t", "u", "v", "tri"):
+            assert torch.equal(getattr(k, f), getattr(p, f)), f
+
+
+def test_chunked_kernel_fed_grid_matches_plain(dev):
+    """Kernel 2's persistent grid, whose warps take 32 rays at a time from
+    a counter, on 600,001 rays (several times what the card holds at once,
+    and not a multiple of 32) over chunk tables, closest and any hit, with
+    dead rays: equal to the plain version bit for bit, every ray written.
+    Each launch leaves the stream's counters at zero for the next: launches
+    back to back, a smaller batch after a larger, and a launch on a second
+    stream (counters of its own) all give the same results."""
+    tb, soup = _chunked_table(4, 300)
+    assert tb.num_chunks > 4
+    tb = tb.to(dev)
+    o, d = (x.to(dev) for x in _aimed(soup, n=600001, seed=43))
+    t_max = _dead_every_fifth(o.shape[0], dev)
+    side = torch.cuda.Stream(dev)
+    persistent.reset_launch_counts()
+    for any_hit in (False, True):
+        p = walk_chunked_plain(tb, o, d, 1e-4, t_max, any_hit)
+        runs = [walk_chunked_cuda(tb, o, d, 1e-4, t_max, any_hit)
+                for _ in range(3)]
+        small = walk_chunked_cuda(tb, o[:1001], d[:1001], 1e-4,
+                                  t_max[:1001], any_hit)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            runs.append(walk_chunked_cuda(tb, o, d, 1e-4, t_max, any_hit))
+        torch.cuda.synchronize()
+        assert p.hit.any() and not p.hit[t_max < 0].any()
+        for k in runs:
+            for f in ("hit", "t", "u", "v", "tri"):
+                assert torch.equal(getattr(k, f), getattr(p, f)), f
+        for f in ("hit", "t", "u", "v", "tri"):
+            assert torch.equal(getattr(small, f), getattr(p, f)[:1001]), f
+    assert persistent.chunked_launch_counts == {"closest": 5, "any": 5}
+    for c in persistent._chunked_counters.values():
+        assert c.tolist() == [0, 0]
+
+
+def test_chunked_kernel_many_chunks_matches_plain(dev):
+    """Kernel 2 over more chunk boxes than one shared-memory tile holds
+    (800 > kBoxTile): each ray's scan reads the boxes through __ldg instead
+    of a staged tile, closest and any hit: equal to the plain version."""
+    soup = S.soup(np.random.default_rng(47), 4000, 6.0)
+    tb = build_widerow(*soup, max_rows=3)[0]
+    assert tb.num_chunks > header_constant("kBoxTile")
+    tb = tb.to(dev)
+    o, d = (x.to(dev) for x in _aimed(soup, n=20001, seed=53))
+    t_max = _dead_every_fifth(o.shape[0], dev)
+    for any_hit in (False, True):
+        k = walk_chunked_cuda(tb, o, d, 1e-4, t_max, any_hit)
+        p = walk_chunked_plain(tb, o, d, 1e-4, t_max, any_hit)
+        torch.cuda.synchronize()
+        assert k.hit.any() and not k.hit[t_max < 0].any()
+        for f in ("hit", "t", "u", "v", "tri"):
+            assert torch.equal(getattr(k, f), getattr(p, f)), f
