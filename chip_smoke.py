@@ -11,7 +11,8 @@ Phases, one line each, any failure exits non-zero:
   3. kernel 1 vs plain: the wide-row walk (closest and any hit) on ~1M small
      bench scene rays against its plain PyTorch version, and both against
      brute force on a 64k-ray subset; times and bounds at the main path's
-     batch size;
+     batch size, and the lane utilisation of its schedules on that batch
+     (walk_trips.lane_steps: static grid, per-lane refill);
   4. slice: a 64x64, 2-sample render of the small scene on the card against
      the same render on the CPU (mean relative image difference < 5e-3, rays
      within 0.5%);
@@ -25,8 +26,10 @@ Phases, one line each, any failure exits non-zero:
      the plain version (exactly equal), the routes against each other, and
      brute force over the flattened world triangles on a 4,096-ray subset;
      times and bounds at one 262,144-ray bounce batch, the candidate entry
-     boxes per live ray against the pick's kPick, and ptxas's registers,
-     spills and shared memory;
+     boxes per live ray against the pick's kPick, the build order's lane
+     utilisation under each schedule and the share of 32-entry union boxes
+     rays enter (walk_trips.build_order_costs, group_shares), and ptxas's
+     registers, spills and shared memory;
   8. two-level slice: `big` at 64x64, 2 samples, card against CPU;
   9. two-level main path: gfxexp_torch.bench.measure on `big` and `city`
      (nearest-first), `big nopersist` (build order) and `city tlas` (ray
@@ -139,6 +142,12 @@ from gfxexp_torch.render.pathtrace import (
 )
 from gfxexp_torch.scene import animation
 from gfxexp_torch.utils.image_io import save_png
+from gfxexp_torch.walk_trips import (
+    build_order_costs,
+    group_shares,
+    lane_line,
+    lane_steps,
+)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BRUTE_SUB = 4096  # rays of the brute-force subsets (phases 7 and 11)
@@ -347,7 +356,8 @@ def phase_kernels(report, scene, bvh, dev):
                         int(rows.sum()) * OPS_ROW)
         out[kind] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                      "bound_by": by, "rows_per_live_ray":
-                     int(rows.sum()) / max(live, 1)}
+                     int(rows.sum()) / max(live, 1),
+                     "lanes": lane_steps(rows.cpu().numpy())}
     prim = time_ms(lambda: walk_cuda(bvh, o[:BATCH], d[:BATCH],
                                      t_min[:BATCH], t_max[:BATCH], False), 20)
     report["kernels"] = {
@@ -368,6 +378,9 @@ def phase_kernels(report, scene, bvh, dev):
           f"{c['rows_per_live_ray']:.1f} rows/ray), any {a['ms']:.4f} ms "
           f"(plain {a['plain_ms']:.1f} ms, bound {a['bound_ms']:.4f} ms by "
           f"{a['bound_by']}), primary closest {prim:.4f} ms", flush=True)
+    for kind, e in out.items():
+        print(f"[3 kernels] {BATCH}-ray bounce batch {kind}: "
+              f"lanes {lane_line(e['lanes'])}", flush=True)
     return {kind: dict(v, max_abs_err=err_c if kind == "closest" else err_a)
             for kind, v in out.items()}
 
@@ -688,7 +701,7 @@ def _inst_kernels_one(acc, world, dev, tag, which):
             entry = {"ms": ms, "route_ms": route_ms}
             entry["plain_ms"] = time_ms(lambda: walk_instanced_plain(
                 acc, *args, any_hit, route), 1, warm=False)
-            _, _, rows, visits = walk_instanced_plain(
+            p_hit, _, rows, visits, seq = walk_instanced_plain(
                 acc, *args, any_hit, route, with_stats=True)
             # the entry boxes need one scan per live ray, whatever the
             # route rescans
@@ -702,6 +715,14 @@ def _inst_kernels_one(acc, world, dev, tag, which):
                          rows_per_live_ray=int(rows.sum()) / max(live, 1),
                          entries_per_live_ray=int(visits.sum())
                          / max(live, 1))
+            if route == "build":
+                # an any hit that was accepted ended its ray's list
+                stopped = p_hit.hit & any_hit
+                entry["lanes"] = build_order_costs(
+                    [x.cpu().numpy() for x in seq], BATCH, acc.num_entries,
+                    (args[3] >= 0).cpu().numpy(), stopped.cpu().numpy())
+                entry["lanes"]["groups"] = group_shares(
+                    acc.chunk_lo, acc.chunk_hi, *args)
             out["times"][f"{kind}_{route}"] = entry
             if route == "nearest":
                 out["candidates"][kind] = _candidates(
@@ -740,6 +761,9 @@ def phase_inst_kernels(report, built, worlds, dev):
                   f"{e['bound_by']}, {e['rows_per_live_ray']:.1f} rows and "
                   f"{e['entries_per_live_ray']:.2f} entries per live ray",
                   flush=True)
+            if "lanes" in e:
+                print(f"[7 inst kernels {key}] {BATCH}-ray bounce batch "
+                      f"{name}: lanes {lane_line(e['lanes'])}", flush=True)
     report["inst_kernels"] = out
     return out
 

@@ -8,12 +8,14 @@ Replaces the TPU kernels of the two-level path, which compute one function:
 `pallas_widestack.py:1068` `_run_instanced` (the static grid, build order)
 and `pallas_widestack.py:1189` `_run_instanced_pass` behind
 `_run_tlas_wavefront` :1273 (rays sorted by their nearest entry). The kernel
-(csrc/instanced_traverse.cu) runs one thread per ray: it visits the TLAS
+(csrc/instanced_traverse.cu) walks each ray on its own: it visits the TLAS
 entries whose world AABB the ray enters, transforms the ray into each
 entry's object space and walks the entry's BLAS with kernel 1's walk
-(csrc/widerow_walk.cuh). It is bound by the latency of the dependent row
-loads and by the O(C) entry scan of each nearest-first pick; see the
-source's note.
+(csrc/widerow_walk.cuh); in build order on a persistent grid whose lanes
+each visit their own candidates of a window of 32 entries, the window
+skipped where no lane enters its union box (group_boxes, built once per
+InstancedAccel). It is bound by the latency of the dependent row loads and
+by the O(C) entry scan; see the source's note.
 
 Routing, as in the JAX package: `tlas=True` or `acc.use_tlas` -> the rays
 are argsorted by their nearest entry and walked nearest-first (the same
@@ -45,6 +47,7 @@ from gfxexp_torch.accel.persistent import (
     _ptr,
     _safe_inv,
     entry_slabs,
+    grid_counters,
     slab_rows,
     stack_depth,
     walk_entries_plain,
@@ -60,6 +63,10 @@ from gfxexp_torch.accel.widerow import (  # noqa: F401 (set_persistent)
 )
 from gfxexp_torch.core.tensors import TensorData
 
+# entries under one union box for the build-order kernel: its windows
+# (kWindow in csrc/instanced_traverse.cu) and the runs inside them (kSub)
+GROUP = 32
+SUB_GROUP = 8
 # The walk's routes, one per TPU kernel it replaces: "nearest" (nearest-
 # first entries), "build" (entries in build order) and "sorted" (nearest-
 # first over rays the tlas route has sorted by their nearest entry).
@@ -314,7 +321,8 @@ def walk_instanced_plain(acc: InstancedAccel, o, d, t_min, t_max,
     entries' object spaces and walks the BLAS with walk_plain, starting at
     the entries' start rows with t_max = best t, then merges the hits.
     Returns (HitInfo, entry [N] int32); with_stats=True adds (rows visited
-    [N], entries visited [N])."""
+    [N], entries visited [N], the visits in order: (ray, entry, rows walked)
+    [V] each, walk_entries_plain)."""
     flat, ents, o, d, t_min, t_max = _prepare_inst(acc, o, d, t_min, t_max,
                                                    route)
     blas, start, tf, lo, hi = ents
@@ -340,6 +348,33 @@ def walk_instanced_plain(acc: InstancedAccel, o, d, t_min, t_max,
 # ---------------------------------------------------------------------------
 # CUDA kernel
 # ---------------------------------------------------------------------------
+
+
+def group_boxes(lo, hi, group: int = GROUP):
+    """The union box of each run of `group` consecutive entry boxes lo, hi
+    [C, 3]: (glo, ghi) [ceil(C / group), 3] each, exact (min and max of the
+    corners)."""
+    n_c = lo.shape[0]
+    n_g = -(-n_c // group)
+    pad = n_g * group - n_c
+    glo = torch.cat([lo, lo[-1:].expand(pad, 3)]).reshape(n_g, group, 3)
+    ghi = torch.cat([hi, hi[-1:].expand(pad, 3)]).reshape(n_g, group, 3)
+    return glo.amin(1).contiguous(), ghi.amax(1).contiguous()
+
+
+def _cached_groups(acc: InstancedAccel, lo, hi):
+    """The union boxes of the entry boxes' windows of GROUP, then of their
+    runs of SUB_GROUP (group_boxes), as the build-order kernel takes them:
+    (glo, ghi) [ceil(C / GROUP) + ceil(C / SUB_GROUP), 3]. Built once per
+    InstancedAccel and again only when lo or hi is replaced or written in
+    place."""
+    key = (lo.data_ptr(), lo._version, hi.data_ptr(), hi._version)
+    cached = acc.__dict__.get("_group_boxes")
+    if cached is None or cached[0] != key:
+        levels = [group_boxes(lo, hi, g) for g in (GROUP, SUB_GROUP)]
+        cached = acc.__dict__["_group_boxes"] = (
+            key, *(torch.cat(x).contiguous() for x in zip(*levels)))
+    return cached[1:]
 
 
 def walk_instanced_cuda(acc: InstancedAccel, o, d, t_min, t_max,
@@ -373,13 +408,18 @@ def walk_instanced_cuda(acc: InstancedAccel, o, d, t_min, t_max,
         nodes = flat.nodes  # [1, B*R, 64]
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
+            if route == "build":
+                glo, ghi = (_ptr(x) for x in _cached_groups(acc, lo, hi))
+                counters = _ptr(grid_counters(dev, stream))
+            else:
+                glo = ghi = counters = ctypes.c_void_p(None)
             rc = lib.instanced_walk_launch(
                 int(any_hit), int(route != "build"), acc.arity, _ptr(nodes),
                 nodes.shape[1], acc.nodes.shape[1], acc.max_leaf, depth,
                 acc.num_entries, _ptr(blas), _ptr(start), _ptr(tf), _ptr(lo),
                 _ptr(hi), n, _ptr(o), _ptr(d), _ptr(t_min), _ptr(t_max),
                 _ptr(t), _ptr(u), _ptr(v), _ptr(tri), _ptr(hit), _ptr(entry),
-                ctypes.c_void_p(stream))
+                ctypes.c_void_p(stream), counters, glo, ghi)
         if rc != 0:
             raise RuntimeError(f"instanced_walk launch failed: CUDA error "
                                f"{rc}")

@@ -9,13 +9,16 @@ Replaces two TPU kernels:
   launched by `_run` :659), closest and any hit over the C chunk tables of
   a large scene, chunks nearest first: csrc/chunked_traverse.cu.
 
-Kernel 1 runs one thread per ray with a per-thread stack over the row table
-in HBM. A walk step is one dependent load of a 256-byte row followed by a
-few dozen FLOPs, so the kernel is bound by the latency of those dependent
-loads, not by arithmetic; the design keeps every thread's loads independent
-of the others (no packets) and leans on the 50 MB L2, which holds the bench
-scene's table whole. The TPU kernel's pools, row slots, `sched_k` batching
-and 128-lane packets existed to keep VMEM busy and carry no meaning here.
+Kernel 1 walks each ray on its own, with a per-lane stack, over the row
+table in HBM. A walk step is one dependent load of a 256-byte row followed
+by a few dozen FLOPs, so the kernel is bound by the latency of those
+dependent loads and by lanes that have nothing to do, not by arithmetic;
+the design keeps every lane's loads independent of the others (no packets),
+leans on the 50 MB L2, which holds the bench scene's table whole, and runs a
+persistent grid whose lanes take a new ray as theirs ends (the fed grid's
+counters are kept per stream here, `grid_counters`). The TPU kernel's
+pools, row slots, `sched_k` batching and 128-lane packets existed to keep
+VMEM busy and carry no meaning here.
 
 Kernel 2 runs kernel 1's walk per chunk, one thread per ray: each step
 scans the C chunk boxes and takes the chunk with the smallest (entry
@@ -63,9 +66,11 @@ from gfxexp_torch.accel.widerow import (
 # kernel 1 (one table) and kernel 2 (chunk tables)
 launch_counts = {"closest": 0, "any": 0}
 chunked_launch_counts = {"closest": 0, "any": 0}
-# kernel 2's grid counters, one pair per (device, stream): zeroed once here,
-# left at zero by every launch (its last warp resets them)
-_chunked_counters: dict = {}
+# the persistent grids' counters (kernels 1, 2 and the two-level walk in
+# build order), one pair per (device, stream): zeroed once here, left at
+# zero by every launch (its last warp resets them), so the kernels of one
+# stream share them
+_grid_counters: dict = {}
 
 # rays per slice of the [n, C] box slab tests: bounds the temporaries
 _SLAB_ELEMS = 1 << 24
@@ -356,7 +361,8 @@ def walk_entries_plain(lo, hi, o, d, t_min, t_max, any_hit: bool,
     with_stats) and the hits are merged: best_t carries across entries, and
     any hit stops at the first accepted triangle. Returns (HitInfo, entry
     [N] int32), with_stats=True adds (rows visited [N], entries visited
-    [N])."""
+    [N], and the visits in the order they were made: (ray, entry, rows
+    walked) [V] int64 each, so each ray's visits are in its own order)."""
     n, dev = o.shape[0], o.device
     inv = _safe_inv(d)
     best_t = t_max.clone()
@@ -369,8 +375,11 @@ def walk_entries_plain(lo, hi, o, d, t_min, t_max, any_hit: bool,
     nxt_c = torch.zeros(n, dtype=torch.int64, device=dev)
     rows = torch.zeros(n, dtype=torch.int64, device=dev)
     visits = torch.zeros(n, dtype=torch.int64, device=dev)
+    seq = ([], [], [])
 
     live = torch.nonzero(t_max >= 0.0).squeeze(1)
+    if lo.shape[0] == 0:  # no boxes: no ray visits anything
+        live = live[:0]
     while live.numel():
         pick, pnear, found = _pick(lo, hi, o[live], inv[live], t_min[live],
                                    best_t[live], nearest, last_near[live],
@@ -384,6 +393,8 @@ def walk_entries_plain(lo, hi, o, d, t_min, t_max, any_hit: bool,
         if with_stats:
             rows[live] += out[1]
             visits[live] += 1
+            for log, x in zip(seq, (live, pick, out[1])):
+                log.append(x.to(torch.int64))
         took = h.hit
         idx = live[took]
         best_t[idx] = h.t[took]
@@ -399,7 +410,9 @@ def walk_entries_plain(lo, hi, o, d, t_min, t_max, any_hit: bool,
     hit = HitInfo(t=best_t, tri=best_tri, u=best_u, v=best_v,
                   hit=best_tri >= 0)
     if with_stats:
-        return hit, best_ent, rows, visits
+        empty = torch.zeros(0, dtype=torch.int64, device=dev)
+        return hit, best_ent, rows, visits, tuple(
+            torch.cat(log) if log else empty for log in seq)
     return hit, best_ent
 
 
@@ -498,6 +511,18 @@ def _outputs(n, dev):
             torch.empty(n, dtype=torch.bool, device=dev))
 
 
+def grid_counters(dev: torch.device, stream: int) -> torch.Tensor:
+    """The two counters of a persistent grid on `stream` (its cuda_stream
+    handle) of device `dev`, zeroed at the first call; every launch leaves
+    them at zero."""
+    key = (dev.index, stream)
+    counters = _grid_counters.get(key)
+    if counters is None:
+        counters = _grid_counters[key] = torch.zeros(2, dtype=torch.int32,
+                                                     device=dev)
+    return counters
+
+
 def walk_cuda(bvh: WideRowBVH, o, d, t_min, t_max, any_hit: bool) -> HitInfo:
     """Launch kernel 1 (csrc/widerow_traverse.cu) on PyTorch's current
     stream over a single-chunk table. Raises if the kernel cannot be built
@@ -524,7 +549,8 @@ def walk_cuda(bvh: WideRowBVH, o, d, t_min, t_max, any_hit: bool) -> HitInfo:
                 int(any_hit), bvh.arity, _ptr(nodes), nodes.shape[0],
                 bvh.max_leaf, depth, n, _ptr(o), _ptr(d), _ptr(t_min),
                 _ptr(t_max), _ptr(t), _ptr(u), _ptr(v), _ptr(tri), _ptr(hit),
-                ctypes.c_void_p(stream))
+                ctypes.c_void_p(stream), _ptr(grid_counters(o.device,
+                                                            stream)))
         if rc != 0:
             raise RuntimeError(f"widerow_walk launch failed: CUDA error {rc}")
         launch_counts["any" if any_hit else "closest"] += 1
@@ -555,11 +581,7 @@ def walk_chunked_cuda(bvh: WideRowBVH, o, d, t_min, t_max,
     if n:
         with torch.cuda.device(o.device):
             stream = torch.cuda.current_stream(o.device).cuda_stream
-            key = (o.device.index, stream)
-            counters = _chunked_counters.get(key)
-            if counters is None:
-                counters = _chunked_counters[key] = torch.zeros(
-                    2, dtype=torch.int32, device=o.device)
+            counters = grid_counters(o.device, stream)
             rc = lib.chunked_walk_launch(
                 int(any_hit), bvh.arity, _ptr(nodes), bvh.num_chunks,
                 bvh.rows_per_chunk, bvh.max_leaf, depth, _null_or_ptr(lo),

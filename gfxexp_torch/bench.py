@@ -166,19 +166,20 @@ def bench_camera(width: int, height: int, scene: str = "small"):
 
 
 def walk_rays(first_hit, scene: str, device, seed: int = 7,
-              batch: int = 512 * 512, stride: int = 1):
+              batch: int = 512 * 512, stride: int = 1, first: int = 0):
     """Four batches of `batch` rays over a bench scene, for timing and
     checking the walks: jittered primary rays at 512x512 (through pixels
-    0, stride, 2 * stride, ... in row-major order), then three batches of
-    random bounce directions from the primary hits; every 7th ray dead
-    (t_max < 0). Shadow rays from the same origins to random points on the
-    light, every 5th dead. `first_hit(o, d)` gives the primary hits' t and
-    hit mask. Returns (o, d, t_min, t_max, shadow d, shadow t_max)."""
+    first, first + stride, first + 2 * stride, ... in row-major order),
+    then three batches of random bounce directions from the primary hits;
+    every 7th ray dead (t_max < 0). Shadow rays from the same origins to
+    random points on the light, every 5th dead. `first_hit(o, d)` gives the
+    primary hits' t and hit mask. Returns (o, d, t_min, t_max, shadow d,
+    shadow t_max)."""
     rng = np.random.default_rng(seed)
     dev = torch.device(device)
     cam = bench_camera(512, 512, scene).to(dev)
     jit = torch.from_numpy(rng.random((2, batch), np.float32)).to(dev)
-    lane = torch.arange(batch, device=dev) * stride
+    lane = first + torch.arange(batch, device=dev) * stride
     o0, d0 = generate_rays_for_lanes(cam, 512, 512, lane, jit[0], jit[1])
     t0, h0 = first_hit(o0, d0)
     p = torch.where(h0[:, None], o0 + t0[:, None] * d0, o0)

@@ -52,7 +52,7 @@ def _declare(name: str, lib: ctypes.CDLL):
             ci, ci, vp, ci, ci, ci, ci,          # any_hit .. n
             vp, vp, vp, vp,                      # o, d, tmin, tmax
             vp, vp, vp, vp, vp,                  # t, u, v, tri, hit
-            vp,                                  # stream
+            vp, vp,                              # stream, counters
         ]
     elif name == "instanced_traverse":
         lib.instanced_max_stack.restype = ci
@@ -64,7 +64,8 @@ def _declare(name: str, lib: ctypes.CDLL):
             ci, vp, vp, vp, vp, vp,              # entries: count .. hi
             ci, vp, vp, vp, vp,                  # n, o, d, tmin, tmax
             vp, vp, vp, vp, vp, vp,              # t, u, v, tri, hit, entry
-            vp,                                  # stream
+            vp, vp,                              # stream, counters
+            vp, vp,                              # group boxes lo, hi
         ]
     elif name == "chunked_traverse":
         lib.chunked_max_stack.restype = ci

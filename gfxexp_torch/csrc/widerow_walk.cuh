@@ -22,9 +22,16 @@
 // internal row costs one round trip where it cost two (tail, then
 // children), a leaf one or two where it cost one and one a triangle.
 // Kernels 1 and 2 take it (0.92 / 0.88 of the time without it on the small
-// scene, closest / any; kernel 2 in chunked_traverse.cu); the two-level walk
-// does not: its registers, capped for 6 blocks a SM, spill with it, and
-// kernels 3-5 ran 1.10-1.25x slower (PERF.md).
+// scene, closest / any; kernel 2 in chunked_traverse.cu), and so does the
+// two-level walk in build order, whose registers are not capped; the
+// nearest-first two-level walk does not: its registers, capped for 6 blocks
+// a SM, spill with it, and it ran 1.10-1.25x slower (PERF.md). Kernel 1's
+// fed grid walks its lanes' rays a row at a time (step).
+//
+// The walk is written for one thread per ray. On the card a warp runs its
+// 32 lanes' walks together, so it lasts as long as its longest walk. The
+// kernels that take new work per lane (kernel 1's refill, the build-order
+// two-level walk's windows) are there for that.
 //
 // What bounded the pick: it rescanned all C boxes at every pick, six __ldg
 // and about 30 operations a box, so a ray that visited v boxes paid v + 1
@@ -318,6 +325,77 @@ __device__ __forceinline__ bool walk(const float* __restrict__ nodes,
     cur = nxt;
   }
   return false;
+}
+
+// One step of kernel 1's fed grid (widerow_traverse.cu), whose lanes walk
+// their rays a row at a time: the body of walk's loop with the row batch,
+// at row `cur` (relative to the table's first row), with the reciprocals
+// ix, iy, iz. Returns the next row (the nearest hit child, else the top of
+// the stack), -1 when the walk is done, or kAccepted. walk keeps its own
+// loop: written as a loop over this step it ran kernel 2's any hit 3-4%
+// slower on the card (PERF.md).
+constexpr int kAccepted = -2;
+
+template <bool kAnyHit, int K>
+__device__ __forceinline__ int step(const float* __restrict__ nodes,
+                                    int n_rows, int cur, int max_leaf,
+                                    float ox, float oy, float oz, float dx,
+                                    float dy, float dz, float ix, float iy,
+                                    float iz, float tmin, Best& best,
+                                    int* stack, int& sp) {
+  constexpr int kHead = head_quads<K>();
+  const int r = min(cur, n_rows - 1);
+  const float4* row =
+      reinterpret_cast<const float4*>(nodes + (size_t)r * kWidth);
+  float4 q[15];
+#pragma unroll
+  for (int i = 0; i < kHead; ++i) q[i] = __ldg(row + i);
+  const float4 tail = __ldg(row + 15);  // cols 60..63
+  int nxt = -1;
+  if (tail.w > 0.5f) {
+    if (leaf_rows<kAnyHit, kHead>(row, q, tail, max_leaf, ox, oy, oz, dx,
+                                  dy, dz, tmin, best)) {
+      return kAccepted;
+    }
+  } else {
+    // internal: K children of 7 floats (lo.xyz hi.xyz child row)
+    float c[7 * K];
+#pragma unroll
+    for (int i = 0; i < kHead; ++i) {
+      c[4 * i + 0] = q[i].x;
+      c[4 * i + 1] = q[i].y;
+      c[4 * i + 2] = q[i].z;
+      c[4 * i + 3] = q[i].w;
+    }
+    float nr[K];
+    int mt[K];
+    bool vd[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float* b = c + 7 * k;
+      const float tx0 = (b[0] - ox) * ix;
+      const float tx1 = (b[3] - ox) * ix;
+      const float ty0 = (b[1] - oy) * iy;
+      const float ty1 = (b[4] - oy) * iy;
+      const float tz0 = (b[2] - oz) * iz;
+      const float tz1 = (b[5] - oz) * iz;
+      const float near = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
+                               fmaxf(fminf(tz0, tz1), tmin));
+      const float far = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
+                              fminf(fmaxf(tz0, tz1), best.t));
+      const int meta = __float_as_int(b[6]);
+      const bool ok = near <= far && meta >= 0;
+      nr[k] = ok ? near : CUDART_INF_F;
+      mt[k] = meta;
+      vd[k] = ok;
+    }
+    nxt = descend<K, kMaxStack>(nr, mt, vd, stack, sp);
+  }
+  if (nxt < 0 && sp > 0) {
+    --sp;
+    nxt = sp < kMaxStack ? stack[sp] : -1;
+  }
+  return nxt;
 }
 
 // The slab test of a box lo, hi against a ray: its entry distance `near`

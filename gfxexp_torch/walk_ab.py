@@ -8,26 +8,32 @@ several CUDA source trees on the same rays, in turns, on one CUDA device.
 Each NAME=DIR names a directory that holds widerow_traverse.cu,
 instanced_traverse.cu, chunked_traverse.cu, qrow_traverse.cu and
 skiplink_traverse.cu (and their headers) with the C interface of
-gfxexp_torch/csrc; the first tree is the reference. Every source is built
+gfxexp_torch/csrc, or one that takes fewer trailing arguments (a parent's:
+the C calling convention ignores the rest); the first tree is the
+reference. Every source is built
 with build.NVCC_FLAGS, one nvcc each, up to 16 at once, into
 build/walk_ab/<NAME>/. One process then builds bench.py's small scene (one
 wide-row table, walked by kernel 1 and, whole, by kernel 2), `big`, `city`
-and `city rebraid4` two-level, `big` and `city` flattened (chunked wide
-rows, quantized rows) and `big` and `city` as skip-link scenes (animated, frame 0; the per-ray scope), makes
+and `city rebraid4` two-level (nearest-first and build order on each; the
+ray-sorted route on `city`), `big` and `city` flattened (chunked wide
+rows, quantized rows) and `big` and `city` as skip-link scenes (animated,
+frame 0; the per-ray scope), makes
 bench.walk_rays' rays, and times each walk on one 262,144-ray bounce batch
 (closest hit) and its shadow rays (any hit) with CUDA events, in turns: the
 trees in order, then in reverse (parent, change, change, parent for two
 trees). A reading is the mean of --reps launches, each timed by its own
 event pair after a spin of the card (so no host time between launches
-counts). Warm readings leave the last launch's rows in L2; the `chunked
-city` and `skip city` cases add a cold reading, where a 256 MB scratch
-tensor is written before each launch (outside the timed events, so the
-tables' rows are no longer in the 50 MB L2). Every tree's results must
+counts). Warm readings leave the last launch's rows in L2; the `widerow
+small`, `instanced_build city`, `chunked city` and `skip city` cases add a
+cold reading, where a 256 MB scratch tensor is written before each launch
+(outside the timed events, so the tables' rows are no longer in the 50 MB
+L2). Every tree's results must
 equal the reference's bit for bit (t, u, v, tri, hit, and the entry of the
 two-level walk). --only keeps the cases whose name starts with one of the
 given words. Prints one line per case and writes the times, nvcc's -Xptxas
 -v reports and SASS instruction counts (conversions I2F*, local loads and
-stores, where cuobjdump is found) to --out.
+stores, all instructions and a digest of the opcode sequence, where
+cuobjdump is found) to --out.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import re
 import shutil
 import subprocess
 import sys
+import zlib
 
 import torch
 
@@ -56,7 +63,8 @@ KERNELS = ("widerow_traverse", "instanced_traverse", "chunked_traverse",
 BATCH = 512 * 512
 SEED = 7
 MAX_NVCC = 16  # nvcc processes at once
-COLD = ("chunked city", "skip city")  # cases with a cold-L2 reading too
+# cases (their names without the kind) with a cold-L2 reading too
+COLD = ("widerow small", "instanced_build city", "chunked city", "skip city")
 SCRATCH_BYTES = 256 << 20  # written before each cold launch: > 5x the L2
 _SASS_OPS = ("I2F", "LDL", "STL")
 
@@ -92,13 +100,15 @@ def build_trees(trees: dict) -> tuple[dict, dict]:
         libs.setdefault(name, {})[k] = lib
         ptxas.setdefault(name, {})[k] = [
             ln.strip() for ln in err.splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "registers" in ln or "spill" in ln or "entry function" in ln]
     return libs, ptxas
 
 
 def sass_counts(trees: dict) -> dict:
     """{name: {kernel: {opcode: count}}} from cuobjdump -sass of each built
-    library; empty when cuobjdump is not found."""
+    library, with `all` (every instruction) and `digest` (a hash of the
+    opcode sequence: equal where two trees compiled a kernel alike); empty
+    when cuobjdump is not found."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return {}
@@ -109,9 +119,13 @@ def sass_counts(trees: dict) -> dict:
             sass = subprocess.run(
                 [tool, "-sass", os.path.join(root, name, f"lib{k}.so")],
                 capture_output=True, text=True).stdout
+            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                             r"([A-Z][A-Z0-9_.]*)", sass)
             out.setdefault(name, {})[k] = {
-                op: len(re.findall(rf"\b{op}[.A-Z0-9]*\s", sass))
-                for op in _SASS_OPS}
+                **{op: len(re.findall(rf"\b{op}[.A-Z0-9]*\s", sass))
+                   for op in _SASS_OPS},
+                "all": len(ops),
+                "digest": zlib.crc32(" ".join(ops).encode()) if ops else 0}
     return out
 
 
@@ -193,7 +207,7 @@ def _instanced_cases(dev):
         for kind, args in _bounce_args(rays).items():
             any_hit = kind == "any"
             routes = ("nearest", "sorted", "build") if key == "city" else (
-                "nearest",)
+                "nearest", "build")
             for route in routes:
                 a = args
                 if route == "sorted":
@@ -317,7 +331,7 @@ def main(argv=None):
         use(libs, names[0])
         ref = fn()
         readings = {"": launch_ms}
-        if any(case.startswith(c) for c in COLD):
+        if case.rsplit(" ", 1)[0] in COLD:
             readings[" cold"] = lambda f, reps: launch_ms(f, reps, scratch)
         times = {tag: {name: [] for name in names} for tag in readings}
         for name in order:

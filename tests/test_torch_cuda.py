@@ -6,6 +6,7 @@ JAX (the card's machine has none); run it there with
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import dataclasses
 import sys
 import types
 
@@ -27,6 +28,7 @@ from gfxexp_torch.accel import (  # noqa: E402
 )
 from gfxexp_torch.accel.bvh_build import build_bvh  # noqa: E402
 from gfxexp_torch.accel.instanced import (  # noqa: E402
+    GROUP,
     build_instanced,
     walk_instanced_cuda,
     walk_instanced_plain,
@@ -196,12 +198,13 @@ def _overflow_share(lo, hi, o, d, t_max):
     return float(over[t_max >= 0].float().mean())
 
 
-@pytest.mark.parametrize("route", ["nearest", "sorted"])
+@pytest.mark.parametrize("route", ["nearest", "sorted", "build"])
 def test_instanced_overflow_matches_plain(dev, route):
     """300 open frames stacked along the rays: most rays enter more entry
     boxes than the pick keeps and miss most frames, so its buffer runs dry
     and refills. The nearest-first kernel (and the ray-sorted route's) still
-    equals the plain version, closest and any hit."""
+    equals the plain version, closest and any hit; so does the build-order
+    kernel, whose lanes each visit many candidates of a window."""
     blas, inst, o, d = S.stacked_frames()
     acc = build_instanced(blas, inst)[0].to(dev)
     o, d, t_max = _stacked_rays(o, d, dev)
@@ -592,7 +595,7 @@ def test_chunked_kernel_fed_grid_matches_plain(dev):
         for f in ("hit", "t", "u", "v", "tri"):
             assert torch.equal(getattr(small, f), getattr(p, f)[:1001]), f
     assert persistent.chunked_launch_counts == {"closest": 5, "any": 5}
-    for c in persistent._chunked_counters.values():
+    for c in persistent._grid_counters.values():
         assert c.tolist() == [0, 0]
 
 
@@ -613,3 +616,221 @@ def test_chunked_kernel_many_chunks_matches_plain(dev):
         assert k.hit.any() and not k.hit[t_max < 0].any()
         for f in ("hit", "t", "u", "v", "tri"):
             assert torch.equal(getattr(k, f), getattr(p, f)), f
+
+
+def _equal_fields(k, p, n=None):
+    for f in ("hit", "t", "u", "v", "tri"):
+        a, b = getattr(k, f), getattr(p, f)
+        assert torch.equal(a, b if n is None else b[:n]), f
+
+
+def _leafy_table(arity, max_leaf, n=1500, seed=61):
+    rng = np.random.default_rng(seed)
+    soup = S.soup(rng, n, 6.0)
+    tb, perm = build_widerow(*soup, arity=arity, max_leaf=max_leaf)
+    return tb, tuple(x[perm] for x in soup), rng
+
+
+@pytest.mark.parametrize("arity", [4, 8])
+@pytest.mark.parametrize("max_leaf", [1, 2, 3, 4, 5])
+def test_kernel_refill_leaf_sizes_match_plain(dev, arity, max_leaf):
+    """Kernel 1's per-lane refill over tables of arity 4 and 8 with leaves
+    of 1 to 5 triangles, on 1,000 rays (not a multiple of the block or of a
+    warp) with dead ones, closest and any hit: equal to the plain version
+    bit for bit."""
+    tb, soup, rng = _leafy_table(arity, max_leaf)
+    assert tb.num_chunks == 1 and tb.max_leaf == max_leaf
+    tb = tb.to(dev)
+    o, d = S.aimed_rays(rng, 1000, *soup)
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    t_max = _dead_every_fifth(1000, dev)
+    for any_hit in (False, True):
+        k = walk_cuda(tb, o, d, 1e-4, t_max, any_hit)
+        p = walk_plain(tb, o, d, 1e-4, t_max, any_hit)
+        torch.cuda.synchronize()
+        assert p.hit.any()
+        _equal_fields(k, p)
+
+
+@pytest.mark.parametrize("n", [1, 33, 1000])
+def test_kernel_refill_small_batches_match_plain(dev, n):
+    """Batches of 1 ray, 33 rays (a warp and one) and 1,000 (not a multiple
+    of 128): every ray is written, equal to the plain version."""
+    tb, soup, rng = _leafy_table(4, 4)
+    tb = tb.to(dev)
+    o, d = S.aimed_rays(rng, n, *soup)
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    for any_hit in (False, True):
+        k = walk_cuda(tb, o, d, 1e-4, 1e30, any_hit)
+        p = walk_plain(tb, o, d, 1e-4, 1e30, any_hit)
+        torch.cuda.synchronize()
+        _equal_fields(k, p)
+
+
+def test_kernel_refill_dead_rays_match_plain(dev):
+    """A batch whose rays are all dead (t_max < 0: each ends as it is
+    taken) and one where all but every 97th are: equal to the plain
+    version, the dead rays' t_max and no hit written back."""
+    tb, soup, rng = _leafy_table(4, 4)
+    tb = tb.to(dev)
+    o, d = S.aimed_rays(rng, 5000, *soup)
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    idx = torch.arange(5000, device=dev)
+    for t_max in (torch.full((5000,), -2.0, device=dev),
+                  torch.where(idx % 97 == 0, 1e30, -1.0)):
+        for any_hit in (False, True):
+            k = walk_cuda(tb, o, d, 1e-4, t_max, any_hit)
+            p = walk_plain(tb, o, d, 1e-4, t_max, any_hit)
+            torch.cuda.synchronize()
+            _equal_fields(k, p)
+            assert torch.equal(k.t[t_max < 0], t_max[t_max < 0])
+            assert not k.hit[t_max < 0].any()
+
+
+def test_kernel_refill_fed_grid_matches_plain(dev):
+    """Kernel 1's persistent grid on 600,001 rays (many times what the card
+    holds at once), closest and any hit: launches back to back, a smaller
+    batch after a larger, and a launch on a second stream (counters of its
+    own) all equal the plain version; every stream's counters are back at
+    zero after."""
+    tb, soup, rng = _leafy_table(4, 4)
+    tb = tb.to(dev)
+    o, d = S.aimed_rays(rng, 600001, *soup)
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    t_max = _dead_every_fifth(o.shape[0], dev)
+    side = torch.cuda.Stream(dev)
+    persistent.reset_launch_counts()
+    for any_hit in (False, True):
+        p = walk_plain(tb, o, d, 1e-4, t_max, any_hit)
+        runs = [walk_cuda(tb, o, d, 1e-4, t_max, any_hit) for _ in range(3)]
+        small = walk_cuda(tb, o[:1001], d[:1001], 1e-4, t_max[:1001],
+                          any_hit)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            runs.append(walk_cuda(tb, o, d, 1e-4, t_max, any_hit))
+        torch.cuda.synchronize()
+        assert p.hit.any()
+        for k in runs:
+            _equal_fields(k, p)
+        _equal_fields(small, p, 1001)
+    assert persistent.launch_counts == {"closest": 5, "any": 5}
+    for c in persistent._grid_counters.values():
+        assert c.tolist() == [0, 0]
+
+
+def _entries(acc, count):
+    """acc cut to its first `count` entries (0 included)."""
+    return dataclasses.replace(
+        acc, blas_ids=acc.blas_ids[:count].contiguous(),
+        inv_transforms=acc.inv_transforms[:count].contiguous(),
+        inst_of_chunk=acc.inst_of_chunk[:count].contiguous(),
+        chunk_lo=acc.chunk_lo[:count].contiguous(),
+        chunk_hi=acc.chunk_hi[:count].contiguous(),
+        start_rows=None if acc.start_rows is None
+        else acc.start_rows[:count].contiguous())
+
+
+def _build_order_case(acc, dev, n=20001, seed=67, span=None):
+    """The build-order kernel against the plain version on n rays from
+    origins spread over `span` (lo, hi [3]; default the entries' boxes),
+    random directions, every fifth ray dead: (closest, any) plain hits."""
+    if span is None:
+        span = (acc.chunk_lo.amin(0).numpy(), acc.chunk_hi.amax(0).numpy())
+    acc = acc.to(dev)
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(span[0] - 1.0, span[1] + 1.0,
+                    size=(n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    t_max = _dead_every_fifth(n, dev, 6.0)
+    out = []
+    for any_hit in (False, True):
+        k, ke = walk_instanced_cuda(acc, o, d, 1e-4, t_max, any_hit, "build")
+        p, pe = walk_instanced_plain(acc, o, d, 1e-4, t_max, any_hit,
+                                     "build")
+        torch.cuda.synchronize()
+        _equal_fields(k, p)
+        assert torch.equal(ke, pe)
+        assert not k.hit[t_max < 0].any()
+        out.append(p)
+    return out
+
+
+@pytest.mark.parametrize("count", [0, 1, 31, 32, 33])
+def test_build_order_window_edges_match_plain(dev, count):
+    """The build-order kernel over 0, 1, 31, 32 and 33 entries (no window,
+    one partial window, one full, one full and one of a single entry),
+    closest and any hit: equal to the plain version bit for bit (t, u, v,
+    tri, hit, entry)."""
+    rng = np.random.default_rng(71)
+    blas = [S.soup(rng, 200, 1.0), S.soup(rng, 90, 0.7)]
+    inst = S.grid_instances(6, 6, spacing=1.5)
+    for j in range(0, 36, 4):
+        inst[j] = (1, inst[j][1])
+    full = build_instanced(blas, inst)[0]
+    acc = _entries(full, count)
+    assert acc.num_entries == count
+    closest, _ = _build_order_case(acc, dev, span=(
+        full.chunk_lo.amin(0).numpy(), full.chunk_hi.amax(0).numpy()))
+    assert closest.hit.any() == (count > 0)
+
+
+def test_build_order_many_entries_match_plain(dev):
+    """2,056 entries (64 full windows and a partial one; `city` with
+    rebraid4 has as many): equal to the plain version, closest and any hit,
+    whose early stops end a lane's list in mid-window."""
+    rng = np.random.default_rng(73)
+    blas = [S.soup(rng, 60, 0.8), S.soup(rng, 40, 0.6)]
+    inst = S.grid_instances(46, 45, spacing=1.0)[:2056]
+    for j in range(0, 2056, 3):
+        inst[j] = (1, inst[j][1])
+    acc = build_instanced(blas, inst)[0]
+    assert acc.num_entries == 2056 and acc.num_entries % GROUP
+    closest, any_hit = _build_order_case(acc, dev, n=30001)
+    assert closest.hit.any() and any_hit.hit.any()
+
+
+def test_build_order_rebraid_start_rows_match_plain(dev):
+    """The build-order kernel on a rebraided build (entries that start at
+    inner BLAS rows, several a window): equal to the plain version."""
+    acc = _instanced(4.0)
+    assert acc.start_rows is not None and int(acc.start_rows.max()) > 0
+    closest, _ = _build_order_case(acc, dev)
+    assert closest.hit.any()
+
+
+def test_build_order_fed_grid_and_groups(dev):
+    """The build-order kernel's persistent grid on 300,001 rays, launched
+    three times, once on a second stream, and once after the entry boxes
+    were moved in place (the cached window boxes are rebuilt): each equal
+    to the plain version, the counters back at zero, and the window boxes
+    the union of their 32 entries' boxes."""
+    acc = _instanced(0.0).to(dev)
+    o, d = (x.to(dev) for x in _instanced_rays(300001))
+    t_max = _dead_every_fifth(o.shape[0], dev, 6.0)
+    side = torch.cuda.Stream(dev)
+    instanced.reset_launch_counts()
+    p, pe = walk_instanced_plain(acc, o, d, 1e-4, t_max, False, "build")
+    runs = [walk_instanced_cuda(acc, o, d, 1e-4, t_max, False, "build")
+            for _ in range(2)]
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        runs.append(walk_instanced_cuda(acc, o, d, 1e-4, t_max, False,
+                                        "build"))
+    torch.cuda.synchronize()
+    for k, ke in runs:
+        _equal_fields(k, p)
+        assert torch.equal(ke, pe)
+    glo, ghi = instanced._cached_groups(acc, acc.chunk_lo, acc.chunk_hi)
+    assert torch.equal(glo[0], acc.chunk_lo[:GROUP].amin(0))
+    assert torch.equal(ghi[0], acc.chunk_hi[:GROUP].amax(0))
+    acc.chunk_lo[:] -= 1.0  # every entry box grows: more candidates
+    p, pe = walk_instanced_plain(acc, o, d, 1e-4, t_max, False, "build")
+    k, ke = walk_instanced_cuda(acc, o, d, 1e-4, t_max, False, "build")
+    torch.cuda.synchronize()
+    _equal_fields(k, p)
+    assert torch.equal(ke, pe)
+    assert instanced.launch_counts["closest_build"] == 4
+    for c in persistent._grid_counters.values():
+        assert c.tolist() == [0, 0]

@@ -1,6 +1,8 @@
-"""The CPU count of dependent round trips to memory of kernel 2 (chunked wide
-rows, persistent.chunked_trips) and of the skip-link walk's per-ray scope
-(skiplink.skip_trips): hand-built trees whose counts are known, and on small
+"""The CPU counts of gfxexp_torch.walk_trips: dependent round trips to memory
+of kernel 2 (chunked wide rows, persistent.chunked_trips) and of the
+skip-link walk's per-ray scope (skiplink.skip_trips), and the lane
+utilisation of kernel 1's and the build-order two-level walk's schedules:
+hand-built trees and visit sequences whose counts are known, and on small
 scenes the counts against the plain walks' own stats."""
 
 import sys
@@ -25,8 +27,23 @@ from gfxexp_torch.accel.skiplink import (  # noqa: E402
     skip_trips,
     walk_skip_plain,
 )
+from gfxexp_torch.accel.instanced import (  # noqa: E402
+    GROUP,
+    SUB_GROUP,
+    group_boxes,
+    walk_instanced_plain,
+)
+from gfxexp_torch.accel.persistent import walk_plain  # noqa: E402
 from gfxexp_torch.accel.widerow import build_widerow  # noqa: E402
+from gfxexp_torch.csrc.build import header_constant  # noqa: E402
 from gfxexp_torch.scene.compile import compile_scene  # noqa: E402
+from gfxexp_torch.walk_trips import (  # noqa: E402
+    build_order_costs,
+    group_shares,
+    lane_steps,
+    refill_steps,
+    static_steps,
+)
 
 FIELDS = ("t", "u", "v", "tri", "hit")
 
@@ -194,3 +211,131 @@ def test_chunked_replay_matches_plain_stats():
             parent, new = chunked_trips(rows, tests, tb.arity)
             assert (new <= parent).all() and (new >= rows).all()
             assert int(tests.sum()) > 0
+
+
+def test_lane_steps_of_hand_built_batches():
+    """33 rays: one of 10 rows, 32 of one row. The static grid runs the
+    first warp 10 steps and the second 1; per-lane refill with 1 or 16 idle
+    lanes starts the 33rd ray beside the long one (10 steps), per-warp
+    feeding (32) only after it (11). Dead rays (0 rows) cost no step."""
+    rows = [10] + [1] * 32
+    assert static_steps(rows) == 11
+    assert [refill_steps(rows, k) for k in (1, 16, 32)] == [10, 10, 11]
+    assert refill_steps([0] * 40, 1) == 0 and static_steps([0] * 40) == 0
+    # 40 rays of 3 rows after them: 32 start beside the long ray, then 8
+    assert refill_steps(rows + [3] * 40, 1) == 10
+    assert refill_steps([3] * 40, 1) == 3 + 3
+    out = lane_steps(rows)
+    assert out["rows"] == 42
+    assert out["static"]["warp_steps"] == 11
+    assert out["refill1"]["utilisation"] == 42 / (32 * 10)
+
+
+def _costs(visits, n_rays, n_entries, stopped=()):
+    ray, ent, rows = (np.array(x, np.int64) for x in zip(*visits))
+    live = np.zeros(n_rays, bool)
+    live[: max(ray) + 1] = True
+    st = np.zeros(n_rays, bool)
+    st[list(stopped)] = True
+    return build_order_costs((ray, ent, rows), n_rays, n_entries, live, st)
+
+
+def test_build_order_costs_of_hand_built_sequences():
+    """Two live lanes over 64 entries. Lane 0 visits entry 5 (10 rows),
+    lane 1 entries 1 (1 row) and 5 (10 rows): the lock-step loop walks 1 +
+    10 rows, the candidate loop and the window 10 + 10 (their second rounds
+    hold only lane 1), the candidate loop scanning 6, then 58 (lane 0 to the
+    end) and 58 (lane 1). Lane 0 at entry 3, lane 1 at entry 40, 8 rows
+    each: lock-step and window (two windows) 16, candidate 8, scanning 41,
+    then 60 (lane 0 to the end, beside lane 1's 23). An any hit
+    that stops lane 0 at entry 3 and lane 1 at 40 ends the scans there."""
+    c = _costs([(0, 5, 10), (1, 1, 1), (1, 5, 10)], 2, 64)
+    assert c["lockstep"] == {"scan_steps": 64, "walk_steps": 11,
+                             "utilisation": 21 / (32 * 11)}
+    assert (c["candidate"]["scan_steps"], c["candidate"]["walk_steps"]) == (
+        6 + 58 + 58, 20)
+    assert (c["window"]["scan_steps"], c["window"]["walk_steps"]) == (64, 20)
+    c = _costs([(0, 3, 8), (1, 40, 8)], 2, 64)
+    assert [c[k]["walk_steps"] for k in ("lockstep", "candidate",
+                                         "window")] == [16, 8, 16]
+    assert c["candidate"]["scan_steps"] == 41 + 60
+    c = _costs([(0, 3, 8), (1, 40, 8)], 2, 64, stopped=(0, 1))
+    assert c["lockstep"]["scan_steps"] == 41
+    assert c["window"]["scan_steps"] == 64
+    assert c["candidate"]["scan_steps"] == 41
+
+
+def test_group_shares_and_boxes():
+    """40 unit boxes along x, in groups of 32 (one full, one of 8): a ray
+    along x through all enters both groups, one along y at x = 35.5 only
+    the second, a dead ray none; the union boxes are the min and max of
+    their members' corners. The wrapper builds them at the sizes the
+    build-order kernel reads them (its kWindow and kSub)."""
+    src = "instanced_traverse.cu"
+    assert header_constant("kWindow", src) == GROUP
+    assert header_constant("kSub", src) == SUB_GROUP
+    lo = torch.stack([torch.arange(40.0), torch.zeros(40), torch.zeros(40)],
+                     1)
+    hi = lo + 1.0
+    glo, ghi = group_boxes(lo, hi)
+    assert glo.tolist() == [[0, 0, 0], [32, 0, 0]]
+    assert ghi.tolist() == [[32, 1, 1], [40, 1, 1]]
+    o = _f32([[-1, 0.5, 0.5], [35.5, -1, 0.5], [0, 0, 0]])
+    d = _f32([[1, 0, 0], [0, 1, 0], [1, 0, 0]])
+    out = group_shares(lo, hi, o, d, torch.zeros(3),
+                       _f32([1e30, 1e30, -1]))
+    assert out == {"groups": 2, "per_ray": 0.75, "per_warp": 1.0}
+
+
+def test_lane_counts_on_bench_scenes():
+    """On bench.py's small scene (kernel 1) and `big` (build order), 1,024
+    rays through neighbouring pixels: the stats leave the results alone;
+    refill never takes more warp steps than the static grid, fewer idle
+    lanes before a refill never more, and per-warp feeding as many; the
+    candidate loop and the window walk no more rows than the lock-step
+    loop on closest hit, the window scanning as many boxes."""
+    small = bench.build_bench_scene()[1]
+
+    def small_hit(o0, d0):
+        h = walk_plain(small, o0, d0, 0.0, 1e30, False)
+        return h.t, h.hit
+
+    first = 512 * 256
+    o, d, t_min, t_max, _, _ = bench.walk_rays(small_hit, "small", "cpu",
+                                               batch=1024, first=first)
+    b = slice(1024, 2048)
+    h, rows = walk_plain(small, o[b], d[b], t_min[b], t_max[b], False,
+                         with_stats=True)
+    plain = walk_plain(small, o[b], d[b], t_min[b], t_max[b], False)
+    for f in FIELDS:
+        assert torch.equal(getattr(h, f), getattr(plain, f)), f
+    steps = lane_steps(rows.numpy())
+    order = [steps[k]["warp_steps"] for k in ("refill1", "refill8",
+                                              "refill16", "static")]
+    assert order == sorted(order) and order[0] < order[-1]
+    assert steps["refill32"]["warp_steps"] == steps["static"]["warp_steps"]
+
+    acc = bench.build_bench_scene("big")[1]
+
+    def big_hit(o0, d0):
+        h, _ = walk_instanced_plain(acc, o0, d0, 0.0, 1e30, False, "nearest")
+        return h.t, h.hit
+
+    o, d, t_min, t_max, _, _ = bench.walk_rays(big_hit, "big", "cpu",
+                                               batch=1024, first=first)
+    args = (o[b], d[b], t_min[b], t_max[b])
+    h, ent, rows, visits, seq = walk_instanced_plain(acc, *args, False,
+                                                     "build", with_stats=True)
+    ph, pe = walk_instanced_plain(acc, *args, False, "build")
+    for f in FIELDS:
+        assert torch.equal(getattr(h, f), getattr(ph, f)), f
+    assert torch.equal(ent, pe)
+    assert int(seq[2].sum()) == int(rows.sum()) and len(seq[0]) == int(
+        visits.sum())
+    live = (args[3] >= 0).numpy()
+    c = build_order_costs([x.numpy() for x in seq], 1024, acc.num_entries,
+                          live, np.zeros(1024, bool))
+    lock = c["lockstep"]
+    assert c["candidate"]["walk_steps"] <= lock["walk_steps"]
+    assert c["window"]["walk_steps"] <= lock["walk_steps"]
+    assert c["window"]["scan_steps"] == lock["scan_steps"]
