@@ -46,7 +46,9 @@ Phases, one line each, any failure exits non-zero:
      per scope, nodes and triangles visited per ray, the node and triangle
      rows the batch reads (the bound's bytes), and the per-ray scope's
      dependent round trips to memory per live ray (mean, p99, max) under
-     the parent's schedule and the kernel's (skiplink.skip_trips);
+     the parent's schedule and the kernel's (skiplink.skip_trips), and the
+     warp scope's union steps and windows of 32 nodes per warp
+     (walk_trips.warp_windows);
  12. animated slice: `big` after advance_frame at t = 0.5, 64x64, 2 samples,
      card against CPU (image rel diff < 5e-3, identical ray counts);
  13. animated main path: the path_tracing app's frame loop (advance_frame,
@@ -70,7 +72,9 @@ Phases, one line each, any failure exits non-zero:
      100); the lane-group walk with 1, 2
      and 4 groups on ~1M small-scene rays against its plain version
      (exactly equal) and against the per-ray walk (equal t, tri only on
-     ties); ms per 262,144-ray bounce batch, rows and chunks per ray, the
+     ties), with its steps per group and the share of lanes that take
+     part on the timed batch (walk_trips.group_steps); ms per 262,144-ray
+     bounce batch, rows and chunks per ray, the
      rows the batch reads, the bound, the candidate chunk boxes per live ray
      against kPick, kernel 2's dependent round trips to memory per live ray
      (mean, p99, max) under the parent's schedule and the kernel's
@@ -144,9 +148,13 @@ from gfxexp_torch.scene import animation
 from gfxexp_torch.utils.image_io import save_png
 from gfxexp_torch.walk_trips import (
     build_order_costs,
+    group_line,
     group_shares,
+    group_steps,
     lane_line,
     lane_steps,
+    warp_windows,
+    window_line,
 )
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -992,6 +1000,8 @@ def _skip_times(scene, bvh, rays):
                 "tris_per_live_ray": int(st.tris.sum()) / live,
                 "node_rows_read": node_rows, "tri_rows_read": tri_rows}
         out[f"{kind}_thread"]["trips"] = trips
+        # the warp scope's union steps and windows per warp
+        out[f"{kind}_warp"]["windows"] = warp_windows(st.visits, BATCH)
     return out
 
 
@@ -1049,6 +1059,10 @@ def phase_skip_kernels(report, built, dev):
                 print(f"[11 skip kernels {key}] {BATCH}-ray bounce batch "
                       f"{kind}, thread scope: {e['ms']:.4f} ms; "
                       f"{_trip_line(e['trips'])}", flush=True)
+                e = t[f"{kind}_warp"]
+                print(f"[11 skip kernels {key}] {BATCH}-ray bounce batch "
+                      f"{kind}, warp scope: {e['ms']:.4f} ms; "
+                      f"{window_line(e['windows'])}", flush=True)
     report["skip_kernels"] = out
     return out
 
@@ -1386,8 +1400,8 @@ def _lanegroup_check(bvh, dev):
     for g in lanegroup.GROUPS:
         k, kr = walk_lanegroup_cuda(bvh, o, d, t_min, t_max, g,
                                     with_stats=True)
-        p, pr = walk_lanegroup_plain(bvh, o, d, t_min, t_max, g,
-                                     with_stats=True)
+        p, pr, steps = walk_lanegroup_plain(bvh, o, d, t_min, t_max, g,
+                                            with_stats=True, with_steps=True)
         torch.cuda.synchronize()
         for f in ("hit", "t", "u", "v", "tri"):
             check(torch.equal(getattr(k, f), getattr(p, f)),
@@ -1404,10 +1418,15 @@ def _lanegroup_check(bvh, dev):
         ms = time_ms(lambda: walk_lanegroup_cuda(bvh, *args, g), 20)
         plain_ms = time_ms(lambda: walk_lanegroup_plain(bvh, *args, g), 1,
                            warm=False)
+        # the timed batch's groups (a group walks its own rays only)
+        lanes = lanegroup.LANES // g
+        b_steps = steps[BATCH // lanes:2 * BATCH // lanes]
         out[f"g{g}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                         "bound_by": by, "max_abs_err": err,
                         "tri_ties_vs_per_ray": int(tri_diff.sum()),
-                        "rows_per_live_ray": int(kr.sum()) / live}
+                        "rows_per_live_ray": int(kr.sum()) / live,
+                        "groups": group_steps(pr[b].cpu().numpy(),
+                                              b_steps.cpu().numpy(), g)}
     return out
 
 
@@ -1449,7 +1468,8 @@ def phase_sl_kernels(report, built, small_bvh, dev):
               f"batch {e['ms']:.4f} ms (kernel 1 {lg['kernel1_ms']:.4f} ms, "
               f"plain {e['plain_ms']:.1f} ms, bound {e['bound_ms']:.4f} ms "
               f"by {e['bound_by']}), {e['rows_per_live_ray']:.1f} rows per "
-              f"live ray", flush=True)
+              f"live ray; on the batch {group_line(e['groups'])}",
+              flush=True)
     report["sl_kernels"] = out
     return out
 

@@ -8,18 +8,19 @@ JAX package as here: no user path takes it.
 
 The walk (csrc/lanegroup_traverse.cu, one thread per ray, 128-thread
 blocks): a group visits one row at a time. At an internal row each lane
-slab-tests the K children against its own [t_min, best_t]; a child is
-valid when a lane of the group hits it, and the valid children are ordered
-by the group's smallest entry distance (the K-wide sorting network), the
-nearest descended and the rest pushed far to near. With G = 4 a group is a
-warp and votes with warp shuffles; with G = 2 or 1 it is 2 or 4 warps,
-which vote through shared memory at block level. Each lane keeps with every
-stack entry whether its own box test hit that child, and takes part in a
-row (votes, tests a leaf's Baldwin-Weber triangles, counts the row) only
-where it did, so its result is the closest hit the per-ray walk finds; only
-ties in t may pick another triangle. Rays past the end of the batch and
-rays with t_max < 0 take part as dead rays. with_stats counts, per ray, the
-rows it took part in.
+that takes part slab-tests the K children against its own [t_min, best_t]
+(on the card the (ray, child) pairs of those lanes are spread over the
+warp); a child is valid when a lane of the group hits it, and the valid
+children are ordered by the group's smallest entry distance (the K-wide
+sorting network), the nearest descended and the rest pushed far to near.
+With G = 4 a group is a warp; with G = 2 or 1 it is 2 or 4 warps, which
+vote through shared memory behind one barrier a step. Every stack entry
+keeps the lanes whose own box test hit that child, and a lane takes part in
+a row (votes, tests a leaf's Baldwin-Weber triangles, counts the row) only
+where its test did, so its result is the closest hit the per-ray walk
+finds; only ties in t may pick another triangle. Rays past the end of the
+batch and rays with t_max < 0 take part as dead rays. with_stats counts,
+per ray, the rows it took part in.
 
 On a CUDA tensor the wrapper launches the kernel or raises; the plain
 version runs only for tensors on the CPU (and in tests and chip_smoke.py,
@@ -65,12 +66,13 @@ def _check(bvh: WideRowBVH, groups: int):
 
 
 def walk_lanegroup_plain(bvh: WideRowBVH, o, d, t_min, t_max, groups: int,
-                         with_stats: bool = False):
+                         with_stats: bool = False, with_steps: bool = False):
     """The kernel's walk as tensor code, every active group one row per
     iteration; the rays are cut into groups of 128 / groups consecutive
     lanes, the last padded with dead rays. Same arithmetic in the same
     order as the kernel. with_stats=True also returns the rows each ray
-    took part in [N] int64."""
+    took part in [N] int64; with_steps=True (with with_stats) then also
+    the rows each group stepped through [ceil(N / 128) * groups] int64."""
     _check(bvh, groups)
     nodes, o, d, t_min, t_max = _prepare(bvh, o, d, t_min, t_max)
     nodes_i = nodes.view(torch.int32)
@@ -103,6 +105,7 @@ def walk_lanegroup_plain(bvh: WideRowBVH, o, d, t_min, t_max, groups: int,
                             device=dev)
     sp = torch.zeros(ng, dtype=torch.int64, device=dev)
     cur = torch.zeros(ng, dtype=torch.int64, device=dev)
+    steps = torch.zeros(ng, dtype=torch.int64, device=dev)
     here = best_t >= 0.0  # the lane takes part in its group's current row
 
     act = torch.arange(ng, device=dev)
@@ -112,6 +115,7 @@ def walk_lanegroup_plain(bvh: WideRowBVH, o, d, t_min, t_max, groups: int,
         row_i = nodes_i[ridx]
         hr = here[act]
         rows[act] += hr.to(torch.int64)
+        steps[act] += 1
         leaf = row[:, WIDTH - 1] > 0.5
         ox, oy, oz = o_g[act].unbind(2)
         dx, dy, dz = d_g[act].unbind(2)
@@ -199,7 +203,9 @@ def walk_lanegroup_plain(bvh: WideRowBVH, o, d, t_min, t_max, groups: int,
 
     hit = HitInfo(t=flat(best_t), tri=flat(best_tri), u=flat(best_u),
                   v=flat(best_v), hit=flat(best_tri) >= 0)
-    return (hit, flat(rows)) if with_stats else hit
+    if not with_stats:
+        return hit
+    return (hit, flat(rows), steps) if with_steps else (hit, flat(rows))
 
 
 def walk_lanegroup_cuda(bvh: WideRowBVH, o, d, t_min, t_max, groups: int,

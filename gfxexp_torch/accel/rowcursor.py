@@ -4,8 +4,10 @@ whose `intersect_*_rowcursor` names it keeps).
 Replaces the TPU kernel `_make_kernel` (gfxexp_tpu/accel/pallas_rowcursor.py
 :76, launched by `_run` :206), which keeps one skip-link cursor per 128-lane
 row of a tile. On the card that is the warp scope of
-csrc/skiplink_traverse.cu: one cursor per 32 rays, which descends when any
-of its rays hits the node's box. It computes the function of the per-ray
+csrc/skiplink_traverse.cu (`skiplink_warp_walk`): one cursor per 32 rays,
+which descends when any of its rays hits the node's box, over a window of
+32 consecutive nodes held in registers, one a lane, with a hit leaf's
+triangle rows staged for the warp. It computes the function of the per-ray
 walk (accel/skip_traverse.py), launch counts included there under
 "closest_warp" / "any_warp"; on CPU tensors the plain version runs.
 """

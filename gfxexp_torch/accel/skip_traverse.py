@@ -10,7 +10,7 @@ cursor kept at one of three scopes:
 - "thread": one cursor per ray, what intersect_*_pallas (and so every
   query of a skip-link scene) launch;
 - "warp": one cursor per 32 rays, the counterpart of kernel 8's 128-lane
-  row cursor (accel/rowcursor.py);
+  row cursor (accel/rowcursor.py), walking a window of 32 nodes a warp;
 - "block": one cursor per 128-ray block, the counterpart of this kernel's
   tile cursor (walk_skip_cuda(..., scope="block")).
 A shared cursor changes which nodes are visited, never the result: a node's

@@ -220,13 +220,15 @@ def packed(bvh: SkipBVH, tris) -> SkipBVH:
 class SkipStats(NamedTuple):
     """What a plain walk visited: per ray, the nodes, the triangle tests and
     the leaves where it tested a triangle; over the tables, the rows read at
-    least once."""
+    least once; and every (ray, node) visit, each ray's in preorder (a warp's
+    shared cursor walks the union of its rays' nodes)."""
 
     nodes: torch.Tensor  # [N] int64
     tris: torch.Tensor  # [N] int64
     node_rows: torch.Tensor  # [M+1] bool
     tri_rows: torch.Tensor  # [T+max_leaf] bool
     leaves: torch.Tensor  # [N] int64
+    visits: Optional[torch.Tensor] = None  # [V, 2] int64: ray, node
 
 
 def walk_skip_plain(bvh: SkipBVH, tris, o, d, t_min, t_max, any_hit: bool,
@@ -238,7 +240,8 @@ def walk_skip_plain(bvh: SkipBVH, tris, o, d, t_min, t_max, any_hit: bool,
     accepted triangle. Misses return t = t_max, tri = -1, u = v = 0.
 
     with_stats=True returns (HitInfo, SkipStats): the nodes, triangles and
-    leaves each ray visited, and the table rows the walk read."""
+    leaves each ray visited, the table rows the walk read, and the visits
+    themselves."""
     bvh = packed(bvh, tris)
     o, d, t_min, t_max = prepare_rays(o, d, t_min, t_max)
     nodes, tp = bvh.node_pack, bvh.tri_pack
@@ -257,12 +260,14 @@ def walk_skip_plain(bvh: SkipBVH, tris, o, d, t_min, t_max, any_hit: bool,
     node_rows = torch.zeros(nodes.shape[0], dtype=torch.bool, device=dev)
     tri_rows = torch.zeros(tp.shape[0], dtype=torch.bool, device=dev)
 
+    visits = []
     act = torch.nonzero(t_max >= 0.0).squeeze(1)  # rays still walking
     cur = torch.zeros_like(act)  # and their cursors
     while act.numel():
         if with_stats:
             nodes_seen[act] += 1
             node_rows[cur] = True
+            visits.append(torch.stack([act, cur], 1))
         row = nodes[cur]
         row_i = nodes_i[cur]
         ox, oy, oz = o[act].unbind(1)
@@ -335,8 +340,10 @@ def walk_skip_plain(bvh: SkipBVH, tris, o, d, t_min, t_max, any_hit: bool,
     hit = HitInfo(t=best_t, tri=best_tri, u=best_u, v=best_v,
                   hit=best_tri >= 0)
     if with_stats:
+        seq = (torch.cat(visits) if visits else
+               torch.zeros((0, 2), dtype=torch.int64, device=dev))
         return hit, SkipStats(nodes_seen, tris_seen, node_rows, tri_rows,
-                              leaves_seen)
+                              leaves_seen, seq)
     return hit
 
 

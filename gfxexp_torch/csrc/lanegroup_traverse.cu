@@ -7,30 +7,47 @@
 // perf/ reach. The TPU kernel split each 128-lane row of rays into G groups
 // with a cursor each and built lane-mixed component vectors so one VPU pass
 // tested every lane against its group's row; here a block of 128 threads
-// holds the G groups. G = 4: a group is a warp and votes with __ballot_sync
-// style reductions (__reduce_or_sync, shuffles); G = 2 or 1: a group is 2
-// or 4 warps, which combine their warps' votes through shared memory with
-// __syncthreads, so every thread of the block runs every step (as the
-// block scope of skiplink_traverse.cu does).
+// holds the G groups: G = 4, a group is a warp; G = 2 or 1, it is 2 or 4
+// warps, which combine their warps' votes through shared memory behind one
+// barrier a step (named barrier 1 + group for G = 2, so a group that has
+// finished no longer steps with its neighbour; the vote slots are
+// double-buffered by the parity of the group's votes).
 //
-// A step: the group reads one row. Internal: every lane slab-tests the K
-// children against its own [t_min, best_t] where it took part in the row; a
-// child is valid when some lane of the group hit it; the valid children are
-// sorted by the group's smallest entry distance (the K-wide network of
-// widerow_walk.cuh) and the nearest descended, the rest pushed far to near.
-// Each stack entry carries in bit 30 whether this lane's own test hit the
-// child, so a lane takes part in a row (votes, tests a leaf's triangles,
-// counts the row) only where its own box tests led there; its result is
-// then the per-ray walk's, up to ties in t. Leaf: the lanes that took part
-// run the Baldwin-Weber tests of widerow_walk.cuh. Rays past the end of the
-// batch and rays with t_max < 0 take part as dead rays.
+// A step: each warp stages the group's row in shared memory (16 lanes, one
+// float4 each) and reads it back by broadcast. Internal: the lanes that
+// take part are listed (ballot, popc) and their (ray, child) pairs spread
+// over the warp, pair p = slot * K + child on lane p % 32, each running the
+// slab test against its ray's [t_min, best_t]; per child, __reduce_or_sync
+// gives the warp's lanes whose test hit it and __reduce_min_sync the
+// smallest entry distance, as an order-preserving unsigned key, for the
+// children some lane hit. The valid children are sorted by the group's
+// smallest entry distance (the K-wide network of widerow_walk.cuh, skipped
+// when at most one is valid) and the nearest descended, the rest pushed
+// far to near onto the group's stack in shared memory (each warp's copy:
+// the row and the mask of its lanes whose own test hit it). A lane takes
+// part in a row (tests, leaf triangles, counts the row) only where its own
+// box tests led there, so its result is the per-ray walk's, up to ties in
+// t. Leaf: the lanes that take part run the Baldwin-Weber tests of
+// widerow_walk.cuh on the staged row. Rays past the end of the batch and
+// rays with t_max < 0 take part as dead rays. The plain PyTorch version is
+// walk_lanegroup_plain in gfxexp_torch/accel/lanegroup.py; both apply the
+// same operations in the same order, so with --fmad=false their results
+// (and the rows each ray took part in) are equal.
 //
-// What bounds it: the dependent row loads, shared by the group (one row
-// serves up to 128 lanes), and the votes: K warp reductions a step, plus
-// two block barriers when a group spans warps. The plain PyTorch version
-// is walk_lanegroup_plain in gfxexp_torch/accel/lanegroup.py; both apply
-// the same operations in the same order, so with --fmad=false their results
-// are equal.
+// What bounds it: the instructions each warp issues at every step of its
+// group (on the small scene 92 / 159 / 273 steps a group for G = 4 / 2 /
+// 1, with 0.098 / 0.057 / 0.033 of the lanes taking part,
+// gfxexp_torch/walk_trips.py), not the row loads (the table stays in L2)
+// nor the barriers alone. The earlier kernel had every lane load the row
+// (14-16 __ldg), run K slab tests and K float reductions of 5 shuffles,
+// keep the stack in a 512-byte local array and pass two block barriers a
+// step; this one reads 0.605 / 0.629 / 0.823 of its time (G = 1 / 2 / 4,
+// NVIDIA H100 80GB HBM3, 700.00 W, gfxexp_torch/walk_ab.py) at 56-64
+// registers and no stack (the earlier: 512 bytes). Timed and
+// dropped: the same step with K reductions of each kind always and the
+// network always 0.711 / 0.846 / 0.882; a leaf's tests as (ray, triangle)
+// pairs spread over the warp, each ray taking its results in triangle
+// order, 0.634 / 0.658 / 0.847.
 //
 // Built by gfxexp_torch/csrc/build.py with nvcc into a shared library with a
 // plain C interface (ctypes); it launches on the caller's stream, does not
@@ -48,15 +65,75 @@ using widerow::kWidth;
 
 constexpr int kBlock = 128;
 constexpr int kWarpsPerBlock = kBlock / 32;
-constexpr int kOwnBit = 1 << 30;  // stack entries: this lane's test hit it
+constexpr int kRowQuads = kWidth / 4;  // float4 of a row
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float warp_min(float x) {
-#pragma unroll
-  for (int s = 16; s >= 1; s >>= 1) {
-    x = fminf(x, __shfl_xor_sync(kFull, x, s));
+// An order-preserving unsigned key of a float, for __reduce_min_sync (float
+// redux.sync is sm_100a only): f >= 0 -> bits ^ 0x80000000, else ~bits. The
+// minimum is exact; -0.0 keys below +0.0, which the sort network compares
+// equal, so the children's order does not change.
+__device__ __forceinline__ unsigned near_key(float f) {
+  const unsigned b = __float_as_uint(f);
+  return (b & 0x80000000u) ? ~b : (b ^ 0x80000000u);
+}
+
+__device__ __forceinline__ float key_near(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k ^ 0x80000000u) : ~k);
+}
+
+// The K-wide network of widerow::sort_children (the plain version's), also
+// carrying each child's mask of the warp's lanes whose own test hit it.
+__device__ __forceinline__ void cswap(float* nr, int* mt, bool* vd,
+                                      unsigned* mk, int a, int b) {
+  if (nr[a] > nr[b]) {
+    const float tn = nr[a]; nr[a] = nr[b]; nr[b] = tn;
+    const int tm = mt[a]; mt[a] = mt[b]; mt[b] = tm;
+    const bool tv = vd[a]; vd[a] = vd[b]; vd[b] = tv;
+    const unsigned tk = mk[a]; mk[a] = mk[b]; mk[b] = tk;
   }
-  return x;
+}
+
+template <int K>
+__device__ __forceinline__ void sort_children(float* nr, int* mt, bool* vd,
+                                              unsigned* mk);
+
+template <>
+__device__ __forceinline__ void sort_children<4>(float* nr, int* mt,
+                                                 bool* vd, unsigned* mk) {
+  cswap(nr, mt, vd, mk, 0, 1); cswap(nr, mt, vd, mk, 2, 3);
+  cswap(nr, mt, vd, mk, 0, 2); cswap(nr, mt, vd, mk, 1, 3);
+  cswap(nr, mt, vd, mk, 1, 2);
+}
+
+template <>
+__device__ __forceinline__ void sort_children<8>(float* nr, int* mt,
+                                                 bool* vd, unsigned* mk) {
+  cswap(nr, mt, vd, mk, 0, 1); cswap(nr, mt, vd, mk, 2, 3);
+  cswap(nr, mt, vd, mk, 4, 5); cswap(nr, mt, vd, mk, 6, 7);
+  cswap(nr, mt, vd, mk, 0, 2); cswap(nr, mt, vd, mk, 1, 3);
+  cswap(nr, mt, vd, mk, 4, 6); cswap(nr, mt, vd, mk, 5, 7);
+  cswap(nr, mt, vd, mk, 1, 2); cswap(nr, mt, vd, mk, 5, 6);
+  cswap(nr, mt, vd, mk, 0, 4); cswap(nr, mt, vd, mk, 3, 7);
+  cswap(nr, mt, vd, mk, 1, 5); cswap(nr, mt, vd, mk, 2, 6);
+  cswap(nr, mt, vd, mk, 3, 6); cswap(nr, mt, vd, mk, 2, 4);
+  cswap(nr, mt, vd, mk, 1, 2); cswap(nr, mt, vd, mk, 3, 5);
+  cswap(nr, mt, vd, mk, 4, 5); cswap(nr, mt, vd, mk, 3, 4);
+}
+
+// The barrier of a group of kWarps warps: the block's for one group, else
+// named barrier 1 + group over its 32 * kWarps threads, so a group that has
+// finished no longer steps with its neighbour.
+template <int kWarps>
+__device__ __forceinline__ void group_sync(int group) {
+  static_assert(kWarps == kWarpsPerBlock || kWarps == 2,
+                "a group spans one block or half of one");
+  if (kWarps == kWarpsPerBlock) {
+    __syncthreads();
+  } else if (group == 0) {
+    asm volatile("bar.sync 1, 64;\n" ::: "memory");
+  } else {
+    asm volatile("bar.sync 2, 64;\n" ::: "memory");
+  }
 }
 
 template <int G, int K>
@@ -70,11 +147,21 @@ lanegroup_walk(const float* __restrict__ nodes, int n_rows, int max_leaf,
                int* __restrict__ out_tri, unsigned char* __restrict__ out_hit,
                int* __restrict__ out_rows) {
   constexpr int kWarps = kWarpsPerBlock / G;  // warps of a group
-  __shared__ float s_near[kWarpsPerBlock][K];
-  __shared__ unsigned s_vote[kWarpsPerBlock];
+  // per warp: the group's current row, its lanes' rays (o.xyz t_min |
+  // 1/d.xyz best t), the list of its lanes that take part, and its copy of
+  // the group's stack (row, mask of its lanes whose own test hit the row)
+  __shared__ float4 s_row[kWarpsPerBlock][kRowQuads];
+  __shared__ float4 s_ray[kWarpsPerBlock][32][2];
+  __shared__ int s_list[kWarpsPerBlock][32];
+  __shared__ int2 s_stack[kWarpsPerBlock][kMaxStack];
+  // per warp of a group that spans warps: its vote and its smallest entry
+  // key per child, double-buffered by the parity of the group's votes
+  __shared__ unsigned s_vote[2][kWarpsPerBlock];
+  __shared__ unsigned s_key[2][kWarpsPerBlock][K];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int first_warp = warp / kWarps * kWarps;
+  const int group = warp / kWarps;
+  const int first_warp = group * kWarps;
   const int i = blockIdx.x * kBlock + threadIdx.x;
   const bool valid = i < n;
   const float tmax = valid ? tmax_in[i] : -1.0f;
@@ -94,131 +181,159 @@ lanegroup_walk(const float* __restrict__ nodes, int n_rows, int max_leaf,
   const float ix = widerow::safe_inv(dx);
   const float iy = widerow::safe_inv(dy);
   const float iz = widerow::safe_inv(dz);
-  int stack[kMaxStack];  // the group's entries, each lane's own bit in 30
-  int cur = 0;           // uniform over the group
+  s_ray[warp][lane][0] = make_float4(ox, oy, oz, tmin);
+  s_ray[warp][lane][1] = make_float4(ix, iy, iz, best.t);
+  float* best_t_slot = reinterpret_cast<float*>(&s_ray[warp][lane][1]) + 3;
+  const float* row_f = reinterpret_cast<const float*>(s_row[warp]);
+  const int kc = lane % K;  // the child this lane tests (32 % K == 0)
+  int cur = 0;  // uniform over the group
   int sp = 0;
   int rows = 0;
-  while (true) {
-    if (kWarps == 1) {
-      if (cur < 0) break;  // uniform over the warp
-    } else if (!__syncthreads_or(cur >= 0)) {
-      break;
+  int phase = 0;
+  while (cur >= 0) {
+    // the row, staged by the warp: 16 lanes load a float4 each
+    const int r = min(cur, n_rows - 1);
+    __syncwarp();  // the last step's reads (and writes) are done
+    if (lane < kRowQuads) {
+      s_row[warp][lane] = __ldg(
+          reinterpret_cast<const float4*>(nodes + (size_t)r * kWidth) + lane);
     }
-    const bool active = cur >= 0;
-    const int r = min(max(cur, 0), n_rows - 1);
-    const float4* row =
-        reinterpret_cast<const float4*>(nodes + (size_t)r * kWidth);
-    bool leaf = true;
-    float nr[K];
-    int mt[K];
-    bool own[K];
+    __syncwarp();
+    rows += here ? 1 : 0;
+    const float4 tail = s_row[warp][kRowQuads - 1];
+    int nxt = -1;
+    if (tail.w > 0.5f) {
+      // leaf: the lanes that take part test its triangles, in order
+      if (here) {
+        const int packed = __float_as_int(tail.x);
+        const int fst = packed & 0xFFFFFF;
+        const int cnt = packed >> 24;
+        for (int j = 0; j < max_leaf && j < cnt; ++j) {
+          widerow::tri_hit(s_row[warp][3 * j], s_row[warp][3 * j + 1],
+                           s_row[warp][3 * j + 2], fst + j, ox, oy, oz, dx,
+                           dy, dz, tmin, best);
+        }
+        *best_t_slot = best.t;
+      }
+    } else {
+      // internal: the (ray, child) pairs of the lanes that take part, spread
+      // over the warp, pair p = slot * K + child on lane p % 32; per child,
+      // the warp's lanes whose test hit it (mk) and their smallest entry
+      // key (kmin), reduced only for the children some lane hit
+      unsigned mk[K], kmin[K];
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      nr[k] = CUDART_INF_F;
-      mt[k] = -1;
-      own[k] = false;
-    }
-    if (active) {
-      rows += here ? 1 : 0;
-      const float4 tail = __ldg(row + 15);
-      leaf = tail.w > 0.5f;
-      if (leaf) {
-        if (here) {
-          widerow::leaf_hits<false>(row, tail, max_leaf, ox, oy, oz, dx, dy,
-                                    dz, tmin, best);
+      for (int k = 0; k < K; ++k) {
+        mk[k] = 0u;
+        kmin[k] = ~0u;
+      }
+      unsigned vote = 0u;
+      const unsigned part = __ballot_sync(kFull, here);
+      if (part != 0u) {  // uniform over the warp
+        if (here) s_list[warp][__popc(part & ((1u << lane) - 1u))] = lane;
+        __syncwarp();
+        const int pairs = __popc(part) * K;
+        unsigned own = 0u, key = ~0u;
+        if (lane < pairs) {
+          float c[7];
+#pragma unroll
+          for (int q = 0; q < 7; ++q) c[q] = row_f[7 * kc + q];
+          const int meta = __float_as_int(c[6]);
+          for (int p = lane; p < pairs; p += 32) {
+            const int src = s_list[warp][p / K];
+            const float4 ro = s_ray[warp][src][0];
+            const float4 ri = s_ray[warp][src][1];
+            const float tx0 = (c[0] - ro.x) * ri.x;
+            const float tx1 = (c[3] - ro.x) * ri.x;
+            const float ty0 = (c[1] - ro.y) * ri.y;
+            const float ty1 = (c[4] - ro.y) * ri.y;
+            const float tz0 = (c[2] - ro.z) * ri.z;
+            const float tz1 = (c[5] - ro.z) * ri.z;
+            const float near =
+                fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
+                      fmaxf(fminf(tz0, tz1), ro.w));
+            const float far = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
+                                    fminf(fmaxf(tz0, tz1), ri.w));
+            if (near <= far && meta >= 0) {
+              own |= 1u << src;
+              key = min(key, near_key(near));
+            }
+          }
+        }
+        vote = __reduce_or_sync(kFull, own != 0u ? 1u << kc : 0u);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          if ((vote >> k) & 1u) {  // uniform
+            mk[k] = __reduce_or_sync(kFull, kc == k ? own : 0u);
+            kmin[k] = __reduce_min_sync(kFull, kc == k ? key : ~0u);
+          }
+        }
+      }
+      if constexpr (kWarps > 1) {
+        if (lane == 0) {
+          s_vote[phase][warp] = vote;
+#pragma unroll
+          for (int k = 0; k < K; ++k) s_key[phase][warp][k] = kmin[k];
+        }
+        group_sync<kWarps>(group);
+        vote = 0u;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) vote |= s_vote[phase][first_warp + w];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          if ((vote >> k) & 1u) {
+#pragma unroll
+            for (int w = 0; w < kWarps; ++w) {
+              kmin[k] = min(kmin[k], s_key[phase][first_warp + w][k]);
+            }
+          }
+        }
+        // the next vote writes the other slots; the one after, these,
+        // only once every warp of the group has passed the next barrier
+        phase ^= 1;
+      }
+      if (__popc(vote) <= 1) {
+        // at most one child hit: the network would leave it first and push
+        // nothing, so it is skipped (as widerow::descend skips it)
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          if ((vote >> k) & 1u) {
+            nxt = __float_as_int(row_f[7 * k + 6]);
+            here = (mk[k] >> lane) & 1u;
+          }
         }
       } else {
-        float c[7 * K];
-#pragma unroll
-        for (int q = 0; q < 7 * K / 4; ++q) {
-          const float4 f = __ldg(row + q);
-          c[4 * q + 0] = f.x;
-          c[4 * q + 1] = f.y;
-          c[4 * q + 2] = f.z;
-          c[4 * q + 3] = f.w;
-        }
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const float* b = c + 7 * k;
-          const float tx0 = (b[0] - ox) * ix;
-          const float tx1 = (b[3] - ox) * ix;
-          const float ty0 = (b[1] - oy) * iy;
-          const float ty1 = (b[4] - oy) * iy;
-          const float tz0 = (b[2] - oz) * iz;
-          const float tz1 = (b[5] - oz) * iz;
-          const float near = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
-                                   fmaxf(fminf(tz0, tz1), tmin));
-          const float far = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
-                                  fminf(fmaxf(tz0, tz1), best.t));
-          const int meta = __float_as_int(b[6]);
-          own[k] = here && near <= far && meta >= 0;
-          nr[k] = own[k] ? near : CUDART_INF_F;
-          mt[k] = meta;
-        }
-      }
-    }
-    // the group's vote: which children some lane hit, and their smallest
-    // entry distance over the lanes that hit them
-    unsigned vote = 0;
-#pragma unroll
-    for (int k = 0; k < K; ++k) vote |= own[k] ? 1u << k : 0u;
-    vote = __reduce_or_sync(kFull, vote);
-#pragma unroll
-    for (int k = 0; k < K; ++k) nr[k] = warp_min(nr[k]);
-    if (kWarps > 1) {
-      if (lane == 0) {
-        s_vote[warp] = vote;
-#pragma unroll
-        for (int k = 0; k < K; ++k) s_near[warp][k] = nr[k];
-      }
-      __syncthreads();
-      vote = 0;
-#pragma unroll
-      for (int k = 0; k < K; ++k) nr[k] = CUDART_INF_F;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        vote |= s_vote[first_warp + w];
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          nr[k] = fminf(nr[k], s_near[first_warp + w][k]);
-        }
-      }
-      // the next step's __syncthreads_or orders these reads before the
-      // next writes
-    }
-    if (active) {
-      int nxt = -1;
-      bool here_nxt = false;
-      if (!leaf) {
+        float nr[K];
+        int mt[K];
         bool vd[K];
 #pragma unroll
         for (int k = 0; k < K; ++k) {
           vd[k] = (vote >> k) & 1u;
-          if (!vd[k]) nr[k] = CUDART_INF_F;
-          mt[k] = own[k] ? (mt[k] | kOwnBit) : mt[k];
+          nr[k] = vd[k] ? key_near(kmin[k]) : CUDART_INF_F;
+          mt[k] = __float_as_int(row_f[7 * k + 6]);
         }
-        widerow::sort_children<K>(nr, mt, vd);
+        sort_children<K>(nr, mt, vd, mk);
 #pragma unroll
         for (int s = K - 1; s >= 1; --s) {
           if (vd[s]) {
-            if (sp < kMaxStack) stack[sp] = mt[s];
+            if (lane == 0 && sp < kMaxStack) {
+              s_stack[warp][sp] = make_int2(mt[s], (int)mk[s]);
+            }
             ++sp;
           }
         }
         if (vd[0]) {
-          nxt = mt[0] & ~kOwnBit;
-          here_nxt = (mt[0] & kOwnBit) != 0;
+          nxt = mt[0];
+          here = (mk[0] >> lane) & 1u;
         }
       }
-      if (nxt < 0 && sp > 0) {
-        --sp;
-        const int e = sp < kMaxStack ? stack[sp] : -1;
-        nxt = e < 0 ? -1 : (e & ~kOwnBit);
-        here_nxt = e >= 0 && (e & kOwnBit) != 0;
-      }
-      cur = nxt;
-      here = here_nxt;
     }
+    if (nxt < 0 && sp > 0) {
+      --sp;
+      const int2 e = sp < kMaxStack ? s_stack[warp][sp] : make_int2(-1, 0);
+      nxt = e.x < 0 ? -1 : e.x;
+      here = e.x >= 0 && ((unsigned)e.y >> lane) & 1u;
+    }
+    cur = nxt;
   }
   if (valid) {
     out_t[i] = best.t;
@@ -280,7 +395,7 @@ int lanegroup_walk_launch(int groups, int arity, const float* nodes,
                           int* tri, unsigned char* hit, int* rows,
                           cudaStream_t stream) {
   if (n <= 0) return 0;
-  if (n_rows <= 0 || n_rows >= kOwnBit || max_leaf < 0 || max_leaf > 5 ||
+  if (n_rows <= 0 || max_leaf < 0 || max_leaf > 5 ||
       stack_depth > kMaxStack) {
     return (int)cudaErrorInvalidValue;
   }

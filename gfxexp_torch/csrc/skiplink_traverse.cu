@@ -8,10 +8,11 @@
 //     traversal="skip" scene (animated scenes);
 //   - gfxexp_tpu/accel/pallas_rowcursor.py:76 _make_kernel (launched by _run
 //     :206): one cursor per 128-lane row.
-// Scopes (one template parameter):
+// Scopes (the C entry's `scope`):
 //   - kThread: one cursor per ray (the default on the main path);
 //   - kWarp: one cursor per 32 rays, descending when __any_sync of the
-//     lanes' box tests hits (kernel 8's row cursor);
+//     lanes' box tests hits (kernel 8's row cursor; its own kernel,
+//     skiplink_warp_walk);
 //   - kBlock: one cursor per 128-thread block, with __syncthreads_or (kernel
 //     6's tile cursor); under any hit the block stops once no ray of it is
 //     still live.
@@ -29,27 +30,51 @@
 // apply the same operations in the same order, so with --fmad=false the
 // results are equal bit for bit.
 //
-// What bounds it: one dependent 32-byte node load per step (two float4
-// loads through the read-only path) and, at leaves, 48-byte triangle rows,
-// and the warps resident to hide those chains: each step does little else.
-// There is no stack, so nothing spills to local memory. Tables of large
-// scenes (city: 29 MB of nodes, 97.5 MB of triangles) do not fit the 50 MB
-// L2. The earlier walk loaded a hit leaf's triangles one dependent row at a
-// time; the closest-hit walk now loads a leaf's rows in one batch (`leaf`
-// with kLeaf = the table's max_leaf of 4 or 8), which cut city's round
-// trips per live ray from 83.2 to 73.6 (gfxexp_torch/walk_trips.py) and its
-// time to 0.859 of the earlier walk's (big 0.897; H100 80GB HBM3 at 700 W,
-// gfxexp_torch/walk_ab.py, PERF.md). Any hit keeps the one-row loop, its
-// registers capped at 40 (12 blocks a SM, as the earlier walk held them;
-// uncapped it took 45 and ran 1.09x slower). Timed and dropped (thread
-// scope, city, closest / any): runs of 2 and 4 nodes loaded at once so a
-// descent to cur + 1 costs no trip (1.02 / 1.30 and 1.24 / 1.52: they fetch
-// nodes the walk does not take and raise registers to 88-150), the same
-// runs held in an array (nvcc put it in local memory: 1.65 / 2.21 and 2.78
-// / 3.90), the run from skip(cur) loaded as soon as node cur arrives (1.25
-// / 1.51 with runs of 2), the leaf batch for any hit (1.045 at 72
-// registers, 1.41-1.78 capped: spills), and closest hit capped for 8
-// blocks a SM (1.12).
+// What bounds the thread scope: one dependent 32-byte node load per step
+// (two float4 loads through the read-only path) and, at leaves, 48-byte
+// triangle rows, and the warps resident to hide those chains: each step
+// does little else. There is no stack, so nothing spills to local memory.
+// Tables of large scenes (city: 29 MB of nodes, 97.5 MB of triangles) do
+// not fit the 50 MB L2. The earlier walk loaded a hit leaf's triangles one
+// dependent row at a time; the closest-hit walk now loads a leaf's rows in
+// one batch (`leaf` with kLeaf = the table's max_leaf of 4 or 8), which cut
+// city's round trips per live ray from 83.2 to 73.6
+// (gfxexp_torch/walk_trips.py) and its time to 0.859 of the earlier walk's
+// (big 0.897; H100 80GB HBM3 at 700 W, gfxexp_torch/walk_ab.py, PERF.md).
+// Any hit keeps the one-row loop, its registers capped at 40 (12 blocks a
+// SM, as the earlier walk held them; uncapped it took 45 and ran 1.09x
+// slower). Timed and dropped (thread scope, city, closest / any): runs of 2
+// and 4 nodes loaded at once so a descent to cur + 1 costs no trip (1.02 /
+// 1.30 and 1.24 / 1.52: they fetch nodes the walk does not take and raise
+// registers to 88-150), the same runs held in an array (nvcc put it in
+// local memory: 1.65 / 2.21 and 2.78 / 3.90), the run from skip(cur) loaded
+// as soon as node cur arrives (1.25 / 1.51 with runs of 2), the leaf batch
+// for any hit (1.045 at 72 registers, 1.41-1.78 capped: spills), and
+// closest hit capped for 8 blocks a SM (1.12).
+//
+// What bounds the warp scope: its warp walks the union of its 32 rays'
+// nodes (city, closest hit: 1,139 steps a warp against 100 nodes a ray),
+// one after another, and each step's box test, vote and branch are
+// instructions every lane issues. The node loads were L1 hits, not trips
+// to memory: a node is 32 bytes, so a 128-byte line holds four, and the
+// warp's cursor walks forward through lines it has just read. The window
+// (lane k holds node base + k, the current node comes by __shfl_sync) makes
+// 1,139 node loads 263 window loads (walk_trips.warp_windows), and the
+// leaf's staged rows serve every lane that hit it from one load; it reads
+// 0.927 / 0.994 of the earlier warp scope on city, closest / any (big
+// 0.944 / 0.927; NVIDIA H100 80GB HBM3, 700.00 W, gfxexp_torch/walk_ab.py)
+// at 56 / 61 registers, no spills. Timed and dropped against the
+// earlier warp scope (big closest / any, city closest / any, one call):
+// the window in shared memory filled by cp.async 1.278 / 1.316 (city, with
+// the next window prefetched; 1.196 / 1.260 without), the window in
+// registers with the next window prefetched 1.155 / 1.205 (1.069 / 1.116
+// without the prefetch), all three with one
+// __reduce_or_sync a step of "a lane hit" and "a lane is live" (the redux
+// vote: 1.18 against 1.04 for __any_sync with each node through __ldg);
+// each node through __ldg, no window, with the leaf's rows loaded by each
+// lane 1.028 / 0.968 / 1.025 / 0.961 (staged: 1.044 / 1.014 / 1.110 /
+// 1.011); the window with each lane loading the leaf's rows 1.025 / 0.938
+// / 0.957 / 1.024.
 //
 // Built by gfxexp_torch/csrc/build.py with nvcc into a shared library with a
 // plain C interface (ctypes); it launches on the caller's stream, does not
@@ -66,6 +91,12 @@ constexpr int kMaxLeaf = 127;
 constexpr int kThread = 0;
 constexpr int kWarp = 1;
 constexpr int kBlockScope = 2;
+constexpr int kWarps = kBlock / 32;
+constexpr unsigned kFull = 0xffffffffu;
+// the warp scope's window: kWin consecutive nodes, one a lane
+constexpr int kWin = 32;
+// triangles of a hit leaf the warp stages at a time (3 float4 each)
+constexpr int kTriChunk = 10;
 // Blocks a SM the per-ray any-hit walk keeps: its registers capped at 40,
 // as the earlier walk held them without a cap.
 constexpr int kAnyBlocks = 12;
@@ -178,7 +209,6 @@ __device__ __forceinline__ bool leaf(const float4* __restrict__ tris,
 
 template <int kScope>
 __device__ __forceinline__ bool any_of(bool x) {
-  if (kScope == kWarp) return __any_sync(0xffffffffu, x);
   return __syncthreads_or(x) != 0;
 }
 
@@ -194,8 +224,8 @@ skiplink_walk(const float4* __restrict__ nodes, int n_nodes,
               float* __restrict__ out_u, float* __restrict__ out_v,
               int* __restrict__ out_tri, unsigned char* __restrict__ out_hit) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
-  // in the shared scopes every lane of the warp / block takes part in the
-  // votes, rays past n included (as dead rays)
+  // in the block scope every thread of the block takes part in the votes,
+  // rays past n included (as dead rays)
   const bool valid = i < n;
   if (kScope == kThread && !valid) return;
   const float tmax = valid ? tmax_in[i] : -1.0f;
@@ -236,7 +266,7 @@ skiplink_walk(const float4* __restrict__ nodes, int n_nodes,
     }
   } else {
     bool done = !live;  // done: the ray takes no further part
-    int cur = 0;        // uniform over the warp / block
+    int cur = 0;        // uniform over the block
     while (cur < n_nodes) {
       const float4 a = __ldg(nodes + 2 * cur);
       const float4 b = __ldg(nodes + 2 * cur + 1);
@@ -268,14 +298,133 @@ skiplink_walk(const float4* __restrict__ nodes, int n_nodes,
   }
 }
 
+// The warp scope (kernel 8's row cursor): one cursor per 32 rays over a
+// window of kWin consecutive nodes [base, base + kWin) held in registers,
+// lane k holding node base + k; the current node comes to every lane by
+// __shfl_sync, and a new window is loaded at the cursor when it passes the
+// window's end (a node's skip link and its first child lie after it, so
+// the cursor only moves forward). A hit leaf's triangle rows are staged
+// for the warp in shared memory, kTriChunk triangles at a time, and each
+// lane that hit the leaf tests them in order. One __any_sync a step of the
+// lanes' box tests; under any hit, one more of the live lanes after a
+// leaf, where alone a lane can end.
+template <bool kAnyHit>
+__global__ void __launch_bounds__(kBlock)
+skiplink_warp_walk(const float4* __restrict__ nodes, int n_nodes,
+                   const float4* __restrict__ tris, int n,
+                   const float* __restrict__ o, const float* __restrict__ d,
+                   const float* __restrict__ tmin_in,
+                   const float* __restrict__ tmax_in,
+                   float* __restrict__ out_t, float* __restrict__ out_u,
+                   float* __restrict__ out_v, int* __restrict__ out_tri,
+                   unsigned char* __restrict__ out_hit) {
+  __shared__ float4 s_tri[kWarps][3 * kTriChunk];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  // every lane takes part in the votes, rays past n as dead rays
+  const bool valid = i < n;
+  const float tmax = valid ? tmax_in[i] : -1.0f;
+  Best best{tmax, 0.0f, 0.0f, -1};
+  bool done = !(tmax >= 0.0f);  // done: the ray takes no further part
+  Ray r{};
+  if (!done) {
+    r.ox = o[3 * i + 0];
+    r.oy = o[3 * i + 1];
+    r.oz = o[3 * i + 2];
+    r.dx = d[3 * i + 0];
+    r.dy = d[3 * i + 1];
+    r.dz = d[3 * i + 2];
+    r.ix = safe_inv(r.dx);
+    r.iy = safe_inv(r.dy);
+    r.iz = safe_inv(r.dz);
+    r.tmin = tmin_in[i];
+  }
+  // uniform over the warp: the cursor and the window's first node; a warp
+  // of dead rays does not walk
+  int cur = __any_sync(kFull, !done) ? 0 : n_nodes;
+  int base = cur;
+  // node base + lane (clamped at the sentinel row n_nodes, so a window at
+  // the table's end reads no row past it)
+  int k = min(base + lane, n_nodes);
+  float4 wa = __ldg(nodes + 2 * k);
+  float4 wb = __ldg(nodes + 2 * k + 1);
+  while (cur < n_nodes) {
+    if (cur - base >= kWin) {  // the cursor left the window (uniform)
+      base = cur;
+      k = min(base + lane, n_nodes);
+      wa = __ldg(nodes + 2 * k);
+      wb = __ldg(nodes + 2 * k + 1);
+    }
+    const int off = cur - base;
+    float4 a, b;
+    a.x = __shfl_sync(kFull, wa.x, off);
+    a.y = __shfl_sync(kFull, wa.y, off);
+    a.z = __shfl_sync(kFull, wa.z, off);
+    a.w = __shfl_sync(kFull, wa.w, off);
+    b.x = __shfl_sync(kFull, wb.x, off);
+    b.y = __shfl_sync(kFull, wb.y, off);
+    b.w = __shfl_sync(kFull, wb.w, off);
+    const bool h = !done && slab(a, b, r, best.t);
+    int nxt = __float_as_int(b.w);
+    if (__any_sync(kFull, h)) {
+      // the packed first | count, read only where a lane hit the node
+      const int packed = __float_as_int(__shfl_sync(kFull, wb.z, off));
+      const int cnt = packed >> kCountShift;
+      if (cnt > 0) {
+        // the leaf's rows, kTriChunk triangles (3 float4 each) at a time,
+        // staged by the warp; the lanes that hit it test them in order
+        const int fst = packed & ((1 << kCountShift) - 1);
+        bool stop = !h;
+        for (int j0 = 0; j0 < cnt; j0 += kTriChunk) {
+          const int m = min(cnt - j0, kTriChunk);
+          __syncwarp();  // every lane is done with the last chunk
+          if (lane < 3 * m) {
+            s_tri[warp][lane] = __ldg(tris + 3 * (fst + j0) + lane);
+          }
+          __syncwarp();
+          if (!stop) {
+#pragma unroll
+            for (int j = 0; j < kTriChunk; ++j) {
+              if (j < m && !stop &&
+                  tri_hit(s_tri[warp][3 * j], s_tri[warp][3 * j + 1],
+                          s_tri[warp][3 * j + 2].x, fst + j0 + j, r, best) &&
+                  kAnyHit) {
+                stop = true;
+                done = true;
+              }
+            }
+          }
+        }
+        if (kAnyHit && !__any_sync(kFull, !done)) break;
+      } else {
+        nxt = cur + 1;
+      }
+    }
+    cur = nxt;
+  }
+  if (valid) {
+    out_t[i] = best.t;
+    out_u[i] = best.u;
+    out_v[i] = best.v;
+    out_tri[i] = best.tri;
+    out_hit[i] = best.tri >= 0 ? 1 : 0;
+  }
+}
+
 template <bool kAnyHit, int kScope, int kLeaf>
 cudaError_t launch(const float4* nodes, int n_nodes, const float4* tris,
                    int n, const float* o, const float* d, const float* tmin,
                    const float* tmax, float* t, float* u, float* v, int* tri,
                    unsigned char* hit, cudaStream_t stream) {
   const int grid = (n + kBlock - 1) / kBlock;
-  skiplink_walk<kAnyHit, kScope, kLeaf><<<grid, kBlock, 0, stream>>>(
-      nodes, n_nodes, tris, n, o, d, tmin, tmax, t, u, v, tri, hit);
+  if constexpr (kScope == kWarp) {
+    skiplink_warp_walk<kAnyHit><<<grid, kBlock, 0, stream>>>(
+        nodes, n_nodes, tris, n, o, d, tmin, tmax, t, u, v, tri, hit);
+  } else {
+    skiplink_walk<kAnyHit, kScope, kLeaf><<<grid, kBlock, 0, stream>>>(
+        nodes, n_nodes, tris, n, o, d, tmin, tmax, t, u, v, tri, hit);
+  }
   return cudaGetLastError();
 }
 

@@ -6,9 +6,9 @@ several CUDA source trees on the same rays, in turns, on one CUDA device.
         [--out out/walk_ab.json]
 
 Each NAME=DIR names a directory that holds widerow_traverse.cu,
-instanced_traverse.cu, chunked_traverse.cu, qrow_traverse.cu and
-skiplink_traverse.cu (and their headers) with the C interface of
-gfxexp_torch/csrc, or one that takes fewer trailing arguments (a parent's:
+instanced_traverse.cu, chunked_traverse.cu, qrow_traverse.cu,
+skiplink_traverse.cu and lanegroup_traverse.cu (and their headers) with
+the C interface of gfxexp_torch/csrc, or one that takes fewer trailing arguments (a parent's:
 the C calling convention ignores the rest); the first tree is the
 reference. Every source is built
 with build.NVCC_FLAGS, one nvcc each, up to 16 at once, into
@@ -17,7 +17,9 @@ wide-row table, walked by kernel 1 and, whole, by kernel 2), `big`, `city`
 and `city rebraid4` two-level (nearest-first and build order on each; the
 ray-sorted route on `city`), `big` and `city` flattened (chunked wide
 rows, quantized rows) and `big` and `city` as skip-link scenes (animated,
-frame 0; the per-ray scope), makes
+frame 0; the per-ray scope, and the warp scope as `skip <scene> warp`),
+and the lane-group walk with 1, 2 and 4 groups on the small table
+(`lanegroup small g<G>`, closest hit, its rows per ray compared too), makes
 bench.walk_rays' rays, and times each walk on one 262,144-ray bounce batch
 (closest hit) and its shadow rays (any hit) with CUDA events, in turns: the
 trees in order, then in reverse (parent, change, change, parent for two
@@ -32,8 +34,9 @@ equal the reference's bit for bit (t, u, v, tri, hit, and the entry of the
 two-level walk). --only keeps the cases whose name starts with one of the
 given words. Prints one line per case and writes the times, nvcc's -Xptxas
 -v reports and SASS instruction counts (conversions I2F*, local loads and
-stores, all instructions and a digest of the opcode sequence, where
-cuobjdump is found) to --out.
+stores, all instructions and a digest of the opcode sequence, of each
+library and of each __global__ instantiation, where cuobjdump is found)
+to --out.
 """
 
 from __future__ import annotations
@@ -53,13 +56,14 @@ import torch
 from gfxexp_torch import bench
 from gfxexp_torch.accel import instanced
 from gfxexp_torch.accel.instanced import walk_instanced_cuda, walk_tlas
+from gfxexp_torch.accel.lanegroup import GROUPS, walk_lanegroup_cuda
 from gfxexp_torch.accel.persistent import walk_chunked_cuda, walk_cuda
 from gfxexp_torch.accel.qrow import walk_qrow_cuda
 from gfxexp_torch.accel.skip_traverse import walk_skip_cuda
 from gfxexp_torch.csrc import build
 
 KERNELS = ("widerow_traverse", "instanced_traverse", "chunked_traverse",
-           "qrow_traverse", "skiplink_traverse")
+           "qrow_traverse", "skiplink_traverse", "lanegroup_traverse")
 BATCH = 512 * 512
 SEED = 7
 MAX_NVCC = 16  # nvcc processes at once
@@ -104,11 +108,24 @@ def build_trees(trees: dict) -> tuple[dict, dict]:
     return libs, ptxas
 
 
+def _kernel_name(mangled: str) -> str:
+    """A __global__ function's mangled name without the hash of its
+    source's path that nvcc puts in the anonymous namespace, so that the
+    same instantiation has the same name in every tree."""
+    return re.sub(r"^_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_(\w+?_cu)_[0-9a-f]{8}",
+                  r"\1::", mangled.strip())
+
+
+def _digest(ops) -> int:
+    return zlib.crc32(" ".join(ops).encode()) if ops else 0
+
+
 def sass_counts(trees: dict) -> dict:
     """{name: {kernel: {opcode: count}}} from cuobjdump -sass of each built
-    library, with `all` (every instruction) and `digest` (a hash of the
-    opcode sequence: equal where two trees compiled a kernel alike); empty
-    when cuobjdump is not found."""
+    library, with `all` (every instruction), `digest` (a hash of the
+    opcode sequence: equal where two trees compiled a kernel alike) and
+    `functions` (that digest per __global__ instantiation, by its mangled
+    name); empty when cuobjdump is not found."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return {}
@@ -119,13 +136,18 @@ def sass_counts(trees: dict) -> dict:
             sass = subprocess.run(
                 [tool, "-sass", os.path.join(root, name, f"lib{k}.so")],
                 capture_output=True, text=True).stdout
-            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
-                             r"([A-Z][A-Z0-9_.]*)", sass)
+            op_re = (r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)")
+            ops = re.findall(op_re, sass)
+            funcs = {}
+            for part in re.split(r"\n\s*Function : ", sass)[1:]:
+                fn, body = part.split("\n", 1)
+                funcs[_kernel_name(fn)] = _digest(re.findall(op_re, body))
             out.setdefault(name, {})[k] = {
                 **{op: len(re.findall(rf"\b{op}[.A-Z0-9]*\s", sass))
                    for op in _SASS_OPS},
-                "all": len(ops),
-                "digest": zlib.crc32(" ".join(ops).encode()) if ops else 0}
+                "all": len(ops), "digest": _digest(ops),
+                "functions": funcs}
     return out
 
 
@@ -154,6 +176,8 @@ def cases(dev, only=None):
     out = []
     if wanted("widerow", "chunked small"):
         out += _small_cases(dev)
+    if wanted("lanegroup"):
+        out += _lanegroup_cases(dev)
     if wanted("instanced"):
         out += _instanced_cases(dev)
     for which in ("big", "city"):
@@ -188,6 +212,27 @@ def _small_cases(dev):
                 return (h.t, h.u, h.v, h.tri, h.hit)
 
             out.append((f"{name} small {kind}", fn))
+    return out
+
+
+def _lanegroup_cases(dev):
+    """Kernel 9 with each group count on the small scene's table, closest
+    hit on the bounce batch, rows per ray included."""
+    small = bench.build_bench_scene()[1].to(dev)
+
+    def small_hit(o0, d0):
+        h = walk_cuda(small, o0, d0, 0.0, 1e30, False)
+        return h.t, h.hit
+
+    rays = bench.walk_rays(small_hit, "small", dev, SEED, BATCH)
+    args = _bounce_args(rays)["closest"]
+    out = []
+    for g in GROUPS:
+        def fn(g=g):
+            h, rows = walk_lanegroup_cuda(small, *args, g, with_stats=True)
+            return (h.t, h.u, h.v, h.tri, h.hit, rows)
+
+        out.append((f"lanegroup small g{g} closest", fn))
     return out
 
 
@@ -251,8 +296,9 @@ def _flat_cases(dev, which, fmt, name):
 
 
 def _skip_cases(dev, which):
-    """The skip-link walk's per-ray scope on the animated scene at frame 0
-    (what every query of a skip-link scene launches)."""
+    """The skip-link walk on the animated scene at frame 0: the per-ray
+    scope (what every query of a skip-link scene launches) and the warp
+    scope (kernel 8)."""
     scene, bvh = bench.build_bench_scene(which, traversal="skip")
     scene, bvh = scene.to(dev), bvh.to(dev)
     tris = scene.triangles
@@ -268,7 +314,12 @@ def _skip_cases(dev, which):
             h = walk_skip_cuda(bvh, tris, *a, any_hit, "thread")
             return (h.t, h.u, h.v, h.tri, h.hit)
 
+        def warp_fn(a=args, any_hit=kind == "any"):
+            h = walk_skip_cuda(bvh, tris, *a, any_hit, "warp")
+            return (h.t, h.u, h.v, h.tri, h.hit)
+
         out.append((f"skip {which} {kind}", fn))
+        out.append((f"skip {which} warp {kind}", warp_fn))
     return out
 
 
@@ -321,7 +372,18 @@ def main(argv=None):
                   flush=True)
     sass = sass_counts(trees)
     for name, per in sass.items():
-        print(f"walk_ab: {name} SASS {per}", flush=True)
+        print(f"walk_ab: {name} SASS " + str({
+            k: {op: n for op, n in c.items() if op != "functions"}
+            for k, c in per.items()}), flush=True)
+        if name != names[0]:
+            ref = {fn: dg for c in sass[names[0]].values()
+                   for fn, dg in c["functions"].items()}
+            got = {fn: dg for c in per.values()
+                   for fn, dg in c["functions"].items()}
+            same = sorted(fn for fn, dg in got.items() if ref.get(fn) == dg)
+            print(f"walk_ab: {name} SASS of {len(same)} of {len(got)} "
+                  f"instantiations equal to {names[0]}'s; differ or new: "
+                  f"{sorted(set(got) - set(same))}", flush=True)
     use(libs, names[0])
     only = args.only.split(",") if args.only else None
     scratch = torch.empty(SCRATCH_BYTES // 4, device=dev)

@@ -20,6 +20,12 @@ rays through consecutive pixels of the image's middle rows (so the 32
 lanes of a warp hold neighbouring pixels, as on the card): the rows each
 lane walks, over 32 times the steps its warp takes (lane_steps,
 build_order_costs). Prints each schedule's warp steps and utilisation.
+
+On the same --band rays: the skip-link walk's warp scope (kernel 8, `big`
+and `city` as skip-link scenes) per warp, the union of its rays' nodes
+and the windows of 32 nodes the kernel loads (warp_windows); and the
+lane-group walk (kernel 9, the small scene, 1, 2 and 4 groups a block),
+its steps per group and the share of lanes that take part (group_steps).
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from gfxexp_torch.accel.persistent import (
     walk_chunked_plain,
     walk_plain,
 )
+from gfxexp_torch.accel.lanegroup import GROUPS, walk_lanegroup_plain
 from gfxexp_torch.accel.skiplink import skip_trips, walk_skip_plain
 
 WARP = 32
@@ -224,6 +231,82 @@ def group_shares(lo, hi, o, d, t_min, t_max, group: int = GROUP) -> dict:
             if warp_live.any() else 0.0}
 
 
+def _windows(key, span, seg_start, seg_end, window, prefetch):
+    """Windows each warp enters walking its sorted node keys (warp * span +
+    node), and how many of the window changes land in the next window: a
+    window opens at the first node; when the cursor passes its end, the next
+    one opens at the cursor or, with `prefetch` and a cursor inside the
+    next window, is that next window."""
+    n_warps = len(seg_start)
+    windows = (seg_end > seg_start).astype(np.int64)
+    nexts = np.zeros(n_warps, np.int64)
+    idx = np.flatnonzero(windows)
+    base = key[seg_start[idx]] % span
+    while len(idx):
+        at = np.searchsorted(key, idx * span + base + window)
+        more = at < seg_end[idx]
+        idx, base, at = idx[more], base[more], at[more]
+        node = key[at] % span
+        land = node < base + 2 * window
+        windows[idx] += 1
+        nexts[idx] += land
+        base = np.where(land & prefetch, base + window, node)
+    return windows, nexts
+
+
+def warp_windows(visits, n_rays: int, window: int = WARP) -> dict:
+    """What kernel 8 (the skip-link walk's warp scope) costs warps of 32
+    consecutive rays, from the plain per-ray walk's visits (SkipStats.visits:
+    ray, node pairs, a tensor or an array). The warp's cursor walks the union of its rays' nodes
+    in preorder, one step a node: the parent's dependent node loads. The
+    kernel holds a window of `window` consecutive nodes and loads another
+    when the cursor passes its end: at the cursor, or, with the next window
+    prefetched, that window where the cursor lands in it (the `next` share
+    of the changes; those loads were issued a window earlier). Per warp with
+    a live ray: union steps, windows entered with and without the prefetch,
+    and the dependent loads left with it (windows not served by it)."""
+    v = torch.as_tensor(visits).to(torch.int64).reshape(-1, 2)
+    n_warps = -(-n_rays // WARP)
+    if not len(v):
+        return {"warps": 0, "steps": 0.0, "windows": 0.0,
+                "windows_at_cursor": 0.0, "next_share": 0.0,
+                "dependent_loads": 0.0}
+    span = int(v[:, 1].max()) + 2 * window + 1
+    # the union per warp, sorted, on the visits' device
+    key = torch.unique(v[:, 0] // WARP * span + v[:, 1]).cpu().numpy()
+    warps = np.arange(n_warps)
+    seg_start = np.searchsorted(key, warps * span)
+    seg_end = np.searchsorted(key, (warps + 1) * span)
+    steps = seg_end - seg_start
+    live = int((steps > 0).sum())
+    win, nxt = _windows(key, span, seg_start, seg_end, window, True)
+    at_cur, _ = _windows(key, span, seg_start, seg_end, window, False)
+    changes = int((win - (steps > 0)).sum())
+    return {"warps": live, "steps": float(steps.sum()) / live,
+            "windows": float(win.sum()) / live,
+            "windows_at_cursor": float(at_cur.sum()) / live,
+            "next_share": float(nxt.sum()) / max(changes, 1),
+            "dependent_loads": float((win - nxt).sum()) / live}
+
+
+def group_steps(rows, steps, groups: int) -> dict:
+    """What kernel 9 (the lane-group walk) costs, from its plain version's
+    rows per ray [N] and rows stepped per group (walk_lanegroup_plain
+    with_stats and with_steps): group steps per group, warp steps (a group
+    of 128 / groups lanes spans 4 / groups warps, each of which runs every
+    step) and the share of lanes that take part in a step (rows / (lanes x
+    steps))."""
+    rows = np.asarray(rows, np.int64)
+    steps = np.asarray(steps, np.int64)
+    lanes = 128 // groups
+    total = int(steps.sum())
+    return {"groups": int(len(steps)), "steps": total,
+            "steps_per_group": total / max(len(steps), 1),
+            "warp_steps": total * max(lanes // WARP, 1),
+            "rows": int(rows.sum()),
+            "share": int(rows.sum()) / max(lanes * total, 1)}
+
+
 def summary(x: torch.Tensor, live: torch.Tensor) -> dict:
     x = x[live].double()
     return {"mean": float(x.mean()), "p99": float(torch.quantile(x, 0.99)),
@@ -332,6 +415,60 @@ def build_lanes(which: str, dev, band: int) -> dict:
     return out
 
 
+def skip_windows(which: str, dev, band: int) -> dict:
+    """Kernel 8's union steps and windows per warp (warp_windows) on `big`
+    or `city` as a skip-link scene (animated, frame 0)."""
+    scene, bvh = bench.build_bench_scene(which, traversal="skip")
+    scene, bvh = scene.to(dev), bvh.to(dev)
+    tris = scene.triangles
+
+    def first_hit(o0, d0):
+        h = walk_skip_plain(bvh, tris, o0, d0, 0.0, 1e30, False)
+        return h.t, h.hit
+
+    out = {}
+    for kind, args in _band(first_hit, which, dev, band).items():
+        _, st = walk_skip_plain(bvh, tris, *args, kind == "any",
+                                with_stats=True)
+        out[kind] = warp_windows(st.visits, args[0].shape[0])
+    return out
+
+
+def lanegroup_groups(dev, band: int) -> dict:
+    """Kernel 9's steps and the share of lanes that take part
+    (group_steps), for each group count, on the small scene's table."""
+    bvh = bench.build_bench_scene()[1].to(dev)
+
+    def first_hit(o0, d0):
+        h = walk_plain(bvh, o0, d0, 0.0, 1e30, False)
+        return h.t, h.hit
+
+    args = _band(first_hit, "small", dev, band)["closest"]
+    out = {}
+    for g in GROUPS:
+        _, rows, steps = walk_lanegroup_plain(bvh, *args, g, with_stats=True,
+                                              with_steps=True)
+        out[f"g{g}"] = group_steps(rows.cpu().numpy(), steps.cpu().numpy(),
+                                   g)
+    return out
+
+
+def window_line(e) -> str:
+    """One line of warp_windows' counts."""
+    return (f"{e['warps']} warps: {e['steps']:.1f} union steps a warp "
+            f"(the parent's dependent node loads); windows of {WARP} "
+            f"{e['windows']:.1f} ({e['next_share']:.3f} of changes into the "
+            f"next window; {e['windows_at_cursor']:.1f} opened at the "
+            f"cursor), {e['dependent_loads']:.1f} not prefetched")
+
+
+def group_line(e) -> str:
+    """One line of group_steps' counts."""
+    return (f"{e['steps_per_group']:.1f} steps a group ({e['groups']} "
+            f"groups, {e['warp_steps']} warp steps), {e['rows']} rows, "
+            f"share of lanes taking part {e['share']:.3f}")
+
+
 def lane_line(e) -> str:
     """One line of the warp steps and lane utilisation of each schedule
     (lane_steps, or build_order_costs with its group_shares)."""
@@ -372,6 +509,15 @@ def main(argv=None):
     for key, per in lanes.items():
         for kind, e in per.items():
             print(f"walk_trips: {key} {kind}: {lane_line(e)}", flush=True)
+    for which in ("big", "city"):
+        key = f"skip_warp {which}"
+        lanes[key] = skip_windows(which, dev, args.band)
+        for kind, e in lanes[key].items():
+            print(f"walk_trips: {key} {kind}: {window_line(e)}", flush=True)
+    lanes["lanegroup small"] = lanegroup_groups(dev, args.band)
+    for g, e in lanes["lanegroup small"].items():
+        print(f"walk_trips: lanegroup small {g}: {group_line(e)}",
+              flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"device": str(dev), "stride": args.stride,

@@ -64,6 +64,7 @@ from gfxexp_torch.render import pathtrace as tpt  # noqa: E402
 from gfxexp_torch.render.camera import make_camera  # noqa: E402
 from gfxexp_torch.scene import animation  # noqa: E402
 from gfxexp_torch.scene.compile import compile_scene  # noqa: E402
+from gfxexp_torch.walk_trips import warp_windows  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -834,3 +835,135 @@ def test_build_order_fed_grid_and_groups(dev):
     assert instanced.launch_counts["closest_build"] == 4
     for c in persistent._grid_counters.values():
         assert c.tolist() == [0, 0]
+
+
+def _skip_soup(n_tris, max_leaf, seed=43, spread=6.0):
+    """A skip-link table over a random soup (in traversal order) and the
+    soup's triangles on the card."""
+    rng = np.random.default_rng(seed)
+    soup = S.soup(rng, n_tris, spread)
+    b, perm = build_bvh(*soup, arity=4, max_leaf=max_leaf)
+    soup = tuple(x[perm] for x in soup)
+    tb = build_skip_links(b.child_min, b.child_max, b.child_idx,
+                          b.child_count, max_leaf=max_leaf)
+    return tb, soup, rng
+
+
+def _on(dev, soup, *rays):
+    tris = types.SimpleNamespace(
+        **{k: torch.from_numpy(x).to(dev)
+           for k, x in zip(("p0", "e1", "e2"), soup)})
+    return (tris,) + tuple(torch.from_numpy(x).to(dev) for x in rays)
+
+
+def _warp_equals_plain(tb, tris, o, d, t_max):
+    """The warp scope against the plain walk, closest and any hit; returns
+    the plain closest hits."""
+    out = None
+    for any_hit in (False, True):
+        p = walk_skip_plain(tb, tris, o, d, 1e-4, t_max, any_hit)
+        k = walk_skip_cuda(tb, tris, o, d, 1e-4, t_max, any_hit, "warp")
+        torch.cuda.synchronize()
+        _equal_fields(k, p)
+        assert not k.hit[t_max < 0].any()
+        out = out if any_hit else p
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1000])
+def test_skip_warp_small_batches_match_plain(dev, n):
+    """Kernel 8 (the warp scope, a window of 32 nodes a warp) on batches of
+    1, 31, 32, 33 and 1,000 rays (ragged warps and blocks), every third ray
+    dead (t_max < 0): equal to the plain version bit for bit."""
+    tb, soup, rng = _skip_soup(2000, 4)
+    tris, o, d = _on(dev, soup, *S.aimed_rays(rng, n, *soup))
+    t_max = torch.where(torch.arange(n, device=dev) % 3 == 1, -1.0, 1e30)
+    p = _warp_equals_plain(tb.to(dev), tris, o, d, t_max)
+    assert p.hit.any() or n == 1
+
+
+@pytest.mark.parametrize("n_tris, max_leaf", [(3, 1), (20, 1), (45, 1),
+                                              (200, 4), (600, 8)])
+def test_skip_warp_table_ends_match_plain(dev, n_tris, max_leaf):
+    """Kernel 8 on tables of fewer than 32 nodes and of node counts that are
+    not a multiple of 32, so the last window is cut at the sentinel row;
+    leaves of 1, 4 and 8 triangles: equal to the plain version."""
+    tb, soup, rng = _skip_soup(n_tris, max_leaf, spread=2.0)
+    m = tb.num_nodes
+    assert m < 32 if n_tris <= 20 else m % 32 != 0
+    tris, o, d = _on(dev, soup, *S.aimed_rays(rng, 4000, *soup, box=4.0))
+    t_max = _dead_every_fifth(4000, dev)
+    p = _warp_equals_plain(tb.to(dev), tris, o, d, t_max)
+    assert p.hit.any()
+
+
+@pytest.mark.parametrize("max_leaf", [4, 8])
+def test_skip_warp_jumps_past_the_prefetched_window(dev, max_leaf):
+    """Warps whose 32 rays all aim at one triangle: their cursor skips whole
+    subtrees, past the prefetched window (checked on the plain walk's
+    visits: some window change lands past the next window). Equal to the
+    plain version."""
+    tb, soup, rng = _skip_soup(3000, max_leaf)
+    targets = rng.choice(3000, 64)
+    o, d = _aimed_at(rng, 64 * 32, soup, targets[:1])
+    for w in range(64):
+        o[32 * w:32 * w + 32], d[32 * w:32 * w + 32] = _aimed_at(
+            rng, 32, soup, targets[w:w + 1])
+    tris, o, d = _on(dev, soup, o, d)
+    tb = tb.to(dev)
+    t_max = torch.full((64 * 32,), 1e30, device=dev)
+    _, st = walk_skip_plain(tb, tris, o, d, 1e-4, t_max, False,
+                            with_stats=True)
+    assert warp_windows(st.visits.cpu().numpy(), 64 * 32)["next_share"] < 1
+    p = _warp_equals_plain(tb, tris, o, d, t_max)
+    assert p.hit.float().mean() > 0.5
+
+
+@pytest.mark.parametrize("n", [37, 700, 1000])
+@pytest.mark.parametrize("arity", [4, 8])
+@pytest.mark.parametrize("groups", [1, 2, 4])
+def test_lanegroup_ragged_batches_match_plain(dev, groups, arity, n):
+    """Kernel 9 (pairs of the lanes that take part, the group's stack in
+    shared memory) on ragged batches, every fifth ray dead: equal to its
+    plain version bit for bit, rows per ray included."""
+    tb = _soup_table(arity, n=3000).to(dev)
+    o, d = (x.to(dev) for x in _rays(n, seed=n))
+    t_max = _dead_every_fifth(n, dev, 4.0)
+    k, kr = walk_lanegroup_cuda(tb, o, d, 1e-4, t_max, groups,
+                                with_stats=True)
+    p, pr = walk_lanegroup_plain(tb, o, d, 1e-4, t_max, groups,
+                                 with_stats=True)
+    torch.cuda.synchronize()
+    _equal_fields(k, p)
+    assert torch.equal(kr, pr)
+
+
+@pytest.mark.parametrize("groups", [1, 2, 4])
+def test_lanegroup_idle_warps_and_signed_zero_match_plain(dev, groups):
+    """Kernel 9 where no lane of one warp takes part for a whole walk (its
+    rays dead or pointed away from every box) while the other warps of its
+    group walk, and where rays of one warp enter the same boxes with an
+    entry distance of -0.0 and of +0.0 (origins inside the boxes, t_min
+    -0.0 beside +0.0; the group's minimum takes -0.0, which the sort network
+    compares equal to +0.0): equal to the plain version, rows included."""
+    tb = _soup_table(4, n=3000).to(dev)
+    o, d = _rays(512, seed=3)
+    o = o * 0.2  # inside the soup's boxes
+    t_min = torch.where(torch.arange(512) % 2 == 0, -0.0, 0.0)
+    t_max = torch.full((512,), 4.0)
+    idle = (torch.arange(512) // 32) % 4 == 1  # the second warp of a block
+    t_max[idle & (torch.arange(512) % 2 == 0)] = -1.0
+    o[idle] = torch.tensor([1e6, 1e6, 1e6])
+    d[idle] = torch.tensor([0.0, 1.0, 0.0])
+    o, d, t_min, t_max = (x.to(dev) for x in (o, d, t_min, t_max))
+    assert bool(torch.signbit(t_min).any())
+    k, kr = walk_lanegroup_cuda(tb, o, d, t_min, t_max, groups,
+                                with_stats=True)
+    p, pr = walk_lanegroup_plain(tb, o, d, t_min, t_max, groups,
+                                 with_stats=True)
+    r = walk_plain(tb, o, d, t_min, t_max, False)
+    torch.cuda.synchronize()
+    _equal_fields(k, p)
+    assert torch.equal(kr, pr)
+    assert int(kr[idle].max()) <= 1 and int(kr[~idle].sum()) > 0
+    assert torch.equal(k.hit, r.hit) and torch.equal(k.t, r.t)

@@ -1,7 +1,9 @@
 """The CPU counts of gfxexp_torch.walk_trips: dependent round trips to memory
 of kernel 2 (chunked wide rows, persistent.chunked_trips) and of the
-skip-link walk's per-ray scope (skiplink.skip_trips), and the lane
-utilisation of kernel 1's and the build-order two-level walk's schedules:
+skip-link walk's per-ray scope (skiplink.skip_trips), the lane
+utilisation of kernel 1's and the build-order two-level walk's schedules,
+the skip-link warp scope's windows (warp_windows) and the lane-group
+walk's steps (group_steps):
 hand-built trees and visit sequences whose counts are known, and on small
 scenes the counts against the plain walks' own stats."""
 
@@ -40,10 +42,13 @@ from gfxexp_torch.scene.compile import compile_scene  # noqa: E402
 from gfxexp_torch.walk_trips import (  # noqa: E402
     build_order_costs,
     group_shares,
+    group_steps,
     lane_steps,
     refill_steps,
     static_steps,
+    warp_windows,
 )
+from gfxexp_torch.accel.lanegroup import walk_lanegroup_plain  # noqa: E402
 
 FIELDS = ("t", "u", "v", "tri", "hit")
 
@@ -339,3 +344,99 @@ def test_lane_counts_on_bench_scenes():
     assert c["candidate"]["walk_steps"] <= lock["walk_steps"]
     assert c["window"]["walk_steps"] <= lock["walk_steps"]
     assert c["window"]["scan_steps"] == lock["scan_steps"]
+
+
+def test_skip_visits_of_the_hand_tree():
+    """The plain walk's visits, in order: closest hit takes every node of
+    the hand-built tree, any hit the root and the first leaf."""
+    bvh, tris, o, d = _hand_tree()
+    for any_hit, nodes in ((False, [0, 1, 2, 3, 4]), (True, [0, 1])):
+        _, st = walk_skip_plain(bvh, tris, o, d, 1e-4, 1e30, any_hit,
+                                with_stats=True)
+        assert st.visits.tolist() == [[0, c] for c in nodes]
+
+
+def test_warp_windows_of_hand_built_visits():
+    """Warp 0: rays 0 and 1 visit nodes {0, 1, 2, 40, 41, 100} and {0, 5,
+    70}, a union of 8 steps. With the prefetch the windows start at 0, 32,
+    64 and 96 (every change into the next window: one load not
+    prefetched); opened at the cursor they start at 0, 40 and 100. Warp 1:
+    ray 32 visits {0, 200}: two windows, the change past the next one.
+    Warp 2 has no live ray and is not counted."""
+    visits = [(0, c) for c in (0, 1, 2, 40, 41, 100)] + [
+        (1, c) for c in (0, 5, 70)] + [(32, 0), (32, 200)]
+    out = warp_windows(np.array(visits), 96)
+    assert out == {"warps": 2, "steps": (8 + 2) / 2,
+                   "windows": (4 + 2) / 2, "windows_at_cursor": (3 + 2) / 2,
+                   "next_share": 3 / 4, "dependent_loads": (1 + 2) / 2}
+    assert warp_windows(np.zeros((0, 2)), 32)["warps"] == 0
+
+
+def test_group_steps_of_hand_built_counts():
+    """Two groups of 32 lanes (G = 4), 10 and 0 steps, 40 rows: a share of
+    40 / 320; one group of 128 lanes (G = 1) spans four warps."""
+    rows = np.zeros(64, np.int64)
+    rows[:4] = 10
+    out = group_steps(rows, np.array([10, 0]), 4)
+    assert out == {"groups": 2, "steps": 10, "steps_per_group": 5.0,
+                   "warp_steps": 10, "rows": 40, "share": 40 / 320}
+    out = group_steps(np.full(128, 1), np.array([5]), 1)
+    assert (out["warp_steps"], out["share"]) == (20, 128 / (128 * 5))
+
+
+@pytest.mark.parametrize("groups", [1, 2, 4])
+def test_lanegroup_steps_match_plain_stats(groups):
+    """On bench.py's small scene, 700 rays (a ragged last block), some
+    dead: the step counts leave the results and rows alone; a group steps
+    at least as often as any of its lanes takes part, and the share of
+    lanes that take part lies in (0, 1]."""
+    scene, small = bench.build_bench_scene(traversal="widerow")
+    tris = scene.triangles
+    rng = np.random.default_rng(47)
+    soup = tuple(x.numpy() for x in (tris.p0, tris.e1, tris.e2))
+    o, d = (torch.from_numpy(x) for x in S.aimed_rays(rng, 700, *soup,
+                                                      box=3.0))
+    t_max = torch.where(torch.arange(700) % 9 == 4, -1.0, 1e30)
+    h, rows = walk_lanegroup_plain(small, o, d, 1e-4, t_max, groups,
+                                   with_stats=True)
+    h2, rows2, steps = walk_lanegroup_plain(small, o, d, 1e-4, t_max, groups,
+                                            with_stats=True, with_steps=True)
+    for f in FIELDS:
+        assert torch.equal(getattr(h, f), getattr(h2, f)), f
+    assert torch.equal(rows, rows2)
+    lanes = 128 // groups
+    assert steps.shape == (-(-700 // 128) * groups,)
+    pad = torch.cat([rows, rows.new_zeros(len(steps) * lanes - 700)])
+    assert (steps >= pad.reshape(-1, lanes).max(1).values).all()
+    out = group_steps(rows.numpy(), steps.numpy(), groups)
+    assert 0 < out["share"] <= 1
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_warp_windows_on_plain_visits(any_hit):
+    """On the box with three spheres, 1,000 rays: the visits are the nodes
+    each ray visited, in preorder; a warp's union takes at least as many
+    steps as its longest ray, at least one window, never more windows than
+    steps, and the prefetch leaves no more dependent loads than windows."""
+    scene, bvh = next(_skip_scenes())
+    tris = scene.triangles
+    rng = np.random.default_rng(53)
+    soup = tuple(x.numpy() for x in (tris.p0, tris.e1, tris.e2))
+    o, d = (torch.from_numpy(x) for x in S.aimed_rays(rng, 1000, *soup,
+                                                      box=3.0))
+    t_max = torch.where(torch.arange(1000) % 7 == 3, -1.0, 1e30)
+    _, st = walk_skip_plain(bvh, tris, o, d, 1e-4, t_max, any_hit,
+                            with_stats=True)
+    v = st.visits.numpy()
+    assert len(v) == int(st.nodes.sum())
+    assert np.array_equal(np.bincount(v[:, 0], minlength=1000),
+                          st.nodes.numpy())
+    order = np.lexsort((np.arange(len(v)), v[:, 0]))
+    same = v[order][1:, 0] == v[order][:-1, 0]
+    assert (np.diff(v[order][:, 1])[same] > 0).all()
+    out = warp_windows(v, 1000)
+    assert out["warps"] == -(-1000 // 32)
+    longest = np.pad(st.nodes.numpy(), (0, 24)).reshape(-1, 32).max(1)
+    assert out["steps"] >= longest.mean()
+    assert 1 <= out["windows_at_cursor"] <= out["steps"]
+    assert out["dependent_loads"] <= out["windows"] <= out["steps"]
