@@ -86,7 +86,28 @@ Phases, one line each, any failure exits non-zero:
      and the small scene with the switch off (`nopersist`), with the
      launch counts (kernels 2 and the quantized walk launched, kernel 1 and
      the lane-group walk not), image checks, peak memory and
-     torch.profiler shares.
+     torch.profiler shares;
+ 19. G-buffer: render_gbuffer at 256x256 on the small scene (kernel 1) and
+     on `big` animated after one advance_frame (kernel 6), the previous
+     camera moved, on the card against the CPU: hit equal, tri, unit and
+     material equal on >= 0.999 of pixels (the rest ties in t), position,
+     normal, albedo and motion within GB_BARS; the walk's route and its
+     launches;
+ 20. SVGF: 8 frames of svgf_frame at 128x128 on the card and on the CPU
+     from the same G-buffers and lighting (mean relative difference <
+     SVGF_BAR); the svgf app's frame loop at 1920x1080, 16 frames, on the
+     small scene (static, kernel 1) and `big` animated (kernel 6): ms per
+     frame of update, gbuffer, pathTrace and svgf (fenced), the walks'
+     launches, one svgf and one gbuffer pass under torch.profiler (CUDA
+     kernels, idle share), out/torch_svgf_{small,big_animated}.png;
+ 21. ReSTIR DI on 256 emitters over a floor with 16 spheres (built here):
+     the classic and the rearchitected pipelines, 4 frames at 64x64 on the
+     card against the CPU (image mean relative difference < 5e-3); at
+     1920x1080, 8 frames each: ms per frame of gbuffer and restir, shadow
+     rays per frame, kernel 1's launches per frame, one frame under
+     torch.profiler, out/torch_restir_{classic,rearch}.png; then the svgf,
+     restir_di -rearch and path_tracing -denoise CLIs at 64x64, 4 frames,
+     all three at once; their PNGs.
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -1550,6 +1571,386 @@ def phase_sl_main(report, built, small, dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases 19-21: the screen-space techniques (G-buffer, SVGF, ReSTIR DI)
+# ---------------------------------------------------------------------------
+
+GB_RES = 256  # phase 19's G-buffers
+TECH_W, TECH_H = 1920, 1080  # the techniques' frames (BASELINE.json's size)
+TECH_FRAMES = 16  # the svgf app's frames per scene (phase 20)
+RESTIR_FRAMES = 8  # ReSTIR frames per pipeline at 1080p (phase 21)
+SVGF_BAR = 1e-3  # card vs CPU, mean relative difference per SVGF frame
+# card vs CPU G-buffer planes where hit, tri, unit and material agree. An
+# animated scene's world triangles come from each device's own
+# advance_frame (slerp's sin, cos and arccos round differently), so normals,
+# and the albedo that follows from them, differ by up to ~2.4e-5 there
+GB_BARS = {"position": 1e-4, "normal": 1e-4, "albedo": 1e-4, "motion": 1e-3}
+# the many-light scene's camera: above and in front of the emitter grid
+ML_CAMERA = dict(position=[0.0, 5.0, 11.0], target=[0.0, 0.0, 0.0])
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).mean() / (np.abs(b).mean() + 1e-6))
+
+
+def _reset_counts():
+    for mod in (persistent, qrow, lanegroup, instanced, skip_traverse):
+        mod.reset_launch_counts()
+
+
+def _route_launched(counts, route, kinds=("closest", "any")):
+    """Whether the route's walks of `kinds` were launched and no other walk
+    was: kernel 1 for a static wide-row table, kernel 6's per-ray scope for
+    a skip-link table."""
+    group, suffix = {"widerow": ("kernel1", ""),
+                     "skip": ("skip", "_thread")}[route]
+    keys = [k + suffix for k in kinds]
+    return all(counts[group][k] > 0 for k in keys) and not any(
+        v for g, c in counts.items() for k, v in c.items()
+        if not (g == group and k in keys))
+
+
+def phase_gbuffer(report, dev):
+    """G-buffers of the small scene (kernel 1) and of `big` animated after
+    one advance_frame (kernel 6), card against CPU at GB_RES^2."""
+    from gfxexp_torch.accel.traverse import _check_structure
+    from gfxexp_torch.render.gbuffer import render_gbuffer
+
+    rows = {}
+    for key, which, traversal in (("small", "small", "widerow"),
+                                  ("big_animated", "big", "skip")):
+        scene, bvh = bench.build_bench_scene(which, traversal=traversal)
+        sd, bd = scene.to(dev), bvh.to(dev)
+        if traversal == "skip":
+            ctl = bench.bench_controllers(which)
+            scene, bvh = animation.advance_frame(scene, bvh, ctl, 1 / 60)
+            sd, bd = animation.advance_frame(sd, bd, ctl, 1 / 60)
+        route = _check_structure(bd)
+        check(route == traversal, f"19 gbuffer {key}: route {route}")
+        cam = bench.bench_camera(GB_RES, GB_RES, which)
+        prev = dataclasses.replace(cam, position=cam.position
+                                   + torch.tensor([0.02, 0.0, 0.0]))
+        _reset_counts()
+        t0 = time.perf_counter()
+        a = render_gbuffer(sd, bd, cam.to(dev), prev.to(dev), GB_RES, GB_RES,
+                           1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _all_counts()
+        check(_route_launched(counts, route, ("closest",)),
+              f"19 gbuffer {key}: the card's G-buffer did not take the CUDA "
+              f"{route} walk: {counts}")
+        b = render_gbuffer(scene, bvh, cam, prev, GB_RES, GB_RES, 1)
+        a = a.to("cpu")
+        check(torch.equal(a.hit, b.hit), f"19 gbuffer {key}: hit differs")
+        same = ((a.tri == b.tri) & (a.unit == b.unit)
+                & (a.material == b.material))
+        depth_tie = (a.depth - b.depth).abs() <= 1e-6 * b.depth.abs()
+        check(bool((same | (a.hit & depth_tie)).all()),
+              f"19 gbuffer {key}: ids differ off a tie in t")
+        share = float(same.float().mean())
+        check(share >= 0.999, f"19 gbuffer {key}: ids equal on {share}")
+        errs = {n: float((getattr(a, n)[same] - getattr(b, n)[same]).abs()
+                         .max()) for n in GB_BARS}
+        check(all(errs[n] <= GB_BARS[n] for n in GB_BARS)
+              and torch.isfinite(a.position).all(),
+              f"19 gbuffer {key}: planes {errs} (bars {GB_BARS})")
+        rows[key] = {"route": route, "ids_equal_share": share,
+                     "max_abs_err": errs, "hit_share":
+                     float(a.hit.float().mean()), "ms_first_call": ms,
+                     "launches": {g: {k: v for k, v in c.items() if v}
+                                  for g, c in counts.items()},
+                     "moving_share": float((a.motion.abs().sum(-1) > 0)
+                                           .float().mean())}
+        print(f"[19 gbuffer {key}] {GB_RES}x{GB_RES} on the card ({route} "
+              f"CUDA walk, launches {rows[key]['launches']}) vs the CPU: "
+              f"hit equal, tri/unit/material equal on {share:.5f} of "
+              f"pixels (bar 0.999, the rest ties in t), max abs err "
+              + ", ".join(f"{n} {v:.3g}" for n, v in errs.items())
+              + f" (bars {GB_BARS}); hit share {rows[key]['hit_share']:.3f}, "
+              f"moving share {rows[key]['moving_share']:.3f}", flush=True)
+    report["gbuffer"] = rows
+
+
+def _profile_pass(tag, fn, what):
+    return _print_profile(tag, _profile(lambda _: fn()), what)
+
+
+def phase_svgf(report, dev):
+    """SVGF: 8 frames on the card against the CPU from the same inputs;
+    then the svgf app's frame loop at 1920x1080 on the small scene (static,
+    kernel 1) and `big` animated (kernel 6), 16 frames each."""
+    from gfxexp_torch.apps import svgf as svgf_app
+    from gfxexp_torch.render.gbuffer import render_gbuffer
+    from gfxexp_torch.techniques.svgf import (
+        SVGFConfig,
+        make_svgf_state,
+        svgf_frame,
+    )
+
+    cfg = SVGFConfig()
+    pt_cfg = PTConfig(max_path_length=bench.MAX_PATH_LENGTH)
+    res = 128
+    scene, bvh = (x.to(dev) for x in bench.build_bench_scene())
+    cam = bench.bench_camera(res, res).to(dev)
+    sd, sc = make_svgf_state(res, res, dev), make_svgf_state(res, res, "cpu")
+    diffs = []
+    for f in range(8):
+        gb = render_gbuffer(scene, bvh, cam, cam, res, res, f)
+        light = render_sample(scene, bvh, cam, res, res, f,
+                              pt_cfg).reshape(res, res, 3)
+        a, sd = svgf_frame(sd, gb, light, cfg)
+        b, sc = svgf_frame(sc, gb.to("cpu"), light.cpu(), cfg)
+        check(bool(torch.isfinite(a).all()), "20 svgf: non-finite pixels")
+        diffs.append(_rel(a.cpu().numpy(), b.numpy()))
+    check(max(diffs) < SVGF_BAR,
+          f"20 svgf: card vs cpu rel diffs {diffs} (bar {SVGF_BAR})")
+    print(f"[20 svgf] 8 frames at {res}x{res}, card vs CPU from the same "
+          f"G-buffers and lighting: mean rel diff per frame max "
+          f"{max(diffs):.3g} (bar {SVGF_BAR})", flush=True)
+    rows = {"card_vs_cpu_rel_diffs": diffs}
+    for key, which, traversal in (("small", "small", "widerow"),
+                                  ("big_animated", "big", "skip")):
+        scene, bvh = (x.to(dev) for x in bench.build_bench_scene(
+            which, traversal=traversal))
+        ctl = bench.bench_controllers(which) if traversal == "skip" else []
+        cam = bench.bench_camera(TECH_W, TECH_H, which).to(dev)
+        args = (cam, ctl, traversal, TECH_W, TECH_H)
+        # one warm-up frame (the caching allocator fills up)
+        svgf_app.frame_loop(scene, bvh, *args, 1, pt_cfg, cfg,
+                            PassTimer(device=dev))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        timer = PassTimer(device=dev)
+        _reset_counts()
+        t0 = time.perf_counter()
+        final, state, s2, b2 = svgf_app.frame_loop(
+            scene, bvh, *args, TECH_FRAMES, pt_cfg, cfg, timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _all_counts()
+        check(_route_launched(counts, traversal),
+              f"20 svgf {key}: the frame loop did not take the CUDA "
+              f"{traversal} walk: {counts}")
+        check(final.shape == (TECH_H, TECH_W, 3)
+              and bool(torch.isfinite(final).all())
+              and float(final.mean()) > 0, f"20 svgf {key}: bad image")
+        ms = {p: timer.mean_ms(p) for p in timer.samples}
+        gb = render_gbuffer(s2, b2, cam, cam, TECH_W, TECH_H, TECH_FRAMES)
+        light = render_sample(s2, b2, cam, TECH_W, TECH_H, TECH_FRAMES,
+                              pt_cfg).reshape(TECH_H, TECH_W, 3)
+        prof = {
+            "svgf": _profile_pass(
+                f"20 svgf profile {key}",
+                lambda: svgf_frame(state, gb, light, cfg), "one svgf pass"),
+            "gbuffer": _profile_pass(
+                f"20 gbuffer profile {key}",
+                lambda: render_gbuffer(s2, b2, cam, cam, TECH_W, TECH_H, 1),
+                "one gbuffer pass")}
+        rows[key] = {"frames": TECH_FRAMES, "ms_per_frame": ms,
+                     "wall_s": wall, "peak_memory_bytes":
+                     torch.cuda.max_memory_allocated(dev),
+                     "launches": {g: {k: v for k, v in c.items() if v}
+                                  for g, c in counts.items()},
+                     "mean": float(final.mean()), "profile": prof}
+        save_png(os.path.join(REPO, "out", f"torch_svgf_{key}.png"),
+                 (final / (1.0 + final)).cpu().numpy())
+        print(f"[20 svgf {key}] {TECH_FRAMES} frames at {TECH_W}x{TECH_H}, "
+              f"ms per frame: " + ", ".join(f"{p} {v:.2f}"
+                                            for p, v in ms.items())
+              + f"; wall {wall:.2f}s, peak memory "
+              f"{rows[key]['peak_memory_bytes'] / 1e9:.2f} GB, walk "
+              f"launches {rows[key]['launches']}", flush=True)
+    report["svgf"] = rows
+
+
+def _many_light_scene(n_lights=256, seed=3, albedo=0.6, occluders=16):
+    """tests/scenes.py many_light_scene's recipe at 256 emitters (a 16 x 16
+    grid of 0.15 squares at y = 2, spaced 1.2, of random intensity 1-60,
+    over a 20 x 20 floor), with `occluders` spheres of radius 0.35 under
+    them that cast shadows; compiled as wide rows, the apps' default for a
+    static scene."""
+    from gfxexp_torch.scene.builder import SceneBuilder, affine
+    from gfxexp_torch.scene.compile import compile_scene
+
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    floor = b.add_lambert_material((albedo, albedo, albedo))
+    b.add_instance(b.add_rectangle(20.0, 20.0, floor))
+    side = int(np.sqrt(n_lights))
+    flip = np.array([[1, 0, 0], [0, -1, 0], [0, 0, -1]], np.float64)
+    for i in range(side):
+        for j in range(side):
+            e = float(rng.uniform(1.0, 60.0))
+            m = b.add_lambert_material((0, 0, 0), emittance=(e, e, e))
+            g = b.add_rectangle(0.15, 0.15, m)
+            b.add_instance(g, affine(rotation=flip, translation=[
+                (i - side / 2 + 0.5) * 1.2, 2.0, (j - side / 2 + 0.5) * 1.2]))
+    mat = b.add_lambert_material((0.5, 0.4, 0.3))
+    sph = b.add_sphere(0.35, mat, n_theta=10, n_phi=20)
+    for _ in range(occluders):
+        x, z = rng.uniform(-6.0, 6.0, 2)
+        b.add_instance(sph, affine(translation=[x, 0.8, z]))
+    return compile_scene(b, traversal="widerow")
+
+
+def _ml_camera(w, h):
+    from gfxexp_torch.render.camera import make_camera
+
+    return make_camera(ML_CAMERA["position"], fov_y=np.deg2rad(50),
+                       aspect=w / h, target=ML_CAMERA["target"])
+
+
+def _count_shadow_rays(fn):
+    """fn() with every _visibility call's live lanes counted: (fn's
+    result, shadow rays)."""
+    from gfxexp_torch.techniques import restir_di
+
+    orig = restir_di._visibility
+    counted = []
+
+    def visibility(scene, bvh, ctx, ls_pos, ls_inf, valid):
+        counted.append(valid.sum())
+        return orig(scene, bvh, ctx, ls_pos, ls_inf, valid)
+
+    restir_di._visibility = visibility
+    try:
+        out = fn()
+    finally:
+        restir_di._visibility = orig
+    return out, float(sum(counted)) if counted else 0.0
+
+
+def _png_cli(tag, module, argv, size):
+    out = os.path.join(REPO, "out", f"cli_{tag}")
+    if os.path.exists(out + ".png"):
+        os.remove(out + ".png")
+    cmd = [sys.executable, "-m", module, "-width", str(size), "-height",
+           str(size), "-frames", "4", "-stats", "-output", out, *argv]
+    return out, subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True,
+                                 env=dict(os.environ, PYTHONPATH=REPO))
+
+
+def phase_restir(report, dev):
+    """ReSTIR DI: both pipelines 4 frames card against CPU at 64^2, then at
+    1920x1080 on the 256-emitter scene; then the svgf, restir_di -rearch
+    and path_tracing -denoise CLIs at 64^2 on the card, all three at
+    once."""
+    from gfxexp_torch.apps import restir_di as restir_app
+    from gfxexp_torch.render.gbuffer import render_gbuffer
+    from gfxexp_torch.techniques.restir_di import (
+        ReSTIRConfig,
+        empty_reservoir,
+        empty_sample_visibility,
+        pixel_ctx,
+        restir_di_frame,
+    )
+
+    t0 = time.time()
+    scene_c, bvh_c = _many_light_scene()
+    build_s = time.time() - t0
+    scene, bvh = scene_c.to(dev), bvh_c.to(dev)
+    rows = {"scene": {"triangles": scene.num_triangles,
+                      "emissive_units": int((scene_c.units.emissive_importance
+                                             > 0).sum()),
+                      "host_build_s": build_s}}
+    pipelines = {"classic": ReSTIRConfig(),
+                 "rearch": ReSTIRConfig(use_rearchitected_pipeline=True)}
+    for name, cfg in pipelines.items():
+        imgs = {}
+        for where, s, b in (("cuda", scene, bvh), ("cpu", scene_c, bvh_c)):
+            cam = _ml_camera(64, 64).to(s.device)
+            film, _, _ = restir_app.frame_loop(s, b, cam, [], "widerow", 64,
+                                               64, 4, cfg, True,
+                                               PassTimer(device=s.device))
+            imgs[where] = film.beauty.cpu().numpy()
+        rel = _rel(imgs["cuda"], imgs["cpu"])
+        check(np.isfinite(imgs["cuda"]).all() and imgs["cuda"].mean() > 0
+              and rel < IMAGE_BAR,
+              f"21 restir {name}: card vs cpu rel diff {rel}")
+        rows[f"{name}_card_vs_cpu_rel_diff"] = rel
+        print(f"[21 restir {name}] 4 frames at 64x64 on the 256-emitter "
+              f"scene, card vs CPU: image rel diff {rel:.3g} (bar "
+              f"{IMAGE_BAR})", flush=True)
+    cam = _ml_camera(TECH_W, TECH_H).to(dev)
+    n = TECH_W * TECH_H
+    for name, cfg in pipelines.items():
+        restir_app.frame_loop(scene, bvh, cam, [], "widerow", TECH_W, TECH_H,
+                              1, cfg, True, PassTimer(device=dev))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        timer = PassTimer(device=dev)
+        _reset_counts()
+        film, _, _ = restir_app.frame_loop(scene, bvh, cam, [], "widerow",
+                                           TECH_W, TECH_H, RESTIR_FRAMES, cfg,
+                                           True, timer)
+        torch.cuda.synchronize()
+        counts = _all_counts()
+        check(_route_launched(counts, "widerow"),
+              f"21 restir {name}: the frames did not take kernel 1: {counts}")
+        img = film.beauty
+        check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+              f"21 restir {name}: bad image")
+        # one more frame, its shadow rays counted, and one under the
+        # profiler, from the same state
+        gb = render_gbuffer(scene, bvh, cam, cam, TECH_W, TECH_H, 0)
+        ctx = pixel_ctx(scene, gb, cam)
+        flat = (gb.hit.reshape(n), gb.position.reshape(n, 3),
+                gb.normal.reshape(n, 3))
+        state = (empty_reservoir(n, dev), ctx)
+        out = restir_di_frame(scene, bvh, gb, cam, *state, *flat, 0, cfg,
+                              empty_sample_visibility(n, dev))
+        (col, res, ctx2, vis), rays = _count_shadow_rays(
+            lambda: restir_di_frame(scene, bvh, gb, cam, out[1], out[2],
+                                    *flat, 1, cfg, out[3]))
+        prof = _profile_pass(
+            f"21 restir profile {name}",
+            lambda: restir_di_frame(scene, bvh, gb, cam, res, ctx2, *flat, 2,
+                                    cfg, vis), "one restir frame")
+        ms = {p: timer.mean_ms(p) for p in timer.samples}
+        rows[name] = {"frames": RESTIR_FRAMES, "ms_per_frame": ms,
+                      "shadow_rays_per_frame": rays,
+                      "peak_memory_bytes":
+                      torch.cuda.max_memory_allocated(dev),
+                      "launches": {g: {k: v for k, v in c.items() if v}
+                                   for g, c in counts.items()},
+                      "launches_per_frame": {
+                          k: v / RESTIR_FRAMES
+                          for k, v in counts["kernel1"].items()},
+                      "mean": float(img.mean()), "profile": prof}
+        save_png(os.path.join(REPO, "out", f"torch_restir_{name}.png"),
+                 (img / (1.0 + img)).cpu().numpy())
+        print(f"[21 restir {name}] {RESTIR_FRAMES} frames at "
+              f"{TECH_W}x{TECH_H}, ms per frame: " + ", ".join(
+                  f"{p} {v:.2f}" for p, v in ms.items())
+              + f"; {rays:.0f} shadow rays per frame ({rays / n:.2f} per "
+              f"pixel), kernel 1 launches per frame "
+              f"{rows[name]['launches_per_frame']}, peak memory "
+              f"{rows[name]['peak_memory_bytes'] / 1e9:.2f} GB", flush=True)
+    # the three CLIs at once, after the timed frames
+    clis = {tag: _png_cli(tag, mod, argv, 64) for tag, mod, argv in (
+        ("svgf", "gfxexp_torch.apps.svgf", []),
+        ("restir_di", "gfxexp_torch.apps.restir_di", ["-rearch"]),
+        ("path_tracing_denoise", "gfxexp_torch.apps.path_tracing",
+         ["-denoise"]))}
+    for tag, (out, proc) in clis.items():
+        _, err = proc.communicate(timeout=300)
+        check(proc.returncode == 0,
+              f"21 CLI {tag} exited {proc.returncode}: {err[-2000:]}")
+        px = _png_pixels(out + ".png")
+        check(px.shape == (64, 64, 3) and px.any(),
+              f"21 CLI {tag}: PNG {px.shape}, all black {not px.any()}")
+        stats = [ln for ln in err.splitlines() if ln.startswith("final:")]
+        rows[f"cli_{tag}"] = {"stats": stats[-1] if stats else None,
+                              "mean_pixel": float(px.mean())}
+        print(f"[21 CLI {tag}] 64x64, 4 frames: rc 0, out/cli_{tag}.png "
+              f"mean pixel {px.mean():.1f}; "
+              f"{stats[-1] if stats else ''}", flush=True)
+    report["restir"] = rows
+
+
 def mark(report, t_start, phase):
     """Seconds since the start at the end of `phase`, kept and printed."""
     secs = time.time() - t_start
@@ -1602,6 +2003,13 @@ def main():
     mark(report, t_start, "17")
     sl_launches = phase_sl_main(report, sl_built, (scene, bvh), dev)
     mark(report, t_start, "18")
+    sl_built = None  # free the card for the techniques' frames
+    phase_gbuffer(report, dev)
+    mark(report, t_start, "19")
+    phase_svgf(report, dev)
+    mark(report, t_start, "20")
+    phase_restir(report, dev)
+    mark(report, t_start, "21")
 
     kernels = [
         {"name": f"widerow_walk_{kind}", "route": "cuda",

@@ -8,10 +8,11 @@ over (-name, -emittance, -rectangle, -sphere, -inst with -position,
 picks where the app runs: `cuda` (the default) or `cpu`; without a card,
 `cuda` raises instead of falling back.
 
-Not ported yet, and raising NotImplementedError when asked for: `-obj` (the
-mesh loaders, scene/loaders.py), `-env-texture` and `-exr` (EXR I/O,
-utils/image_io.py), `-live` and its camera rig (utils/viewer.py) and
-`-denoise` (techniques/svgf.py).
+`-denoise` runs the SVGF denoiser (Denoiser) on the accumulated image
+every frame. Not ported yet, and raising NotImplementedError when asked for:
+`-obj` (the mesh loaders, scene/loaders.py), `-env-texture` and `-exr` (EXR
+I/O, utils/image_io.py), `-live` and its camera rig (utils/viewer.py) and
+a non-zero `-debug-switches`.
 """
 
 from __future__ import annotations
@@ -88,8 +89,8 @@ def check_unported(args):
     missing = (("exr", "-exr needs EXR output (utils/image_io.py save_exr)"),
                ("live", "-live needs the live viewer and its camera rig "
                         "(utils/viewer.py)"),
-               ("denoise", "-denoise needs the SVGF denoiser "
-                           "(techniques/svgf.py)"))
+               ("debug_switches", "-debug-switches needs the path tracer's "
+                                  "debug switches (render/pathtrace.py)"))
     for attr, what in missing:
         if getattr(args, attr, None) not in (None, False):
             raise NotImplementedError(f"{what}, which is not ported yet")
@@ -102,6 +103,41 @@ def resolve_device(args) -> torch.device:
         raise RuntimeError("no CUDA device: pass -device cpu to render on "
                            "the CPU")
     return dev
+
+
+def compile_app_scene(args, dev):
+    """The DSL's scene (the box and lamp when it names none) compiled for
+    the app's traversal and moved to `dev`. Static scenes default to the
+    wide-row walk, animated ones to the refittable skip-link structure;
+    `-traversal` overrides. Returns (scene, bvh, controllers, traversal)."""
+    from gfxexp_torch.scene.compile import compile_scene
+
+    builder, controllers = build_scene_from_dsl(args, args.scene_args)
+    if not builder.instances:
+        builder = default_demo_builder()
+    traversal = args.traversal or ("skip" if controllers else "widerow")
+    scene, bvh = compile_scene(
+        builder, traversal=traversal,
+        spatial_splits=(args.spatial_splits
+                        if traversal in ("widerow", "qrow") else False),
+        rebraid=args.rebraid if traversal == "instanced" else 0.0)
+    return scene.to(dev), bvh.to(dev), controllers, traversal
+
+
+def frame_advance(controllers, traversal: str):
+    """The per-frame animation update of the traversal's structure:
+    advance_frame (skip-link refit) or advance_frame_instanced (two-level
+    rigid update). Raises for an animated scene on a static table."""
+    from gfxexp_torch.scene.animation import (
+        advance_frame,
+        advance_frame_instanced,
+    )
+
+    if controllers and traversal not in ("skip", "instanced"):
+        raise ValueError(f"animated scenes need -traversal skip or "
+                         f"instanced, got {traversal!r}")
+    return (advance_frame_instanced if traversal == "instanced"
+            else advance_frame)
 
 
 def euler_orientation(roll: float, pitch: float, yaw: float) -> np.ndarray:
@@ -267,6 +303,70 @@ def save_outputs(args, hdr_image: np.ndarray):
     sdr = np.clip(hdr_image * args.brightness, 0.0, 1.0)
     save_png(out + ".png", sdr)
     print(f"wrote {out}.png")
+
+
+class Denoiser:
+    """The SVGF denoiser of the apps' `-denoise`: it owns its temporal state
+    and renders the G-buffer it needs (or takes the frame's); call step()
+    once a frame with the accumulated HDR image [H, W, 3]."""
+
+    def __init__(self, width: int, height: int, taa: bool = False,
+                 device="cuda"):
+        from gfxexp_torch.techniques.svgf import SVGFConfig, make_svgf_state
+
+        # the accumulated input is already a temporal mean: the à-trous
+        # stages and the validated EMA, without TAA unless asked for
+        self.cfg = SVGFConfig(enable_taa=taa)
+        self.state = make_svgf_state(width, height, device)
+        self.width, self.height = width, height
+        self.prev_camera = None
+        self.image = None  # the last step's output
+
+    def step(self, scene, bvh, camera, frame: int, hdr, timer=None,
+             jitter: bool = False, gb=None):
+        """The denoised [H, W, 3] image; updates the temporal state."""
+        from gfxexp_torch.render.gbuffer import render_gbuffer
+        from gfxexp_torch.techniques.svgf import svgf_frame
+
+        def measure(name, fn, *a):
+            return fn(*a) if timer is None else timer.measure(name, fn, *a)
+
+        prev_camera = (self.prev_camera if self.prev_camera is not None
+                       else camera)
+        if gb is None:
+            gb = measure("gbuffer", render_gbuffer, scene, bvh, camera,
+                         prev_camera, self.width, self.height, frame, jitter)
+        hdr = hdr.reshape(self.height, self.width, 3)
+        self.image, self.state = measure("denoise", svgf_frame, self.state,
+                                         gb, hdr, self.cfg)
+        self.prev_camera = camera
+        return self.image
+
+
+def maybe_denoiser(args, device="cuda"):
+    """A Denoiser on `device` when -denoise was asked for, else None."""
+    if not getattr(args, "denoise", False):
+        return None
+    return Denoiser(args.width, args.height, device=device)
+
+
+def pick_info(scene, gb, x: int, y: int) -> dict:
+    """What the G-buffer holds at pixel (x, y), as Python values."""
+    unit = int(gb.unit[y, x])
+    mat = int(gb.material[y, x])
+    return {
+        "pixel": (x, y),
+        "hit": bool(gb.hit[y, x]),
+        "instance": (int(scene.units.instance[unit]) if unit >= 0 else -1),
+        "unit": unit,
+        "triangle": int(gb.tri[y, x]),
+        "material": mat,
+        "position": gb.position[y, x].tolist(),
+        "normal": gb.normal[y, x].tolist(),
+        "albedo": gb.albedo[y, x].tolist(),
+        "emittance": (scene.materials.emittance[mat].tolist()
+                      if mat >= 0 else [0, 0, 0]),
+    }
 
 
 def default_demo_builder():

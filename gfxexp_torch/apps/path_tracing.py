@@ -10,7 +10,9 @@ Runs on the card (`-device cuda`, the default) or on the CPU
 (`-device cpu`). Static scenes compile to the wide-row table, animated ones
 (any -begin-pos/-end-pos) to the refittable skip-link BVH; `-traversal`
 overrides. Each frame advances the animation (`update`), renders one sample
-(`pathTrace`) and adds it to the film; `-stats` prints the per-pass times.
+(`pathTrace`) and adds it to the film; `-denoise` runs the SVGF denoiser
+on the film every frame (`gbuffer`, `denoise`) and writes its image;
+`-stats` prints the per-pass times.
 """
 
 from __future__ import annotations
@@ -25,24 +27,18 @@ from gfxexp_torch.apps import common
 
 def frame_loop(scene, bvh, camera, controllers, traversal: str, width: int,
                height: int, frames: int, cfg, timer: common.PassTimer,
-               stats: bool = False):
+               stats: bool = False, denoiser=None):
     """The app's frames f = 0 .. frames - 1 on the scene's device: `update`
     (advance_frame, or advance_frame_instanced for two-level scenes, at
     t = f / 60) when there are controllers, `pathTrace` (render_sample with
-    sample index f) and the film's running mean. Returns (film, scene, bvh,
-    rays): rays is the traced-ray count when cfg.count_rays, else None."""
+    sample index f), the film's running mean, and the denoiser's step on
+    the film when one is given (its image is `denoiser.image`). Returns
+    (film, scene, bvh, rays): rays is the traced-ray count when
+    cfg.count_rays, else None."""
     from gfxexp_torch.render.film import add_sample, make_film
     from gfxexp_torch.render.pathtrace import render_sample
-    from gfxexp_torch.scene.animation import (
-        advance_frame,
-        advance_frame_instanced,
-    )
 
-    if controllers and traversal not in ("skip", "instanced"):
-        raise ValueError(f"animated scenes need -traversal skip or "
-                         f"instanced, got {traversal!r}")
-    advance = (advance_frame_instanced if traversal == "instanced"
-               else advance_frame)
+    advance = common.frame_advance(controllers, traversal)
     dev = scene.device
     film = make_film(width, height, dev)
     rays = torch.zeros((), device=dev) if cfg.count_rays else None
@@ -56,6 +52,9 @@ def frame_loop(scene, bvh, camera, controllers, traversal: str, width: int,
             out, nr = out
             rays = rays + nr
         film = add_sample(film, out.reshape(height, width, 3))
+        if denoiser is not None:
+            denoiser.step(scene, bvh, camera, f, film.beauty, timer,
+                          cfg.enable_jitter)
         if stats and f % 16 == 15:
             print(f"frame {f + 1}/{frames}: {timer.report()}",
                   file=sys.stderr)
@@ -63,40 +62,28 @@ def frame_loop(scene, bvh, camera, controllers, traversal: str, width: int,
 
 
 def main(argv=None):
-    """Render, write `<output>.png`, and return the accumulated HDR image
-    [H, W, 3] (numpy)."""
+    """Render, write `<output>.png`, and return the accumulated (or, with
+    -denoise, the denoised) HDR image [H, W, 3] (numpy)."""
     from gfxexp_torch.render.pathtrace import PTConfig
-    from gfxexp_torch.scene.compile import compile_scene
 
     args = common.parse_scene_args(common.make_arg_parser("path_tracing"),
                                    argv)
     common.check_unported(args)
     dev = common.resolve_device(args)
-    builder, controllers = common.build_scene_from_dsl(args, args.scene_args)
-    if not builder.instances:
-        builder = common.default_demo_builder()
-    # static scenes default to the wide-row walk; animated ones need the
-    # refittable skip-link structure
-    traversal = args.traversal or ("skip" if controllers else "widerow")
-    scene, bvh = compile_scene(
-        builder, traversal=traversal,
-        spatial_splits=(args.spatial_splits
-                        if traversal in ("widerow", "qrow") else False),
-        rebraid=args.rebraid if traversal == "instanced" else 0.0)
-    scene, bvh = scene.to(dev), bvh.to(dev)
+    scene, bvh, controllers, traversal = common.compile_app_scene(args, dev)
     camera = common.make_camera_from_args(args).to(dev)
     cfg = PTConfig(max_path_length=args.max_path_length,
                    enable_jitter=not args.no_jitter,
                    enable_bump_mapping=args.bump,
                    fuse_shadow_rays=args.fused_shadow_rays,
                    texture_lod=args.texture_lod)
-    if args.debug_switches:
-        raise NotImplementedError("debug switches are not ported yet")
     timer = common.PassTimer(device=dev)
+    denoiser = common.maybe_denoiser(args, dev)
     film, _, _, _ = frame_loop(scene, bvh, camera, controllers, traversal,
                                args.width, args.height, args.frames, cfg,
-                               timer, stats=args.stats)
-    hdr = film.beauty.cpu().numpy()
+                               timer, stats=args.stats, denoiser=denoiser)
+    out = film.beauty if denoiser is None else denoiser.image
+    hdr = out.cpu().numpy()
     common.save_outputs(args, hdr)
     if args.stats:
         print("final:", timer.report(), file=sys.stderr)

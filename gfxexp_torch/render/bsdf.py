@@ -45,6 +45,11 @@ def _unit_exact(v):
     return v / length(v, keepdim=True)
 
 
+def _half_vec(a, b):
+    """The unit half vector of a and b."""
+    return _unit(a + b)
+
+
 def ggx_d(m, alpha):
     temp = m[..., 0] ** 2 + m[..., 1] ** 2 + (m[..., 2] * alpha) ** 2
     d = safe_divide(alpha * alpha, _PI * temp * temp)
@@ -198,7 +203,7 @@ def bsdf_sample(p: BSDFParams, v_given, u0, u1):
     spec_ok = torch.where(pick_spec, dir_l[..., 2] * dir_v[..., 2] > 0.0,
                           True)
 
-    m = torch.where(ps3, m_spec, _unit(l_diff + dir_v))
+    m = torch.where(ps3, m_spec, _half_vec(l_diff, dir_v))
     dot_lh = torch.clamp(dot(dir_l, m), max=1.0)
     common = safe_divide(torch.ones_like(dot_lh), 4.0 * dot_lh)
     diffuse_pdf = dir_l[..., 2] / _PI
@@ -212,6 +217,22 @@ def bsdf_sample(p: BSDFParams, v_given, u0, u1):
     f = torch.where(p.is_lambert[..., None], p.diffuse / _PI, f_ds)
     f = torch.where((pdf > 0.0)[..., None], f, 0.0)
     return dir_l * sign, f, pdf
+
+
+def bsdf_dh_reflectance(p: BSDFParams, v_given):
+    """Directional-hemispherical reflectance estimate [R, 3] (the
+    denoiser's albedo)."""
+    vz = torch.abs(v_given[..., 2])
+    r = p.roughness
+    fd90 = 0.5 * r + 2.0 * r * vz * vz
+    one_minus_vz5 = _pow5(1.0 - vz)
+    f_given = 1.0 + (fd90 - 1.0) * one_minus_vz5
+    diffuse_dhr = p.diffuse * (f_given
+                               * (1.0 + (1.0 / 1.51 - 1.0) * r))[..., None]
+    omvh5 = one_minus_vz5 * (1.0 - r)
+    specular_dhr = p.f0 + (1.0 - p.f0) * omvh5[..., None]
+    ds = torch.clamp(diffuse_dhr + specular_dhr, max=1.0)
+    return torch.where(p.is_lambert[..., None], p.diffuse, ds)
 
 
 def material_params(materials, mat_idx) -> BSDFParams:

@@ -135,3 +135,20 @@ def generate_rays_for_lanes(camera: Camera, width: int, height: int, lane,
         [cx * m[i, 0] + cy * m[i, 1] + m[i, 2] for i in range(3)], dim=-1)
     o = torch.broadcast_to(camera.position, (n, 3))
     return o, normalize(d_world)
+
+
+def screen_position(camera: Camera, p):
+    """World points p [..., 3] -> screen uv [..., 2] in [0, 1]^2 (the
+    motion vectors' projection). The inverse rotation (the transpose of
+    the orthonormal orientation) is written out per component: full
+    float32, no TF32."""
+    rel = p - camera.position
+    m = camera.orientation
+    local = [rel[..., 0] * m[0, j] + rel[..., 1] * m[1, j]
+             + rel[..., 2] * m[2, j] for j in range(3)]
+    z = torch.clamp(local[2], min=1e-8)
+    vh = 2.0 * torch.tan(camera.fov_y * 0.5)
+    vw = camera.aspect * vh
+    x = 0.5 - local[0] / (z * vw)
+    y = 0.5 - local[1] / (z * vh)
+    return torch.stack([x, y], dim=-1)

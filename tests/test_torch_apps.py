@@ -2,7 +2,10 @@
 same scene and controllers, and `python -m gfxexp_torch.apps.path_tracing`
 (`main`) renders an animated scene on the CPU (`-device cpu`) into a PNG,
 through the skip-link refit and through the two-level rigid update, and a
-static one through the wide-row and the quantized-row tables."""
+static one through the wide-row and the quantized-row tables. The svgf and
+restir_di apps (classic and -rearch) and path_tracing -denoise render 32x32
+images on the CPU; the Denoiser and pick_info match JAX's on one
+G-buffer."""
 
 import dataclasses
 import struct
@@ -14,6 +17,8 @@ import torch
 
 from gfxexp_torch.apps import common as tcommon
 from gfxexp_torch.apps import path_tracing as tpt_app
+from gfxexp_torch.apps import restir_di as trestir_app
+from gfxexp_torch.apps import svgf as tsvgf_app
 from gfxexp_tpu.apps import common as jcommon
 
 torch.set_num_threads(2)
@@ -105,10 +110,103 @@ def test_main_renders_a_static_scene_on_the_cpu(tmp_path, traversal):
 
 def test_unported_options_raise(tmp_path):
     base = ["-device", "cpu", "-output", str(tmp_path / "x")]
-    for extra in (["-exr"], ["-denoise"], ["-live"],
+    for extra in (["-exr"], ["-live"], ["-debug-switches", "1"],
                   ["-env-texture", "sky.exr"], ["-obj", "m.obj", "1"]):
         with pytest.raises(NotImplementedError):
             tpt_app.main(base + extra)
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="-device cpu"):
-            tpt_app.main(["-output", str(tmp_path / "y")])
+        for app in (tpt_app, tsvgf_app, trestir_app):
+            with pytest.raises(RuntimeError, match="-device cpu"):
+                app.main(["-output", str(tmp_path / "y")])
+
+
+STATIC = DSL[:DSL.index("-begin-pos")] + DSL[DSL.index("-begin-pos") + 16:]
+# case: (app, options, DSL scene (the box and lamp when empty), lit). The
+# DSL's materials are black, so SVGF, which remodulates by the albedo,
+# shows them black: its animated case is checked for a finite image only
+TECHNIQUE_APPS = {
+    "svgf": (tsvgf_app, ["-cam-pos", "0", "0", "3.16"], [], True),
+    "svgf_gauss_feedback": (tsvgf_app, ["-cam-pos", "0", "0", "3.16",
+                                        "-filter-stages", "3",
+                                        "-feedback-1st", "-no-taa"], [],
+                            True),
+    "svgf_animated": (tsvgf_app, VIEW, DSL, False),
+    "restir_di": (trestir_app, VIEW, STATIC, True),
+    "restir_di_rearch_denoise": (trestir_app, [*VIEW, "-rearch", "-denoise",
+                                               "-light-subsets", "8",
+                                               "-light-subset-size", "64"],
+                                 DSL, True),
+    "path_tracing_denoise": (tpt_app, [*VIEW, "-denoise"], STATIC, True),
+}
+
+
+@pytest.mark.parametrize("case", list(TECHNIQUE_APPS))
+def test_technique_apps_render_on_the_cpu(tmp_path, case, capsys):
+    """Each app's main at 32x32, 3 frames on the CPU: a finite image of the
+    right size (lit where the scene allows), its PNG, and the -stats line
+    with its passes."""
+    mod, extra, dsl, lit = TECHNIQUE_APPS[case]
+    out = tmp_path / case
+    hdr = mod.main(["-device", "cpu", "-width", "32", "-height", "32",
+                    "-frames", "3", "-max-path-length", "3", "-stats",
+                    "-output", str(out), *extra, *dsl])
+    assert hdr.shape == (32, 32, 3) and np.isfinite(hdr).all()
+    assert hdr.mean() > 0.0 or not lit
+    assert _read_png_size(str(out) + ".png") == (32, 32)
+    err = capsys.readouterr().err
+    passes = {"svgf": ("gbuffer:", "pathTrace:", "svgf:"),
+              "restir_di": ("gbuffer:", "restir:"),
+              "path_tracing": ("pathTrace:", "denoise:")}[mod.__name__.split(
+                  ".")[-1]]
+    assert all(p in err for p in passes), err
+    if dsl is DSL:
+        assert "update:" in err
+    if "-denoise" in extra:
+        assert "denoise:" in err
+
+
+def test_denoiser_and_pick_info_match_jax():
+    """The port's Denoiser and pick_info against JAX's on the same
+    G-buffer (JAX's, carried over) and accumulated image: the denoised
+    image within 1e-4 (svgf_frame's bar, tests/test_torch_svgf.py) over
+    two steps, and the picked pixel's fields equal (positions within
+    1e-6)."""
+    import jax.numpy as jnp
+
+    import gfxexp_torch.scene.builder as TB
+    import gfxexp_tpu.scene.builder as JB
+    from gfxexp_torch.render.camera import make_camera as t_camera
+    from gfxexp_torch.scene.compile import compile_scene as tcompile
+    from gfxexp_torch.scene.types import from_numpy
+    from gfxexp_tpu.render.camera import make_camera as j_camera
+    from gfxexp_tpu.render.gbuffer import render_gbuffer
+    from gfxexp_tpu.scene.compile import compile_scene as jcompile
+
+    sys_path = __import__("sys").path
+    if "tests" not in sys_path:
+        sys_path.insert(0, "tests")
+    import torch_scenes as S
+
+    js, jb = jcompile(S.box_scene(JB))
+    ts, tb = tcompile(S.box_scene(TB))
+    jc, tc = j_camera(**S.BOX_CAMERA), t_camera(**S.BOX_CAMERA)
+    jden = jcommon.Denoiser(16, 16)
+    tden = tcommon.Denoiser(16, 16, device="cpu")
+    rng = np.random.default_rng(3)
+    for f in range(2):
+        jgb = render_gbuffer(js, jb, jc, jc, 16, 16, jnp.uint32(f), True)
+        hdr = rng.gamma(2.0, 0.3, (16, 16, 3)).astype(np.float32)
+        jout = jden.step(js, jb, jc, f, jnp.asarray(hdr), gb=jgb)
+        tout = tden.step(ts, tb, tc, f, torch.from_numpy(hdr),
+                         gb=from_numpy(jgb))
+        np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=0,
+                                   atol=1e-4)
+    assert tden.image is tout
+    for x, y in ((3, 4), (15, 0)):
+        a = tcommon.pick_info(ts, from_numpy(jgb), x, y)
+        b = jcommon.pick_info(js, jgb, x, y)
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_allclose(np.asarray(a[k], np.float64),
+                                       np.asarray(b[k], np.float64),
+                                       rtol=0, atol=1e-6, err_msg=k)

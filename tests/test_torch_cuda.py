@@ -967,3 +967,94 @@ def test_lanegroup_idle_warps_and_signed_zero_match_plain(dev, groups):
     assert torch.equal(kr, pr)
     assert int(kr[idle].max()) <= 1 and int(kr[~idle].sum()) > 0
     assert torch.equal(k.hit, r.hit) and torch.equal(k.t, r.t)
+
+
+# ---------------------------------------------------------------------------
+# the screen-space techniques' traffic: shadow rays with dead lanes, the
+# G-buffer and SVGF on the card
+# ---------------------------------------------------------------------------
+
+
+def _shadow_batch(ts, n=30000, seed=23):
+    """Shadow rays from points in the box toward its lamp, every third lane
+    dead (t_max = -1, as restir_di._visibility sends them)."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-1.9, 1.9, (n, 3)).astype(np.float32)
+    target = np.concatenate([rng.uniform(-0.4, 0.4, (n, 1)),
+                             np.full((n, 1), 1.99),
+                             rng.uniform(-0.4, 0.4, (n, 1))], axis=1)
+    v = target - o
+    dist = np.linalg.norm(v, axis=1)
+    d = (v / dist[:, None]).astype(np.float32)
+    t_max = np.where(np.arange(n) % 3 == 0, -1.0, 0.9999 * dist)
+    return (torch.from_numpy(o), torch.from_numpy(d),
+            torch.from_numpy(t_max.astype(np.float32)))
+
+
+@pytest.mark.parametrize("traversal, counts", [
+    ("widerow", lambda: persistent.launch_counts["any"]),
+    ("skip", lambda: skip_traverse.launch_counts["any_thread"]),
+    ("instanced", lambda: instanced.launch_counts["any_nearest"])],
+    ids=["kernel1", "kernel6", "kernel5"])
+def test_any_hit_dead_lanes_match_cpu(dev, traversal, counts):
+    """intersect_any on a batch with t_max = -1 lanes mixed in, on kernels
+    1, 6 and 5: the dead lanes report not occluded, and every lane equals
+    the CPU's plain walk."""
+    ts, tb = compile_scene(S.instanced_spheres_scene(TB),
+                           traversal=traversal)
+    o, d, t_max = _shadow_batch(ts)
+    cpu = intersect_any(tb, ts.triangles, o, d, 0.0, t_max)
+    for mod in (persistent, skip_traverse, instanced):
+        mod.reset_launch_counts()
+    ts_d, tb_d = ts.to(dev), tb.to(dev)
+    card = intersect_any(tb_d, ts_d.triangles, o.to(dev), d.to(dev), 0.0,
+                         t_max.to(dev))
+    assert counts() == 1
+    card = card.cpu()
+    assert not card[t_max < 0].any()
+    assert card.any() and not card[t_max >= 0].all()
+    assert torch.equal(card, cpu)
+
+
+def test_gbuffer_on_card_matches_cpu(dev):
+    """The G-buffer at 64x64 on the card (kernel 6 after a frame of
+    animation) against the CPU's: hit, tri, unit and material equal on
+    at least 0.999 of pixels; position, normal and albedo within 1e-4,
+    motion within 1e-3 pixels where they agree."""
+    from gfxexp_torch.render.gbuffer import render_gbuffer
+
+    ts, tb = _skip_frames(dev)[1]
+    tc = make_camera(**S.INSTANCED_CAMERA)
+    prev = make_camera(**dict(S.INSTANCED_CAMERA, position=[0.05, 0.5, 1.9]))
+    a = render_gbuffer(ts, tb, tc.to(dev), prev.to(dev), 64, 64, 3)
+    b = render_gbuffer(ts.to("cpu"), tb.to("cpu"), tc, prev, 64, 64, 3)
+    a = a.to("cpu")
+    same = ((a.hit == b.hit) & (a.tri == b.tri) & (a.unit == b.unit)
+            & (a.material == b.material))
+    assert float(same.float().mean()) >= 0.999
+    for name, atol in (("position", 1e-4), ("normal", 1e-4),
+                       ("albedo", 1e-4), ("motion", 1e-3)):
+        x, y = getattr(a, name)[same], getattr(b, name)[same]
+        assert torch.allclose(x, y, atol=atol), (name, float(
+            (x - y).abs().max()))
+
+
+def test_svgf_frame_on_card_matches_cpu(dev):
+    """Three SVGF frames at 64x64 on the card against the CPU from the same
+    G-buffer and seeded lighting: the mean relative image difference under
+    1e-4 each frame (exp and pow may round differently on the card)."""
+    from gfxexp_torch.render.gbuffer import render_gbuffer
+    from gfxexp_torch.techniques.svgf import make_svgf_state, svgf_frame
+
+    ts, tb = compile_scene(S.box_scene(TB), traversal="widerow")
+    tc = make_camera(**S.BOX_CAMERA)
+    gb = render_gbuffer(ts, tb, tc, tc, 64, 64, 0)
+    sa, sb = make_svgf_state(64, 64, dev), make_svgf_state(64, 64, "cpu")
+    rng = np.random.default_rng(29)
+    for _ in range(3):
+        light = torch.from_numpy(rng.gamma(2.0, 0.3, (64, 64, 3)).astype(
+            np.float32))
+        a, sa = svgf_frame(sa, gb.to(dev), light.to(dev))
+        b, sb = svgf_frame(sb, gb, light)
+        assert torch.isfinite(a).all()
+        assert S.image_rel_diff(a.cpu().numpy(), b.numpy()) < 1e-4

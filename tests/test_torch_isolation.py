@@ -4,8 +4,9 @@ quantized rows, accel/qrow.py, and the lane-group walk, accel/lanegroup.py)
 imports, 16x16 renders of the small bench scene (wide rows and quantized
 rows), of the two-level `big` scene and of an animated frame of the
 flattened `big` scene run, a chunked wide-row table is built and walked,
-the lane-group walk runs, and the path_tracing app renders on the CPU. The
-package's sources and chip_smoke.py never name jax."""
+the lane-group walk runs, and the path_tracing, svgf and restir_di
+(-rearch -denoise) apps render on the CPU. The package's sources and
+chip_smoke.py never name jax."""
 
 import os
 import pathlib
@@ -72,6 +73,12 @@ hdr = path_tracing.main(["-device", "cpu", "-width", "8", "-height", "8",
                          "-begin-pos", "0", "0", "0", "-end-pos", "0", "1",
                          "0"])
 assert hdr.shape == (8, 8, 3)
+from gfxexp_torch.apps import restir_di, svgf
+for app, extra in ((svgf, []), (restir_di, ["-rearch", "-denoise",
+                                            "-light-subsets", "4"])):
+    hdr = app.main(["-device", "cpu", "-width", "8", "-height", "8",
+                    "-frames", "2", "-output", OUT, *extra])
+    assert hdr.shape == (8, 8, 3) and hdr.mean() > 0.0
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK", len(names))

@@ -252,3 +252,44 @@ def aimed_rays(rng, n, p0, e1, e2, box=10.0):
     d = p0[j] + a * e1[j] + b * e2[j] - o
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     return o, d.astype(np.float32)
+
+
+def quad_light_scene(mod, emittance=(30.0, 30.0, 30.0), albedo=0.6,
+                     light_y=2.0, light_dim=0.5):
+    """A Lambert ground plane and a downward-facing rectangle light above
+    it (tests/scenes.py quad_light_scene)."""
+    b = mod.SceneBuilder()
+    floor_mat = b.add_lambert_material((albedo, albedo, albedo))
+    light_mat = b.add_lambert_material((0.0, 0.0, 0.0), emittance=emittance)
+    b.add_instance(b.add_rectangle(10.0, 10.0, floor_mat))
+    b.add_instance(b.add_rectangle(light_dim, light_dim, light_mat),
+                   mod.affine(rotation=FLIP_X, translation=[0.0, light_y,
+                                                            0.0]))
+    return b
+
+
+def many_light_scene(mod, n_lights=64, seed=3, albedo=0.6, occluders=0):
+    """A grid of small emitters of random intensity over a ground plane
+    (tests/scenes.py many_light_scene), and optionally `occluders` spheres
+    between them and the floor that cast shadows."""
+    rng = np.random.default_rng(seed)
+    b = mod.SceneBuilder()
+    floor_mat = b.add_lambert_material((albedo, albedo, albedo))
+    b.add_instance(b.add_rectangle(20.0, 20.0, floor_mat))
+    side = int(np.sqrt(n_lights))
+    for i in range(side):
+        for j in range(side):
+            e = float(rng.uniform(1.0, 60.0))
+            m = b.add_lambert_material((0, 0, 0), emittance=(e, e, e))
+            g = b.add_rectangle(0.15, 0.15, m)
+            x = (i - side / 2 + 0.5) * 1.2
+            z = (j - side / 2 + 0.5) * 1.2
+            b.add_instance(g, mod.affine(rotation=FLIP_X,
+                                         translation=[x, 2.0, z]))
+    if occluders:
+        mat = b.add_lambert_material((0.5, 0.4, 0.3))
+        sph = b.add_sphere(0.35, mat, n_theta=10, n_phi=20)
+        for k in range(occluders):
+            x, z = rng.uniform(-1.5, 1.5, 2)
+            b.add_instance(sph, mod.affine(translation=[x, 0.6, z]))
+    return b
