@@ -107,7 +107,28 @@ Phases, one line each, any failure exits non-zero:
      rays per frame, kernel 1's launches per frame, one frame under
      torch.profiler, out/torch_restir_{classic,rearch}.png; then the svgf,
      restir_di -rearch and path_tracing -denoise CLIs at 64x64, 4 frames,
-     all three at once; their PNGs.
+     all three at once; their PNGs;
+ 22. ReGIR: 4 frames of build_cell_reservoirs and render_sample_regir at
+     64x64, grid (8, 4, 8) x 64 slots, on the card against the CPU from the
+     same inputs (each device its own state; selections equal on >= 0.999
+     of slots, reservoir numbers within rtol 1e-4, images within 5e-3, ray
+     and touch counts within 0.5%) on the 256-emitter scene (kernel 1) and
+     on `big` animated, advanced on the CPU and copied (kernel 6); then the
+     regir app's frame loop at 1920x1080 with the defaults (16^3 cells x
+     512 slots) on the 256-emitter scene, 8 frames: ms per frame of
+     buildCellReservoirs and pathTrace, one pass of each under
+     torch.profiler, shadow rays and walk launches per frame, active
+     cells, peak memory, out/torch_regir.png;
+ 23. NRC on the app's box: render_sample_nrc at 64x64 on the card against
+     the CPU from the same weights (training masks, radiance, targets) and
+     one train_on_frame with the same permutation (loss, parameters); the
+     app's frame loop at 1920x1080, 16 frames with the triangle wave (the
+     loss must fall) and 4 with the hash grid: ms per frame of
+     pathTrace+infer and train, one pass of each profiled, walk launches,
+     peak memory, the loss by frame, out/torch_nrc_*.png;
+ 24. the regir and neural_radiance_caching (-checkpoint) CLIs at 64x64, 4
+     frames, at once; then neural_radiance_caching -resume from that
+     checkpoint; their PNGs.
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -1802,23 +1823,22 @@ def _ml_camera(w, h):
                        aspect=w / h, target=ML_CAMERA["target"])
 
 
-def _count_shadow_rays(fn):
-    """fn() with every _visibility call's live lanes counted: (fn's
-    result, shadow rays)."""
-    from gfxexp_torch.techniques import restir_di
-
-    orig = restir_di._visibility
+def _count_shadow_rays(fn, module):
+    """fn() with the shadow rays that `module`'s any-hit queries trace
+    counted (the lanes the walk takes, t_max >= 0): (fn's result, shadow
+    rays)."""
+    orig = module.intersect_any
     counted = []
 
-    def visibility(scene, bvh, ctx, ls_pos, ls_inf, valid):
-        counted.append(valid.sum())
-        return orig(scene, bvh, ctx, ls_pos, ls_inf, valid)
+    def any_hit(bvh, tris, o, d, t_min=0.0, t_max=1e30):
+        counted.append((t_max >= 0.0).sum())
+        return orig(bvh, tris, o, d, t_min=t_min, t_max=t_max)
 
-    restir_di._visibility = visibility
+    module.intersect_any = any_hit
     try:
         out = fn()
     finally:
-        restir_di._visibility = orig
+        module.intersect_any = orig
     return out, float(sum(counted)) if counted else 0.0
 
 
@@ -1840,6 +1860,7 @@ def phase_restir(report, dev):
     once."""
     from gfxexp_torch.apps import restir_di as restir_app
     from gfxexp_torch.render.gbuffer import render_gbuffer
+    from gfxexp_torch.techniques import restir_di
     from gfxexp_torch.techniques.restir_di import (
         ReSTIRConfig,
         empty_reservoir,
@@ -1904,7 +1925,7 @@ def phase_restir(report, dev):
                               empty_sample_visibility(n, dev))
         (col, res, ctx2, vis), rays = _count_shadow_rays(
             lambda: restir_di_frame(scene, bvh, gb, cam, out[1], out[2],
-                                    *flat, 1, cfg, out[3]))
+                                    *flat, 1, cfg, out[3]), restir_di)
         prof = _profile_pass(
             f"21 restir profile {name}",
             lambda: restir_di_frame(scene, bvh, gb, cam, res, ctx2, *flat, 2,
@@ -1949,6 +1970,397 @@ def phase_restir(report, dev):
               f"mean pixel {px.mean():.1f}; "
               f"{stats[-1] if stats else ''}", flush=True)
     report["restir"] = rows
+
+
+CHECK_RES = 64  # ReGIR and NRC card-against-CPU frames (phases 22-23)
+REGIR_CHECK_FRAMES = 4
+REGIR_FRAMES = 8  # the regir app's frames at 1080p (phase 22)
+# phase 22's card-against-CPU grid, (8, 4, 8) cells x 64 slots
+REGIR_SMALL = dict(grid_dimension=(8, 4, 8), num_light_slots_per_cell=64)
+SEL_BAR = 0.999  # card vs CPU: share of slots whose selected sample agrees
+NRC_FRAMES = 16  # the NRC app's frames at 1080p, triangle wave (phase 23)
+NRC_HASH_FRAMES = 4  # and with the hash grid
+NRC_PARAM_ATOL = 1e-5  # card vs CPU parameters after one frame's training
+NRC_PARAM_SHARE = 0.999  # the share of entries that must meet it
+
+
+def _per_frame(counts, frames):
+    return {g: {k: v / frames for k, v in c.items() if v}
+            for g, c in counts.items() if any(c.values())}
+
+
+def _regir_card_vs_cpu(tag, scene_c, bvh_c, cam_c, ctl, dev):
+    """REGIR_CHECK_FRAMES frames of build_cell_reservoirs and
+    render_sample_regir at CHECK_RES^2, each device on its own state, from
+    the same scene (an animated one advanced on the CPU and copied to the
+    card each frame): selections, reservoir numbers, images, touches."""
+    from gfxexp_torch.accel.traverse import _check_structure
+    from gfxexp_torch.techniques.regir import (
+        ReGIRConfig,
+        build_cell_reservoirs,
+        finalize_frame,
+        make_grid,
+        make_regir_state,
+        render_sample_regir,
+    )
+
+    cfg = ReGIRConfig(**REGIR_SMALL)
+    pt = PTConfig(max_path_length=bench.MAX_PATH_LENGTH, count_rays=True)
+    res = CHECK_RES
+    grid_c = make_grid(scene_c, cfg)
+    states = {"cuda": make_regir_state(cfg, dev),
+              "cpu": make_regir_state(cfg, "cpu")}
+    frames = []
+    _reset_counts()
+    for f in range(REGIR_CHECK_FRAMES):
+        if ctl:
+            scene_c, bvh_c = animation.advance_frame(scene_c, bvh_c, ctl,
+                                                     f / 60.0)
+        out = {}
+        for where, to in (("cuda", dev), ("cpu", "cpu")):
+            s, b, c, g = (x.to(to) for x in (scene_c, bvh_c, cam_c, grid_c))
+            built = build_cell_reservoirs(s, states[where], g, f, cfg)
+            img, st, rays = render_sample_regir(s, b, c, built, g, res, res,
+                                                f, pt, cfg)
+            states[where] = finalize_frame(st, f)
+            out[where] = (built.to("cpu"), img.cpu(), float(rays),
+                          st.num_accesses.cpu())
+        (ra, ia, na, ta), (rb, ib, nb, tb) = out["cuda"], out["cpu"]
+        same = (((ra.pos - rb.pos).abs().amax(-1)
+                 <= 1e-5 * (1 + rb.pos.abs().amax(-1)))
+                & (ra.at_inf == rb.at_inf))
+        share = float(same.float().mean())
+        errs = {n: float(((getattr(ra, n) - getattr(rb, n)).abs()
+                          / (getattr(rb, n).abs() + 1e-6))[same].max())
+                for n in ("sum_w", "rec_pdf", "target")}
+        rel = _rel(ia.numpy(), ib.numpy())
+        touch_rel = float((ta - tb).abs().sum()) / max(float(tb.sum()), 1.0)
+        frames.append({"selection_share": share, "max_rel_err": errs,
+                       "image_rel_diff": rel, "rays_cuda": na,
+                       "rays_cpu": nb, "touch_rel_diff": touch_rel,
+                       "active_cells": int((tb > 0).sum())})
+        check(share >= SEL_BAR and max(errs.values()) <= 1e-4
+              and rel < IMAGE_BAR and abs(na - nb) <= 5e-3 * nb
+              and touch_rel <= 5e-3 and bool(torch.isfinite(ia).all())
+              and float(ia.mean()) > 0,
+              f"22 regir {tag} frame {f}: card vs cpu {frames[-1]}")
+    counts = _all_counts()
+    route = _check_structure(bvh_c)
+    check(_route_launched(counts, route),
+          f"22 regir {tag}: the card did not take the CUDA {route} walk: "
+          f"{counts}")
+    worst = {"selection_share": min(r["selection_share"] for r in frames),
+             "image_rel_diff": max(r["image_rel_diff"] for r in frames),
+             "max_rel_err": max(max(r["max_rel_err"].values())
+                                for r in frames)}
+    print(f"[22 regir {tag}] {REGIR_CHECK_FRAMES} frames at {res}x{res}, "
+          f"grid {cfg.grid_dimension} x {cfg.num_light_slots_per_cell} "
+          f"slots, card ({route} CUDA walk) vs CPU: selections equal on "
+          f"{worst['selection_share']:.5f} of slots (bar {SEL_BAR}), "
+          f"reservoir numbers within rel {worst['max_rel_err']:.3g} (bar "
+          f"1e-4), image rel diff {worst['image_rel_diff']:.3g} (bar "
+          f"{IMAGE_BAR}), rays {frames[-1]['rays_cuda']:.0f} vs "
+          f"{frames[-1]['rays_cpu']:.0f}", flush=True)
+    return {"route": route, "frames": frames, "worst": worst}
+
+
+def phase_regir(report, dev):
+    """ReGIR: 4 frames card against CPU at 64^2 on the 256-emitter scene
+    (kernel 1) and on `big` animated (kernel 6); then the regir app's frame
+    loop at 1920x1080 with the defaults (16^3 cells x 512 slots) on the
+    256-emitter scene, 8 frames."""
+    from gfxexp_torch.apps import regir as regir_app
+    from gfxexp_torch.techniques import regir
+    from gfxexp_torch.techniques.regir import (
+        ReGIRConfig,
+        build_cell_reservoirs,
+        make_grid,
+        render_sample_regir,
+    )
+
+    scene_c, bvh_c = _many_light_scene()
+    rows = {"many_lights": _regir_card_vs_cpu(
+        "256 emitters", scene_c, bvh_c, _ml_camera(CHECK_RES, CHECK_RES), [],
+        dev)}
+    big_s, big_b = bench.build_bench_scene("big", traversal="skip")
+    rows["big_animated"] = _regir_card_vs_cpu(
+        "big animated", big_s, big_b,
+        bench.bench_camera(CHECK_RES, CHECK_RES, "big"),
+        bench.bench_controllers("big"), dev)
+    big_s = big_b = None
+
+    cfg = ReGIRConfig()
+    pt = PTConfig(max_path_length=bench.MAX_PATH_LENGTH)
+    scene, bvh = scene_c.to(dev), bvh_c.to(dev)
+    cam = _ml_camera(TECH_W, TECH_H).to(dev)
+    grid = make_grid(scene, cfg)
+    args = (scene, bvh, cam, [], "widerow", TECH_W, TECH_H)
+    # one warm-up frame (the caching allocator fills up)
+    regir_app.frame_loop(*args, 1, pt, cfg, True, PassTimer(device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    timer = PassTimer(device=dev)
+    _reset_counts()
+    film, state, _, _ = regir_app.frame_loop(*args, REGIR_FRAMES, pt, cfg,
+                                             True, timer)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = _all_counts()
+    check(_route_launched(counts, "widerow"),
+          f"22 regir 1080p: the frames did not take kernel 1: {counts}")
+    img = film.beauty
+    check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+          "22 regir 1080p: bad image")
+    active = int((state.num_accesses > 0).sum())
+    ms = {p: timer.mean_ms(p) for p in timer.samples}
+    f = REGIR_FRAMES
+    built = build_cell_reservoirs(scene, state, grid, f, cfg)
+    _, rays = _count_shadow_rays(lambda: render_sample_regir(
+        scene, bvh, cam, built, grid, TECH_W, TECH_H, f, pt, cfg), regir)
+    prof = {
+        "buildCellReservoirs": _profile_pass(
+            "22 regir profile build",
+            lambda: build_cell_reservoirs(scene, state, grid, f, cfg),
+            "one buildCellReservoirs pass"),
+        "pathTrace": _profile_pass(
+            "22 regir profile pathTrace",
+            lambda: render_sample_regir(scene, bvh, cam, built, grid, TECH_W,
+                                        TECH_H, f, pt, cfg),
+            "one pathTrace pass")}
+    n = TECH_W * TECH_H
+    rows["1080p"] = {
+        "frames": REGIR_FRAMES, "ms_per_frame": ms,
+        "slots": cfg.num_cells * cfg.num_light_slots_per_cell,
+        "reservoir_bytes": sum(t.numel() * t.element_size() for t in (
+            state.pos, state.nrm, state.emit, state.at_inf, state.sum_w,
+            state.stream_len, state.rec_pdf, state.target)),
+        "active_cells": active, "shadow_rays_per_frame": rays,
+        "launches_per_frame": _per_frame(counts, REGIR_FRAMES),
+        "peak_memory_bytes": peak, "mean": float(img.mean()),
+        "profile": prof}
+    save_png(os.path.join(REPO, "out", "torch_regir.png"),
+             (img / (1.0 + img)).cpu().numpy())
+    r = rows["1080p"]
+    print(f"[22 regir 1080p] {REGIR_FRAMES} frames at {TECH_W}x{TECH_H}, "
+          f"{cfg.grid_dimension} cells x {cfg.num_light_slots_per_cell} "
+          f"slots ({r['slots']} slots, {r['reservoir_bytes'] / 1e6:.1f} MB "
+          f"of reservoirs), ms per frame: " + ", ".join(
+              f"{p} {v:.2f}" for p, v in ms.items())
+          + f"; {rays:.0f} shadow rays per frame ({rays / n:.2f} per "
+          f"pixel), walk launches per frame {r['launches_per_frame']}, "
+          f"active cells {active} of {cfg.num_cells}, peak memory "
+          f"{peak / 1e9:.2f} GB", flush=True)
+    report["regir"] = rows
+
+
+def _nrc_scene_and_camera(width, height):
+    """The neural_radiance_caching app's default scene (the box and lamp)
+    as wide rows and its default camera."""
+    from gfxexp_torch.apps import common
+    from gfxexp_torch.scene.compile import compile_scene
+
+    scene, bvh = compile_scene(common.default_demo_builder(),
+                               traversal="widerow")
+    args = common.parse_scene_args(common.make_arg_parser("nrc"), [
+        "-width", str(width), "-height", str(height)])
+    return scene, bvh, common.make_camera_from_args(args)
+
+
+def _nrc_frames(tag, scene, bvh, cam, nrc_cfg, icfg, frames, dev):
+    """The NRC app's frame loop at 1080p: a warm-up frame on a state of its
+    own, then `frames` timed frames from a fresh state; one pathTrace+infer
+    and one train pass profiled."""
+    from gfxexp_torch.apps import neural_radiance_caching as nrc_app
+    from gfxexp_torch.techniques.nrc import init_nrc, train_on_frame
+    from gfxexp_torch.techniques.nrc.cache import (
+        render_sample_nrc,
+        scene_aabb,
+    )
+
+    aabb = scene_aabb(scene)
+    args = (scene, bvh, cam, [], "widerow", TECH_W, TECH_H)
+    nrc_app.frame_loop(*args, 1, icfg, nrc_cfg,
+                       init_nrc(None, nrc_cfg, dev), aabb,
+                       PassTimer(device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    timer = PassTimer(device=dev)
+    _reset_counts()
+    film, state, losses, _, _ = nrc_app.frame_loop(
+        *args, frames, icfg, nrc_cfg, init_nrc(None, nrc_cfg, dev), aabb,
+        timer)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = _all_counts()
+    check(_route_launched(counts, "widerow"),
+          f"23 nrc {tag}: the frames did not take kernel 1: {counts}")
+    losses = [float(x) for x in losses]
+    img = film.beauty
+    check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+          and all(math.isfinite(x) for x in losses),
+          f"23 nrc {tag}: bad image or loss {losses}")
+    ms = {p: timer.mean_ms(p) for p in timer.samples}
+    out = render_sample_nrc(scene, bvh, cam, state["ema"], *aabb, TECH_W,
+                            TECH_H, frames, icfg, nrc_cfg)
+    prof = {
+        "pathTrace+infer": _profile_pass(
+            f"23 nrc profile {tag} pathTrace+infer",
+            lambda: render_sample_nrc(scene, bvh, cam, state["ema"], *aabb,
+                                      TECH_W, TECH_H, frames, icfg, nrc_cfg),
+            "one pathTrace+infer pass"),
+        "train": _profile_pass(
+            f"23 nrc profile {tag} train",
+            lambda: train_on_frame(state, *out[1:], nrc_cfg, 4,
+                                   torch.Generator().manual_seed(1)),
+            "one train pass (4 steps)")}
+    records = int(out[3].numel())
+    row = {"frames": frames, "ms_per_frame": ms, "losses": losses,
+           "training_records": records,
+           "valid_records": int(out[3].sum()),
+           "launches_per_frame": _per_frame(counts, frames),
+           "peak_memory_bytes": peak, "mean": float(img.mean()),
+           "profile": prof}
+    save_png(os.path.join(REPO, "out", f"torch_nrc_{tag}.png"),
+             (img / (1.0 + img)).cpu().numpy())
+    print(f"[23 nrc {tag}] {frames} frames at {TECH_W}x{TECH_H}, ms per "
+          f"frame: " + ", ".join(f"{p} {v:.2f}" for p, v in ms.items())
+          + f"; {records} training records a frame "
+          f"({row['valid_records']} valid in the last), walk launches per "
+          f"frame {row['launches_per_frame']}, peak memory "
+          f"{peak / 1e9:.2f} GB, loss by frame "
+          + " ".join(f"{x:.4g}" for x in losses), flush=True)
+    return row
+
+
+def phase_nrc(report, dev):
+    """NRC: render_sample_nrc at 64^2 on the card against the CPU from the
+    same weights, and one train_on_frame with the same permutation; then
+    the app's frame loop at 1920x1080, 16 frames with the triangle wave
+    (its loss must fall) and 4 with the hash grid."""
+    from gfxexp_torch.core.tree import tree_leaves, tree_map
+    from gfxexp_torch.techniques.nrc import (
+        NRCConfig,
+        init_nrc,
+        train_on_frame,
+    )
+    from gfxexp_torch.techniques.nrc.cache import (
+        NRCIntegratorConfig,
+        render_sample_nrc,
+        scene_aabb,
+    )
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "23 nrc: TF32 matmuls are on")
+    res = CHECK_RES
+    scene_c, bvh_c, cam_c = _nrc_scene_and_camera(res, res)
+    nrc_cfg = NRCConfig()
+    icfg = NRCIntegratorConfig(max_path_length=bench.MAX_PATH_LENGTH)
+    state_c = init_nrc(torch.Generator().manual_seed(SEED), nrc_cfg, "cpu")
+    # a non-zero output layer, so that the cache's reads count
+    out_w = torch.randn(state_c["params"]["weights"][-1].shape,
+                        generator=torch.Generator().manual_seed(SEED)) * 0.1
+    for part in ("params", "ema"):
+        state_c[part]["weights"][-1] = out_w.clone()
+    state_d = tree_map(lambda x: x.to(dev), state_c)
+    aabb_c = scene_aabb(scene_c)
+    _reset_counts()
+    a = render_sample_nrc(scene_c.to(dev), bvh_c.to(dev), cam_c.to(dev),
+                          state_d["ema"], *(x.to(dev) for x in aabb_c), res,
+                          res, 1, icfg, nrc_cfg)
+    counts = _all_counts()
+    b = render_sample_nrc(scene_c, bvh_c, cam_c, state_c["ema"], *aabb_c,
+                          res, res, 1, icfg, nrc_cfg)
+    a = [x.cpu() for x in a]
+    check(_route_launched(counts, "widerow"),
+          f"23 nrc: the card did not take kernel 1: {counts}")
+    mask_share = float((a[3] == b[3]).float().mean())
+    both = a[3] & b[3]
+    rel = {"radiance": _rel(a[0].numpy(), b[0].numpy()),
+           "targets": _rel(a[2][both].numpy(), b[2][both].numpy())}
+    q_err = float((a[1][both] - b[1][both]).abs().max())
+    check(mask_share >= SEL_BAR and max(rel.values()) < IMAGE_BAR
+          and bool(torch.isfinite(a[0]).all()) and float(a[0].mean()) > 0
+          and int(b[3].sum()) > 0,
+          f"23 nrc: card vs cpu masks {mask_share}, {rel}")
+    # one frame's training from the CPU's records, the same permutation
+    ta, la = train_on_frame(state_d, *(x.to(dev) for x in b[1:]), nrc_cfg, 4,
+                            torch.Generator().manual_seed(SEED))
+    tb, lb = train_on_frame(state_c, *b[1:], nrc_cfg, 4,
+                            torch.Generator().manual_seed(SEED))
+    diffs = torch.cat([(x.cpu() - y).abs().reshape(-1) for x, y in zip(
+        tree_leaves(ta["params"]), tree_leaves(tb["params"]))])
+    p_share = float((diffs <= NRC_PARAM_ATOL).float().mean())
+    loss_rel = abs(float(la) - float(lb)) / abs(float(lb))
+    check(loss_rel <= 1e-4 and p_share >= NRC_PARAM_SHARE,
+          f"23 nrc train: loss rel {loss_rel}, params within "
+          f"{NRC_PARAM_ATOL} on {p_share} (max {float(diffs.max())})")
+    rows = {"card_vs_cpu": {"mask_share": mask_share, "rel_diff": rel,
+                            "query_max_abs_err": q_err,
+                            "train_loss_rel_diff": loss_rel,
+                            "train_param_share": p_share,
+                            "train_param_max_abs_err": float(diffs.max())}}
+    print(f"[23 nrc] render_sample_nrc at {res}x{res} on the box, card "
+          f"(kernel 1) vs CPU from the same weights: training masks equal on "
+          f"{mask_share:.5f} (bar {SEL_BAR}), radiance rel diff "
+          f"{rel['radiance']:.3g}, targets {rel['targets']:.3g} (bar "
+          f"{IMAGE_BAR}), queries within {q_err:.3g}; train_on_frame (4 "
+          f"steps, {b[1].shape[0]} records, the same permutation): loss rel "
+          f"diff {loss_rel:.3g} (bar 1e-4), params within {NRC_PARAM_ATOL} "
+          f"on {p_share:.5f} of entries (bar {NRC_PARAM_SHARE}), max "
+          f"{float(diffs.max()):.3g}", flush=True)
+
+    scene, bvh, cam = _nrc_scene_and_camera(TECH_W, TECH_H)
+    scene, bvh, cam = scene.to(dev), bvh.to(dev), cam.to(dev)
+    rows["triangle_wave"] = _nrc_frames("triangle_wave", scene, bvh, cam,
+                                        nrc_cfg, icfg, NRC_FRAMES, dev)
+    losses = rows["triangle_wave"]["losses"]
+    check(np.mean(losses[-4:]) < np.mean(losses[:4]),
+          f"23 nrc: the loss did not fall over {NRC_FRAMES} frames: {losses}")
+    rows["hash_grid"] = _nrc_frames(
+        "hash_grid", scene, bvh, cam,
+        NRCConfig(position_encoding="hash_grid"), icfg, NRC_HASH_FRAMES, dev)
+    report["nrc"] = rows
+
+
+def phase_technique_clis(report):
+    """The regir and neural_radiance_caching CLIs at 64^2 on the card (the
+    second with -checkpoint), at once; then neural_radiance_caching
+    -resume from that checkpoint."""
+    ck = os.path.join(REPO, "out", "cli_nrc_checkpoint.npz")
+    if os.path.exists(ck):
+        os.remove(ck)
+    rows = {}
+    runs = [{"regir": ("gfxexp_torch.apps.regir", []),
+             "neural_radiance_caching": (
+                 "gfxexp_torch.apps.neural_radiance_caching",
+                 ["-checkpoint", ck])},
+            {"neural_radiance_caching_resume": (
+                "gfxexp_torch.apps.neural_radiance_caching",
+                ["-resume", ck])}]
+    for batch in runs:
+        clis = {tag: _png_cli(tag, mod, argv, 64)
+                for tag, (mod, argv) in batch.items()}
+        for tag, (out, proc) in clis.items():
+            _, err = proc.communicate(timeout=300)
+            check(proc.returncode == 0,
+                  f"24 CLI {tag} exited {proc.returncode}: {err[-2000:]}")
+            px = _png_pixels(out + ".png")
+            check(px.shape == (64, 64, 3) and px.any(),
+                  f"24 CLI {tag}: PNG {px.shape}, all black {not px.any()}")
+            stats = [ln for ln in err.splitlines()
+                     if ln.startswith("final:")]
+            rows[tag] = {"stats": stats[-1] if stats else None,
+                         "mean_pixel": float(px.mean())}
+            if tag.endswith("resume"):
+                check(f"resumed cache from {ck}" in err,
+                      f"24 CLI {tag}: no resume line")
+            print(f"[24 CLI {tag}] 64x64, 4 frames: rc 0, out/cli_{tag}.png "
+                  f"mean pixel {px.mean():.1f}; "
+                  f"{stats[-1] if stats else ''}", flush=True)
+        if "neural_radiance_caching" in batch:
+            check(os.path.exists(ck), "24 CLI: no checkpoint written")
+    report["technique_clis"] = rows
 
 
 def mark(report, t_start, phase):
@@ -2010,6 +2422,12 @@ def main():
     mark(report, t_start, "20")
     phase_restir(report, dev)
     mark(report, t_start, "21")
+    phase_regir(report, dev)
+    mark(report, t_start, "22")
+    phase_nrc(report, dev)
+    mark(report, t_start, "23")
+    phase_technique_clis(report)
+    mark(report, t_start, "24")
 
     kernels = [
         {"name": f"widerow_walk_{kind}", "route": "cuda",

@@ -91,13 +91,10 @@ _UNPORTED = ("fuse_shadow_rays", "sort_secondary_rays", "compact_rays",
              "use_solid_angle_sampling", "texture_lod")
 
 
-def _check_supported(scene: SceneData, cfg: PTConfig, nee_fn,
-                     debug_switches):
+def _check_supported(scene: SceneData, cfg: PTConfig, debug_switches):
     for name in _UNPORTED:
         if getattr(cfg, name):
             raise NotImplementedError(f"PTConfig.{name} is not ported yet")
-    if nee_fn is not None:
-        raise NotImplementedError("custom nee_fn is not ported yet")
     if debug_switches is not None and int(debug_switches) != 0:
         raise NotImplementedError("debug switches are not ported yet")
 
@@ -249,8 +246,17 @@ def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
     """Render one sample for `lane_count` consecutive lanes starting at
     `lane_start`. Returns radiance [lane_count, 3] in lane order (and the
     traced-ray count as a 0-d tensor when cfg.count_rays). Runs on the
-    device that holds `scene`."""
-    _check_supported(scene, cfg, nee_fn, debug_switches)
+    device that holds `scene`.
+
+    `nee_fn(scene, bvh, sp, v_out_local, (t, b, n), params, rs, cfg, alive,
+    aux) -> (radiance, aux)` takes the place of the default next-event
+    estimation (ReGIR's cell resampling uses it): it draws from `rs` after
+    Russian roulette, as the default does, and its radiance is gated by
+    `alive` and weighted by the throughput. `aux` starts as `nee_aux` and
+    is threaded through the bounces; when `nee_aux` is not None the result
+    comes back as (result, final aux)."""
+    _check_supported(scene, cfg, debug_switches)
+    has_aux = nee_aux is not None
     dev = scene.triangles.p0.device
     n = lane_count
     lane = int(lane_start) + torch.arange(n, dtype=torch.int64, device=dev)
@@ -282,7 +288,7 @@ def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
     # no new direction) are peeled, as in the reference
     def step(bounce: int, first: bool, collect_only: bool):
         nonlocal ray_o, ray_d, throughput, alive, prev_pdf, contribution
-        nonlocal rays_traced
+        nonlocal rays_traced, nee_aux
         rs = SampleStream(pixel, sample_idx, stream=bounce)
         if cfg.count_rays:
             rays_traced = rays_traced + alive.sum().to(torch.float32)
@@ -361,9 +367,14 @@ def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
         if cfg.use_explicit_light_sampling:
             if cfg.count_rays:
                 rays_traced = rays_traced + alive.sum().to(torch.float32)
-            nee = _next_event(scene, bvh, sp_off, v_out_local, (t, b, nrm),
-                              params, rs, cfg, alive,
-                              light_packed=light_packed)
+            if nee_fn is None:
+                nee = _next_event(scene, bvh, sp_off, v_out_local,
+                                  (t, b, nrm), params, rs, cfg, alive,
+                                  light_packed=light_packed)
+            else:
+                nee, nee_aux = nee_fn(scene, bvh, sp_off, v_out_local,
+                                      (t, b, nrm), params, rs, cfg, alive,
+                                      nee_aux)
             contribution = contribution + torch.where(
                 alive[..., None], throughput * nee, 0.0)
 
@@ -387,9 +398,10 @@ def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
     if L > 1:
         step(L, first=False, collect_only=True)
 
-    if cfg.count_rays:
-        return contribution, rays_traced
-    return contribution
+    result = (contribution, rays_traced) if cfg.count_rays else contribution
+    if has_aux:
+        return result, nee_aux
+    return result
 
 
 def _pixel_order(width: int, height: int, device):

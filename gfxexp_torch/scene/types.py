@@ -168,3 +168,14 @@ def from_numpy(obj):
             raise NotImplementedError(
                 f"the port does not carry scenes with {name!r} yet")
     return _from_numpy(obj)
+
+
+def regir_state_from_numpy(obj):
+    """gfxexp_tpu's ReGIRState or GridInfo (numpy or JAX arrays, read by
+    attribute name) -> the port's (techniques/regir.py) on the CPU."""
+    import gfxexp_torch.techniques.regir  # noqa: F401  (registers them)
+
+    if type(obj).__name__ not in ("ReGIRState", "GridInfo"):
+        raise TypeError(f"expected a ReGIRState or a GridInfo, got "
+                        f"{type(obj).__name__}")
+    return _from_numpy(obj)

@@ -1058,3 +1058,82 @@ def test_svgf_frame_on_card_matches_cpu(dev):
         b, sb = svgf_frame(sb, gb, light)
         assert torch.isfinite(a).all()
         assert S.image_rel_diff(a.cpu().numpy(), b.numpy()) < 1e-4
+
+
+def test_regir_build_and_sample_on_card_match_cpu(dev):
+    """Three frames of the ReGIR cell build and sample (widerow walk,
+    kernel 1) on the card against the CPU from the same start: every
+    slot's selection equal, sum_w and rec_pdf within rtol 1e-4, touch
+    counts equal, images within a mean relative difference of 1e-4."""
+    from gfxexp_torch.techniques import regir as tg
+
+    ts, tb = compile_scene(S.many_light_scene(TB, 16, occluders=3),
+                           traversal="widerow")
+    tc = make_camera(position=[0.0, 3.0, 4.0], fov_y=np.deg2rad(50),
+                     aspect=1.0, target=[0.0, 0.0, 0.0])
+    cfg = tg.ReGIRConfig(grid_dimension=(4, 2, 4),
+                         num_light_slots_per_cell=16)
+    pt = tpt.PTConfig(max_path_length=3)
+    grid = tg.make_grid(ts, cfg)
+    sa, sb = tg.make_regir_state(cfg, dev), tg.make_regir_state(cfg, "cpu")
+    sd, bd, cd, gd = ts.to(dev), tb.to(dev), tc.to(dev), grid.to(dev)
+    for f in range(3):
+        sa = tg.build_cell_reservoirs(sd, sa, gd, f, cfg)
+        sb = tg.build_cell_reservoirs(ts, sb, grid, f, cfg)
+        a = sa.to("cpu")
+        assert torch.allclose(a.pos, sb.pos, atol=1e-5)
+        assert torch.equal(a.at_inf, sb.at_inf)
+        for name in ("sum_w", "rec_pdf", "stream_len"):
+            assert torch.allclose(getattr(a, name), getattr(sb, name),
+                                  rtol=1e-4, atol=1e-6), name
+        ia, sa = tg.render_sample_regir(sd, bd, cd, sa, gd, 32, 32, f, pt,
+                                        cfg)
+        ib, sb = tg.render_sample_regir(ts, tb, tc, sb, grid, 32, 32, f, pt,
+                                        cfg)
+        assert torch.equal(sa.num_accesses.cpu(), sb.num_accesses)
+        assert S.image_rel_diff(ia.cpu().numpy(), ib.numpy()) < 1e-4
+        sa, sb = tg.finalize_frame(sa, f), tg.finalize_frame(sb, f)
+
+
+def test_nrc_train_step_on_card_matches_cpu(dev):
+    """One NRC frame's training (4 steps, the same CPU-drawn permutation)
+    on the card against the CPU from the same state, TF32 off: the loss
+    within rtol 1e-4 and the trained MLP's predictions on the batch within
+    the bf16 bar (rtol 1e-2, atol 1e-4). The triangle wave's params within
+    1e-5 on at least 0.999 of entries (measured: all, within 3e-8). The
+    hash grid's table gradient is a scatter-add that sums in another order
+    on the card, and its features (~1e-4) are rounded to bf16 at the MLP's
+    input, so some entries take another Adam step, which is about lr
+    whatever the gradient's size: the table within 1e-5 on at least 0.999
+    of entries (measured 0.99986), every param within 2 lr of the CPU's
+    (measured 5.4e-3)."""
+    from gfxexp_torch.core.tree import tree_leaves, tree_map
+    from gfxexp_torch.techniques.nrc import network as tn
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(31)
+    q = torch.from_numpy(rng.random((1000, 14)).astype(np.float32))
+    t = torch.from_numpy(rng.random((1000, 3)).astype(np.float32))
+    m = torch.from_numpy(rng.random(1000) < 0.8)
+    for enc in ("triangle_wave", "hash_grid"):
+        cfg = tn.NRCConfig(position_encoding=enc)
+        st = tn.init_nrc(torch.Generator().manual_seed(4), cfg, "cpu")
+        st["params"]["weights"][-1] = torch.randn(
+            st["params"]["weights"][-1].shape,
+            generator=torch.Generator().manual_seed(5)) * 0.1
+        dst = tree_map(lambda x: x.to(dev), st)
+        a, la = tn.train_on_frame(dst, q.to(dev), t.to(dev), m.to(dev), cfg,
+                                  4, torch.Generator().manual_seed(9))
+        b, lb = tn.train_on_frame(st, q, t, m, cfg, 4,
+                                  torch.Generator().manual_seed(9))
+        assert abs(float(la) - float(lb)) <= 1e-4 * abs(float(lb))
+        pa = tn.apply(a["params"], q.to(dev), cfg).cpu()
+        pb = tn.apply(b["params"], q, cfg)
+        assert torch.allclose(pa, pb, rtol=1e-2, atol=1e-4), enc
+        diffs = [(x.cpu() - y).abs() for x, y in zip(
+            tree_leaves(a["params"]), tree_leaves(b["params"]))]
+        checked = diffs if enc == "triangle_wave" else diffs[:1]
+        share = float((torch.cat([d.reshape(-1) for d in checked])
+                       <= 1e-5).float().mean())
+        assert share >= 0.999, (enc, share)
+        assert max(float(d.max()) for d in diffs) <= 2 * cfg.learning_rate

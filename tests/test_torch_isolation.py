@@ -4,8 +4,9 @@ quantized rows, accel/qrow.py, and the lane-group walk, accel/lanegroup.py)
 imports, 16x16 renders of the small bench scene (wide rows and quantized
 rows), of the two-level `big` scene and of an animated frame of the
 flattened `big` scene run, a chunked wide-row table is built and walked,
-the lane-group walk runs, and the path_tracing, svgf and restir_di
-(-rearch -denoise) apps render on the CPU. The package's sources and
+the lane-group walk runs, and the path_tracing, svgf, restir_di (-rearch
+-denoise), regir and neural_radiance_caching apps render on the CPU. optax
+is blocked too: the NRC cache trains without it. The package's sources and
 chip_smoke.py never name jax."""
 
 import os
@@ -20,6 +21,7 @@ _SCRIPT = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["optax"] = None
 import torch
 torch.set_num_threads(1)
 import gfxexp_torch
@@ -79,7 +81,16 @@ for app, extra in ((svgf, []), (restir_di, ["-rearch", "-denoise",
     hdr = app.main(["-device", "cpu", "-width", "8", "-height", "8",
                     "-frames", "2", "-output", OUT, *extra])
     assert hdr.shape == (8, 8, 3) and hdr.mean() > 0.0
-assert not any(m == "jax" or m.startswith(("jax.", "flax"))
+from gfxexp_torch.apps import neural_radiance_caching, regir
+for app, extra in ((regir, ["-grid-dim", "4", "4", "4", "-light-slots",
+                            "8"]),
+                   (neural_radiance_caching, ["-position-encoding",
+                                              "hash_grid"])):
+    hdr = app.main(["-device", "cpu", "-width", "16", "-height", "16",
+                    "-frames", "2", "-output", OUT, *extra])
+    assert hdr.shape == (16, 16, 3) and hdr.mean() > 0.0
+import gfxexp_torch.techniques.nrc  # noqa: F401
+assert not any(m == "jax" or m.startswith(("jax.", "flax", "optax"))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK", len(names))
 """
