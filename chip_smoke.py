@@ -128,7 +128,30 @@ Phases, one line each, any failure exits non-zero:
      peak memory, the loss by frame, out/torch_nrc_*.png;
  24. the regir and neural_radiance_caching (-checkpoint) CLIs at 64x64, 4
      frames, at once; then neural_radiance_caching -resume from that
-     checkpoint; their PNGs.
+     checkpoint; their PNGs;
+ 25. textures and PTConfig: the textured scene (bench.build_textured_scene;
+     its PNG and DDS files written here and loaded through load_texture)
+     at 128x128, 4 samples, on the card against the CPU (image mean
+     relative difference < 5e-3, ray counts equal) as wide rows (kernel 1)
+     and skip links (kernel 6), plain and with bump mapping, texture LOD,
+     solid-angle NEE and fused shadow rays together, with the probability
+     texture and debug switches 0b1000_0101, and with 0xFF; fused against
+     unfused on the card (rtol 1e-5, atol 1e-6, equal rays, 5 closest and
+     no any-hit walks a sample); ReGIR's world-space grid and one frame on
+     `big` two-level (kernel 5) against the same scene flattened;
+ 26. costs: the path_tracing app's frame loop on the textured scene at
+     1920x1080, 8 frames plain and with -bump -texture-lod (ms per
+     pathTrace, walk launches per frame, one frame under torch.profiler:
+     CUDA kernels, idle share); the small scene at 512x512 with fused
+     shadow rays off, on, on, off (Mrays/s, kernels and walk launches per
+     sample: 5 + 4 unfused, 5 + 0 fused), and kernel 1 timed on one
+     batch of bounce and shadow rays as N closest + N any against one
+     closest over 2N; the default sample's kernels and kernel-launch
+     calls, the calls equal to the parent's 5,824;
+ 27. on the card at 64x64: path_tracing -bump -texture-lod -debug-switches
+     133 -exr (the EXR read back) and path_tracing -env-texture on an EXR
+     written here; the svgf and restir_di frame loops on the textured
+     scene, whose G-buffer albedo carries the checker.
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -854,8 +877,12 @@ def _profile(fn):
         torch.cuda.synchronize()
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the host's launch calls (the CUDA runtime's, seen on the CPU side):
+    # one per kernel launched, whatever the device trace kept
+    calls = sum(1 for e in prof.events() if e.name in LAUNCH_CALLS)
     if not kern:
-        return {"wall_ms": wall * 1e3, "kernels": "not measured"}
+        return {"wall_ms": wall * 1e3, "kernels": "not measured",
+                "launch_calls": calls}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
@@ -872,7 +899,8 @@ def _profile(fn):
             "device_busy_ms": busy / 1e3, "walk_ms": walk_us / 1e3,
             "walk_launches": len(walk),
             "walk_share_of_busy": walk_us / busy if busy else None,
-            "idle_share": 1.0 - busy / 1e3 / (wall * 1e3)}
+            "idle_share": 1.0 - busy / 1e3 / (wall * 1e3),
+            "launch_calls": calls}
 
 
 def _print_profile(tag, p, what="one 512x512 sample"):
@@ -2363,6 +2391,379 @@ def phase_technique_clis(report):
     report["technique_clis"] = rows
 
 
+# the CUDA runtime's kernel-launch calls, as torch.profiler names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+TEX_RES = 128  # phase 25's card-against-CPU renders
+TEX_SAMPLES = 4
+TEX_FRAMES = 8  # the path_tracing app's frames per run at 1080p (phase 26)
+FUSED_RUNS = ("off", "on", "on", "off")  # phase 26's small-scene turns
+# the default 512^2 sample of the small scene before the textures and the
+# rest of PTConfig came in: the CUDA kernels of its device trace and the
+# CUDA runtime's launch calls, from `gfxexp_torch/op_counts.py --cuda` run
+# on that tree and on this one in turns (NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md). Later in a long run the trace can keep fewer or more kernels
+# (5,769 to 5,836 for the same sample); the launch calls do not move
+PARENT_SAMPLE_KERNELS = 5833
+PARENT_SAMPLE_LAUNCHES = 5824
+# every option of the slice at once: bump, texture LOD, solid-angle NEE and
+# the fused shadow rays
+ALL_OPTIONS = dict(enable_bump_mapping=True, texture_lod=True,
+                   use_solid_angle_sampling=True, fuse_shadow_rays=True)
+# phase 25's cases: (traversal, options, debug switches, probability
+# texture)
+TEX_CASES = {
+    "widerow_default": ("widerow", {}, 0, False),
+    "widerow_options": ("widerow", ALL_OPTIONS, 0, False),
+    "skip_default": ("skip", {}, 0, False),
+    "skip_options": ("skip", ALL_OPTIONS, 0, False),
+    "skip_options_probtex_0x85": ("skip", ALL_OPTIONS, 0b1000_0101, True),
+    "skip_options_0xff": ("skip", ALL_OPTIONS, 0xFF, False),
+}
+
+
+def _tex_dir():
+    return os.path.join(REPO, "out", "textures")
+
+
+def _tex_render(scene, bvh, cam, res, samples, cfg, sw):
+    """Mean of `samples` render_sample calls (indices 0..) and their rays."""
+    acc = torch.zeros((res * res, 3), device=scene.device)
+    rays = 0.0
+    for s in range(samples):
+        img, nr = render_sample(scene, bvh, cam, res, res, s, cfg, sw)
+        acc += img
+        rays += float(nr)
+    return (acc / samples).cpu().numpy(), rays
+
+
+def phase_textures(report, dev):
+    """Phase 25: the textured scene (bench.build_textured_scene: a 1-texel
+    checker with mips, normal- and height-mapped spheres with BC1 and BC7
+    textures from DDS files and a normal map from a PNG, all written here,
+    an emissive-textured lamp) at TEX_RES^2, TEX_SAMPLES samples, card
+    against CPU, as wide rows (kernel 1) and skip links (kernel 6), with
+    and without the slice's options, the probability texture and debug
+    switches; fused against unfused on the card; and the world-space ReGIR
+    grid of `big` two-level (kernel 5) against the same scene flattened."""
+    from gfxexp_torch.techniques import regir as tg
+
+    rows, built = {}, {}
+    cam = bench.textured_camera(TEX_RES, TEX_RES)
+    for name, (traversal, opts, sw, probtex) in TEX_CASES.items():
+        key = (traversal, probtex)
+        if key not in built:
+            t0 = time.time()
+            s, b = bench.build_textured_scene(
+                _tex_dir(), traversal=traversal,
+                use_probability_texture=probtex)
+            built[key] = (s, b, s.to(dev), b.to(dev), time.time() - t0)
+        s, b, sd, bd, build_s = built[key]
+        cfg = PTConfig(max_path_length=bench.MAX_PATH_LENGTH,
+                       count_rays=True, **opts)
+        _reset_counts()
+        a, ra = _tex_render(sd, bd, cam.to(dev), TEX_RES, TEX_SAMPLES, cfg,
+                            sw)
+        torch.cuda.synchronize()
+        counts = _all_counts()
+        c, rc = _tex_render(s, b, cam, TEX_RES, TEX_SAMPLES, cfg, sw)
+        rel = _rel(a, c)
+        route = "widerow" if traversal == "widerow" else "skip"
+        kinds = ("closest",) if opts.get("fuse_shadow_rays") or (
+            sw & 1) else ("closest", "any")
+        check(_route_launched(counts, route, kinds),
+              f"25 textures {name}: the card did not take the {route} "
+              f"walk ({kinds}): {counts}")
+        check(np.isfinite(a).all(), f"25 textures {name}: non-finite pixels")
+        check(rel < IMAGE_BAR and ra == rc,
+              f"25 textures {name}: image rel diff {rel}, rays {ra} vs {rc}")
+        check(sw == 0xFF or a.mean() > 0, f"25 textures {name}: black image")
+        rows[name] = {"image_rel_diff": rel, "rays": ra,
+                      "launches": {g: {k: v for k, v in c.items() if v}
+                                   for g, c in counts.items()},
+                      "mean": float(a.mean()), "host_build_s": build_s}
+        print(f"[25 textures {name}] {TEX_RES}x{TEX_RES}, {TEX_SAMPLES} "
+              f"samples, options {sorted(opts)}, switches {sw:#04x}, "
+              f"probability texture {probtex}: card vs CPU image rel diff "
+              f"{rel:.3g} (bar {IMAGE_BAR}), rays {ra:.0f} equal, launches "
+              f"{rows[name]['launches']}", flush=True)
+    save_png(os.path.join(REPO, "out", "torch_textured.png"),
+             a.reshape(TEX_RES, TEX_RES, 3) / (1.0 + a.reshape(
+                 TEX_RES, TEX_RES, 3)))
+
+    # fused against unfused on the card: the same image, the same rays
+    for traversal in ("widerow", "skip"):
+        _, _, sd, bd, _ = built[(traversal, False)]
+        out = {}
+        for fuse in (False, True):
+            cfg = PTConfig(max_path_length=bench.MAX_PATH_LENGTH,
+                           count_rays=True, **dict(ALL_OPTIONS,
+                                                   fuse_shadow_rays=fuse))
+            _reset_counts()
+            img, nr = _tex_render(sd, bd, cam.to(dev), TEX_RES, TEX_SAMPLES,
+                                  cfg, 0)
+            out[fuse] = (img, nr, _all_counts())
+        (a, ra, ca), (b, rb, cb) = out[False], out[True]
+        err = float(np.abs(a - b).max())
+        check(np.allclose(a, b, rtol=1e-5, atol=1e-6) and ra == rb,
+              f"25 textures fused {traversal}: max abs diff {err}, rays "
+              f"{ra} vs {rb}")
+        group, suffix = {"widerow": ("kernel1", ""),
+                         "skip": ("skip", "_thread")}[traversal]
+        walks = {f: (c[group]["closest" + suffix], c[group]["any" + suffix])
+                 for f, c in (("unfused", ca), ("fused", cb))}
+        check(walks["fused"] == (bench.MAX_PATH_LENGTH * TEX_SAMPLES, 0),
+              f"25 textures fused {traversal}: walks {walks}")
+        rows[f"fused_{traversal}"] = {"max_abs_diff": err, "rays": ra,
+                                      "walks": walks}
+        print(f"[25 textures fused {traversal}] all options, fused vs "
+              f"unfused on the card: max abs diff {err:.3g} (rtol 1e-5, "
+              f"atol 1e-6), rays {ra:.0f} equal, walk launches closest/any "
+              f"{walks}", flush=True)
+    built = None
+
+    # ReGIR's grid and one frame on `big` two-level (kernel 5) against the
+    # same scene flattened (kernel 1)
+    cfg = tg.ReGIRConfig(**REGIR_SMALL)
+    pt = PTConfig(max_path_length=3, count_rays=True)
+    cam = bench.bench_camera(CHECK_RES, CHECK_RES, "big").to(dev)
+    grids, imgs = {}, {}
+    for traversal in ("instanced", "widerow"):
+        s, b = (x.to(dev) for x in bench.build_bench_scene(
+            "big", traversal=traversal))
+        grid = tg.make_grid(s, cfg)
+        st = tg.build_cell_reservoirs(s, tg.make_regir_state(cfg, dev), grid,
+                                      0, cfg)
+        _reset_counts()
+        img, _, _ = tg.render_sample_regir(s, b, cam, st, grid, CHECK_RES,
+                                           CHECK_RES, 0, pt, cfg)
+        torch.cuda.synchronize()
+        counts = _all_counts()
+        grids[traversal] = torch.cat([grid.origin, grid.cell_size]).cpu()
+        imgs[traversal] = img.cpu().numpy()
+        if traversal == "instanced":
+            check(counts["instanced"]["closest_nearest"] > 0,
+                  f"25 regir big instanced: kernel 5 not launched: {counts}")
+    gerr = float((grids["instanced"] - grids["widerow"]).abs().max())
+    rel = _rel(imgs["instanced"], imgs["widerow"])
+    check(gerr <= 1e-6 and rel < 5e-5,
+          f"25 regir big: grid differs by {gerr}, image rel diff {rel}")
+    rows["regir_big_world_grid"] = {"grid_max_abs_diff": gerr,
+                                    "image_rel_diff": rel,
+                                    "grid": grids["instanced"].tolist()}
+    print(f"[25 regir big] two-level (kernel 5) vs flattened (kernel 1) on "
+          f"the card: grid origin and cell size within {gerr:.3g} (bar "
+          f"1e-6), one frame at {CHECK_RES}x{CHECK_RES} image rel diff "
+          f"{rel:.3g} (bar 5e-5)", flush=True)
+    report["textures"] = rows
+
+
+def phase_texture_costs(report, dev):
+    """Phase 26: the path_tracing app's frame loop on the textured scene
+    (wide rows, kernel 1) at 1920x1080, TEX_FRAMES frames without options
+    and with bump mapping and texture LOD; then the small scene at 512^2
+    with fused shadow rays off and on in turns (FUSED_RUNS), each under
+    torch.profiler for one sample, and the default sample's kernel count
+    against the parent's."""
+    scene, bvh = (x.to(dev) for x in bench.build_textured_scene(
+        _tex_dir(), traversal="widerow"))
+    cam = bench.textured_camera(TECH_W, TECH_H).to(dev)
+    rows = {}
+    for name, opts in (("plain", {}),
+                       ("bump_lod", dict(enable_bump_mapping=True,
+                                         texture_lod=True))):
+        cfg = PTConfig(max_path_length=bench.MAX_PATH_LENGTH, **opts)
+        frame_loop(scene, bvh, cam, [], "widerow", TECH_W, TECH_H, 1, cfg,
+                   PassTimer(device=dev))  # warm-up
+        torch.cuda.synchronize()
+        timer = PassTimer(device=dev)
+        _reset_counts()
+        film, _, _, _ = frame_loop(scene, bvh, cam, [], "widerow", TECH_W,
+                                   TECH_H, TEX_FRAMES, cfg, timer)
+        torch.cuda.synchronize()
+        counts = _all_counts()
+        check(_route_launched(counts, "widerow"),
+              f"26 textured 1080p {name}: not kernel 1: {counts}")
+        img = film.beauty
+        check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+              f"26 textured 1080p {name}: bad image")
+        prof = _profile_pass(
+            f"26 textured profile {name}",
+            lambda: render_sample(scene, bvh, cam, TECH_W, TECH_H, 1, cfg),
+            "one 1920x1080 pathTrace")
+        rows[name] = {"ms_per_pathTrace": timer.mean_ms("pathTrace"),
+                      "launches_per_frame": _per_frame(counts, TEX_FRAMES),
+                      "profile": prof, "mean": float(img.mean())}
+        print(f"[26 textured 1080p {name}] {TEX_FRAMES} frames: pathTrace "
+              f"{rows[name]['ms_per_pathTrace']:.2f} ms per frame, walk "
+              f"launches per frame {rows[name]['launches_per_frame']}",
+              flush=True)
+        save_png(os.path.join(REPO, "out", f"torch_textured_{name}.png"),
+                 (img / (1.0 + img)).cpu().numpy())
+    scene = bvh = None
+
+    small, sbvh = (x.to(dev) for x in bench.build_bench_scene())
+    turns = []
+    for i, fused in enumerate(FUSED_RUNS):
+        cfg = PTConfig(max_path_length=bench.MAX_PATH_LENGTH, count_rays=True,
+                       fuse_shadow_rays=fused == "on")
+        _reset_counts()
+        r = bench.measure("512", small, sbvh, device=dev, cfg=cfg)
+        _check_bench_row(r, f"26 fused {fused}")
+        lc = r["launches"]
+        per = (lc["widerow_closest"] / bench.TIMED_SAMPLES,
+               lc["widerow_any"] / bench.TIMED_SAMPLES)
+        prof = _profile(lambda s: render_accumulate(
+            small, sbvh, bench.bench_camera(512, 512).to(dev), 512, 512, s,
+            1, cfg))
+        turns.append({"fused": fused, "mrays_per_s": r["value"],
+                      "walks_per_sample": per, "profile": prof,
+                      "mean": r["mean_radiance"]})
+        print(f"[26 fused turn {i} {fused}] small 512x512: {r['value']} "
+              f"Mrays/s, {prof['kernels']} CUDA kernels a sample, "
+              f"{prof['launch_calls']} launch calls (idle share "
+              f"{prof.get('idle_share', float('nan')):.3f}), walk "
+              f"launches a sample closest + any {per[0]:.0f} + "
+              f"{per[1]:.0f}", flush=True)
+    rows["fused_walks"] = _fused_walk_times(sbvh, dev)
+    want = {"off": (5.0, 4.0), "on": (5.0, 0.0)}
+    for t in turns:
+        check(t["walks_per_sample"] == want[t["fused"]],
+              f"26 fused {t['fused']}: walks {t['walks_per_sample']}")
+    means = {t["fused"]: t["mean"] for t in turns}
+    check(abs(means["on"] - means["off"]) <= 1e-5 * means["off"],
+          f"26 fused: mean radiance {means}")
+    default = [(t["profile"]["kernels"], t["profile"]["launch_calls"])
+               for t in turns if t["fused"] == "off"]
+    rows["fused_turns"] = turns
+    rows["default_sample"] = default
+    print(f"[26 default sample] small 512x512, default PTConfig: (CUDA "
+          f"kernels in the trace, launch calls) {default} a sample; the "
+          f"parent's: {PARENT_SAMPLE_KERNELS} kernels, "
+          f"{PARENT_SAMPLE_LAUNCHES} launch calls", flush=True)
+    check(all(c == PARENT_SAMPLE_LAUNCHES for _, c in default),
+          f"26 default sample: launch calls {default}, parent "
+          f"{PARENT_SAMPLE_LAUNCHES}")
+    report["texture_costs"] = rows
+
+
+def _fused_walk_times(bvh, dev):
+    """Kernel 1 on one 512^2 batch of the small scene's bounce rays and
+    their shadow rays (bench.walk_rays): a closest-hit and an any-hit
+    launch of N lanes each, as the unfused tracer walks them, against one
+    closest-hit launch of the 2N lanes, as the fused tracer does. The 2N
+    launch's shadow half must report the any-hit launch's occlusion."""
+    def first_hit(o0, d0):
+        h = walk_cuda(bvh, o0, d0, 0.0, 1e30, any_hit=False)
+        return h.t, h.hit
+
+    o, d, t_min, t_max, sd, s_max = _scene_rays(first_hit, "small", dev)
+    b = slice(BATCH, 2 * BATCH)
+    fo, fd = torch.cat([o[b], o[b]]), torch.cat([d[b], sd[b]])
+    ft_min = torch.cat([t_min[b], t_min[b]])
+    ft_max = torch.cat([t_max[b], s_max[b]])
+    occluded = walk_cuda(bvh, o[b], sd[b], t_min[b], s_max[b], True).hit
+    fused_hit = walk_cuda(bvh, fo, fd, ft_min, ft_max, False).hit[BATCH:]
+    check(torch.equal(occluded, fused_hit),
+          "26 fused walks: the 2N launch's shadow half differs from any-hit")
+    ms = {"closest_n": time_ms(lambda: walk_cuda(
+              bvh, o[b], d[b], t_min[b], t_max[b], False), 20),
+          "any_n": time_ms(lambda: walk_cuda(
+              bvh, o[b], sd[b], t_min[b], s_max[b], True), 20),
+          "closest_2n": time_ms(lambda: walk_cuda(
+              bvh, fo, fd, ft_min, ft_max, False), 20)}
+    print(f"[26 fused walks] kernel 1 on {BATCH} bounce rays and their "
+          f"shadow rays: closest {ms['closest_n']:.4f} + any "
+          f"{ms['any_n']:.4f} = {ms['closest_n'] + ms['any_n']:.4f} ms "
+          f"unfused, one closest over {2 * BATCH} lanes "
+          f"{ms['closest_2n']:.4f} ms fused (occlusion equal)", flush=True)
+    return ms
+
+
+def phase_texture_clis(report, dev):
+    """Phase 27: on the card at 64^2, path_tracing with -bump -texture-lod
+    -debug-switches 133 -exr (the EXR read back) and path_tracing with
+    -env-texture on an EXR written here, at once; then the svgf and
+    restir_di apps' frame loops on the textured scene (the DSL has no
+    texture source until -obj is ported), whose G-buffer albedo now
+    carries the checker."""
+    from gfxexp_torch.apps import restir_di as restir_app
+    from gfxexp_torch.apps import svgf as svgf_app
+    from gfxexp_torch.render.gbuffer import render_gbuffer
+    from gfxexp_torch.techniques.restir_di import ReSTIRConfig
+    from gfxexp_torch.techniques.svgf import SVGFConfig
+    from gfxexp_torch.utils.image_io import load_exr, save_exr
+
+    sky = os.path.join(REPO, "out", "cli_sky.exr")
+    h, w = np.mgrid[0:16, 0:32].astype(np.float32)
+    save_exr(sky, np.stack([1.0 + h / 8, 0.5 + w / 32, np.full_like(h, 0.8)],
+                           -1), half=False)
+    env_dsl = ["-cam-pos", "0", "1", "3.2", "-cam-pitch", "-12",
+               "-name", "floor", "-rectangle", "4", "4", "-inst", "floor",
+               "-name", "ball", "-sphere", "0.4", "-inst", "ball",
+               "-position", "0", "0.4", "0"]
+    clis = {"path_tracing_options": _png_cli(
+                "path_tracing_options", "gfxexp_torch.apps.path_tracing",
+                ["-bump", "-texture-lod", "-debug-switches", "133", "-exr"],
+                CHECK_RES),
+            "path_tracing_env_texture": _png_cli(
+                "path_tracing_env_texture", "gfxexp_torch.apps.path_tracing",
+                ["-env-texture", sky, "-debug-switches", "64", *env_dsl],
+                CHECK_RES)}
+    rows = {}
+    for tag, (out, proc) in clis.items():
+        _, err = proc.communicate(timeout=300)
+        check(proc.returncode == 0,
+              f"27 CLI {tag} exited {proc.returncode}: {err[-2000:]}")
+        px = _png_pixels(out + ".png")
+        check(px.shape == (CHECK_RES, CHECK_RES, 3) and px.any(),
+              f"27 CLI {tag}: PNG {px.shape}, all black {not px.any()}")
+        stats = [ln for ln in err.splitlines() if ln.startswith("final:")]
+        rows[tag] = {"stats": stats[-1] if stats else None,
+                     "mean_pixel": float(px.mean())}
+        if tag == "path_tracing_options":
+            hdr = load_exr(out + ".exr")
+            check(hdr.shape == (CHECK_RES, CHECK_RES, 3)
+                  and np.isfinite(hdr).all() and hdr.mean() > 0,
+                  f"27 CLI {tag}: EXR {hdr.shape}")
+            rows[tag]["exr_mean"] = float(hdr.mean())
+        print(f"[27 CLI {tag}] {CHECK_RES}x{CHECK_RES}, 4 frames: rc 0, "
+              f"out/cli_{tag}.png mean pixel {px.mean():.1f}"
+              + (f", EXR read back, mean {rows[tag]['exr_mean']:.4f}"
+                 if "exr_mean" in rows[tag] else "")
+              + f"; {stats[-1] if stats else ''}", flush=True)
+
+    scene, bvh = (x.to(dev) for x in bench.build_textured_scene(
+        _tex_dir(), traversal="widerow"))
+    cam = bench.textured_camera(CHECK_RES, CHECK_RES).to(dev)
+    gb = render_gbuffer(scene, bvh, cam, cam, CHECK_RES, CHECK_RES, 0, False)
+    floor = gb.hit & (gb.material == 0)
+    alb = gb.albedo[floor][:, 0]
+    check(float(alb.min()) < 0.3 and float(alb.max()) > 0.6,
+          f"27 textured G-buffer: floor albedo {float(alb.min())} .. "
+          f"{float(alb.max())}, no checker")
+    pt = PTConfig(max_path_length=bench.MAX_PATH_LENGTH)
+    img, _, _, _ = svgf_app.frame_loop(scene, bvh, cam, [], "widerow",
+                                       CHECK_RES, CHECK_RES, 4, pt,
+                                       SVGFConfig(), PassTimer(device=dev))
+    film, _, _ = restir_app.frame_loop(scene, bvh, cam, [], "widerow",
+                                       CHECK_RES, CHECK_RES, 4,
+                                       ReSTIRConfig(), True,
+                                       PassTimer(device=dev))
+    for tag, im in (("svgf", img), ("restir_di", film.beauty)):
+        check(bool(torch.isfinite(im).all()) and float(im.mean()) > 0,
+              f"27 {tag} on the textured scene: bad image")
+        rows[f"{tag}_textured"] = {"mean": float(im.mean())}
+        save_png(os.path.join(REPO, "out", f"torch_textured_{tag}.png"),
+                 (im / (1.0 + im)).cpu().numpy())
+    print(f"[27 textured techniques] G-buffer floor albedo "
+          f"{float(alb.min()):.3f} .. {float(alb.max()):.3f} (the checker); "
+          f"svgf and restir_di frame loops, 4 frames at {CHECK_RES}x"
+          f"{CHECK_RES}: mean {rows['svgf_textured']['mean']:.4f} / "
+          f"{rows['restir_di_textured']['mean']:.4f}", flush=True)
+    report["texture_clis"] = rows
+
+
 def mark(report, t_start, phase):
     """Seconds since the start at the end of `phase`, kept and printed."""
     secs = time.time() - t_start
@@ -2428,6 +2829,12 @@ def main():
     mark(report, t_start, "23")
     phase_technique_clis(report)
     mark(report, t_start, "24")
+    phase_textures(report, dev)
+    mark(report, t_start, "25")
+    phase_texture_costs(report, dev)
+    mark(report, t_start, "26")
+    phase_texture_clis(report, dev)
+    mark(report, t_start, "27")
 
     kernels = [
         {"name": f"widerow_walk_{kind}", "route": "cuda",

@@ -9,10 +9,11 @@ picks where the app runs: `cuda` (the default) or `cpu`; without a card,
 `cuda` raises instead of falling back.
 
 `-denoise` runs the SVGF denoiser (Denoiser) on the accumulated image
-every frame. Not ported yet, and raising NotImplementedError when asked for:
-`-obj` (the mesh loaders, scene/loaders.py), `-env-texture` and `-exr` (EXR
-I/O, utils/image_io.py), `-live` and its camera rig (utils/viewer.py) and
-a non-zero `-debug-switches`.
+every frame; `-exr` also writes the HDR image as EXR; `-env-texture` lights
+the scene with a lat-long EXR; `-bump`, `-texture-lod` (the builder then
+makes mips) and `-debug-switches` go to the path tracer. Not ported yet,
+and raising NotImplementedError when asked for: `-obj` (the mesh loaders,
+scene/loaders.py) and `-live` with its camera rig (utils/viewer.py).
 """
 
 from __future__ import annotations
@@ -54,11 +55,18 @@ def make_arg_parser(name: str) -> argparse.ArgumentParser:
                    help="SBVH spatial splits at BVH build")
     p.add_argument("-rebraid", type=float, default=0.0,
                    help="TLAS rebraiding budget for -traversal instanced")
-    p.add_argument("-fused-shadow-rays", action="store_true")
-    p.add_argument("-texture-lod", action="store_true")
+    p.add_argument("-fused-shadow-rays", action="store_true",
+                   help="batch NEE shadow rays with the next bounce's "
+                        "closest rays in one walk")
+    p.add_argument("-texture-lod", action="store_true",
+                   help="trilinear mip LOD for material textures")
     p.add_argument("-denoise", action="store_true",
                    help="denoise the accumulated beauty every frame (SVGF)")
-    p.add_argument("-debug-switches", type=int, default=0)
+    p.add_argument("-debug-switches", type=int, default=0,
+                   help="8-bit path tracer debug field: bit 0 no NEE, 1 no "
+                        "implicit light, 2 no Russian roulette, 3 no env "
+                        "light, 4 no bump, 5 no jitter, 6 white albedo, 7 "
+                        "geometric normals")
     # camera
     p.add_argument("-cam-pos", type=float, nargs=3, default=[0.0, 0.0, 3.16])
     p.add_argument("-cam-roll", type=float, default=0.0)
@@ -83,17 +91,12 @@ def parse_scene_args(parser, argv=None):
 
 
 def check_unported(args):
-    """Raise for the output and viewer options whose modules the port does
-    not have yet (build_scene_from_dsl raises for the scene's: -obj and
-    -env-texture)."""
-    missing = (("exr", "-exr needs EXR output (utils/image_io.py save_exr)"),
-               ("live", "-live needs the live viewer and its camera rig "
-                        "(utils/viewer.py)"),
-               ("debug_switches", "-debug-switches needs the path tracer's "
-                                  "debug switches (render/pathtrace.py)"))
-    for attr, what in missing:
-        if getattr(args, attr, None) not in (None, False):
-            raise NotImplementedError(f"{what}, which is not ported yet")
+    """Raise for the viewer option, whose module the port does not have
+    yet (build_scene_from_dsl raises for -obj)."""
+    if getattr(args, "live", None) is not None:
+        raise NotImplementedError(
+            "-live needs the live viewer and its camera rig "
+            "(utils/viewer.py), which is not ported yet")
 
 
 def resolve_device(args) -> torch.device:
@@ -158,7 +161,7 @@ def build_scene_from_dsl(args, extra_argv: List[str]):
     from gfxexp_torch.scene.animation import InstanceController
     from gfxexp_torch.scene.builder import SceneBuilder, affine
 
-    b = SceneBuilder()
+    b = SceneBuilder(texture_mips=getattr(args, "texture_lod", False))
     controllers: List[InstanceController] = []
     named = {}  # name -> (geometry ids, base scale)
     pending_name = "unnamed"
@@ -247,9 +250,10 @@ def build_scene_from_dsl(args, extra_argv: List[str]):
         for geoms, scale in named.values():
             b.add_instance(geoms, affine(scale=scale))
     if getattr(args, "env_texture", None):
-        raise NotImplementedError("-env-texture needs EXR input "
-                                  "(utils/image_io.py load_exr), which is "
-                                  "not ported yet")
+        from gfxexp_torch.utils.image_io import load_exr
+
+        b.set_environment(load_exr(args.env_texture)[:, :, :3],
+                          power_coeff=args.env_power)
     return b, controllers
 
 
@@ -295,14 +299,17 @@ class PassTimer:
 
 
 def save_outputs(args, hdr_image: np.ndarray):
-    """The PNG of the accumulated HDR image, scaled by -brightness."""
-    from gfxexp_torch.utils.image_io import save_png
+    """The PNG of the accumulated HDR image, scaled by -brightness, and
+    with -exr the HDR image itself as EXR."""
+    from gfxexp_torch.utils.image_io import save_exr, save_png
 
     out = args.output
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     sdr = np.clip(hdr_image * args.brightness, 0.0, 1.0)
     save_png(out + ".png", sdr)
-    print(f"wrote {out}.png")
+    if args.exr:
+        save_exr(out + ".exr", hdr_image)
+    print(f"wrote {out}.png" + (f" and {out}.exr" if args.exr else ""))
 
 
 class Denoiser:

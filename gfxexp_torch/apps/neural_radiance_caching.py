@@ -81,7 +81,7 @@ def cache_image(scene, bvh, camera, state, aabb, width: int, height: int,
     gb = render_gbuffer(scene, bvh, camera, camera, width, height, 0, False)
     n = width * height
     mat = torch.clamp(gb.material.reshape(n), min=0)
-    params = material_params_textured(scene.materials, None, mat,
+    params = material_params_textured(scene.materials, scene.textures, mat,
                                       gb.texcoord.reshape(n, 2))
     q = make_query(aabb[0], aabb[1], gb.position.reshape(n, 3),
                    gb.normal.reshape(n, 3), -gb.view_dir.reshape(n, 3),

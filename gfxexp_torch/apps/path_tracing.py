@@ -12,7 +12,9 @@ Runs on the card (`-device cuda`, the default) or on the CPU
 overrides. Each frame advances the animation (`update`), renders one sample
 (`pathTrace`) and adds it to the film; `-denoise` runs the SVGF denoiser
 on the film every frame (`gbuffer`, `denoise`) and writes its image;
-`-stats` prints the per-pass times.
+`-stats` prints the per-pass times. `-bump`, `-texture-lod`,
+`-fused-shadow-rays` and `-debug-switches` set the path tracer's options;
+`-exr` also writes `<output>.exr`.
 """
 
 from __future__ import annotations
@@ -27,11 +29,11 @@ from gfxexp_torch.apps import common
 
 def frame_loop(scene, bvh, camera, controllers, traversal: str, width: int,
                height: int, frames: int, cfg, timer: common.PassTimer,
-               stats: bool = False, denoiser=None):
+               stats: bool = False, denoiser=None, debug_switches: int = 0):
     """The app's frames f = 0 .. frames - 1 on the scene's device: `update`
     (advance_frame, or advance_frame_instanced for two-level scenes, at
     t = f / 60) when there are controllers, `pathTrace` (render_sample with
-    sample index f), the film's running mean, and the denoiser's step on
+    sample index f and the debug switches), the film's running mean, and the denoiser's step on
     the film when one is given (its image is `denoiser.image`). Returns
     (film, scene, bvh, rays): rays is the traced-ray count when
     cfg.count_rays, else None."""
@@ -47,7 +49,7 @@ def frame_loop(scene, bvh, camera, controllers, traversal: str, width: int,
             scene, bvh = timer.measure("update", advance, scene, bvh,
                                        controllers, f / 60.0)
         out = timer.measure("pathTrace", render_sample, scene, bvh, camera,
-                            width, height, f, cfg)
+                            width, height, f, cfg, debug_switches)
         if cfg.count_rays:
             out, nr = out
             rays = rays + nr
@@ -81,7 +83,8 @@ def main(argv=None):
     denoiser = common.maybe_denoiser(args, dev)
     film, _, _, _ = frame_loop(scene, bvh, camera, controllers, traversal,
                                args.width, args.height, args.frames, cfg,
-                               timer, stats=args.stats, denoiser=denoiser)
+                               timer, stats=args.stats, denoiser=denoiser,
+                               debug_switches=args.debug_switches)
     out = film.beauty if denoiser is None else denoiser.image
     hdr = out.cpu().numpy()
     common.save_outputs(args, hdr)

@@ -134,6 +134,107 @@ def build_bench_scene(scene: str = "small", rebraid: float = 0.0,
     return s, acc
 
 
+def _write_dds(path: str, blocks: bytes, width: int, height: int,
+               fourcc: bytes = None, dxgi: int = None):
+    """A DDS file of BC blocks: a legacy FourCC header, or the DX10 header
+    with a DXGI format."""
+    import struct
+
+    head = struct.pack("<IIIII", 0x20534444, 124, 0x1007, height, width)
+    head += b"\x00" * (76 - len(head))
+    head += struct.pack("<II4s", 32, 0x4, b"DX10" if dxgi else fourcc)
+    head += b"\x00" * (128 - len(head))
+    if dxgi:
+        head += struct.pack("<IIIII", dxgi, 3, 0, 1, 0)
+    with open(path, "wb") as f:
+        f.write(head + blocks)
+
+
+def textured_scene_builder(b, tex_dir: str, seed: int = 5):
+    """Populate a fresh SceneBuilder (either package's: tests build the
+    same scene in the JAX package) with the textured scene, writing its
+    texture files into `tex_dir` first: a 4x4 floor with a checker of
+    1-texel squares (at the atlas size, 512) and a 2-channel normal map;
+    a sphere with a tangent-space normal map read from a PNG and a BC1
+    diffuse texture, one with a height map and a BC7 diffuse texture (both
+    DDS files of random blocks from `seed`); a 1x1 lamp facing down at
+    y = 2 whose emission is a striped texture (emittance 40 and 10, the
+    constant 25 weights it for NEE); a dim constant environment (0.1)."""
+    import importlib
+    import os
+
+    from gfxexp_torch.scene.textures import ATLAS_SIZE
+    from gfxexp_torch.utils.image_io import save_png
+
+    rng = np.random.default_rng(seed)
+    s = ATLAS_SIZE
+    os.makedirs(tex_dir, exist_ok=True)
+    checker = (np.indices((s, s)).sum(0) % 2).astype(np.float32)
+    checker = np.stack([0.2 + 0.6 * checker] * 3, axis=-1)
+    yy, xx = np.mgrid[0:64, 0:64].astype(np.float32) / 64.0
+    ripple = np.stack([0.5 + 0.3 * np.sin(12 * np.pi * xx),
+                       0.5 + 0.3 * np.cos(10 * np.pi * yy)], axis=-1)
+    n = np.stack([0.6 * np.sin(8 * np.pi * xx), 0.6 * np.sin(6 * np.pi * yy),
+                  np.ones_like(xx)], axis=-1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    normal_png = os.path.join(tex_dir, "normal.png")
+    save_png(normal_png, 0.5 * n + 0.5, apply_srgb=False)
+    height = 0.5 + 0.5 * np.sin(10 * np.pi * xx) * np.sin(10 * np.pi * yy)
+    bc1 = os.path.join(tex_dir, "bc1.dds")
+    _write_dds(bc1, rng.integers(0, 256, 16 * 16 * 8, np.uint8).tobytes(),
+               64, 64, fourcc=b"DXT1")
+    bc7 = os.path.join(tex_dir, "bc7.dds")
+    _write_dds(bc7, rng.integers(0, 256, 16 * 16 * 16, np.uint8).tobytes(),
+               64, 64, dxgi=98)
+    stripes = np.where((np.arange(32) // 4) % 2 == 0, 40.0, 10.0)
+    stripes = np.broadcast_to(stripes[None, :, None], (32, 32, 3))
+
+    host_material = importlib.import_module(type(b).__module__).HostMaterial
+
+    def material(**kw):
+        return b.add_material(host_material(**kw))
+
+    floor = material(diffuse_color=(1.0, 1.0, 1.0),
+                     diffuse_tex=b.add_texture(checker),
+                     normal_tex=b.add_texture(ripple), normal_map_kind=1)
+    ball_a = material(diffuse_color=(1.0, 1.0, 1.0),
+                      diffuse_tex=b.load_texture(bc1),
+                      normal_tex=b.load_texture(normal_png, to_linear=False),
+                      normal_map_kind=0)
+    ball_b = material(diffuse_color=(1.0, 1.0, 1.0),
+                      diffuse_tex=b.load_texture(bc7),
+                      normal_tex=b.add_texture(height), normal_map_kind=2)
+    lamp = material(diffuse_color=(0.0, 0.0, 0.0),
+                    emittance=(25.0, 25.0, 25.0),
+                    emittance_tex=b.add_texture(stripes))
+    b.add_instance(b.add_rectangle(4.0, 4.0, floor))
+    b.add_instance(b.add_sphere(0.4, ball_a),
+                   affine(translation=[-0.6, 0.4, 0.0]))
+    b.add_instance(b.add_sphere(0.4, ball_b),
+                   affine(translation=[0.6, 0.4, 0.0]))
+    flip = np.array([[1, 0, 0], [0, -1, 0], [0, 0, -1]], np.float64)
+    b.add_instance(b.add_rectangle(1.0, 1.0, lamp),
+                   affine(rotation=flip, translation=[0.0, 2.0, 0.0]))
+    b.set_environment(np.full((8, 16, 3), 0.1, np.float32))
+    return b
+
+
+def build_textured_scene(tex_dir: str, traversal: str = "skip",
+                         texture_mips: bool = True,
+                         use_probability_texture: bool = False):
+    """(SceneData, structure) of the textured scene on the CPU, compiled
+    as the apps compile a scene (`skip` by default, as compile_scene)."""
+    b = textured_scene_builder(SceneBuilder(texture_mips=texture_mips),
+                               tex_dir)
+    return compile_scene(b, traversal=traversal,
+                         use_probability_texture=use_probability_texture)
+
+
+def textured_camera(width: int, height: int):
+    return make_camera([0.0, 1.6, 3.0], fov_y=np.deg2rad(45),
+                       aspect=width / height, target=[0.0, 0.3, 0.0])
+
+
 def bench_controllers(scene: str = "big"):
     """The animated cells' controllers (t = frame / 60, as the app runs
     them): the light (instance 1) moves from y 1.5 to 1.2 and back at 0.5
@@ -256,10 +357,11 @@ def _counts():
 
 
 def measure(size: str, scene=None, bvh=None, device="cuda",
-            which: str = "small") -> dict:
+            which: str = "small", cfg: PTConfig = None) -> dict:
     """Time TIMED_SAMPLES samples of bench scene `which` at `size` ('512'
-    or '1080p') on `device`. Returns bench.py's JSON fields plus the run's
-    details."""
+    or '1080p') on `device`, with bench.py's PTConfig unless `cfg` is
+    given (it must count rays). Returns bench.py's JSON fields plus the
+    run's details."""
     dev = torch.device(device)
     if dev.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("gfxexp_torch.bench measures on a CUDA device")
@@ -270,7 +372,8 @@ def measure(size: str, scene=None, bvh=None, device="cuda",
         scene, bvh = build_bench_scene(which)
     scene, bvh = scene.to(dev), bvh.to(dev)
     camera = bench_camera(width, height, which).to(dev)
-    cfg = PTConfig(max_path_length=MAX_PATH_LENGTH, count_rays=True)
+    if cfg is None:
+        cfg = PTConfig(max_path_length=MAX_PATH_LENGTH, count_rays=True)
 
     # warm-up: nothing compiles in the port, but the first sample builds
     # the kernel and fills the caching allocator

@@ -113,3 +113,81 @@ def continuous_2d_pdf(dist: Continuous2D, u, v):
     col = torch.clamp((u * w).to(torch.int64), 0, w - 1)
     row = torch.clamp((v * h).to(torch.int64), 0, h - 1)
     return dist.pdf[row, col]
+
+
+# ---------------------------------------------------------------------------
+# hierarchical probability texture: a sum-mip pyramid sampled by quad
+# descent, the alternative to a CDF search for the light units
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ProbabilityTexture(TensorData):
+    """A power-of-two weight image and its sum-mip pyramid: level l is
+    [S >> l, S >> l], stored padded in one [L, S, S] tensor."""
+
+    levels: torch.Tensor  # [L, S, S] float32
+    integral: torch.Tensor  # []
+    size: int = 0
+    n_levels: int = 0
+
+
+def build_probability_texture(weights) -> ProbabilityTexture:
+    """Build from a square power-of-two weight image (host, float64 sums)."""
+    w = np.maximum(np.asarray(weights, np.float64), 0.0)
+    s = w.shape[0]
+    if w.shape != (s, s) or s & (s - 1):
+        raise ValueError(f"expected a square power-of-two image, got "
+                         f"{w.shape}")
+    levels = [w]
+    while levels[-1].shape[0] > 1:
+        m = levels[-1]
+        levels.append(m[0::2, 0::2] + m[1::2, 0::2] + m[0::2, 1::2]
+                      + m[1::2, 1::2])
+    padded = np.zeros((len(levels), s, s), np.float64)
+    for l, lv in enumerate(levels):
+        padded[l, :lv.shape[0], :lv.shape[1]] = lv
+    return ProbabilityTexture(
+        levels=torch.from_numpy(padded.astype(np.float32)),
+        integral=torch.tensor(np.float32(levels[-1][0, 0])),
+        size=s, n_levels=len(levels))
+
+
+def sample_probability_texture(pt: ProbabilityTexture, u0, u1):
+    """Mip descent: at each level pick one of the 4 children in proportion
+    to its weight (x first, then y within the column), remapping the
+    uniforms. Returns (ix, iy, pmf, u0, u1): the texel of the finest level,
+    its normalised probability and the remapped uniforms."""
+    ix = torch.zeros(u0.shape, dtype=torch.int64, device=u0.device)
+    iy = torch.zeros_like(ix)
+    for level in range(pt.n_levels - 2, -1, -1):
+        x0 = 2 * ix
+        y0 = 2 * iy
+        lv = pt.levels[level]
+        w00 = lv[y0, x0]
+        w10 = lv[y0, x0 + 1]
+        w01 = lv[y0 + 1, x0]
+        w11 = lv[y0 + 1, x0 + 1]
+        total = torch.clamp(w00 + w10 + w01 + w11, min=1e-30)
+        p_left = (w00 + w01) / total
+        go_right = u0 >= p_left
+        u0 = torch.where(go_right,
+                         (u0 - p_left) / torch.clamp(1.0 - p_left, min=1e-20),
+                         u0 / torch.clamp(p_left, min=1e-20))
+        u0 = torch.clamp(u0, 0.0, 1.0 - 1e-7)
+        top = torch.where(go_right, w10, w00)
+        bot = torch.where(go_right, w11, w01)
+        col = torch.clamp(top + bot, min=1e-30)
+        p_top = top / col
+        go_down = u1 >= p_top
+        u1 = torch.where(go_down,
+                         (u1 - p_top) / torch.clamp(1.0 - p_top, min=1e-20),
+                         u1 / torch.clamp(p_top, min=1e-20))
+        u1 = torch.clamp(u1, 0.0, 1.0 - 1e-7)
+        ix = x0 + go_right.to(torch.int64)
+        iy = y0 + go_down.to(torch.int64)
+    return ix, iy, probability_texture_pmf(pt, ix, iy), u0, u1
+
+
+def probability_texture_pmf(pt: ProbabilityTexture, ix, iy):
+    return pt.levels[0][iy, ix] / torch.clamp(pt.integral, min=1e-30)

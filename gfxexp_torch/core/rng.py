@@ -105,3 +105,9 @@ class SampleStream:
 
     def next_bits(self):
         return self._next_raw()
+
+    def skip(self, k: int):
+        """Consume k draws without converting them (the stream stays in
+        step with one that draws them)."""
+        for _ in range(k):
+            self._next_raw()

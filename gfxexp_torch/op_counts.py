@@ -1,0 +1,153 @@
+"""Operations one path-tracing sample dispatches, counted on the CPU: a
+stand-in for the CUDA kernels it launches on the card, where eager glue
+launches about one kernel an operation.
+
+    python -m gfxexp_torch.op_counts
+    python3 gfxexp_torch/op_counts.py --cuda  # on the card
+
+Counts every operation torch dispatches during one render_sample (after a
+warm-up sample), leaving out views (select, slice, view, expand, ...), which
+launch nothing, and counting each walk (intersect_closest, intersect_any) as
+one operation, as it is one launch on the card. Prints one JSON line per
+case: the small bench scene with the default PTConfig and with fused shadow
+rays, and the textured scene (bench.build_textured_scene, skip-link) with
+the default PTConfig, with bump mapping and texture LOD, with solid-angle
+NEE and with fused shadow rays; `walks` is the number of walk launches.
+
+With --cuda it profiles one default sample of the small scene at 512x512
+on the card instead (render_accumulate, after a warm-up sample) and prints
+the kernels of the device trace and the CUDA runtime's launch calls on the
+host. Run as a file, it measures whichever gfxexp_torch PYTHONPATH puts
+first, so that a parent tree's sample can be counted with this script:
+`PYTHONPATH=<parent tree> python3 gfxexp_torch/op_counts.py --cuda`.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import tempfile
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from gfxexp_torch import bench
+from gfxexp_torch.render import pathtrace
+from gfxexp_torch.render.pathtrace import PTConfig, render_sample
+
+_VIEWS = ("select.int", "slice.Tensor", "view.default", "t.default",
+          "unsqueeze.default", "expand.default", "alias.default",
+          "detach.default", "_unsafe_view.default", "as_strided.default",
+          "reshape.default", "permute.default", "squeeze.dim",
+          "transpose.int")
+
+
+class _Count(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+        self.walks = 0
+        self.paused = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not self.paused and func.__name__ not in _VIEWS:
+            self.ops += 1
+        return func(*args, **(kwargs or {}))
+
+
+def count_sample(scene, bvh, camera, width: int, height: int,
+                 cfg: PTConfig, debug_switches: int = 0) -> dict:
+    """{"ops", "walks"} of one render_sample (sample 1, after sample 0)."""
+    counter = None
+    real = {n: getattr(pathtrace, n) for n in ("intersect_closest",
+                                              "intersect_any")}
+
+    def walk(fn):
+        def counted(*a, **kw):
+            if counter is None:
+                return fn(*a, **kw)
+            counter.paused += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                counter.paused -= 1
+                counter.ops += 1
+                counter.walks += 1
+        return counted
+
+    for name, fn in real.items():
+        setattr(pathtrace, name, walk(fn))
+    try:
+        render_sample(scene, bvh, camera, width, height, 0, cfg,
+                      debug_switches)
+        with _Count() as counter:
+            render_sample(scene, bvh, camera, width, height, 1, cfg,
+                          debug_switches)
+    finally:
+        for name, fn in real.items():
+            setattr(pathtrace, name, fn)
+    return {"ops": counter.ops, "walks": counter.walks}
+
+
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def count_cuda_sample() -> dict:
+    """Kernels in the device trace and launch calls of one default 512x512
+    sample of the small scene on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gfxexp_torch.render.pathtrace import render_accumulate
+
+    dev = torch.device("cuda")
+    scene, bvh = (x.to(dev) for x in bench.build_bench_scene())
+    cam = bench.bench_camera(512, 512).to(dev)
+    cfg = PTConfig(max_path_length=5, count_rays=True)
+    render_accumulate(scene, bvh, cam, 512, 512, 0, 1, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        render_accumulate(scene, bvh, cam, 512, 512, 1, 1, cfg)
+        torch.cuda.synchronize()
+    events = prof.events()
+    return {"case": "small_default_512_cuda",
+            "kernels": sum(1 for e in events if e.device_type
+                           == torch.autograd.DeviceType.CUDA),
+            "launch_calls": sum(1 for e in events
+                                if e.name in LAUNCH_CALLS),
+            "package": os.path.dirname(bench.__file__)}
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if "--cuda" in argv:
+        row = count_cuda_sample()
+        print(json.dumps(row))
+        return row
+    torch.set_num_threads(2)
+    res = 32
+    rows = {}
+    scene, bvh = bench.build_bench_scene()
+    cam = bench.bench_camera(res, res)
+    for name, cfg in (("small_default", PTConfig()),
+                      ("small_fused", PTConfig(fuse_shadow_rays=True))):
+        rows[name] = count_sample(scene, bvh, cam, res, res, cfg)
+    with tempfile.TemporaryDirectory() as tex:
+        scene, bvh = bench.build_textured_scene(os.path.join(tex, "tex"))
+    cam = bench.textured_camera(res, res)
+    for name, cfg in (
+            ("textured_default", PTConfig()),
+            ("textured_bump_lod", PTConfig(enable_bump_mapping=True,
+                                           texture_lod=True)),
+            ("textured_solid_angle", PTConfig(use_solid_angle_sampling=True)),
+            ("textured_fused", PTConfig(fuse_shadow_rays=True))):
+        rows[name] = count_sample(scene, bvh, cam, res, res, cfg)
+    for name, row in rows.items():
+        print(json.dumps({"case": name, **row}), file=sys.stdout)
+    return rows
+
+
+if __name__ == "__main__":
+    main()

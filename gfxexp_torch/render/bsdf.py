@@ -18,6 +18,7 @@ from gfxexp_torch.core.math import (
     safe_divide,
 )
 from gfxexp_torch.core.tensors import TensorData
+from gfxexp_torch.scene.textures import sample_bilinear, sample_trilinear
 from gfxexp_torch.scene.types import BSDF_LAMBERT
 
 _PI = float(np.pi)
@@ -248,8 +249,18 @@ def material_params(materials, mat_idx) -> BSDFParams:
 
 def material_params_textured(materials, atlas, mat_idx, uv,
                              lod=None) -> BSDFParams:
-    """material_params with texture fetches; the port has no texture atlas
-    yet, so `atlas` must be None."""
-    if atlas is not None:
-        raise NotImplementedError("textures are not ported yet")
-    return material_params(materials, mat_idx)
+    """material_params with the diffuse colour read from the atlas where
+    the material has a diffuse texture: trilinear at the per-lane `lod`
+    [R] when given and the atlas has mips, else bilinear. An atlas of None
+    (or of no layer) keeps the constants."""
+    base = material_params(materials, mat_idx)
+    if atlas is None or atlas.count == 0:
+        return base
+    tid = materials.diffuse_tex[mat_idx.to(torch.int64)]
+    if lod is not None and atlas.mip_flat is not None:
+        texel = sample_trilinear(atlas, tid, uv, lod)
+    else:
+        texel = sample_bilinear(atlas, tid, uv)
+    base.diffuse = torch.where((tid >= 0)[:, None], texel[:, :3],
+                               base.diffuse)
+    return base

@@ -81,8 +81,8 @@ def render_gbuffer(scene: SceneData, bvh, camera: Camera,
     # the denoiser's albedo: the DH-reflectance estimate
     t, b = make_frame(sp.shading_normal)
     v_out_local = to_local(t, b, sp.shading_normal, -ray_d)
-    params = material_params_textured(scene.materials, None, sp.material,
-                                      sp.texcoord)
+    params = material_params_textured(scene.materials, scene.textures,
+                                      sp.material, sp.texcoord)
     albedo = bsdf_dh_reflectance(params, v_out_local)
 
     # motion: world -> object (current inverse) -> previous world

@@ -7,17 +7,29 @@ package's call order, so both packages draw the same numbers for the same
 path vertex: camera jitter on stream 0xFFFF; per bounce (stream = bounce)
 u_rr (not on the first bounce, not on the collect-only last one), then
 u_light, u0, u1 for NEE, then u0, u1 for the BSDF.
+
+Options are decided on the host: the debug switches are a Python int, and
+the texture, bump and LOD branches are taken only when the scene has
+texture layers, so the default path launches no kernel for them. With
+`fuse_shadow_rays` each bounce's closest-hit rays and the previous
+bounce's shadow rays go through one closest-hit walk of 2N lanes; NEE
+visibility is then applied one step later, in the same order of sums.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 
-from gfxexp_torch.accel.traverse import intersect_any, intersect_closest
+from gfxexp_torch.accel.traverse import (
+    HitInfo,
+    intersect_any,
+    intersect_closest,
+)
 from gfxexp_torch.core.math import (
     cross,
     dot,
@@ -50,7 +62,14 @@ from gfxexp_torch.scene.lights import (
     light_selection_probs,
     pack_light_rows,
     sample_light,
+    sample_light_solid_angle,
     surface_light_pdf,
+)
+from gfxexp_torch.scene.textures import (
+    apply_bump,
+    decode_normal_map,
+    normal_from_height_map,
+    sample_bilinear,
 )
 from gfxexp_torch.scene.types import SceneData
 
@@ -60,10 +79,11 @@ _PI = float(np.pi)
 @dataclasses.dataclass(frozen=True)
 class PTConfig:
     """Integrator configuration: the fields and defaults of gfxexp_tpu's
-    PTConfig. The port implements the default integrator; the options the
-    bench path does not use raise NotImplementedError when set
-    (`enable_bump_mapping` and `displaced_shadows` act on textures and
-    displaced geometry, which the port's scenes do not have yet)."""
+    PTConfig. `sort_secondary_rays` and `compact_rays` are not ported and
+    raise NotImplementedError when set; `displaced_shadows` acts on
+    displaced geometry, which the port's scenes do not have yet.
+    `texture_lod` needs an atlas with mips (SceneBuilder(texture_mips=
+    True)); `fuse_shadow_rays` is ignored with a custom `nee_fn`."""
 
     max_path_length: int = 5
     enable_jitter: bool = True
@@ -87,16 +107,41 @@ class PTConfig:
                 and self.use_explicit_light_sampling)
 
 
-_UNPORTED = ("fuse_shadow_rays", "sort_secondary_rays", "compact_rays",
-             "use_solid_angle_sampling", "texture_lod")
+_UNPORTED = ("sort_secondary_rays", "compact_rays")
 
 
-def _check_supported(scene: SceneData, cfg: PTConfig, debug_switches):
+def _check_supported(cfg: PTConfig):
     for name in _UNPORTED:
         if getattr(cfg, name):
             raise NotImplementedError(f"PTConfig.{name} is not ported yet")
-    if debug_switches is not None and int(debug_switches) != 0:
-        raise NotImplementedError("debug switches are not ported yet")
+
+
+@dataclass(frozen=True)
+class DebugSwitches:
+    """The 8 debug switches, decided on the host from a bitfield: bit 0 no
+    NEE, 1 no implicit or env emission past the primary hit, 2 no Russian
+    roulette, 3 no environment light (implicit and NEE), 4 no bump or
+    normal mapping, 5 no pixel jitter, 6 white albedo (0.8 diffuse), 7
+    shade with the geometric normal."""
+
+    no_nee: bool = False
+    no_implicit: bool = False
+    no_rr: bool = False
+    no_env: bool = False
+    no_bump: bool = False
+    no_jitter: bool = False
+    white_albedo: bool = False
+    geom_normal: bool = False
+
+    @classmethod
+    def from_bits(cls, bits) -> "DebugSwitches":
+        """From None, an int or a 0-d tensor (read once, on the host)."""
+        sw = 0 if bits is None else int(bits)
+        return cls(*(bool(sw >> i & 1) for i in range(8)))
+
+
+def has_textures(scene: SceneData) -> bool:
+    return scene.textures is not None and scene.textures.count > 0
 
 
 @dataclass
@@ -109,6 +154,8 @@ class SurfacePoint(TensorData):
     unit: torch.Tensor  # [R] int64
     material: torch.Tensor  # [R] int64
     emittance: torch.Tensor  # [R, 3]
+    # sqrt(uv area / world area): texels per world unit, for the mip LOD
+    texel_density: Optional[torch.Tensor] = None  # [R]
 
 
 def pack_tri_attrs(tris, scene: SceneData = None) -> torch.Tensor:
@@ -140,7 +187,8 @@ def compute_surface_point(scene: SceneData, tri_idx, u, v, inst=None,
     """Hit attributes from one packed-row gather (missed lanes gather row 0
     and are masked out by the caller). In a two-level scene the triangle is
     in object space and `inst` [R] (the hit instance) brings it into world
-    space; normals go through the inverse transpose."""
+    space; normals go through the inverse transpose. An emissive texture
+    replaces the material's emittance where it is set."""
     tri_idx = torch.clamp(tri_idx.to(torch.int64), min=0)
     if packed is None:
         packed = pack_tri_attrs(scene.triangles)
@@ -174,22 +222,32 @@ def compute_surface_point(scene: SceneData, tri_idx, u, v, inst=None,
     if scene.is_instanced:
         unit = scene.inst_unit_base[insti].to(torch.int64) + unit
     mat = scene.units.material[unit].to(torch.int64)
+    emit = scene.materials.emittance[mat]
+    if has_textures(scene):
+        etid = scene.materials.emittance_tex[mat]
+        etex = sample_bilinear(scene.textures, etid, tc)
+        emit = torch.where((etid >= 0)[:, None], etex[:, :3], emit)
     return SurfacePoint(
         position=position, geom_normal=gn, shading_normal=sn, texcoord=tc,
-        tangent=tan, unit=unit, material=mat,
-        emittance=scene.materials.emittance[mat])
+        tangent=tan, unit=unit, material=mat, emittance=emit,
+        texel_density=rows[:, 26] if has_textures(scene) else None)
 
 
 def _next_event_setup(scene, sp: SurfacePoint, v_out_local, frame, params,
-                      rs, cfg: PTConfig, alive=None, light_packed=None):
+                      rs, cfg: PTConfig, alive=None, light_packed=None,
+                      env_off: bool = False):
     """NEE without the occlusion trace: light sample, MIS weight,
     unshadowed contribution and the shadow ray. Returns (contrib [R, 3],
     shadow_dir [R, 3], shadow_tmax [R]); shadow_tmax < 0 on lanes that
-    cannot contribute (the walk skips them)."""
+    cannot contribute (the walk skips them). `env_off` drops environment
+    samples (debug switch bit 3)."""
     t, b, n = frame
     u_light = rs.next()
     u0, u1 = rs.next2()
-    ls = sample_light(scene, u_light, u0, u1, light_packed)
+    if cfg.use_solid_angle_sampling:
+        ls = sample_light_solid_angle(scene, sp.position, u_light, u0, u1)
+    else:
+        ls = sample_light(scene, u_light, u0, u1, light_packed)
 
     inf3 = ls.at_infinity[..., None]
     shadow_vec = torch.where(inf3, ls.position, ls.position - sp.position)
@@ -216,6 +274,8 @@ def _next_event_setup(scene, sp: SurfacePoint, v_out_local, frame, params,
     potential = (ls.pdf > 0.0) & (lp_cos > 0.0)
     if alive is not None:
         potential = potential & alive
+    if env_off and scene.env is not None:
+        potential = potential & ~ls.at_infinity
     # the reference traces with tmax = 0.9999 dist (env: 1e10)
     shadow_tmax = torch.where(ls.at_infinity, 1e10, dist * 0.9999)
     shadow_tmax = torch.where(potential, shadow_tmax, -1.0)
@@ -230,13 +290,36 @@ def _next_event_setup(scene, sp: SurfacePoint, v_out_local, frame, params,
 
 
 def _next_event(scene, bvh, sp: SurfacePoint, v_out_local, frame, params, rs,
-                cfg: PTConfig, alive=None, light_packed=None):
+                cfg: PTConfig, alive=None, light_packed=None,
+                env_off: bool = False):
     """NEE with MIS: [R, 3] contribution after the any-hit shadow query."""
     contrib, shadow_dir, shadow_tmax = _next_event_setup(
-        scene, sp, v_out_local, frame, params, rs, cfg, alive, light_packed)
+        scene, sp, v_out_local, frame, params, rs, cfg, alive, light_packed,
+        env_off)
     occluded = intersect_any(bvh, scene.triangles, sp.position, shadow_dir,
                              t_min=0.0, t_max=shadow_tmax)
     return torch.where(occluded[..., None], 0.0, contrib)
+
+
+def _bump_normal(scene: SceneData, sp: SurfacePoint, nrm):
+    """The shading normal rotated by the material's normal texture: a
+    3-channel or 2-channel normal map or a height map, by the material's
+    normal_map_kind (0, 1, 2); lanes without a normal texture keep `nrm`."""
+    atlas = scene.textures
+    ntid = scene.materials.normal_tex[sp.material]
+    texel = sample_bilinear(atlas, ntid, sp.texcoord)
+    if scene.materials.normal_map_kind is not None:
+        kind = scene.materials.normal_map_kind[sp.material]
+    else:
+        kind = torch.zeros_like(ntid)
+    n3 = decode_normal_map(texel)
+    n2 = decode_normal_map(texel, two_channel=True)
+    nh = normal_from_height_map(atlas, ntid, sp.texcoord)
+    local_n = torch.where((kind == 2)[:, None], nh,
+                          torch.where((kind == 1)[:, None], n2, n3))
+    bumped = normalize(apply_bump(nrm, sp.tangent, cross(nrm, sp.tangent),
+                                  local_n))
+    return torch.where((ntid < 0)[:, None], nrm, bumped)
 
 
 def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
@@ -254,8 +337,12 @@ def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
     Russian roulette, as the default does, and its radiance is gated by
     `alive` and weighted by the throughput. `aux` starts as `nee_aux` and
     is threaded through the bounces; when `nee_aux` is not None the result
-    comes back as (result, final aux)."""
-    _check_supported(scene, cfg, debug_switches)
+    comes back as (result, final aux).
+
+    `debug_switches` is the 8-bit field of DebugSwitches (None, an int or
+    a 0-d tensor, read once on the host)."""
+    _check_supported(cfg)
+    dbg = DebugSwitches.from_bits(debug_switches)
     has_aux = nee_aux is not None
     dev = scene.triangles.p0.device
     n = lane_count
@@ -265,7 +352,7 @@ def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
     rays_traced = torch.zeros((), device=dev)
 
     rs_cam = SampleStream(pixel, sample_idx, stream=0xFFFF)
-    if cfg.enable_jitter:
+    if cfg.enable_jitter and not dbg.no_jitter:
         jx, jy = rs_cam.next2()
     else:
         jx = torch.full((n,), 0.5, device=dev)
@@ -278,29 +365,61 @@ def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     prev_pdf = torch.zeros(n, device=dev)
 
-    use_env = cfg.enable_env and scene.env is not None
+    use_env = cfg.enable_env and scene.env is not None and not dbg.no_env
     p_env_sel, p_surf_sel = light_selection_probs(scene)
     tri_packed = pack_tri_attrs(scene.triangles, scene)
     light_packed = (pack_light_rows(scene)
                     if cfg.use_explicit_light_sampling else None)
+    textured = has_textures(scene)
+    bump = cfg.enable_bump_mapping and textured and not dbg.no_bump
+    lod_texels = None
+    if cfg.texture_lod and textured and scene.textures.mip_flat is not None:
+        # texels a pixel's angle covers at distance 1: the pixel footprint
+        # heuristic (primary rays' differentials; bounces reuse the last
+        # segment's length)
+        lod_texels = (2.0 * torch.tan(camera.fov_y * 0.5) / height
+                      * scene.textures.layers.shape[1])
+    fuse = (cfg.fuse_shadow_rays and cfg.use_explicit_light_sampling
+            and nee_fn is None)
+    # the previous bounce's shadow rays (fused mode): (contribution with
+    # throughput and gates applied, origins, directions, tmax < 0 = none)
+    pending = None
 
     # the first bounce (MIS weight 1) and the last (collect only: no NEE,
     # no new direction) are peeled, as in the reference
     def step(bounce: int, first: bool, collect_only: bool):
         nonlocal ray_o, ray_d, throughput, alive, prev_pdf, contribution
-        nonlocal rays_traced, nee_aux
+        nonlocal rays_traced, nee_aux, pending
         rs = SampleStream(pixel, sample_idx, stream=bounce)
         if cfg.count_rays:
             rays_traced = rays_traced + alive.sum().to(torch.float32)
         # dead lanes trace with tmax < 0: no traversal work
         tmax = torch.where(alive, 1e30, -1.0)
-        hit = intersect_closest(bvh, scene.triangles, ray_o, ray_d,
-                                t_min=0.0, t_max=tmax)
+        if pending is not None:
+            # one closest-hit walk over this bounce's rays and the previous
+            # bounce's shadow rays, whose visibility resolves here
+            p_contrib, p_o, p_d, p_tmax = pending
+            bh = intersect_closest(bvh, scene.triangles,
+                                   torch.cat([ray_o, p_o]),
+                                   torch.cat([ray_d, p_d]), t_min=0.0,
+                                   t_max=torch.cat([tmax, p_tmax]))
+            hit = HitInfo(t=bh.t[:n], tri=bh.tri[:n], u=bh.u[:n],
+                          v=bh.v[:n], hit=bh.hit[:n],
+                          inst=None if bh.inst is None else bh.inst[:n])
+            contribution = contribution + torch.where(
+                bh.hit[n:][..., None], 0.0, p_contrib)
+            pending = None
+        else:
+            hit = intersect_closest(bvh, scene.triangles, ray_o, ray_d,
+                                    t_min=0.0, t_max=tmax)
         hit_ok = alive & hit.hit
         miss = alive & ~hit.hit
+        emission = cfg.use_implicit_light_sampling or first
+        if not first and dbg.no_implicit:
+            emission = False
 
         # ---- miss: environment ------------------------------------------
-        if use_env:
+        if use_env and emission:
             env_l = env_radiance(scene.env, ray_d)
             if first or not cfg.use_mis:
                 env_mis = torch.ones(n, device=dev)
@@ -308,10 +427,9 @@ def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
                 light_p = p_env_sel * env_pdf(scene.env, ray_d)
                 env_mis = prev_pdf ** 2 / torch.clamp(
                     prev_pdf ** 2 + light_p ** 2, min=1e-30)
-            if cfg.use_implicit_light_sampling or first:
-                contribution = contribution + torch.where(
-                    miss[..., None], throughput * env_l * env_mis[..., None],
-                    0.0)
+            contribution = contribution + torch.where(
+                miss[..., None], throughput * env_l * env_mis[..., None],
+                0.0)
 
         sp = compute_surface_point(scene, hit.tri, hit.u, hit.v,
                                    inst=hit.inst, packed=tri_packed)
@@ -321,13 +439,17 @@ def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
                                 -sp.geom_normal)
         pos_off = offset_ray_origin(sp.position, gn_signed)
         nrm = sp.shading_normal
+        if bump:
+            nrm = _bump_normal(scene, sp, nrm)
+        if dbg.geom_normal:
+            nrm = gn_signed
         t, b = make_frame(nrm)
         v_out_local = to_local(t, b, nrm, v_out)
 
         # ---- implicit emitter hit ---------------------------------------
-        emissive = ((sp.emittance > 0.0).any(dim=-1)
-                    & (v_out_local[..., 2] > 0.0))
-        if cfg.use_implicit_light_sampling or first:
+        if emission:
+            emissive = ((sp.emittance > 0.0).any(dim=-1)
+                        & (v_out_local[..., 2] > 0.0))
             if first or not cfg.use_mis:
                 mis_w = torch.ones(n, device=dev)
             else:
@@ -350,33 +472,61 @@ def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
 
         # ---- Russian roulette (skipped where it cannot change the image)
         if cfg.russian_roulette and not first and not collect_only:
-            cont_prob = torch.clamp(luminance(throughput), max=1.0)
-            u_rr = rs.next()
-            alive = alive & (u_rr < cont_prob)
-            throughput = throughput / torch.clamp(cont_prob,
-                                                  min=1e-8)[..., None]
+            if dbg.no_rr:
+                # continuation probability 1: the draw is consumed, and
+                # u < 1 keeps every lane
+                rs.skip(1)
+            else:
+                cont_prob = torch.clamp(luminance(throughput), max=1.0)
+                u_rr = rs.next()
+                alive = alive & (u_rr < cont_prob)
+                throughput = throughput / torch.clamp(cont_prob,
+                                                      min=1e-8)[..., None]
         if collect_only:
             return
 
         # ---- NEE ---------------------------------------------------------
-        params = material_params_textured(scene.materials, None, sp.material,
-                                          sp.texcoord)
+        lod = None
+        if lod_texels is not None:
+            cosg = torch.abs(dot(v_out, sp.geom_normal))
+            footprint = hit.t * lod_texels / torch.clamp(cosg, min=0.1)
+            lod = torch.log2(torch.clamp(footprint * sp.texel_density,
+                                         min=1.0))
+        params = material_params_textured(scene.materials, scene.textures,
+                                          sp.material, sp.texcoord, lod=lod)
         if cfg.mollify_specular and not first:
             params.roughness = 1.0 - 0.5 * (1.0 - params.roughness)
+        if dbg.white_albedo:
+            params.diffuse = torch.full_like(params.diffuse, 0.8)
         sp_off = dataclasses.replace(sp, position=pos_off)
         if cfg.use_explicit_light_sampling:
             if cfg.count_rays:
                 rays_traced = rays_traced + alive.sum().to(torch.float32)
-            if nee_fn is None:
-                nee = _next_event(scene, bvh, sp_off, v_out_local,
-                                  (t, b, nrm), params, rs, cfg, alive,
-                                  light_packed=light_packed)
+            frame = (t, b, nrm)
+            if nee_fn is not None:
+                nee, nee_aux = nee_fn(scene, bvh, sp_off, v_out_local, frame,
+                                      params, rs, cfg, alive, nee_aux)
+                if not dbg.no_nee:
+                    contribution = contribution + torch.where(
+                        alive[..., None], throughput * nee, 0.0)
+            elif dbg.no_nee:
+                rs.skip(3)  # u_light, u0, u1
+            elif fuse:
+                # the shadow ray joins the next bounce's walk; throughput
+                # and gates fold into its contribution now
+                nee_c, sdir, stmax = _next_event_setup(
+                    scene, sp_off, v_out_local, frame, params, rs, cfg,
+                    alive, light_packed, dbg.no_env)
+                a3 = alive[..., None]
+                pending = (torch.where(a3, throughput * nee_c, 0.0),
+                           pos_off, sdir, torch.where(alive, stmax, -1.0))
             else:
-                nee, nee_aux = nee_fn(scene, bvh, sp_off, v_out_local,
-                                      (t, b, nrm), params, rs, cfg, alive,
-                                      nee_aux)
-            contribution = contribution + torch.where(
-                alive[..., None], throughput * nee, 0.0)
+                nee = _next_event(scene, bvh, sp_off, v_out_local, frame,
+                                  params, rs, cfg, alive,
+                                  light_packed=light_packed,
+                                  env_off=dbg.no_env)
+                contribution = contribution + torch.where(
+                    alive[..., None], throughput * nee, 0.0)
 
         # ---- next direction ---------------------------------------------
         u0, u1 = rs.next2()

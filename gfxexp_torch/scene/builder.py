@@ -1,6 +1,6 @@
 """Host-side scene construction -> SceneData (port of
-gfxexp_tpu/scene/builder.py: materials, rectangles, spheres, instances, the
-environment light, and both compiles).
+gfxexp_tpu/scene/builder.py: materials, textures, rectangles, spheres,
+instances, the environment light, and both compiles).
 
 `compile()` flattens the instance graph into world-space triangle tables and
 per-unit light distributions with numpy, as the JAX package does, and returns
@@ -18,6 +18,7 @@ import torch
 
 from gfxexp_torch.core.distributions import (
     build_continuous_2d,
+    build_probability_texture,
     vose_alias_arrays,
 )
 from gfxexp_torch.core.math import np_normalize
@@ -32,6 +33,8 @@ from gfxexp_torch.scene.types import (
     TriangleSoA,
     UnitTable,
 )
+from gfxexp_torch.scene.textures import AtlasBuilder, load_dds
+from gfxexp_torch.utils.image_io import load_png
 
 _LUMA = np.array([0.2126729, 0.7151522, 0.0721750])
 
@@ -88,21 +91,42 @@ class SceneBuilder:
     """Accumulates materials, geometries and instances, then `compile()`s to
     a SceneData of CPU tensors."""
 
-    def __init__(self):
+    def __init__(self, texture_mips: bool = False):
         self.materials: List[HostMaterial] = []
         self.geometries: List[HostGeometry] = []
         self.instances: List[HostInstance] = []
         self.env_radiance: Optional[np.ndarray] = None  # [H, W, 3]
         self.env_power: float = 1.0
         self.env_rotation: float = 0.0
+        # texture_mips=True builds each layer's mip chain, for trilinear
+        # sampling at a per-lane LOD (PTConfig.texture_lod)
+        self.atlas = AtlasBuilder(mips=texture_mips)
+        self._texture_cache: dict = {}
+
+    # -- textures ----------------------------------------------------------
+
+    def add_texture(self, image: np.ndarray) -> int:
+        """Register a texture image ([H, W, C] float linear); returns its
+        id."""
+        return self.atlas.add(image)
+
+    def load_texture(self, path: str, to_linear: bool = True) -> int:
+        """Load a texture file once (DDS through the BC decoders, else an
+        8-bit PNG) and return its id; a second load of the same path and
+        conversion returns the first id."""
+        key = (path, to_linear)
+        if key not in self._texture_cache:
+            if path.lower().endswith(".dds"):
+                img = load_dds(path)
+            else:
+                img = load_png(path, to_linear=to_linear)
+            self._texture_cache[key] = self.add_texture(img)
+        return self._texture_cache[key]
+
+    def _textures(self):
+        return self.atlas.build() if self.atlas.images else None
 
     # -- not ported yet ----------------------------------------------------
-
-    def add_texture(self, image):
-        raise NotImplementedError("textures are not ported yet")
-
-    def load_texture(self, path, to_linear=True):
-        raise NotImplementedError("textures are not ported yet")
 
     def add_curve(self, *args, **kw):
         raise NotImplementedError("curves are not ported yet")
@@ -231,10 +255,8 @@ class SceneBuilder:
 
     def compile(self, use_probability_texture: bool = False) -> SceneData:
         """Flatten the instance graph to world-space SoA tables and light
-        distributions (CPU tensors)."""
-        if use_probability_texture:
-            raise NotImplementedError("the probability-texture light "
-                                      "selector is not ported yet")
+        distributions (CPU tensors). use_probability_texture also builds the
+        units' probability texture (SceneData.light_unit_probtex)."""
         if not self.instances:
             raise ValueError("scene has no instances")
         mats = self.materials or [HostMaterial()]
@@ -323,6 +345,16 @@ class SceneBuilder:
                     else np.zeros_like(unit_importance))
         unit_cdf = np.concatenate([[0.0], np.cumsum(unit_pmf)])
         _, unit_aprob, unit_aidx, _ = vose_alias_arrays(unit_importance)
+        unit_probtex = None
+        if use_probability_texture:
+            # units row-major in the smallest power-of-two square
+            n_u = len(unit_importance)
+            side = 1
+            while side * side < n_u:
+                side *= 2
+            grid = np.zeros((side, side), np.float64)
+            grid.flat[:n_u] = unit_importance
+            unit_probtex = build_probability_texture(grid)
 
         units = UnitTable(
             material=_t(np.asarray(unit_material, np.int32)),
@@ -361,8 +393,10 @@ class SceneBuilder:
             light_unit_pmf=_t(unit_pmf.astype(np.float32)),
             light_unit_alias_prob=_t(unit_aprob.astype(np.float32)),
             light_unit_alias_idx=_t(unit_aidx.astype(np.int32)),
+            light_unit_probtex=unit_probtex,
             total_emissive_importance=torch.tensor(np.float32(total_imp)),
             env=self._env_light(),
+            textures=self._textures(),
             object_triangles=ObjectTriangles(
                 p0=cat("op0"), e1=cat("oe1"), e2=cat("oe2"), n0=cat("on0"),
                 n1=cat("on1"), n2=cat("on2"), instance=cat("inst")),
@@ -565,8 +599,13 @@ class SceneBuilder:
             light_unit_alias_idx=_t(unit_aidx.astype(np.int32)),
             total_emissive_importance=torch.tensor(np.float32(total_imp)),
             env=self._env_light(),
+            textures=self._textures(),
             inst_unit_base=_t(np.asarray(inst_unit_base, np.int32)),
             unit_tri_base=_t(np.asarray(unit_tri_base, np.int32)),
             tri_light_local=_t(tri_light_local),
+            inst_tri_start=_t(np.asarray(
+                [blas_tri_base[b] for b in inst_blas], np.int32)),
+            inst_tri_count=_t(np.asarray(
+                [len(perms[b]) for b in inst_blas], np.int32)),
         )
         return scene, acc

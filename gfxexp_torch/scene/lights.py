@@ -18,8 +18,9 @@ import torch
 from gfxexp_torch.core.distributions import (
     continuous_2d_pdf,
     sample_continuous_2d,
+    sample_probability_texture,
 )
-from gfxexp_torch.core.math import cross, length, rotate
+from gfxexp_torch.core.math import cross, dot, length, rotate
 from gfxexp_torch.core.tensors import TensorData
 from gfxexp_torch.scene.types import SceneData
 
@@ -77,12 +78,19 @@ def _alias_pick(prob, alias, idx_base, n, u):
     return local, torch.clamp(u_re, 0.0, 1.0 - 1e-7)
 
 
-def _select_light_pos(scene: SceneData, u_sel):
-    """Two-level emissive selection (unit, then triangle in the unit) by the
-    alias tables, else by CDF search. Returns (unit, light-order position)."""
+def _select_light_pos(scene: SceneData, u_sel, u_aux=None):
+    """Two-level emissive selection (unit, then triangle in the unit). The
+    unit comes from the probability texture when the scene has one (its
+    2D descent also consumes `u_aux` and hands it back remapped), else the
+    alias tables, else a CDF search. Returns (unit, light-order position,
+    u_aux)."""
     units = scene.units
     n_units = scene.num_units
-    if scene.light_unit_alias_prob is not None:
+    pt = scene.light_unit_probtex
+    if pt is not None and u_aux is not None:
+        ix, iy, _, u_re, u_aux = sample_probability_texture(pt, u_sel, u_aux)
+        unit = torch.clamp(iy * pt.size + ix, 0, n_units - 1)
+    elif scene.light_unit_alias_prob is not None:
         unit, u_re = _alias_pick(
             scene.light_unit_alias_prob, scene.light_unit_alias_idx,
             torch.zeros((), dtype=torch.int64, device=u_sel.device),
@@ -107,20 +115,20 @@ def _select_light_pos(scene: SceneData, u_sel):
     else:
         local = _segment_searchsorted(units.light_tri_cdf, offset, count,
                                       u_re)
-    return unit, offset + local
+    return unit, offset + local, u_aux
 
 
-def _select_emissive_triangle(scene: SceneData, u_sel):
+def _select_emissive_triangle(scene: SceneData, u_sel, u_aux=None):
     """_select_light_pos resolved to a traversal triangle id and pmfs.
-    Returns (unit, tri, unit_pmf, tri_pmf)."""
+    Returns (unit, tri, unit_pmf, tri_pmf, u_aux)."""
     units = scene.units
-    unit, light_pos = _select_light_pos(scene, u_sel)
+    unit, light_pos, u_aux = _select_light_pos(scene, u_sel, u_aux)
     unit_pmf = scene.light_unit_pmf[unit]
     tri = units.light_tri_index[light_pos].to(torch.int64)
     # instanced scenes keep the pmf in light order (a BLAS triangle id is
     # shared by many units)
     tri_pmf = units.light_tri_pmf[light_pos if scene.is_instanced else tri]
-    return unit, tri, unit_pmf, tri_pmf
+    return unit, tri, unit_pmf, tri_pmf, u_aux
 
 
 def _to_world(scene: SceneData, inst, p0, e1, e2, normals):
@@ -218,7 +226,7 @@ def sample_surface_light(scene: SceneData, u_sel, u0, u1,
     takes): everything after selection is then one row gather."""
     if packed is None:
         return _sample_surface_light_gather(scene, u_sel, u0, u1)
-    _, light_pos = _select_light_pos(scene, u_sel)
+    _, light_pos, u0 = _select_light_pos(scene, u_sel, u0)
     row = packed[light_pos]  # [R, 22]
     b_a, b_b = _square_to_triangle(u0, u1)
     b_c = 1.0 - b_a - b_b
@@ -239,7 +247,8 @@ def _sample_surface_light_gather(scene: SceneData, u_sel, u0,
     """sample_surface_light without the packed rows: scattered gathers of
     the selected triangle, through its instance in two-level scenes."""
     tris = scene.triangles
-    unit, tri, unit_pmf, tri_pmf = _select_emissive_triangle(scene, u_sel)
+    unit, tri, unit_pmf, tri_pmf, u0 = _select_emissive_triangle(
+        scene, u_sel, u0)
     b_a, b_b = _square_to_triangle(u0, u1)
     p0, e1, e2 = tris.p0[tri], tris.e1[tri], tris.e2[tri]
     n0, n1, n2 = tris.n0[tri], tris.n1[tri], tris.n2[tri]
@@ -264,6 +273,100 @@ def _sample_surface_light_gather(scene: SceneData, u_sel, u0,
                                                device=pdf.device))
 
 
+def sample_surface_light_solid_angle(scene: SceneData, shading_point,
+                                     u_sel, u0, u1) -> LightSample:
+    """Uniform sampling of the solid angle the chosen triangle subtends
+    from `shading_point` (Arvo's spherical triangle; the barycentrics come
+    back from intersecting the sampled direction with the triangle's
+    plane). The pdf is turned into the area measure, so it composes with
+    the rest of the light code."""
+    tris = scene.triangles
+    unit, tri, unit_pmf, tri_pmf, u0 = _select_emissive_triangle(
+        scene, u_sel, u0)
+    light_prob = unit_pmf * tri_pmf
+    p_a = tris.p0[tri]
+    p_b = p_a + tris.e1[tri]
+    p_c = p_a + tris.e2[tri]
+    n0, n1, n2 = tris.n0[tri], tris.n1[tri], tris.n2[tri]
+    if scene.is_instanced:
+        inst = scene.units.instance[unit].to(torch.int64)
+        m = scene.instances.transform[inst]
+        p_a, p_b, p_c = (rotate(m, p) + m[:, :, 3] for p in (p_a, p_b, p_c))
+        ninv = scene.instances.inv_transform[inst][:, :, :3]
+        n0, n1, n2 = ((ninv * n[:, :, None]).sum(1) for n in (n0, n1, n2))
+    geom_n = cross(p_b - p_a, p_c - p_a)
+
+    def norm(v):
+        return v / torch.clamp(length(v, keepdim=True), min=1e-20)
+
+    a = norm(p_a - shading_point)
+    b = norm(p_b - shading_point)
+    c = norm(p_c - shading_point)
+    c_ab = norm(cross(a, b))
+    c_bc = norm(cross(b, c))
+    c_ca = norm(cross(c, a))
+    cos_c = dot(a, b)
+    cos_alpha = -dot(c_ab, c_ca)
+    cos_beta = -dot(c_bc, c_ab)
+    cos_gamma = -dot(c_ca, c_bc)
+    alpha = torch.arccos(torch.clamp(cos_alpha, -1.0, 1.0))
+    sin_alpha = torch.sqrt(torch.clamp(1.0 - cos_alpha ** 2, min=0.0))
+    sph_area = (alpha + torch.arccos(torch.clamp(cos_beta, -1.0, 1.0))
+                + torch.arccos(torch.clamp(cos_gamma, -1.0, 1.0)) - _PI)
+
+    def project(va, vb):
+        return norm(va - dot(va, vb, keepdim=True) * vb)
+
+    area_hat = sph_area * u0
+    s = torch.sin(area_hat - alpha)
+    t = torch.cos(area_hat - alpha)
+    uu = t - cos_alpha
+    vv = s + sin_alpha * cos_c
+    denom = (vv * s + uu * t) * sin_alpha
+    q = torch.where(torch.abs(denom) > 1e-12,
+                    ((vv * t - uu * s) * cos_alpha - vv)
+                    / torch.where(denom == 0, 1.0, denom), 0.0)
+    q = torch.clamp(q, -1.0, 1.0)
+    c_hat = (q[..., None] * a
+             + torch.sqrt(torch.clamp(1 - q ** 2, min=0.0))[..., None]
+             * project(c, a))
+    z = torch.clamp(1.0 - u1 * (1.0 - dot(c_hat, b)), -1.0, 1.0)
+    direction = (z[..., None] * b
+                 + torch.sqrt(torch.clamp(1 - z ** 2, min=0.0))[..., None]
+                 * project(c_hat, b))
+
+    # the barycentrics where the direction meets the triangle's plane
+    e_ab = p_b - p_a
+    e_ac = p_c - p_a
+    pv = cross(direction, e_ac)
+    det = dot(e_ab, pv)
+    rec_det = 1.0 / torch.where(torch.abs(det) > 1e-12, det, 1.0)
+    tv = shading_point - p_a
+    bc_b = dot(tv, pv) * rec_det
+    qv = cross(tv, e_ab)
+    bc_c = dot(direction, qv) * rec_det
+    dist = dot(e_ac, qv) * rec_det
+    bc_a = 1.0 - bc_b - bc_c
+    position = (bc_a[..., None] * p_a + bc_b[..., None] * p_b
+                + bc_c[..., None] * p_c)
+
+    gn = norm(geom_n)
+    dir_pdf = torch.where(sph_area > 1e-8,
+                          1.0 / torch.clamp(sph_area, min=1e-8), 0.0)
+    lp_cos = -dot(direction, gn)
+    pdf = torch.where(
+        (lp_cos > 0.0) & torch.isfinite(dir_pdf) & (dist > 0.0),
+        light_prob * dir_pdf * lp_cos / torch.clamp(dist ** 2, min=1e-12),
+        0.0)
+    normal = norm(bc_a[..., None] * n0 + bc_b[..., None] * n1
+                  + bc_c[..., None] * n2)
+    mat = scene.units.material[unit].to(torch.int64)
+    return LightSample(position=position, normal=normal,
+                       emittance=scene.materials.emittance[mat], pdf=pdf,
+                       at_infinity=torch.zeros(pdf.shape, dtype=torch.bool,
+                                               device=pdf.device))
+
+
 def sample_env_light(scene: SceneData, u0, u1) -> LightSample:
     env = scene.env
     u, v, uv_pdf = sample_continuous_2d(env.importance, u1, u0)
@@ -279,13 +382,14 @@ def sample_env_light(scene: SceneData, u0, u1) -> LightSample:
                                               device=pdf.device))
 
 
-def sample_light(scene: SceneData, u_light, u0, u1, packed) -> LightSample:
+def _mix_env(scene: SceneData, u_light, u0, u1, surface):
     """Light sample mixing env and surface lights with the fixed 0.25 env
-    probability; u_light picks the family and is remapped into it. The pdf
-    includes the selection probability."""
+    probability; u_light picks the family and is remapped into it, and
+    `surface(u_surf)` samples the surface lights. The pdf includes the
+    selection probability."""
     surface_ok = scene.total_emissive_importance > 0.0
     if scene.env is None:
-        surf = sample_surface_light(scene, u_light, u0, u1, packed)
+        surf = surface(u_light)
         surf.pdf = torch.where(surface_ok, surf.pdf, 0.0)
         return surf
     p_env = (torch.where(surface_ok, PROB_SAMPLE_ENV, 1.0)
@@ -294,7 +398,7 @@ def sample_light(scene: SceneData, u_light, u0, u1, packed) -> LightSample:
     u_surf = torch.clamp((u_light - p_env) / torch.clamp(1.0 - p_env,
                                                          min=1e-8),
                          0.0, 1.0 - 1e-7)
-    surf = sample_surface_light(scene, u_surf, u0, u1, packed)
+    surf = surface(u_surf)
     envs = sample_env_light(scene, u0, u1)
     pe3 = pick_env[..., None]
     pdf = torch.where(pick_env, envs.pdf * p_env,
@@ -304,6 +408,21 @@ def sample_light(scene: SceneData, u_light, u0, u1, packed) -> LightSample:
         normal=torch.where(pe3, envs.normal, surf.normal),
         emittance=torch.where(pe3, envs.emittance, surf.emittance),
         pdf=pdf, at_infinity=pick_env)
+
+
+def sample_light(scene: SceneData, u_light, u0, u1, packed) -> LightSample:
+    """Light sample of the area strategy (`packed`: the hoisted
+    pack_light_rows table, or None)."""
+    return _mix_env(scene, u_light, u0, u1, lambda u: sample_surface_light(
+        scene, u, u0, u1, packed))
+
+
+def sample_light_solid_angle(scene: SceneData, shading_point, u_light, u0,
+                             u1) -> LightSample:
+    """sample_light with the solid-angle strategy for surface lights."""
+    return _mix_env(scene, u_light, u0, u1,
+                    lambda u: sample_surface_light_solid_angle(
+                        scene, shading_point, u, u0, u1))
 
 
 def surface_light_pdf(scene: SceneData, tri_idx, inst=None):

@@ -14,9 +14,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
-from gfxexp_torch.core.distributions import Continuous2D
+from gfxexp_torch.core.distributions import (
+    Continuous2D,
+    ProbabilityTexture,
+)
 from gfxexp_torch.core.tensors import TensorData
 from gfxexp_torch.core.tensors import from_numpy as _from_numpy
 
@@ -114,7 +118,7 @@ class ObjectTriangles(TensorData):
 @dataclass
 class SceneData(TensorData):
     """Everything the device code needs for one frame (the port has no
-    textured or displaced scenes yet)."""
+    displaced scenes yet)."""
 
     materials: MaterialTable
     triangles: TriangleSoA
@@ -126,8 +130,14 @@ class SceneData(TensorData):
     env: Optional[EnvLight] = None
     # flattened scenes (compile()): object-space triangles for animation
     object_triangles: Optional[ObjectTriangles] = None
+    # scene/textures.py TextureAtlas, None when the scene has no texture
+    textures: Optional[TensorData] = None
     light_unit_alias_prob: Optional[torch.Tensor] = None  # [U]
     light_unit_alias_idx: Optional[torch.Tensor] = None  # [U] int32
+    # the units' weights laid row-major into an S x S probability texture
+    # (compile(use_probability_texture=True)): unit selection by quad
+    # descent instead of the alias table
+    light_unit_probtex: Optional[ProbabilityTexture] = None
     # two-level (instanced) scenes (compile_scene(traversal="instanced")):
     # `triangles` holds OBJECT-space BLAS triangles shared by the instances
     # (unit_id = local geometry index within the BLAS group), hits carry an
@@ -137,6 +147,9 @@ class SceneData(TensorData):
     #   units.tri_offset[u] + tri_light_local[t] - unit_tri_base[u]
     unit_tri_base: Optional[torch.Tensor] = None  # [U] int32
     tri_light_local: Optional[torch.Tensor] = None  # [T] int32
+    # the traversal-order triangle range of each instance's BLAS
+    inst_tri_start: Optional[torch.Tensor] = None  # [I] int32
+    inst_tri_count: Optional[torch.Tensor] = None  # [I] int32
 
     @property
     def is_instanced(self):
@@ -151,22 +164,53 @@ class SceneData(TensorData):
         return self.units.material.shape[0]
 
 
+def world_bounds(scene: SceneData):
+    """The world-space AABB of the scene's triangles, (lo [3], hi [3])
+    float32 numpy, on the host. A two-level scene's BLAS triangles go
+    through the transform of each instance that places them."""
+    tris = scene.triangles
+    p0 = tris.p0.cpu().numpy()
+    p1 = p0 + tris.e1.cpu().numpy()
+    p2 = p0 + tris.e2.cpu().numpy()
+    if not scene.is_instanced:
+        lo = np.minimum(np.minimum(p0.min(0), p1.min(0)), p2.min(0))
+        hi = np.maximum(np.maximum(p0.max(0), p1.max(0)), p2.max(0))
+        return lo, hi
+    if scene.inst_tri_start is None:
+        raise ValueError("a two-level scene needs inst_tri_start and "
+                         "inst_tri_count (SceneBuilder.compile_instanced) "
+                         "for its world bounds")
+    m = scene.instances.transform.cpu().numpy().astype(np.float64)
+    start = scene.inst_tri_start.cpu().numpy()
+    count = scene.inst_tri_count.cpu().numpy()
+    lo = np.full(3, np.inf)
+    hi = np.full(3, -np.inf)
+    for i in range(m.shape[0]):
+        sl = slice(int(start[i]), int(start[i] + count[i]))
+        v = np.concatenate([p0[sl], p1[sl], p2[sl]]).astype(np.float64)
+        v = v @ m[i, :, :3].T + m[i, :, 3]
+        lo = np.minimum(lo, v.min(0))
+        hi = np.maximum(hi, v.max(0))
+    return lo.astype(np.float32), hi.astype(np.float32)
+
+
 def from_numpy(obj):
     """gfxexp_tpu object (SceneData, its tables, Camera, WideRowBVH one table
     or chunked, QRowBVH, InstancedAccel, ...) -> the port's object on the
     CPU. Reads fields by attribute name; fields the port does not model are
-    ignored."""
+    ignored. Textures and the probability texture come along; displaced
+    geometry raises NotImplementedError."""
     # containers register on import; make sure the ones outside this module
     # are known
     import gfxexp_torch.accel.instanced  # noqa: F401
     import gfxexp_torch.accel.qrow  # noqa: F401
     import gfxexp_torch.accel.widerow  # noqa: F401
     import gfxexp_torch.render.camera  # noqa: F401
+    import gfxexp_torch.scene.textures  # noqa: F401
 
-    for name in ("textures", "displaced", "light_unit_probtex"):
-        if getattr(obj, name, None) is not None:
-            raise NotImplementedError(
-                f"the port does not carry scenes with {name!r} yet")
+    if getattr(obj, "displaced", None):
+        raise NotImplementedError(
+            "the port does not carry scenes with displaced geometry yet")
     return _from_numpy(obj)
 
 

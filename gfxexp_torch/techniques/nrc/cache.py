@@ -61,6 +61,7 @@ from gfxexp_torch.scene.lights import (
     pack_light_rows,
     surface_light_pdf,
 )
+from gfxexp_torch.scene.types import world_bounds
 from gfxexp_torch.techniques.nrc.network import NRCConfig
 from gfxexp_torch.techniques.nrc.network import apply as nrc_apply
 
@@ -79,15 +80,11 @@ class NRCIntegratorConfig:
 
 
 def scene_aabb(scene):
-    """The scene's triangle AABB (host-side, once): (lo [3], hi [3]) on the
-    scene's device."""
-    tris = scene.triangles
-    p0 = tris.p0.cpu().numpy()
-    p1 = p0 + tris.e1.cpu().numpy()
-    p2 = p0 + tris.e2.cpu().numpy()
-    lo = np.minimum(np.minimum(p0.min(0), p1.min(0)), p2.min(0))
-    hi = np.maximum(np.maximum(p0.max(0), p1.max(0)), p2.max(0))
-    dev = tris.p0.device
+    """The scene's world-space triangle AABB (host-side, once): (lo [3],
+    hi [3]) on the scene's device. A two-level scene is bounded in world
+    space too (JAX's scene_aabb bounds its object-space BLAS triangles)."""
+    lo, hi = world_bounds(scene)
+    dev = scene.triangles.p0.device
     return (torch.from_numpy(lo.astype(np.float32)).to(dev),
             torch.from_numpy(hi.astype(np.float32)).to(dev))
 
@@ -232,8 +229,8 @@ def render_sample_nrc(scene, bvh, camera, nrc_params, aabb_lo, aabb_hi,
         nrm = sp.shading_normal
         t, b = make_frame(nrm)
         v_out_local = to_local(t, b, nrm, v_out)
-        params = material_params_textured(scene.materials, None, sp.material,
-                                          sp.texcoord)
+        params = material_params_textured(scene.materials, scene.textures,
+                                          sp.material, sp.texcoord)
 
         d2 = torch.clamp(hit.t ** 2, min=1e-12)
         if bounce == 1:

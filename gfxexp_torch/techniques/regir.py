@@ -31,7 +31,7 @@ from gfxexp_torch.core.rng import SampleStream
 from gfxexp_torch.core.tensors import TensorData
 from gfxexp_torch.render.bsdf import bsdf_evaluate
 from gfxexp_torch.scene.lights import PROB_SAMPLE_ENV
-from gfxexp_torch.scene.types import SceneData
+from gfxexp_torch.scene.types import SceneData, world_bounds
 from gfxexp_torch.techniques.restir_di import _sample_light_stratified
 
 _PI = float(np.pi)
@@ -79,19 +79,16 @@ class ReGIRState(TensorData):
 
 def make_grid(scene: SceneData, cfg: ReGIRConfig,
               margin: float = 0.01) -> GridInfo:
-    """The grid over the scene's triangle AABB grown by `margin` of its
-    extent (host-side, once), on the scene's device."""
-    tris = scene.triangles
-    p0 = tris.p0.cpu().numpy()
-    p1 = p0 + tris.e1.cpu().numpy()
-    p2 = p0 + tris.e2.cpu().numpy()
-    lo = np.minimum(np.minimum(p0.min(0), p1.min(0)), p2.min(0))
-    hi = np.maximum(np.maximum(p0.max(0), p1.max(0)), p2.max(0))
+    """The grid over the scene's world-space triangle AABB grown by
+    `margin` of its extent (host-side, once), on the scene's device. A
+    two-level scene is bounded in world space too (JAX's make_grid bounds
+    its object-space BLAS triangles)."""
+    lo, hi = world_bounds(scene)
     extent = hi - lo
     lo = lo - margin * extent
     hi = hi + margin * extent
     dims = np.asarray(cfg.grid_dimension, np.float32)
-    dev = tris.p0.device
+    dev = scene.triangles.p0.device
     return GridInfo(
         origin=torch.from_numpy(lo.astype(np.float32)).to(dev),
         cell_size=torch.from_numpy(((hi - lo) / dims).astype(np.float32))

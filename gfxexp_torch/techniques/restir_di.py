@@ -166,7 +166,7 @@ def pixel_ctx(scene: SceneData, gb: GBuffer, camera: Camera) -> PixelCtx:
     pos_off = offset_ray_origin(pos, torch.where(front[:, None], gn, -gn))
     t, b = make_frame(sn)
     mat = torch.clamp(gb.material.reshape(n), min=0)
-    params = material_params_textured(scene.materials, None, mat,
+    params = material_params_textured(scene.materials, scene.textures, mat,
                                       gb.texcoord.reshape(n, 2))
     return PixelCtx(pos=pos_off, v_out_local=to_local(t, b, sn, v_out), t=t,
                     b=b, n=sn, params=params, valid=gb.hit.reshape(n),

@@ -110,14 +110,48 @@ def test_main_renders_a_static_scene_on_the_cpu(tmp_path, traversal):
 
 def test_unported_options_raise(tmp_path):
     base = ["-device", "cpu", "-output", str(tmp_path / "x")]
-    for extra in (["-exr"], ["-live"], ["-debug-switches", "1"],
-                  ["-env-texture", "sky.exr"], ["-obj", "m.obj", "1"]):
+    for extra in (["-live"], ["-obj", "m.obj", "1"]):
         with pytest.raises(NotImplementedError):
             tpt_app.main(base + extra)
     if not torch.cuda.is_available():
         for app in (tpt_app, tsvgf_app, trestir_app):
             with pytest.raises(RuntimeError, match="-device cpu"):
                 app.main(["-output", str(tmp_path / "y")])
+
+
+def test_env_texture_and_texture_lod_build_as_jax(tmp_path):
+    """-env-texture reads a lat-long EXR into the environment and
+    -texture-lod makes the builder keep mips, in both packages alike."""
+    from gfxexp_torch.utils.image_io import save_exr
+
+    sky = str(tmp_path / "sky.exr")
+    save_exr(sky, np.linspace(0.1, 2.0, 8 * 16 * 4, dtype=np.float32)
+             .reshape(8, 16, 4), half=False)
+    argv = ["-env-texture", sky, "-env-power", "0.5", "-texture-lod"] + DSL
+    (_, (tb, _)), (_, (jb, _)) = _build(tcommon, argv), _build(jcommon, argv)
+    np.testing.assert_array_equal(tb.env_radiance, jb.env_radiance)
+    assert tb.env_radiance.shape == (8, 16, 3) and tb.env_power == 0.5
+    assert tb.atlas.mips and jb.atlas.mips
+
+
+def test_path_tracing_options(tmp_path):
+    """-exr writes the accumulated image (read back within half precision),
+    -debug-switches reach the tracer (bit 0, no NEE, darkens the box and
+    lamp of a command line without a scene), and -bump,
+    -texture-lod and -fused-shadow-rays run."""
+    from gfxexp_torch.utils.image_io import load_exr
+
+    base = ["-device", "cpu", "-width", "16", "-height", "12", "-frames",
+            "2", "-max-path-length", "3"]
+    out = str(tmp_path / "pt")
+    hdr = tpt_app.main(base + ["-output", out, "-exr", "-bump",
+                               "-texture-lod", "-fused-shadow-rays"])
+    back = load_exr(out + ".exr")
+    assert back.shape == (12, 16, 3)
+    np.testing.assert_allclose(back, hdr, rtol=1e-3, atol=1e-6)
+    dark = tpt_app.main(base + ["-output", out + "_nonee",
+                                "-debug-switches", "1"])
+    assert 0.0 < dark.mean() < 0.8 * hdr.mean()
 
 
 STATIC = DSL[:DSL.index("-begin-pos")] + DSL[DSL.index("-begin-pos") + 16:]

@@ -1137,3 +1137,130 @@ def test_nrc_train_step_on_card_matches_cpu(dev):
                        <= 1e-5).float().mean())
         assert share >= 0.999, (enc, share)
         assert max(float(d.max()) for d in diffs) <= 2 * cfg.learning_rate
+
+
+@pytest.fixture(scope="module")
+def textured_scenes(tmp_path_factory):
+    """The textured scene (bench.build_textured_scene) as wide rows and as
+    skip links, on the CPU."""
+    from gfxexp_torch import bench
+
+    d = str(tmp_path_factory.mktemp("tex"))
+    return {t: bench.build_textured_scene(d, traversal=t)
+            for t in ("widerow", "skip")}
+
+
+@pytest.mark.parametrize("traversal", ["widerow", "skip"])
+@pytest.mark.parametrize("opts", [
+    {}, {"enable_bump_mapping": True, "texture_lod": True},
+    {"use_solid_angle_sampling": True}],
+    ids=["plain", "bump_lod", "solid_angle"])
+def test_textured_render_on_card_matches_cpu(dev, textured_scenes,
+                                             traversal, opts):
+    """The textured scene at 32x32, 2 samples, on the card (kernel 1 or
+    6) against the CPU: mean relative image difference under 5e-3 and
+    equal ray counts; solid-angle NEE keeps float32 and its own bar."""
+    from gfxexp_torch import bench
+
+    ts, tb = textured_scenes[traversal]
+    cam = bench.textured_camera(32, 32)
+    cfg = tpt.PTConfig(max_path_length=4, count_rays=True, **opts)
+    a, na = tpt.render_accumulate(ts.to(dev), tb.to(dev), cam.to(dev), 32,
+                                  32, 0, 2, cfg)
+    b, nb = tpt.render_accumulate(ts, tb, cam, 32, 32, 0, 2, cfg)
+    a = a.cpu().numpy()
+    assert np.isfinite(a).all() and a.mean() > 0
+    assert S.image_rel_diff(a, b.numpy()) < 5e-3
+    assert float(na) == float(nb)
+
+
+@pytest.mark.parametrize("traversal, counts", [
+    ("widerow", lambda: (persistent.launch_counts["closest"],
+                         persistent.launch_counts["any"])),
+    ("skip", lambda: (skip_traverse.launch_counts["closest_thread"],
+                      skip_traverse.launch_counts["any_thread"]))],
+    ids=["kernel1", "kernel6"])
+def test_fused_batch_on_card_matches_cpu(dev, textured_scenes, traversal,
+                                         counts):
+    """fuse_shadow_rays on the card: 4 closest-hit walks of 2N lanes after
+    the first (N odd here: 23x17 pixels), no any-hit walk, the image equal
+    to the unfused card image (rtol 1e-5, atol 1e-6) and to the CPU's
+    (5e-3), the ray counts equal."""
+    from gfxexp_torch import bench
+
+    ts, tb = textured_scenes[traversal]
+    w, h = 23, 17
+    cam = bench.textured_camera(w, h)
+    sd, bd, cd = ts.to(dev), tb.to(dev), cam.to(dev)
+    out = {}
+    for fuse in (False, True):
+        cfg = tpt.PTConfig(max_path_length=5, count_rays=True,
+                           fuse_shadow_rays=fuse, enable_bump_mapping=True)
+        for mod in (persistent, skip_traverse):
+            mod.reset_launch_counts()
+        out[fuse] = tpt.render_sample(sd, bd, cd, w, h, 3, cfg) + (
+            counts(),)
+    (a, na, ca), (b, nb, cb) = out[False], out[True]
+    assert ca == (5, 4) and cb == (5, 0)
+    assert float(na) == float(nb)
+    assert torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+    cfg = tpt.PTConfig(max_path_length=5, count_rays=True,
+                       fuse_shadow_rays=True, enable_bump_mapping=True)
+    c, nc = tpt.render_sample(ts, tb, cam, w, h, 3, cfg)
+    assert S.image_rel_diff(b.cpu().numpy(), c.numpy()) < 5e-3
+    assert float(nc) == float(nb)
+
+
+@pytest.mark.parametrize("traversal", ["widerow", "skip"])
+def test_odd_and_mixed_batches_match_plain(dev, textured_scenes, traversal):
+    """A fused batch as the tracer builds it, on kernels 1 and 6: N odd
+    bounce rays in block order, then N shadow rays toward random points,
+    a third of them empty (t_max < 0); and the same batch less its last
+    lane (an odd count). Every lane equals the CPU's plain walk."""
+    ts, tb = textured_scenes[traversal]
+    rng = np.random.default_rng(21)
+    n = 1001
+    o = np.stack([rng.uniform(-1.5, 1.5, n), rng.uniform(0.05, 1.5, n),
+                  rng.uniform(-1.5, 1.5, n)], -1).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    target = np.stack([rng.uniform(-0.5, 0.5, n), np.full(n, 2.0),
+                       rng.uniform(-0.5, 0.5, n)], -1).astype(np.float32)
+    sv = target - o
+    dist = np.linalg.norm(sv, axis=1)
+    stmax = np.where(np.arange(n) % 3 == 0, -1.0, 0.9999 * dist)
+    bo = torch.from_numpy(np.concatenate([o, o]))
+    bd = torch.from_numpy(np.concatenate([d, sv / dist[:, None]]))
+    btmax = torch.from_numpy(np.concatenate(
+        [np.full(n, 1e30), stmax]).astype(np.float32))
+    for m in (2 * n, 2 * n - 1):
+        cpu = intersect_closest(tb, ts.triangles, bo[:m], bd[:m], 0.0,
+                                btmax[:m])
+        card = intersect_closest(tb.to(dev), ts.triangles.to(dev),
+                                 bo[:m].to(dev), bd[:m].to(dev), 0.0,
+                                 btmax[:m].to(dev))
+        card = card.to("cpu")
+        assert torch.equal(card.hit, cpu.hit)
+        assert torch.equal(card.tri, cpu.tri)
+        assert torch.equal(card.t, cpu.t)
+        assert not card.hit[btmax[:m] < 0].any()
+
+
+def test_textures_stay_on_their_device(dev, textured_scenes):
+    """scene.to(card) moves the atlas (layers, mips, offsets) with it;
+    sampling a CPU atlas with lanes on the card is an error."""
+    from gfxexp_torch.scene.textures import sample_bilinear
+
+    ts, _ = textured_scenes["widerow"]
+    sd = ts.to(dev)
+    atlas = sd.textures
+    for t in (atlas.layers, atlas.mip_flat, atlas.mip_offsets):
+        assert t.device.type == "cuda"
+    assert atlas.n_levels == ts.textures.n_levels
+    uv = torch.rand(64, 2, device=dev)
+    tid = torch.zeros(64, dtype=torch.int32, device=dev)
+    assert torch.allclose(sample_bilinear(atlas, tid, uv).cpu(),
+                          sample_bilinear(ts.textures, tid.cpu(), uv.cpu()),
+                          rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="atlas"):
+        sample_bilinear(ts.textures, tid, uv)

@@ -1,13 +1,16 @@
-"""gfxexp_torch runs without JAX: in a subprocess where importing jax or
-flax fails, every module of the package (the apps included; among them the
+"""gfxexp_torch runs without JAX or PIL: in a subprocess where importing
+jax, flax or PIL fails, every module of the package (the apps included; among them the
 quantized rows, accel/qrow.py, and the lane-group walk, accel/lanegroup.py)
 imports, 16x16 renders of the small bench scene (wide rows and quantized
 rows), of the two-level `big` scene and of an animated frame of the
 flattened `big` scene run, a chunked wide-row table is built and walked,
 the lane-group walk runs, and the path_tracing, svgf, restir_di (-rearch
--denoise), regir and neural_radiance_caching apps render on the CPU. optax
+-denoise), regir and neural_radiance_caching apps render on the CPU; the
+textured scene (its PNG and DDS files written and loaded) renders with
+bump, texture LOD, solid-angle NEE and fused shadow rays, an EXR round
+trips, and the path_tracing app runs with -bump -texture-lod -exr. optax
 is blocked too: the NRC cache trains without it. The package's sources and
-chip_smoke.py never name jax."""
+chip_smoke.py never name jax, flax, PIL or gfxexp_tpu."""
 
 import os
 import pathlib
@@ -22,6 +25,7 @@ import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["optax"] = None
+sys.modules["PIL"] = None
 import torch
 torch.set_num_threads(1)
 import gfxexp_torch
@@ -89,8 +93,29 @@ for app, extra in ((regir, ["-grid-dim", "4", "4", "4", "-light-slots",
     hdr = app.main(["-device", "cpu", "-width", "16", "-height", "16",
                     "-frames", "2", "-output", OUT, *extra])
     assert hdr.shape == (16, 16, 3) and hdr.mean() > 0.0
+import os
+import numpy as np
+from gfxexp_torch.bench import build_textured_scene, textured_camera
+from gfxexp_torch.scene.textures import load_dds
+from gfxexp_torch.utils.image_io import load_exr, load_png, save_exr
+tex = os.path.join(os.path.dirname(OUT), "tex")
+scene, bvh = build_textured_scene(tex)
+assert scene.textures.count == 7 and scene.textures.mip_flat is not None
+img = render_sample(scene, bvh, textured_camera(16, 16), 16, 16, 0,
+                    PTConfig(enable_bump_mapping=True, texture_lod=True,
+                             use_solid_angle_sampling=True,
+                             fuse_shadow_rays=True), 0b10000101)
+assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0
+assert load_png(os.path.join(tex, "normal.png")).shape == (64, 64, 3)
+assert load_dds(os.path.join(tex, "bc7.dds")).shape == (64, 64, 4)
+save_exr(OUT + "_rt.exr", np.ones((4, 5, 3), np.float32))
+assert (load_exr(OUT + "_rt.exr") == 1.0).all()
+hdr = path_tracing.main(["-device", "cpu", "-width", "8", "-height", "8",
+                         "-frames", "2", "-output", OUT, "-bump",
+                         "-texture-lod", "-exr", "-debug-switches", "133"])
+assert load_exr(OUT + ".exr").shape == (8, 8, 3)
 import gfxexp_torch.techniques.nrc  # noqa: F401
-assert not any(m == "jax" or m.startswith(("jax.", "flax", "optax"))
+assert not any(m == "jax" or m.startswith(("jax.", "flax", "optax", "PIL"))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK", len(names))
 """
@@ -113,6 +138,7 @@ def test_no_source_names_jax():
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1 and (
-                    words[1].split(".")[0] in ("jax", "flax", "gfxexp_tpu")):
+                    words[1].split(".")[0] in ("jax", "flax", "optax", "PIL",
+                                               "gfxexp_tpu")):
                 offenders.append(f"{path}: {line.strip()}")
     assert not offenders, offenders

@@ -140,10 +140,3 @@ def test_unported_options_raise(rendered, option):
     with pytest.raises(NotImplementedError):
         tpt.render_sample(ts, tb, tc, 16, 16, 0,
                           tpt.PTConfig(**{option: True}))
-
-
-def test_debug_switches_raise(rendered):
-    ts, tb, tc, _ = rendered["box"]
-    with pytest.raises(NotImplementedError):
-        tpt.render_sample(ts, tb, tc, 16, 16, 0, debug_switches=1)
-

@@ -143,6 +143,4 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         tcompile(b, traversal="widerow", spatial_splits=True)
     with pytest.raises(NotImplementedError):
-        b.add_texture(np.zeros((4, 4, 3), np.float32))
-    with pytest.raises(NotImplementedError):
         b.add_displaced()

@@ -177,13 +177,13 @@ def test_light_selection_cdf_branch_matches_alias_pmf(lit_scene):
     both pick triangles with the same probabilities."""
     _, ts = lit_scene
     u = _t(np.random.default_rng(5).random(20000, np.float32))
-    _, pos_alias = tlights._select_light_pos(ts, u)
+    _, pos_alias, _ = tlights._select_light_pos(ts, u)
     units = ts.units
     no_alias = dataclasses.replace(
         ts, light_unit_alias_prob=None, light_unit_alias_idx=None,
         units=dataclasses.replace(units, light_tri_alias_prob=None,
                                   light_tri_alias_local=None))
-    _, pos_cdf = tlights._select_light_pos(no_alias, u)
+    _, pos_cdf, _ = tlights._select_light_pos(no_alias, u)
     n = units.light_tri_index.shape[0]
     ha = torch.bincount(pos_alias, minlength=n).float() / u.numel()
     hc = torch.bincount(pos_cdf, minlength=n).float() / u.numel()
