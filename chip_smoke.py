@@ -151,7 +151,30 @@ Phases, one line each, any failure exits non-zero:
  27. on the card at 64x64: path_tracing -bump -texture-lod -debug-switches
      133 -exr (the EXR read back) and path_tracing -env-texture on an EXR
      written here; the svgf and restir_di frame loops on the textured
-     scene, whose G-buffer albedo carries the checker.
+     scene, whose G-buffer albedo carries the checker;
+ 28. TFDM and the loaders, card against CPU: intersect_tfdm_v2 on 65,536
+     camera and bounce rays over the tfdm app's scene at -base-res 24
+     (1,152 prisms, the slab sweep) and 32 (2,048 prisms, the prism BVH's
+     walk): hits agree on >= 0.999 of rays, t within rtol 1e-5 on >= 0.999
+     of the rays both hit, steps equal on >= 0.99, with the card's time,
+     peak memory, host syncs, rounds and march iterations; kernel 1 and
+     kernel 6 (-traversal skip) against their plain versions on those rays
+     and on shadow rays from their hits to the lamp (equal hits and
+     triangles); the demo scene at
+     128x128, 4 samples, displaced shadows on and off (image mean relative
+     difference < 5e-3, rays within 0.5%: a march step can round across a
+     texel edge on one device only); an OBJ + MTL (through -obj, with and
+     without a convention word), a binary PLY and a GLB (through load_mesh)
+     written here, rendered at 64x64, card against CPU;
+ 29. TFDM costs: the tfdm app's frame loop at 512x512 (ridges, -h-scale
+     0.25, bilinear) at -base-res 24 and 32, a few frames each (the app
+     renders 32; TFDM_FRAMES): ms per pathTrace, kernel 1's launches a
+     frame, intersect_tfdm_v2's calls a frame and host syncs, rounds, march
+     iterations and prism-BVH steps a call, peak memory, one frame under
+     torch.profiler (CUDA kernels, launch calls, idle share, the TFDM
+     calls' device time) whose calls record their steps (mean over the
+     rays that march, max); then the tfdm CLI with -heatmap at 64x64, 4
+     frames, and its two PNGs.
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -2684,9 +2707,8 @@ def phase_texture_clis(report, dev):
     """Phase 27: on the card at 64^2, path_tracing with -bump -texture-lod
     -debug-switches 133 -exr (the EXR read back) and path_tracing with
     -env-texture on an EXR written here, at once; then the svgf and
-    restir_di apps' frame loops on the textured scene (the DSL has no
-    texture source until -obj is ported), whose G-buffer albedo now
-    carries the checker."""
+    restir_di apps' frame loops on the textured scene, whose G-buffer
+    albedo carries the checker."""
     from gfxexp_torch.apps import restir_di as restir_app
     from gfxexp_torch.apps import svgf as svgf_app
     from gfxexp_torch.render.gbuffer import render_gbuffer
@@ -2764,6 +2786,545 @@ def phase_texture_clis(report, dev):
     report["texture_clis"] = rows
 
 
+TFDM_RAYS = 65536  # phase 28's camera and bounce rays
+TFDM_RES = 128  # phase 28's card-against-CPU renders
+TFDM_SAMPLES = 4
+MESH_RES = 64  # phase 28's mesh scenes, card against CPU
+# phase 29: the tfdm app's frames at 512^2 per base mesh (-base-res); the
+# app renders 32, cut to these to hold the phase's time (PERF.md)
+TFDM_FRAMES = {24: 1, 32: 1}
+TFDM_COST_RES = 512  # the app's default resolution
+# card against CPU on the same rays: share of rays whose hit agrees, t
+# within rtol on that share of both-hit rays, steps equal on that share
+TFDM_BARS = {"hit": 0.999, "t_rtol": 1e-5, "t_share": 0.999, "steps": 0.99}
+
+
+def _tfdm_app(base_res, width, height, traversal="widerow"):
+    """The tfdm app's demo scene at its defaults but `-base-res`, compiled
+    on the host for `traversal`: (scene, bvh, camera, host seconds)."""
+    from gfxexp_torch.apps import tfdm as app
+    from gfxexp_torch.apps.common import make_camera_from_args
+
+    args = app.parse_args(["-base-res", str(base_res), "-width", str(width),
+                           "-height", str(height), "-traversal", traversal])
+    t0 = time.time()
+    scene, bvh, _ = app.compile_demo(args, "tfdm",
+                                     app.displacement_params(args))
+    return scene, bvh, make_camera_from_args(args), time.time() - t0
+
+
+def _tfdm_rays(geom, cam, dev):
+    """TFDM_RAYS / 2 jittered camera rays through random pixels at 512^2,
+    then as many bounce rays from their displaced hits, in random
+    directions of the hit normal's hemisphere (rays whose camera ray
+    missed are dead, t_max < 0): (o, d, t_min, t_max)."""
+    from gfxexp_torch.render.camera import generate_rays_for_lanes
+    from gfxexp_torch.techniques.tfdm import intersect_tfdm_v2
+
+    rng = np.random.default_rng(SEED)
+    half = TFDM_RAYS // 2
+    lane = torch.from_numpy(rng.integers(0, 512 * 512, half)).to(dev)
+    jit = torch.from_numpy(rng.random((2, half), np.float32)).to(dev)
+    o0, d0 = generate_rays_for_lanes(cam, 512, 512, lane, jit[0], jit[1])
+    h0 = intersect_tfdm_v2(geom, o0, d0)
+    dirs = torch.from_numpy(rng.normal(size=(half, 3)).astype(
+        np.float32)).to(dev)
+    dirs = dirs / torch.linalg.vector_norm(dirs, dim=1, keepdim=True)
+    side = torch.where((dirs * h0.normal).sum(1) < 0, -1.0, 1.0)
+    o = torch.cat([o0, torch.where(h0.hit[:, None], h0.position, o0)])
+    d = torch.cat([d0, dirs * side[:, None]])
+    t_min = torch.cat([torch.full((half,), 1e-4, device=dev),
+                       torch.full((half,), 1e-3, device=dev)])
+    t_max = torch.cat([torch.full((half,), 1e30, device=dev),
+                       torch.where(h0.hit, 1e30, -1.0)])
+    return o.contiguous(), d.contiguous(), t_min, t_max
+
+
+def _tfdm_card_vs_cpu(tag, geom_c, o, d, t_min, t_max, dev):
+    """intersect_tfdm_v2 on the card and on the CPU on the same rays:
+    agreement, the card's wall ms (fenced) and its loop counts."""
+    from gfxexp_torch.techniques import tfdm
+
+    geom = geom_c.to(dev)
+    tfdm.intersect_tfdm_v2(geom, o[:1024], d[:1024], t_min[:1024],
+                           t_max[:1024])  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tfdm.reset_loop_stats()
+    t0 = time.perf_counter()
+    hk = tfdm.intersect_tfdm_v2(geom, o, d, t_min, t_max)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    stats = dict(tfdm.loop_stats)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    t0 = time.perf_counter()
+    hc = tfdm.intersect_tfdm_v2(geom_c, o.cpu(), d.cpu(), t_min.cpu(),
+                                t_max.cpu())
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    hk = hk.to(torch.device("cpu"))
+    hit_agree = float((hk.hit == hc.hit).float().mean())
+    both = hk.hit & hc.hit
+    rel = ((hk.t[both] - hc.t[both]).abs() / hc.t[both].abs())
+    t_share = float((rel <= TFDM_BARS["t_rtol"]).float().mean())
+    steps_eq = float((hk.steps == hc.steps).float().mean())
+    live = t_max.cpu() > t_min.cpu()
+    row = {"rays": o.shape[0], "live_rays": int(live.sum()),
+           "hits": int(hk.hit.sum()), "hit_agree": hit_agree,
+           "t_max_rel": float(rel.max()) if rel.numel() else 0.0,
+           "t_share": t_share, "steps_equal": steps_eq,
+           "uv_max_abs": float((hk.uv[both] - hc.uv[both]).abs().max()),
+           "normal_max_abs": float((hk.normal[both]
+                                    - hc.normal[both]).abs().max()),
+           "card_ms": ms, "cpu_ms": cpu_ms, "card_peak_mib": peak,
+           "loop": stats,
+           "steps_mean_live": float(hk.steps[live].float().mean()),
+           "steps_max": int(hk.steps.max())}
+    check(hit_agree >= TFDM_BARS["hit"] and t_share >= TFDM_BARS["t_share"]
+          and steps_eq >= TFDM_BARS["steps"],
+          f"28 {tag}: card vs CPU hit agree {hit_agree}, t within "
+          f"{TFDM_BARS['t_rtol']} on {t_share}, steps equal {steps_eq}")
+    print(f"[28 {tag}] intersect_tfdm_v2 on {o.shape[0]} camera and bounce "
+          f"rays ({row['live_rays']} live, {row['hits']} hits): card vs "
+          f"CPU hit agree {hit_agree:.5f}, t max rel {row['t_max_rel']:.3g} "
+          f"(within {TFDM_BARS['t_rtol']} on {t_share:.5f}), steps equal "
+          f"on {steps_eq:.5f}, uv {row['uv_max_abs']:.3g}, normal "
+          f"{row['normal_max_abs']:.3g}; card {ms:.1f} ms (CPU "
+          f"{cpu_ms:.0f} ms), peak {peak:.0f} MiB, {stats['syncs']} syncs, "
+          f"{stats['rounds']} rounds, {stats['march_iterations']} march "
+          f"iterations, {stats['bvh_iterations']} BVH steps; steps mean "
+          f"{row['steps_mean_live']:.2f} a live ray, max "
+          f"{row['steps_max']}", flush=True)
+    return row
+
+
+def _walk_on(tag, route, scene, bvh, o, d, t_min, t_max, lamp, dev):
+    """Kernel 1 (route "widerow") or kernel 6's per-ray scope ("skip")
+    against its plain version on the scene's closest rays and on shadow
+    rays from their hits to random points of the lamp (a 1x1 square at
+    `lamp`): hits, triangles, t, u, v equal (kernel 1: t rel within phase
+    3's bar); times of both."""
+    tris = scene.triangles
+    if route == "widerow":
+        def card(*a):
+            return walk_cuda(bvh, *a)
+
+        def plain(*a):
+            return walk_plain(bvh, *a)
+    else:
+        def card(*a):
+            return walk_skip_cuda(bvh, tris, *a, scope="thread")
+
+        def plain(*a):
+            return walk_skip_plain(bvh, tris, *a)
+    kc = card(o, d, t_min, t_max, False)
+    pc = plain(o, d, t_min, t_max, False)
+    rng = np.random.default_rng(SEED + 1)
+    n = o.shape[0]
+    xz = torch.from_numpy(rng.uniform(-0.5, 0.5, (n, 2)).astype(
+        np.float32)).to(dev)
+    target = torch.stack([lamp[0] + xz[:, 0],
+                          torch.full((n,), lamp[1], device=dev),
+                          lamp[2] + xz[:, 1]], 1)
+    p = o + torch.where(kc.hit, kc.t, 0.0)[:, None] * d
+    vec = target - p
+    dist = torch.linalg.vector_norm(vec, dim=1)
+    sd = (vec / dist[:, None]).contiguous()
+    s_max = torch.where(kc.hit, dist * 0.9999, -1.0)
+    s_min = torch.full_like(s_max, 1e-3)
+    ka = card(p, sd, s_min, s_max, True)
+    pa = plain(p, sd, s_min, s_max, True)
+    torch.cuda.synchronize()
+    m = kc.hit
+    check(torch.equal(kc.hit, pc.hit) and torch.equal(kc.tri, pc.tri)
+          and torch.equal(ka.hit, pa.hit),
+          f"28 {tag} {route}: hits or triangles differ from plain")
+    err = float(torch.stack([(kc.t[m] - pc.t[m]).abs().max(),
+                             (kc.u[m] - pc.u[m]).abs().max(),
+                             (kc.v[m] - pc.v[m]).abs().max()]).max()) \
+        if bool(m.any()) else 0.0
+    rel_t = float(((kc.t[m] - pc.t[m]).abs()
+                   / pc.t[m].abs().clamp(min=1e-30)).max()) \
+        if bool(m.any()) else 0.0
+    check(rel_t <= 1e-4 and (route == "widerow" or err == 0.0),
+          f"28 {tag} {route}: t rel {rel_t}, max abs err {err}")
+    row = {"closest_ms": time_ms(lambda: card(o, d, t_min, t_max, False),
+                                 20),
+           "closest_plain_ms": time_ms(lambda: plain(o, d, t_min, t_max,
+                                                     False), 2),
+           "any_ms": time_ms(lambda: card(p, sd, s_min, s_max, True), 20),
+           "any_plain_ms": time_ms(lambda: plain(p, sd, s_min, s_max, True),
+                                   2),
+           "max_abs_err": err, "t_rel": rel_t, "hits": int(m.sum()),
+           "occluded": int(ka.hit.sum())}
+    name = {"widerow": "kernel 1", "skip": "kernel 6"}[route]
+    print(f"[28 {tag} {name}] {n} closest rays ({row['hits']} hit) and "
+          f"their shadow rays ({row['occluded']} occluded): equal to plain "
+          f"(max abs err {err:.3g}, t rel {rel_t:.3g}); closest "
+          f"{row['closest_ms']:.4f} ms (plain {row['closest_plain_ms']:.1f}"
+          f"), any {row['any_ms']:.4f} ms (plain "
+          f"{row['any_plain_ms']:.1f})", flush=True)
+    return row
+
+
+def _mesh_scenes():
+    """Phase 28's mesh scenes on the host, each (scene, bvh, camera): the
+    torus OBJ through the DSL's -obj (with a convention, and without one
+    followed by another option) under a lamp sphere, and the binary PLY
+    and the GLB's node tree through load_mesh (bench.mesh_scene_builder)."""
+    from gfxexp_torch.apps import common
+    from gfxexp_torch.scene.builder import SceneBuilder
+    from gfxexp_torch.scene.compile import compile_scene
+
+    paths = bench.write_mesh_files(os.path.join(REPO, "out", "meshes"))
+    cam_args = ["-cam-pos", "0", "1.2", "2.4", "-cam-pitch", "22",
+                "-width", str(MESH_RES), "-height", str(MESH_RES)]
+    scenes = {}
+    for tag, obj in (
+            ("obj_simple_pbr", ["-name", "torus", "-obj", paths["obj"],
+                                "1.5", "simple_pbr"]),
+            ("obj_bare", ["-name", "torus", "-obj", paths["obj"], "1.5"])):
+        args = common.parse_scene_args(
+            common.make_arg_parser("tfdm_meshes"),
+            [*cam_args, "-device", "cpu", *obj, "-name", "lamp",
+             "-emittance", "30", "30", "30", "-sphere", "0.2",
+             "-name", "floor", "-rectangle", "4", "4"])
+        scene, bvh, _, _ = common.compile_app_scene(args, "cpu")
+        check(scene.num_units == 4, f"28 {tag}: {scene.num_units} units "
+              f"(torus x2, lamp, floor)")
+        scenes[tag] = (scene, bvh, common.make_camera_from_args(args))
+    scene, bvh = compile_scene(bench.mesh_scene_builder(
+        SceneBuilder(), os.path.join(REPO, "out", "meshes")),
+        traversal="widerow")
+    scenes["ply_glb"] = (scene, bvh, bench.textured_camera(MESH_RES,
+                                                           MESH_RES))
+    return scenes
+
+
+def phase_tfdm(report, dev):
+    """Phase 28: TFDM and the loaders, card against CPU. intersect_tfdm_v2
+    on TFDM_RAYS camera and bounce rays over the tfdm app's scene at
+    -base-res 24 (1,152 prisms, the slab sweep) and 32 (2,048 prisms, the
+    prism BVH's walk); kernel 1 and kernel 6 (the scene compiled with
+    -traversal skip) against their plain versions on those rays' closest
+    and shadow rays; the demo scene at TFDM_RES^2, TFDM_SAMPLES
+    samples, card against CPU with displaced shadows on and off; the mesh
+    scenes (an OBJ + MTL through -obj, a binary PLY and a GLB through
+    load_mesh; files written here) at MESH_RES^2, card against CPU."""
+    # the CPU side of the renders, and phase 29's CLI, run beside the
+    # card's work; returns the CLI's (output, process) for phase 29
+    cpu_out = os.path.join(REPO, "out", "tfdm_cpu_renders.npz")
+    if os.path.exists(cpu_out):
+        os.remove(cpu_out)
+    os.makedirs(os.path.dirname(cpu_out), exist_ok=True)
+    cpu_proc = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke as c; "
+         f"c.tfdm_cpu_renders({cpu_out!r}, {TFDM_RES}, {TFDM_SAMPLES})"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES=""))
+    cli = _tfdm_cli()
+    try:
+        _phase_tfdm(report, dev, cpu_proc, cpu_out)
+    except BaseException:
+        for proc in (cpu_proc, cli[1]):
+            proc.kill()
+            proc.wait()
+        raise
+    return cli
+
+
+def _tfdm_cli():
+    """Start the tfdm CLI with -heatmap at 64x64, 4 frames (phase 29)."""
+    return _png_cli("tfdm_heatmap", "gfxexp_torch.apps.tfdm", ["-heatmap"],
+                    64)
+
+
+def _phase_tfdm(report, dev, cpu_proc, cpu_out):
+    from gfxexp_torch.techniques import tfdm
+
+    rows = {}
+    for base in (24, 32):
+        scene, bvh, cam, host_s = _tfdm_app(base, 512, 512)
+        geom = scene.displaced[0]
+        check((geom.prism_bvh is not None) == (base == 32),
+              f"28 base {base}: prism BVH {geom.prism_bvh is not None}")
+        sd, bd = scene.to(dev), bvh.to(dev)
+        o, d, t_min, t_max = _tfdm_rays(sd.displaced[0], cam.to(dev), dev)
+        tag = f"tfdm base{base}"
+        rows[tag] = _tfdm_card_vs_cpu(tag, geom, o, d, t_min, t_max, dev)
+        rows[tag]["prisms"] = geom.p0.shape[0]
+        rows[tag]["host_build_s"] = host_s
+        if base == 24:
+            # the triangles (floor, lamp, sphere) do not depend on the base
+            # mesh: kernels 1 and 6 are held once, on these rays
+            lamp = (0.8, 2.6, 0.8)
+            rows[f"{tag} kernel1"] = _walk_on(tag, "widerow", sd, bd, o, d,
+                                              t_min, t_max, lamp, dev)
+            sk_scene, sk_bvh = (x.to(dev) for x in _tfdm_app(
+                base, 512, 512, "skip")[:2])
+            rows[f"{tag} kernel6"] = _walk_on(tag, "skip", sk_scene, sk_bvh,
+                                              o, d, t_min, t_max, lamp, dev)
+            sk_scene = sk_bvh = None
+            renders, cards = {}, {}
+            c_cam = _tfdm_app_camera(TFDM_RES)
+            for shadows in (True, False):
+                cfg = PTConfig(displaced_shadows=shadows, count_rays=True)
+                _reset_counts()
+                tfdm.reset_loop_stats()
+                t0 = time.perf_counter()
+                a, ra = _tex_render(sd, bd, c_cam.to(dev), TFDM_RES,
+                                    TFDM_SAMPLES, cfg, 0)
+                cards[shadows] = (a, ra, time.perf_counter() - t0,
+                                  _all_counts(), dict(tfdm.loop_stats))
+            _, err = cpu_proc.communicate(timeout=600)
+            check(cpu_proc.returncode == 0,
+                  f"28 CPU renders exited {cpu_proc.returncode}: "
+                  f"{err[-2000:]}")
+            cpu = np.load(cpu_out)
+            for shadows in (True, False):
+                a, ra, card_s, counts, loops = cards[shadows]
+                c = cpu[f"img_{shadows}"]
+                rc = float(cpu[f"rays_{shadows}"])
+                cpu_s = float(cpu[f"seconds_{shadows}"])
+                rel = _rel(a, c)
+                key = f"render shadows {'on' if shadows else 'off'}"
+                check(_route_launched(counts, "widerow"),
+                      f"28 {key}: not kernel 1: {counts}")
+                check(np.isfinite(a).all() and a.mean() > 0
+                      and rel < IMAGE_BAR and abs(ra - rc) <= 0.005 * rc,
+                      f"28 {key}: image rel diff {rel}, rays {ra} vs {rc}")
+                renders[shadows] = a
+                rows[key] = {"image_rel_diff": rel, "rays": ra,
+                             "cpu_rays": rc, "mean": float(a.mean()),
+                             "card_s": card_s, "cpu_s": cpu_s,
+                             "loop": loops, "kernel1": counts["kernel1"]}
+                print(f"[28 {key}] demo scene {TFDM_RES}x{TFDM_RES}, "
+                      f"{TFDM_SAMPLES} samples: card vs CPU image rel diff "
+                      f"{rel:.3g} (bar {IMAGE_BAR}), rays {ra:.0f} / "
+                      f"{rc:.0f} (bar 0.5%), mean {a.mean():.4f}; card "
+                      f"{card_s:.1f} s, CPU {cpu_s:.1f} s (its own "
+                      f"process); kernel 1 {counts['kernel1']}; "
+                      f"intersect_tfdm_v2 {loops}", flush=True)
+            check(renders[True].mean() < renders[False].mean(),
+                  "28 render: displaced shadows do not darken the image")
+            save_png(os.path.join(REPO, "out", "torch_tfdm_128.png"),
+                     (renders[True] / (1 + renders[True])).reshape(
+                         TFDM_RES, TFDM_RES, 3))
+        scene = bvh = sd = bd = None
+
+    for tag, (scene, bvh, cam) in _mesh_scenes().items():
+        cfg = PTConfig(count_rays=True)
+        sd, bd = scene.to(dev), bvh.to(dev)
+        a, ra = _tex_render(sd, bd, cam.to(dev), MESH_RES, 2, cfg, 0)
+        c, rc = _tex_render(scene, bvh, cam, MESH_RES, 2, cfg, 0)
+        rel = _rel(a, c)
+        check(np.isfinite(a).all() and a.mean() > 0 and rel < IMAGE_BAR
+              and ra == rc,
+              f"28 mesh {tag}: image rel diff {rel}, rays {ra} vs {rc}")
+        rows[f"mesh {tag}"] = {"image_rel_diff": rel, "rays": ra,
+                               "triangles": scene.num_triangles,
+                               "units": scene.num_units,
+                               "atlas_layers": (0 if scene.textures is None
+                                                else scene.textures.count)}
+        print(f"[28 mesh {tag}] {scene.num_triangles} triangles, "
+              f"{scene.num_units} units: {MESH_RES}x{MESH_RES}, 2 samples, "
+              f"card vs CPU image rel diff {rel:.3g}, rays {ra:.0f} equal",
+              flush=True)
+    report["tfdm"] = rows
+
+
+def tfdm_cpu_renders(out_path, res, samples):
+    """Phase 28's CPU renders, run in a process of their own beside the
+    card's: the demo scene (-base-res 24, wide rows) at res^2, `samples`
+    samples, displaced shadows on and off; images, rays and seconds saved
+    to `out_path` (npz)."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    scene, bvh, _, _ = _tfdm_app(24, 512, 512)
+    cam = _tfdm_app_camera(res)
+    out = {}
+    for shadows in (True, False):
+        t0 = time.perf_counter()
+        img, rays = _tex_render(scene, bvh, cam, res, samples, PTConfig(
+            displaced_shadows=shadows, count_rays=True), 0)
+        out.update({f"img_{shadows}": img, f"rays_{shadows}": rays,
+                    f"seconds_{shadows}": time.perf_counter() - t0})
+    np.savez(out_path, **out)
+
+
+def _tfdm_app_camera(res):
+    from gfxexp_torch.apps import tfdm as app
+    from gfxexp_torch.apps.common import make_camera_from_args
+
+    return make_camera_from_args(app.parse_args(
+        ["-width", str(res), "-height", str(res)]))
+
+
+def _num(x, digits=3):
+    """A measured number rounded for a log line, or the words "not
+    measured" as they stand."""
+    return x if isinstance(x, str) else round(x, digits)
+
+
+def _union_ms(kern):
+    """Device busy time (ms) of kernel events: the union of their
+    intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    busy, cur_s, cur_e = 0.0, None, None
+    for st, en in spans:
+        if cur_e is None or st > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = st, en
+        else:
+            cur_e = max(cur_e, en)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / 1e3
+
+
+def phase_tfdm_costs(report, dev, cli=None):
+    """Phase 29: the tfdm app's frame loop at 512^2 (its defaults: ridges,
+    -h-scale 0.25, bilinear) at -base-res 24 and 32, TFDM_FRAMES frames
+    each: ms per pathTrace (fenced), kernel 1's launches a frame, peak
+    memory; each intersect_tfdm_v2 call fenced and recorded (its ms, host
+    syncs, rounds, march iterations and prism-BVH steps, and the steps of
+    its rays: mean over the rays that march, max), so the TFDM calls'
+    share of a frame's time; then one intersect_tfdm_v2 call on the
+    frame's primary rays (the heatmap's), fenced, and at -base-res 24
+    under torch.profiler (CUDA activity): CUDA kernels, launch calls,
+    device busy and idle share against its fenced time. (A whole frame is
+    ~840,000 kernels: its trace did not finish in minutes, PERF.md.) Last,
+    the tfdm CLI with -heatmap at 64x64, 4 frames, started by phase 28
+    (`cli`) or here, and its two PNGs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gfxexp_torch.apps.path_tracing import frame_loop
+    from gfxexp_torch.apps.tfdm import heatmap
+    from gfxexp_torch.techniques import tfdm
+
+    rows = {}
+    real = tfdm.intersect_tfdm_v2
+    for base, frames in TFDM_FRAMES.items():
+        res = TFDM_COST_RES
+        scene, bvh, cam, _ = _tfdm_app(base, res, res)
+        scene, bvh, cam = scene.to(dev), bvh.to(dev), cam.to(dev)
+        cfg = PTConfig()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        calls = []
+
+        def recorded(*a, **kw):
+            torch.cuda.synchronize()
+            before = dict(tfdm.loop_stats)
+            t0 = time.perf_counter()
+            h = real(*a, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            live = h.steps > 0
+            calls.append({
+                "ms": ms, "marching_rays": int(live.sum()),
+                "steps_mean_marching": (float(h.steps[live].float().mean())
+                                        if bool(live.any()) else 0.0),
+                "steps_max": int(h.steps.max()),
+                **{k: tfdm.loop_stats[k] - before[k] for k in (
+                    "syncs", "rounds", "march_iterations",
+                    "bvh_iterations")}})
+            return h
+
+        timer = PassTimer(device=dev)
+        _reset_counts()
+        tfdm.reset_loop_stats()
+        tfdm.intersect_tfdm_v2 = recorded
+        try:
+            film, _, _, _ = frame_loop(scene, bvh, cam, [], "widerow", res,
+                                       res, frames, cfg, timer)
+        finally:
+            tfdm.intersect_tfdm_v2 = real
+        counts = _all_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        img = film.beauty
+        check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+              f"29 base {base}: bad image")
+        check(_route_launched(counts, "widerow"),
+              f"29 base {base}: not kernel 1: {counts}")
+        ms_frame = timer.mean_ms("pathTrace")
+        n_calls = max(len(calls), 1)
+        row = {"frames": frames, "ms_per_pathTrace": ms_frame,
+               "kernel1_per_frame": _per_frame(counts, frames).get(
+                   "kernel1", {}),
+               "tfdm_calls_per_frame": len(calls) / frames,
+               "tfdm_ms_per_frame": sum(c["ms"] for c in calls) / frames,
+               "per_call": {k: sum(c[k] for c in calls) / n_calls for k in (
+                   "ms", "syncs", "rounds", "march_iterations",
+                   "bvh_iterations")},
+               "calls": calls, "peak_mib": peak, "mean": float(img.mean())}
+        row["tfdm_share_of_frame"] = row["tfdm_ms_per_frame"] / ms_frame
+
+        # one call on the primary rays (the heatmap's), fenced, then (base
+        # 24) under torch.profiler
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, raw = heatmap(scene, cam, res, res)
+        wall = (time.perf_counter() - t0) * 1e3
+        events = kern = []
+        if base == 24:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                heatmap(scene, cam, res, res)
+                torch.cuda.synchronize()
+            events = prof.events()
+            kern = [e for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = _union_ms(kern) if kern else None
+        row["primary_call_profile"] = {
+            "wall_ms": wall, "kernels": len(kern) if kern else
+            "not measured",
+            "launch_calls": sum(1 for e in events if e.name in LAUNCH_CALLS),
+            "device_busy_ms": busy if kern else "not measured",
+            "idle_share": (1.0 - busy / wall) if kern else "not measured",
+            "steps_mean_hit_pixels": float(raw[raw > 0].mean()),
+            "steps_max": int(raw.max())}
+        rows[f"base{base}"] = row
+        p = row["primary_call_profile"]
+        pc = row["per_call"]
+        steps = [(round(c["steps_mean_marching"], 2), c["steps_max"])
+                 for c in calls[:9]]
+        print(f"[29 tfdm base{base}] {res}x{res}, {frames} frames (the app "
+              f"renders 32): pathTrace {ms_frame:.1f} ms a frame, of it "
+              f"{row['tfdm_ms_per_frame']:.1f} ms in "
+              f"{row['tfdm_calls_per_frame']:.0f} intersect_tfdm_v2 calls "
+              f"({row['tfdm_share_of_frame']:.3f}); kernel 1 "
+              f"{row['kernel1_per_frame']} a frame; a call: "
+              f"{pc['ms']:.0f} ms, {pc['syncs']:.0f} host syncs, "
+              f"{pc['rounds']:.1f} rounds, {pc['march_iterations']:.0f} "
+              f"march iterations, {pc['bvh_iterations']:.0f} BVH steps; "
+              f"steps (mean over marching rays, max) {steps}; peak "
+              f"{peak:.0f} MiB; the primary rays' call: {wall:.0f} ms, "
+              f"{p['kernels']} CUDA kernels, {p['launch_calls']} launch "
+              f"calls, device busy {_num(p['device_busy_ms'])} ms, idle "
+              f"share {_num(p['idle_share'])}", flush=True)
+        save_png(os.path.join(REPO, "out", f"torch_tfdm_base{base}.png"),
+                 (img / (1.0 + img)).cpu().numpy())
+        scene = bvh = film = img = None
+
+    out, proc = cli or _tfdm_cli()
+    _, err = proc.communicate(timeout=300)
+    check(proc.returncode == 0,
+          f"29 tfdm CLI exited {proc.returncode}: {err[-2000:]}")
+    px = _png_pixels(out + ".png")
+    heat = _png_pixels(out + "_heatmap.png")
+    check(px.shape == (64, 64, 3) and px.any() and heat.shape == (64, 64, 3)
+          and heat.any(), f"29 tfdm CLI: PNGs {px.shape} {heat.shape}")
+    stats = [ln for ln in err.splitlines() if ln.startswith("final:")]
+    rows["cli"] = {"stats": stats[-1] if stats else None,
+                   "mean_pixel": float(px.mean()),
+                   "heatmap_mean_pixel": float(heat.mean())}
+    print(f"[29 tfdm CLI] -heatmap at 64x64, 4 frames (run beside phases "
+          f"28-29): rc 0, "
+          f"out/cli_tfdm_heatmap.png mean pixel {px.mean():.1f}, heatmap "
+          f"mean pixel {heat.mean():.1f}; {stats[-1] if stats else ''}",
+          flush=True)
+    report["tfdm_costs"] = rows
+
+
 def mark(report, t_start, phase):
     """Seconds since the start at the end of `phase`, kept and printed."""
     secs = time.time() - t_start
@@ -2835,6 +3396,10 @@ def main():
     mark(report, t_start, "26")
     phase_texture_clis(report, dev)
     mark(report, t_start, "27")
+    cli = phase_tfdm(report, dev)
+    mark(report, t_start, "28")
+    phase_tfdm_costs(report, dev, cli)
+    mark(report, t_start, "29")
 
     kernels = [
         {"name": f"widerow_walk_{kind}", "route": "cuda",

@@ -6,11 +6,14 @@ counterpart at the same path there. This package imports `torch` and never
 
 Subpackages:
   core    RNG, vector math, sampling distributions
-  scene   scene data model (dataclasses of tensors), host builder, lights
+  scene   scene data model (dataclasses of tensors), host builder, mesh
+          loaders, lights, textures, animation
   accel   host BVH build (numpy + native C++), wide-row table, traversal
   csrc    hand-written CUDA kernels and their nvcc build
-  render  camera, BSDFs, wavefront path tracer
-  utils   image output
+  render  camera, BSDFs, wavefront path tracer, G-buffer
+  techniques  SVGF, ReSTIR DI, ReGIR, NRC, TFDM
+  apps    the technique CLIs and their shared DSL
+  utils   image I/O, checkpoints
 
 Entry point: `python -m gfxexp_torch.bench` (needs a CUDA device).
 """

@@ -3,8 +3,10 @@ timers and the outputs (port of gfxexp_tpu/apps/common.py).
 
 The apps are headless: they render N frames, write a PNG and print per-pass
 timings. The reference's scene DSL is accepted so its command lines carry
-over (-name, -emittance, -rectangle, -sphere, -inst with -position,
--begin-pos/-end-pos, -begin-scale/-end-scale, -freq, -time). `-device`
+over (-name, -emittance, -obj PATH SCALE [trad|simple_pbr], -rectangle,
+-sphere, -inst with -position, -begin-pos/-end-pos, -begin-scale/-end-scale,
+-freq, -time). `-obj` loads a Wavefront OBJ with its MTL materials
+(scene/loaders.py load_obj; load_mesh reads PLY, glTF and GLB too). `-device`
 picks where the app runs: `cuda` (the default) or `cpu`; without a card,
 `cuda` raises instead of falling back.
 
@@ -12,8 +14,8 @@ picks where the app runs: `cuda` (the default) or `cpu`; without a card,
 every frame; `-exr` also writes the HDR image as EXR; `-env-texture` lights
 the scene with a lat-long EXR; `-bump`, `-texture-lod` (the builder then
 makes mips) and `-debug-switches` go to the path tracer. Not ported yet,
-and raising NotImplementedError when asked for: `-obj` (the mesh loaders,
-scene/loaders.py) and `-live` with its camera rig (utils/viewer.py).
+and raising NotImplementedError when asked for: `-live` with its camera rig
+(utils/viewer.py).
 """
 
 from __future__ import annotations
@@ -92,7 +94,7 @@ def parse_scene_args(parser, argv=None):
 
 def check_unported(args):
     """Raise for the viewer option, whose module the port does not have
-    yet (build_scene_from_dsl raises for -obj)."""
+    yet."""
     if getattr(args, "live", None) is not None:
         raise NotImplementedError(
             "-live needs the live viewer and its camera rig "
@@ -160,6 +162,7 @@ def build_scene_from_dsl(args, extra_argv: List[str]):
     Returns (SceneBuilder, controllers)."""
     from gfxexp_torch.scene.animation import InstanceController
     from gfxexp_torch.scene.builder import SceneBuilder, affine
+    from gfxexp_torch.scene.loaders import load_obj
 
     b = SceneBuilder(texture_mips=getattr(args, "texture_lod", False))
     controllers: List[InstanceController] = []
@@ -184,9 +187,17 @@ def build_scene_from_dsl(args, extra_argv: List[str]):
         elif a == "-emittance":
             pending_emittance = tuple(floats(3))
         elif a == "-obj":
-            raise NotImplementedError(
-                "-obj needs the mesh loaders (scene/loaders.py), which are "
-                "not ported yet")
+            # -obj PATH SCALE [trad|simple_pbr]: the convention word is
+            # taken only when it is one of the two, so the option after
+            # a bare -obj PATH SCALE is kept
+            path, scale = argv[i + 1], float(argv[i + 2])
+            convention = "trad"
+            i += 2
+            if i + 1 < len(argv) and argv[i + 1] in ("trad", "simple_pbr"):
+                convention = argv[i + 1]
+                i += 1
+            geoms = load_obj(path, b, material_convention=convention)
+            named[pending_name] = (geoms, scale)
         elif a in ("-rectangle", "-sphere"):
             mat = b.add_lambert_material((0.0, 0.0, 0.0),
                                          emittance=pending_emittance)

@@ -219,6 +219,192 @@ def textured_scene_builder(b, tex_dir: str, seed: int = 5):
     return b
 
 
+def torus_mesh(n_major: int = 24, n_minor: int = 12, major: float = 0.35,
+               minor: float = 0.15):
+    """A torus about +y: (positions [V, 3], normals, uvs [V, 2], colours
+    [V, 3] uint8, quads [F, 4] of vertex ids), float32, on the host."""
+    i, j = np.meshgrid(np.arange(n_major + 1), np.arange(n_minor + 1),
+                       indexing="ij")
+    u = i / n_major
+    v = j / n_minor
+    a, b = 2 * np.pi * u, 2 * np.pi * v
+    ring = np.stack([np.cos(a), np.zeros_like(a), np.sin(a)], -1)
+    nrm = np.cos(b)[..., None] * ring + np.sin(b)[..., None] * np.array(
+        [0.0, 1.0, 0.0])
+    pos = major * ring + minor * nrm
+    colours = np.stack([255 * u, 255 * v, 128 + 0 * u], -1).astype(np.uint8)
+    k = np.arange((n_major + 1) * (n_minor + 1)).reshape(n_major + 1,
+                                                         n_minor + 1)
+    quads = np.stack([k[:-1, :-1], k[:-1, 1:], k[1:, 1:], k[1:, :-1]],
+                     -1).reshape(-1, 4)
+    flat = (lambda x: x.reshape(-1, x.shape[-1]))
+    return (flat(pos).astype(np.float32), flat(nrm).astype(np.float32),
+            flat(np.stack([u, v], -1)).astype(np.float32), flat(colours),
+            quads)
+
+
+def _write_ply(path: str, pos, nrm, uv, colours, tris, ascii: bool):
+    head = ["ply", "format " + ("ascii 1.0" if ascii
+                                else "binary_little_endian 1.0"),
+            "comment torus", f"element vertex {len(pos)}"]
+    head += [f"property float {c}" for c in
+             ("x", "y", "z", "nx", "ny", "nz", "u", "v")]
+    head += [f"property uchar {c}" for c in ("red", "green", "blue")]
+    head += [f"element face {len(tris)}",
+             "property list uchar int vertex_indices", "end_header"]
+    with open(path, "wb") as f:
+        f.write(("\n".join(head) + "\n").encode("ascii"))
+        if ascii:
+            for p, n, t, c in zip(pos, nrm, uv, colours):
+                f.write((" ".join(repr(float(x)) for x in (*p, *n, *t))
+                         + " " + " ".join(str(int(x)) for x in c)
+                         + "\n").encode("ascii"))
+            for t in tris:
+                f.write(("3 " + " ".join(str(int(x)) for x in t)
+                         + "\n").encode("ascii"))
+            return
+        vert = np.zeros(len(pos), dtype=[("f", "<f4", 8), ("c", "u1", 3)])
+        vert["f"] = np.concatenate([pos, nrm, uv], 1)
+        vert["c"] = colours
+        f.write(vert.tobytes())
+        face = np.zeros(len(tris), dtype=[("k", "u1"), ("i", "<i4", 3)])
+        face["k"] = 3
+        face["i"] = tris
+        f.write(face.tobytes())
+
+
+def _gltf_doc(pos, nrm, uv, tris):
+    """The glTF JSON of one mesh (and its binary buffer): positions,
+    normals, uvs (v flipped, glTF's origin is top-left) and uint16
+    indices, a pbrMetallicRoughness material, and three nodes: a TRS root
+    with a matrix child, and a second root by matrix."""
+    blobs = [pos.tobytes(), nrm.tobytes(),
+             np.stack([uv[:, 0], 1.0 - uv[:, 1]], 1).astype(
+                 np.float32).tobytes(),
+             tris.astype(np.uint16).tobytes()]
+    views, off = [], 0
+    for blob in blobs:
+        views.append({"buffer": 0, "byteOffset": off,
+                      "byteLength": len(blob)})
+        off += len(blob) + (-len(blob)) % 4
+    data = b"".join(blob + b"\0" * ((-len(blob)) % 4) for blob in blobs)
+    n = len(pos)
+    doc = {
+        "asset": {"version": "2.0"},
+        "buffers": [{"byteLength": len(data)}],
+        "bufferViews": views,
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": n,
+             "type": "VEC3", "min": pos.min(0).tolist(),
+             "max": pos.max(0).tolist()},
+            {"bufferView": 1, "componentType": 5126, "count": n,
+             "type": "VEC3"},
+            {"bufferView": 2, "componentType": 5126, "count": n,
+             "type": "VEC2"},
+            {"bufferView": 3, "componentType": 5123,
+             "count": int(tris.size), "type": "SCALAR"}],
+        "materials": [{"name": "gold", "pbrMetallicRoughness": {
+            "baseColorFactor": [0.9, 0.7, 0.3, 1.0], "metallicFactor": 0.8,
+            "roughnessFactor": 0.35}}],
+        "meshes": [{"name": "torus", "primitives": [{
+            "attributes": {"POSITION": 0, "NORMAL": 1, "TEXCOORD_0": 2},
+            "indices": 3, "material": 0}]}],
+        "nodes": [
+            {"mesh": 0, "translation": [0.9, 0.25, -0.2],
+             "rotation": [0.0, 0.3826834, 0.0, 0.9238795],
+             "scale": [0.8, 0.8, 0.8], "children": [1]},
+            {"mesh": 0, "matrix": [0.5, 0, 0, 0, 0, 0.5, 0, 0, 0, 0, 0.5, 0,
+                                   0.0, 0.45, 0.0, 1]},
+            {"mesh": 0, "matrix": [0.7, 0, 0, 0, 0, 0, 0.7, 0, 0, -0.7, 0, 0,
+                                   -0.9, 0.3, 0.3, 1]}],
+        "scenes": [{"nodes": [0, 2]}], "scene": 0,
+    }
+    return doc, data
+
+
+def write_mesh_files(out_dir: str) -> dict:
+    """The mesh files the loaders' checks read, written into `out_dir`: a
+    torus as an OBJ with two MTL materials (a diffuse map written as PNG,
+    a specular one; quads, negative indices), as binary and ASCII PLY
+    (normals, uvs, vertex colours), as GLB and as glTF JSON with a data-URI
+    buffer (TRS and matrix nodes). Returns their paths by kind."""
+    import base64
+    import json
+    import os
+    import struct
+
+    from gfxexp_torch.utils.image_io import save_png
+
+    os.makedirs(out_dir, exist_ok=True)
+    pos, nrm, uv, colours, quads = torus_mesh()
+    tris = np.concatenate([quads[:, [0, 1, 2]], quads[:, [0, 2, 3]]])
+    paths = {k: os.path.join(out_dir, f"torus.{k}")
+             for k in ("obj", "mtl", "ply", "glb", "gltf")}
+    paths["ply_ascii"] = os.path.join(out_dir, "torus_ascii.ply")
+    paths["png"] = os.path.join(out_dir, "torus_kd.png")
+    yy, xx = np.mgrid[0:32, 0:32] / 32.0
+    save_png(paths["png"], np.stack([0.3 + 0.6 * (xx > 0.5), 0.4 + 0 * xx,
+                                     0.3 + 0.6 * (yy > 0.5)], -1))
+    with open(paths["mtl"], "w") as f:
+        f.write("# two materials\nnewmtl body\nKd 0.8 0.6 0.5\n"
+                "Ks 0.04 0.04 0.04\nNs 250\nPr 0.4\nPm 0.1\n"
+                f"map_Kd {os.path.basename(paths['png'])}\n"
+                "newmtl shiny\nKd 0.2 0.3 0.7\nKs 0.5 0.5 0.5\nNs 900\n"
+                "Pr 0.2\nPm 0.9\n")
+    with open(paths["obj"], "w") as f:
+        f.write(f"# torus\nmtllib {os.path.basename(paths['mtl'])}\n")
+        for tag, rows in (("v", pos), ("vt", uv), ("vn", nrm)):
+            f.writelines(f"{tag} " + " ".join(repr(float(x)) for x in r)
+                         + "\n" for r in rows)
+        half = len(quads) // 2
+        for start, stop, mat in ((0, half, "body"),
+                                 (half, len(quads), "shiny")):
+            f.write(f"usemtl {mat}\n")
+            for q in quads[start:stop]:
+                if mat == "shiny":  # relative (negative) indices
+                    q = q - len(pos)
+                else:
+                    q = q + 1
+                f.write("f " + " ".join(f"{k}/{k}/{k}" for k in q) + "\n")
+    _write_ply(paths["ply"], pos, nrm, uv, colours, tris, ascii=False)
+    _write_ply(paths["ply_ascii"], pos, nrm, uv, colours, tris, ascii=True)
+    doc, data = _gltf_doc(pos, nrm, uv, tris)
+    js = json.dumps(doc).encode()
+    js += b" " * ((-len(js)) % 4)
+    with open(paths["glb"], "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2,
+                            12 + 8 + len(js) + 8 + len(data)))
+        f.write(struct.pack("<II", len(js), 0x4E4F534A) + js)
+        f.write(struct.pack("<II", len(data), 0x004E4942) + data)
+    doc["buffers"][0]["uri"] = ("data:application/octet-stream;base64,"
+                                + base64.b64encode(data).decode())
+    with open(paths["gltf"], "w") as f:
+        json.dump(doc, f)
+    return paths
+
+
+def mesh_scene_builder(b, mesh_dir: str):
+    """Populate a fresh SceneBuilder (either package's) with the meshes of
+    write_mesh_files (written into `mesh_dir` first) on a 4x4 floor under
+    a 1x1 lamp facing down at y = 2: the binary PLY at the origin (one
+    material), the GLB's node tree (three instances)."""
+    import importlib
+
+    loaders = importlib.import_module(
+        type(b).__module__.replace(".builder", ".loaders"))
+    paths = write_mesh_files(mesh_dir)
+    floor = b.add_lambert_material((0.7, 0.7, 0.7))
+    lamp = b.add_lambert_material((0, 0, 0), emittance=(30.0, 30.0, 30.0))
+    b.add_instance(b.add_rectangle(4.0, 4.0, floor))
+    flip = np.array([[1, 0, 0], [0, -1, 0], [0, 0, -1]], np.float64)
+    b.add_instance(b.add_rectangle(1.0, 1.0, lamp),
+                   affine(rotation=flip, translation=[0.0, 2.0, 0.0]))
+    b.add_instance(loaders.load_mesh(paths["ply"], b),
+                   affine(translation=[0.0, 0.15, 0.0]))
+    loaders.load_mesh(paths["glb"], b)
+    return b
+
+
 def build_textured_scene(tex_dir: str, traversal: str = "skip",
                          texture_mips: bool = True,
                          use_probability_texture: bool = False):

@@ -15,12 +15,15 @@ _REGISTRY: dict = {}
 def _move(v, device):
     if isinstance(v, (torch.Tensor, TensorData)):
         return v.to(device)
+    if isinstance(v, tuple):
+        return tuple(_move(x, device) for x in v)
     return v
 
 
 class TensorData:
     """Mixin for `@dataclass` containers whose fields are tensors, nested
-    containers, None, or plain Python metadata (ints)."""
+    containers (alone or in tuples), None, or plain Python metadata
+    (ints)."""
 
     def __init_subclass__(cls, **kw):
         super().__init_subclass__(**kw)

@@ -12,7 +12,13 @@ one operation, as it is one launch on the card. Prints one JSON line per
 case: the small bench scene with the default PTConfig and with fused shadow
 rays, and the textured scene (bench.build_textured_scene, skip-link) with
 the default PTConfig, with bump mapping and texture LOD, with solid-angle
-NEE and with fused shadow rays; `walks` is the number of walk launches.
+NEE and with fused shadow rays; then the tfdm app's demo scene (wide
+rows) with its default base mesh (-base-res 24, 1,152 prisms, the slab
+sweep broad phase) and with -base-res 32 (2,048 prisms, the prism BVH's
+walk). `walks` is the number of walk launches; a TFDM row also has the
+host syncs and loop iterations of its intersect_tfdm_v2 calls
+(techniques/tfdm.py loop_stats), which grow with the rays' worst case and
+so with the resolution (`--res N` sets it, 32 by default).
 
 With --cuda it profiles one default sample of the small scene at 512x512
 on the card instead (render_accumulate, after a warm-up sample) and prints
@@ -90,6 +96,19 @@ def count_sample(scene, bvh, camera, width: int, height: int,
     return {"ops": counter.ops, "walks": counter.walks}
 
 
+def tfdm_scene(base_res: int, width: int, height: int):
+    """The tfdm app's demo scene (its defaults but `-base-res`) compiled as
+    wide rows, and its camera: (scene, bvh, camera) on the CPU."""
+    from gfxexp_torch.apps import common
+    from gfxexp_torch.apps import tfdm as app
+
+    args = app.parse_args(["-base-res", str(base_res), "-width", str(width),
+                           "-height", str(height)])
+    scene, bvh, _ = app.compile_demo(args, "tfdm",
+                                     app.displacement_params(args))
+    return scene, bvh, common.make_camera_from_args(args)
+
+
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
 
@@ -127,7 +146,7 @@ def main(argv=None):
         print(json.dumps(row))
         return row
     torch.set_num_threads(2)
-    res = 32
+    res = int(argv[argv.index("--res") + 1]) if "--res" in argv else 32
     rows = {}
     scene, bvh = bench.build_bench_scene()
     cam = bench.bench_camera(res, res)
@@ -144,6 +163,15 @@ def main(argv=None):
             ("textured_solid_angle", PTConfig(use_solid_angle_sampling=True)),
             ("textured_fused", PTConfig(fuse_shadow_rays=True))):
         rows[name] = count_sample(scene, bvh, cam, res, res, cfg)
+    from gfxexp_torch.techniques import tfdm
+
+    for base_res in (24, 32):
+        scene, bvh, cam = tfdm_scene(base_res, res, res)
+        tfdm.reset_loop_stats()
+        row = count_sample(scene, bvh, cam, res, res, PTConfig())
+        # loop_stats covers the warm-up sample too: halve it
+        rows[f"tfdm_base{base_res}"] = {
+            **row, **{k: v / 2 for k, v in tfdm.loop_stats.items()}}
     for name, row in rows.items():
         print(json.dumps({"case": name, **row}), file=sys.stdout)
     return rows

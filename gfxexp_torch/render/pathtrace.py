@@ -14,6 +14,13 @@ texture layers, so the default path launches no kernel for them. With
 `fuse_shadow_rays` each bounce's closest-hit rays and the previous
 bounce's shadow rays go through one closest-hit walk of 2N lanes; NEE
 visibility is then applied one step later, in the same order of sums.
+
+A scene's displaced meshes (SceneData.displaced, techniques/tfdm.py) are
+traced after the triangle walk with its hit distance as tmax, and their
+hits replace the triangle hit's position, normals, texcoord, tangent,
+material and emittance; with `displaced_shadows` the shadow rays test them
+too. `fuse_shadow_rays` is ignored on such scenes. A scene without them
+takes none of these branches.
 """
 
 from __future__ import annotations
@@ -80,10 +87,10 @@ _PI = float(np.pi)
 class PTConfig:
     """Integrator configuration: the fields and defaults of gfxexp_tpu's
     PTConfig. `sort_secondary_rays` and `compact_rays` are not ported and
-    raise NotImplementedError when set; `displaced_shadows` acts on
-    displaced geometry, which the port's scenes do not have yet.
-    `texture_lod` needs an atlas with mips (SceneBuilder(texture_mips=
-    True)); `fuse_shadow_rays` is ignored with a custom `nee_fn`."""
+    raise NotImplementedError when set; `displaced_shadows` traces shadow
+    rays against the scene's displaced meshes too. `texture_lod` needs an
+    atlas with mips (SceneBuilder(texture_mips=True)); `fuse_shadow_rays` is
+    ignored with a custom `nee_fn` and on scenes with displaced meshes."""
 
     max_path_length: int = 5
     enable_jitter: bool = True
@@ -289,15 +296,65 @@ def _next_event_setup(scene, sp: SurfacePoint, v_out_local, frame, params,
     return contrib, shadow_dir, shadow_tmax
 
 
+def _tfdm_geometries(scene: SceneData):
+    """The scene's displaced meshes; the kinds the port does not have
+    (curves, shells, NRTDSM) raise."""
+    from gfxexp_torch.techniques.tfdm import TFDMGeometry
+
+    for g in scene.displaced:
+        if not isinstance(g, TFDMGeometry):
+            raise NotImplementedError(
+                f"displaced {type(g).__name__} is not ported yet (ROADMAP "
+                f"Queue A #10); the port traces TFDM meshes")
+    return scene.displaced
+
+
+def _displaced_closest(scene: SceneData, ray_o, ray_d, tmax):
+    """Closest hit against the scene's displaced meshes, each clipped to
+    `tmax` [R] (the triangle hit's distance; < 0 on dead lanes), composited
+    by distance: (t, hit, position, normal, uv, material) [R, ...]."""
+    from gfxexp_torch.techniques.tfdm import intersect_tfdm_v2
+
+    best = None
+    for g in _tfdm_geometries(scene):
+        dh = intersect_tfdm_v2(g, ray_o, ray_d, t_min=1e-4, t_max=tmax)
+        mat = torch.full_like(dh.prim, g.material)
+        if best is None:
+            best = (dh.t, dh.hit, dh.position, dh.normal, dh.uv, mat)
+        else:
+            take = dh.hit & (dh.t < best[0])
+            t3 = take[:, None]
+            best = (torch.where(take, dh.t, best[0]), best[1] | dh.hit,
+                    torch.where(t3, dh.position, best[2]),
+                    torch.where(t3, dh.normal, best[3]),
+                    torch.where(t3, dh.uv, best[4]),
+                    torch.where(take, mat, best[5]))
+    return best
+
+
+def _displaced_occluded(scene: SceneData, o, d, tmax):
+    """Any hit of shadow rays against the scene's displaced meshes [R]."""
+    from gfxexp_torch.techniques.tfdm import intersect_tfdm_v2
+
+    occ = torch.zeros(o.shape[:1], dtype=torch.bool, device=o.device)
+    for g in _tfdm_geometries(scene):
+        occ = occ | intersect_tfdm_v2(g, o, d, t_min=1e-4, t_max=tmax).hit
+    return occ
+
+
 def _next_event(scene, bvh, sp: SurfacePoint, v_out_local, frame, params, rs,
                 cfg: PTConfig, alive=None, light_packed=None,
                 env_off: bool = False):
-    """NEE with MIS: [R, 3] contribution after the any-hit shadow query."""
+    """NEE with MIS: [R, 3] contribution after the any-hit shadow query
+    (against the displaced meshes too, with cfg.displaced_shadows)."""
     contrib, shadow_dir, shadow_tmax = _next_event_setup(
         scene, sp, v_out_local, frame, params, rs, cfg, alive, light_packed,
         env_off)
     occluded = intersect_any(bvh, scene.triangles, sp.position, shadow_dir,
                              t_min=0.0, t_max=shadow_tmax)
+    if scene.displaced and cfg.displaced_shadows:
+        occluded = occluded | _displaced_occluded(scene, sp.position,
+                                                  shadow_dir, shadow_tmax)
     return torch.where(occluded[..., None], 0.0, contrib)
 
 
@@ -380,7 +437,7 @@ def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
         lod_texels = (2.0 * torch.tan(camera.fov_y * 0.5) / height
                       * scene.textures.layers.shape[1])
     fuse = (cfg.fuse_shadow_rays and cfg.use_explicit_light_sampling
-            and nee_fn is None)
+            and nee_fn is None and not scene.displaced)
     # the previous bounce's shadow rays (fused mode): (contribution with
     # throughput and gates applied, origins, directions, tmax < 0 = none)
     pending = None
@@ -412,6 +469,16 @@ def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
         else:
             hit = intersect_closest(bvh, scene.triangles, ray_o, ray_d,
                                     t_min=0.0, t_max=tmax)
+        disp = None
+        if scene.displaced:
+            # the displaced hits are clipped by the triangle hit's t, so a
+            # reported one is the nearer
+            disp = _displaced_closest(scene, ray_o, ray_d,
+                                      torch.where(alive, hit.t, -1.0))
+            d_take = alive & disp[1]
+            hit = dataclasses.replace(
+                hit, t=torch.where(d_take, disp[0], hit.t),
+                hit=hit.hit | d_take)
         hit_ok = alive & hit.hit
         miss = alive & ~hit.hit
         emission = cfg.use_implicit_light_sampling or first
@@ -433,6 +500,19 @@ def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
 
         sp = compute_surface_point(scene, hit.tri, hit.u, hit.v,
                                    inst=hit.inst, packed=tri_packed)
+        if disp is not None:
+            _, _, d_pos, d_nrm, d_uv, d_mat = disp
+            d3 = d_take[:, None]
+            d_mat = d_mat.to(torch.int64)
+            sp = dataclasses.replace(
+                sp, position=torch.where(d3, d_pos, sp.position),
+                geom_normal=torch.where(d3, d_nrm, sp.geom_normal),
+                shading_normal=torch.where(d3, d_nrm, sp.shading_normal),
+                texcoord=torch.where(d3, d_uv, sp.texcoord),
+                tangent=torch.where(d3, make_frame(d_nrm)[0], sp.tangent),
+                material=torch.where(d_take, d_mat, sp.material),
+                emittance=torch.where(d3, scene.materials.emittance[d_mat],
+                                      sp.emittance))
         v_out = -ray_d
         front = dot(v_out, sp.geom_normal) >= 0.0
         gn_signed = torch.where(front[..., None], sp.geom_normal,

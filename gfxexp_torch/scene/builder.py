@@ -1,6 +1,7 @@
 """Host-side scene construction -> SceneData (port of
-gfxexp_tpu/scene/builder.py: materials, textures, rectangles, spheres,
-instances, the environment light, and both compiles).
+gfxexp_tpu/scene/builder.py: materials, textures, meshes, rectangles,
+spheres, instances, TFDM displaced meshes, the environment light, and both
+compiles).
 
 `compile()` flattens the instance graph into world-space triangle tables and
 per-unit light distributions with numpy, as the JAX package does, and returns
@@ -102,6 +103,10 @@ class SceneBuilder:
         # sampling at a per-lane LOD (PTConfig.texture_lod)
         self.atlas = AtlasBuilder(mips=texture_mips)
         self._texture_cache: dict = {}
+        # add_displaced's base meshes, built by compile() into
+        # SceneData.displaced: (kind, positions, indices, uvs, height,
+        # params, material, normals)
+        self.displaced_geoms: List[tuple] = []
 
     # -- textures ----------------------------------------------------------
 
@@ -129,13 +134,14 @@ class SceneBuilder:
     # -- not ported yet ----------------------------------------------------
 
     def add_curve(self, *args, **kw):
-        raise NotImplementedError("curves are not ported yet")
-
-    def add_displaced(self, *args, **kw):
-        raise NotImplementedError("displaced geometry is not ported yet")
+        raise NotImplementedError(
+            "curves are not ported yet (ROADMAP Queue A #10, the nrtdsm "
+            "slice)")
 
     def add_shell(self, *args, **kw):
-        raise NotImplementedError("shell mapping is not ported yet")
+        raise NotImplementedError(
+            "shell mapping is not ported yet (ROADMAP Queue A #10, the "
+            "nrtdsm slice)")
 
     # -- materials ---------------------------------------------------------
 
@@ -158,6 +164,24 @@ class SceneBuilder:
             name=name))
 
     # -- geometry ----------------------------------------------------------
+
+    def add_geometry(self, positions, indices, material, normals=None,
+                     texcoords=None) -> int:
+        """A triangle mesh; normals default to the area-weighted vertex
+        normals, texcoords to zeros."""
+        positions = np.asarray(positions, np.float32).reshape(-1, 3)
+        indices = np.asarray(indices, np.int32).reshape(-1, 3)
+        if normals is None:
+            normals = compute_smooth_normals(positions, indices)
+        else:
+            normals = np.asarray(normals, np.float32).reshape(-1, 3)
+        if texcoords is None:
+            texcoords = np.zeros((positions.shape[0], 2), np.float32)
+        else:
+            texcoords = np.asarray(texcoords, np.float32).reshape(-1, 2)
+        self.geometries.append(HostGeometry(positions, normals, texcoords,
+                                            indices, int(material)))
+        return len(self.geometries) - 1
 
     def add_rectangle(self, dim_x, dim_z, material) -> int:
         """XZ-plane rectangle centred at the origin, +Y normal."""
@@ -211,6 +235,37 @@ class SceneBuilder:
         self.instances.append(HostInstance(
             list(geometries), np.asarray(transform, np.float32)))
         return len(self.instances) - 1
+
+    # -- displaced geometry ------------------------------------------------
+
+    def add_displaced(self, positions, indices, uvs, height, params=None,
+                      material: int = 0, kind: str = "tfdm",
+                      normals=None) -> int:
+        """A height-mapped base mesh traced as a displaced surface beside
+        the triangles (SceneData.displaced; techniques/tfdm.py). Only
+        kind="tfdm" is ported; "nrtdsm" raises."""
+        if kind != "tfdm":
+            raise NotImplementedError(
+                f"displaced kind {kind!r} is not ported yet (ROADMAP Queue A "
+                f"#10, the nrtdsm slice); use kind='tfdm'")
+        self.displaced_geoms.append(
+            (kind, np.asarray(positions, np.float32),
+             np.asarray(indices, np.int32), np.asarray(uvs, np.float32),
+             np.asarray(height, np.float32), params, int(material), normals))
+        return len(self.displaced_geoms) - 1
+
+    def _build_displaced(self):
+        """The TFDMGeometry of each add_displaced mesh (host build, CPU
+        tensors), or None without any."""
+        if not self.displaced_geoms:
+            return None
+        from gfxexp_torch.techniques.tfdm import build_tfdm_geometry
+
+        return tuple(
+            build_tfdm_geometry(pos, idx, uvs, height, params=params,
+                                material=mat, normals=normals)
+            for (_, pos, idx, uvs, height, params, mat, normals)
+            in self.displaced_geoms)
 
     # -- environment -------------------------------------------------------
 
@@ -400,6 +455,7 @@ class SceneBuilder:
             object_triangles=ObjectTriangles(
                 p0=cat("op0"), e1=cat("oe1"), e2=cat("oe2"), n0=cat("on0"),
                 n1=cat("on1"), n2=cat("on2"), instance=cat("inst")),
+            displaced=self._build_displaced(),
         )
 
     def compile_instanced(self, arity: int = 4, max_leaf: int = 4,
@@ -609,3 +665,16 @@ class SceneBuilder:
                 [len(perms[b]) for b in inst_blas], np.int32)),
         )
         return scene, acc
+
+
+def compute_smooth_normals(positions: np.ndarray,
+                           indices: np.ndarray) -> np.ndarray:
+    """Area-weighted vertex normals [V, 3] float32 (numpy, on the host)."""
+    n = np.zeros_like(positions, dtype=np.float64)
+    p0 = positions[indices[:, 0]]
+    p1 = positions[indices[:, 1]]
+    p2 = positions[indices[:, 2]]
+    fn = np.cross(p1 - p0, p2 - p0)
+    for k in range(3):
+        np.add.at(n, indices[:, k], fn)
+    return np_normalize(n).astype(np.float32)

@@ -6,12 +6,12 @@ two-level (instanced) scene keeps object-space BLAS triangles instead and
 sets `inst_unit_base` (see SceneData); a flattened scene also keeps an
 object-space copy of its triangles for animation (`object_triangles`).
 `from_numpy` carries a gfxexp_tpu object (by attribute name, no jax import)
-into the port's classes.
+into the port's classes; a scene's TFDM displaced meshes come along.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import numpy as np
@@ -117,8 +117,7 @@ class ObjectTriangles(TensorData):
 
 @dataclass
 class SceneData(TensorData):
-    """Everything the device code needs for one frame (the port has no
-    displaced scenes yet)."""
+    """Everything the device code needs for one frame."""
 
     materials: MaterialTable
     triangles: TriangleSoA
@@ -150,6 +149,9 @@ class SceneData(TensorData):
     # the traversal-order triangle range of each instance's BLAS
     inst_tri_start: Optional[torch.Tensor] = None  # [I] int32
     inst_tri_count: Optional[torch.Tensor] = None  # [I] int32
+    # displaced meshes traced beside the triangles (techniques/tfdm.py
+    # TFDMGeometry), flattened scenes only; None when there are none
+    displaced: Optional[tuple] = None
 
     @property
     def is_instanced(self):
@@ -196,10 +198,11 @@ def world_bounds(scene: SceneData):
 
 def from_numpy(obj):
     """gfxexp_tpu object (SceneData, its tables, Camera, WideRowBVH one table
-    or chunked, QRowBVH, InstancedAccel, ...) -> the port's object on the
-    CPU. Reads fields by attribute name; fields the port does not model are
-    ignored. Textures and the probability texture come along; displaced
-    geometry raises NotImplementedError."""
+    or chunked, QRowBVH, InstancedAccel, TFDMGeometry, ...) -> the port's
+    object on the CPU. Reads fields by attribute name; fields the port does
+    not model are ignored. Textures, the probability texture and a scene's
+    TFDM meshes (with their prism BVH) come along; the other displaced
+    kinds (curves, shells, NRTDSM) raise NotImplementedError."""
     # containers register on import; make sure the ones outside this module
     # are known
     import gfxexp_torch.accel.instanced  # noqa: F401
@@ -207,11 +210,20 @@ def from_numpy(obj):
     import gfxexp_torch.accel.widerow  # noqa: F401
     import gfxexp_torch.render.camera  # noqa: F401
     import gfxexp_torch.scene.textures  # noqa: F401
+    from gfxexp_torch.techniques.tfdm import tfdm_from_numpy
 
-    if getattr(obj, "displaced", None):
-        raise NotImplementedError(
-            "the port does not carry scenes with displaced geometry yet")
-    return _from_numpy(obj)
+    if type(obj).__name__ == "TFDMGeometry":
+        return tfdm_from_numpy(obj)
+    displaced = getattr(obj, "displaced", None)
+    if not displaced:
+        return _from_numpy(obj)
+    for g in displaced:
+        if type(g).__name__ != "TFDMGeometry":
+            raise NotImplementedError(
+                f"the port carries TFDM displaced meshes only, not "
+                f"{type(g).__name__} (ROADMAP Queue A #10)")
+    return replace(_from_numpy(obj.replace(displaced=None)),
+                   displaced=tuple(tfdm_from_numpy(g) for g in displaced))
 
 
 def regir_state_from_numpy(obj):

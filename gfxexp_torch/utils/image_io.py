@@ -92,10 +92,15 @@ def load_png(path: str, to_linear: bool = True) -> np.ndarray:
     to_linear every channel goes from sRGB to linear. Other PNGs raise
     NotImplementedError."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), to_linear, path)
+
+
+def decode_png(data: bytes, to_linear: bool = True,
+               name: str = "PNG data") -> np.ndarray:
+    """load_png on the bytes of a PNG file (`name` labels the errors)."""
     if data[:8] != _PNG_SIGNATURE:
         raise NotImplementedError(
-            f"{path}: not a PNG file; load_png reads PNG only (JPEG and the "
+            f"{name}: not a PNG file; load_png reads PNG only (JPEG and the "
             f"other formats PIL reads are not ported)")
     off = 8
     idat, palette, trns, hdr = [], None, None, None
@@ -115,18 +120,18 @@ def load_png(path: str, to_linear: bool = True) -> np.ndarray:
         elif tag == b"IEND":
             break
     if hdr is None:
-        raise ValueError(f"{path}: no IHDR chunk")
+        raise ValueError(f"{name}: no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = hdr
     if depth != 8 or ctype not in _PNG_CHANNELS or interlace != 0:
         raise NotImplementedError(
-            f"{path}: PNG with bit depth {depth}, colour type {ctype}, "
+            f"{name}: PNG with bit depth {depth}, colour type {ctype}, "
             f"interlace {interlace}; load_png reads 8-bit non-interlaced "
             f"grey, grey + alpha, RGB, RGBA and palette images")
     c = _PNG_CHANNELS[ctype]
     px = _unfilter(zlib.decompress(b"".join(idat)), h, w, c).reshape(h, w, c)
     if ctype == 3:
         if palette is None:
-            raise ValueError(f"{path}: palette image without PLTE")
+            raise ValueError(f"{name}: palette image without PLTE")
         idx = px[:, :, 0]
         px = palette[idx]
         if trns is not None:

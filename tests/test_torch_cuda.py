@@ -1264,3 +1264,50 @@ def test_textures_stay_on_their_device(dev, textured_scenes):
                           rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match="atlas"):
         sample_bilinear(ts.textures, tid, uv)
+
+
+def test_tfdm_intersect_on_card_matches_cpu(dev):
+    """intersect_tfdm_v2 on the tfdm app's patch (-base-res 6, and 32 for
+    the prism BVH's walk) on the card against the CPU, 4,096 rays: hits
+    agree on >= 0.999 of rays, t within rtol 1e-5 where both hit, steps
+    equal on >= 0.99 (chip_smoke.py phase 28's bars)."""
+    from gfxexp_torch.apps.tfdm import procedural_height, subdivided_plane
+    from gfxexp_torch.techniques import tfdm
+
+    rng = np.random.default_rng(8)
+    n = 4096
+    o = np.stack([rng.uniform(-1, 1, n), rng.uniform(0.5, 2, n),
+                  rng.uniform(-1, 1, n)], -1).astype(np.float32)
+    d = np.stack([rng.uniform(-1, 1, n), np.zeros(n),
+                  rng.uniform(-1, 1, n)], -1) - o
+    d = torch.from_numpy((d / np.linalg.norm(d, axis=1, keepdims=True))
+                         .astype(np.float32))
+    o = torch.from_numpy(o)
+    for base in (6, 32):
+        pos, idx, uvs, nrm = subdivided_plane(base)
+        g = tfdm.build_tfdm_geometry(
+            pos, idx, uvs, procedural_height(128),
+            params=tfdm.DisplacementParameters(h_scale=0.25), normals=nrm)
+        assert (g.prism_bvh is not None) == (base == 32)
+        k = tfdm.intersect_tfdm_v2(g.to(dev), o.to(dev), d.to(dev))
+        c = tfdm.intersect_tfdm_v2(g, o, d)
+        k = k.to(torch.device("cpu"))
+        assert (k.hit == c.hit).float().mean() >= 0.999
+        both = k.hit & c.hit
+        assert both.sum() > 1000
+        assert ((k.t[both] - c.t[both]).abs()
+                <= 1e-5 * c.t[both].abs()).float().mean() >= 0.999
+        assert (k.steps == c.steps).float().mean() >= 0.99
+
+
+def test_tfdm_app_on_card_matches_cpu(dev, tmp_path):
+    """The tfdm app at 32x32, 2 frames, -base-res 8: the card's image
+    within 5e-3 (mean relative difference) of its -device cpu image."""
+    from gfxexp_torch.apps import tfdm as app
+
+    argv = ["-width", "32", "-height", "32", "-frames", "2", "-base-res",
+            "8"]
+    a = app.main([*argv, "-output", str(tmp_path / "card")])
+    b = app.main([*argv, "-device", "cpu", "-output", str(tmp_path / "cpu")])
+    assert np.isfinite(a).all() and a.mean() > 0
+    assert S.image_rel_diff(a, b) < 5e-3

@@ -8,8 +8,11 @@ the lane-group walk runs, and the path_tracing, svgf, restir_di (-rearch
 -denoise), regir and neural_radiance_caching apps render on the CPU; the
 textured scene (its PNG and DDS files written and loaded) renders with
 bump, texture LOD, solid-angle NEE and fused shadow rays, an EXR round
-trips, and the path_tracing app runs with -bump -texture-lod -exr. optax
-is blocked too: the NRC cache trains without it. The package's sources and
+trips, and the path_tracing app runs with -bump -texture-lod -exr; the
+tfdm app renders its displaced patch with -heatmap, the mesh loaders read
+an OBJ, a PLY, a GLB and a glTF written here, and the path_tracing app
+loads the OBJ through -obj. optax is blocked too: the NRC cache trains
+without it. The package's sources and
 chip_smoke.py never name jax, flax, PIL or gfxexp_tpu."""
 
 import os
@@ -114,6 +117,24 @@ hdr = path_tracing.main(["-device", "cpu", "-width", "8", "-height", "8",
                          "-frames", "2", "-output", OUT, "-bump",
                          "-texture-lod", "-exr", "-debug-switches", "133"])
 assert load_exr(OUT + ".exr").shape == (8, 8, 3)
+from gfxexp_torch.apps import tfdm as tfdm_app
+from gfxexp_torch.bench import write_mesh_files
+from gfxexp_torch.scene.builder import SceneBuilder
+from gfxexp_torch.scene.loaders import load_mesh
+hdr = tfdm_app.main(["-device", "cpu", "-width", "8", "-height", "8",
+                     "-frames", "1", "-base-res", "3", "-heatmap",
+                     "-output", OUT + "_tfdm"])
+assert hdr.shape == (8, 8, 3) and np.isfinite(hdr).all()
+assert load_png(OUT + "_tfdm_heatmap.png").shape == (8, 8, 3)
+paths = write_mesh_files(os.path.join(os.path.dirname(OUT), "meshes"))
+b = SceneBuilder()
+assert [len(load_mesh(paths[k], b)) for k in ("obj", "ply", "glb",
+                                               "gltf")] == [2, 1, 1, 1]
+hdr = path_tracing.main(["-device", "cpu", "-width", "8", "-height", "8",
+                         "-frames", "1", "-output", OUT,
+                         "-obj", paths["obj"], "1.0", "-name", "lamp",
+                         "-emittance", "9", "9", "9", "-sphere", "0.2"])
+assert hdr.shape == (8, 8, 3) and np.isfinite(hdr).all()
 import gfxexp_torch.techniques.nrc  # noqa: F401
 assert not any(m == "jax" or m.startswith(("jax.", "flax", "optax", "PIL"))
                for m in sys.modules if sys.modules[m] is not None)
