@@ -167,14 +167,36 @@ Phases, one line each, any failure exits non-zero:
      without a convention word), a binary PLY and a GLB (through load_mesh)
      written here, rendered at 64x64, card against CPU;
  29. TFDM costs: the tfdm app's frame loop at 512x512 (ridges, -h-scale
-     0.25, bilinear) at -base-res 24 and 32, a few frames each (the app
-     renders 32; TFDM_FRAMES): ms per pathTrace, kernel 1's launches a
+     0.25, bilinear) at -base-res 24, one frame (the app renders 32;
+     TFDM_FRAMES): ms per pathTrace, kernel 1's launches a
      frame, intersect_tfdm_v2's calls a frame and host syncs, rounds, march
      iterations and prism-BVH steps a call, peak memory, one frame under
      torch.profiler (CUDA kernels, launch calls, idle share, the TFDM
      calls' device time) whose calls record their steps (mean over the
      rays that march, max); then the tfdm CLI with -heatmap at 64x64, 4
      frames, and its two PNGs.
+ 30. NRTDSM, shells and curves, card against CPU, on the nrtdsm app's
+     scene at its defaults (-base-res 16, -normal-tilt 0.3):
+     intersect_nrtdsm_v2 and intersect_curve_spans (eight curves over the
+     patch) on 65,536 camera and bounce rays, intersect_nrtdsm_exact on
+     16,384, intersect_shell (-shell, the torus OBJ tiled 3 x 3) on 65,536
+     of its own: hits agree on >= 0.999 of rays, t within rtol 1e-4 on
+     >= 0.999 of the rays both hit; kernel 6 against walk_skip_plain on
+     every chord batch one card shell call sends (t_min 0, t_max = -1 on
+     idle lanes), t, u, v, tri and hit equal, its launches equal to the
+     batches; kernels 1 and 6 against their plain versions on the scene's
+     rays and shadow rays; the scene and its -shell form at 64x64, 1
+     sample, card against CPU (< 5e-3, rays within 0.5%; the CPU's in a
+     process of its own); the nrtdsm CLI at 64x64, 4 frames, with -heatmap
+     and with -shell, beside it;
+ 31. NRTDSM costs: the nrtdsm app's frame loop at 512x512, one frame of the
+     bilinear scene and one of -shell: ms per pathTrace, each displaced
+     call fenced (ms, host syncs, rounds, exact steps), their share of the
+     frame, kernel 1's and kernel 6's launches a frame, peak memory; a
+     second frame's ops dispatched and walk launches; one call on the
+     primary rays fenced, its ops counted and under torch.profiler (CUDA
+     kernels, CUDA kernels an op, launch calls, idle share); the CLIs'
+     PNGs and stats.
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -2791,8 +2813,10 @@ TFDM_RES = 128  # phase 28's card-against-CPU renders
 TFDM_SAMPLES = 4
 MESH_RES = 64  # phase 28's mesh scenes, card against CPU
 # phase 29: the tfdm app's frames at 512^2 per base mesh (-base-res); the
-# app renders 32, cut to these to hold the phase's time (PERF.md)
-TFDM_FRAMES = {24: 1, 32: 1}
+# app renders 32, cut to these, and -base-res 32's frame (20-24 s) dropped
+# since phases 30-31 came, to hold the script's time (PERF.md); phase 28
+# still holds -base-res 32 (the prism BVH's walk) card against CPU
+TFDM_FRAMES = {24: 1}
 TFDM_COST_RES = 512  # the app's default resolution
 # card against CPU on the same rays: share of rays whose hit agrees, t
 # within rtol on that share of both-hit rays, steps equal on that share
@@ -2897,12 +2921,13 @@ def _tfdm_card_vs_cpu(tag, geom_c, o, d, t_min, t_max, dev):
     return row
 
 
-def _walk_on(tag, route, scene, bvh, o, d, t_min, t_max, lamp, dev):
+def _walk_on(tag, route, scene, bvh, o, d, t_min, t_max, lamp, dev,
+             phase="28"):
     """Kernel 1 (route "widerow") or kernel 6's per-ray scope ("skip")
     against its plain version on the scene's closest rays and on shadow
     rays from their hits to random points of the lamp (a 1x1 square at
     `lamp`): hits, triangles, t, u, v equal (kernel 1: t rel within phase
-    3's bar); times of both."""
+    3's bar); times of both. `phase` tags the lines."""
     tris = scene.triangles
     if route == "widerow":
         def card(*a):
@@ -2937,7 +2962,7 @@ def _walk_on(tag, route, scene, bvh, o, d, t_min, t_max, lamp, dev):
     m = kc.hit
     check(torch.equal(kc.hit, pc.hit) and torch.equal(kc.tri, pc.tri)
           and torch.equal(ka.hit, pa.hit),
-          f"28 {tag} {route}: hits or triangles differ from plain")
+          f"{phase} {tag} {route}: hits or triangles differ from plain")
     err = float(torch.stack([(kc.t[m] - pc.t[m]).abs().max(),
                              (kc.u[m] - pc.u[m]).abs().max(),
                              (kc.v[m] - pc.v[m]).abs().max()]).max()) \
@@ -2946,7 +2971,7 @@ def _walk_on(tag, route, scene, bvh, o, d, t_min, t_max, lamp, dev):
                    / pc.t[m].abs().clamp(min=1e-30)).max()) \
         if bool(m.any()) else 0.0
     check(rel_t <= 1e-4 and (route == "widerow" or err == 0.0),
-          f"28 {tag} {route}: t rel {rel_t}, max abs err {err}")
+          f"{phase} {tag} {route}: t rel {rel_t}, max abs err {err}")
     row = {"closest_ms": time_ms(lambda: card(o, d, t_min, t_max, False),
                                  20),
            "closest_plain_ms": time_ms(lambda: plain(o, d, t_min, t_max,
@@ -2957,7 +2982,7 @@ def _walk_on(tag, route, scene, bvh, o, d, t_min, t_max, lamp, dev):
            "max_abs_err": err, "t_rel": rel_t, "hits": int(m.sum()),
            "occluded": int(ka.hit.sum())}
     name = {"widerow": "kernel 1", "skip": "kernel 6"}[route]
-    print(f"[28 {tag} {name}] {n} closest rays ({row['hits']} hit) and "
+    print(f"[{phase} {tag} {name}] {n} closest rays ({row['hits']} hit) and "
           f"their shadow rays ({row['occluded']} occluded): equal to plain "
           f"(max abs err {err:.3g}, t rel {rel_t:.3g}); closest "
           f"{row['closest_ms']:.4f} ms (plain {row['closest_plain_ms']:.1f}"
@@ -3183,8 +3208,8 @@ def _union_ms(kern):
 
 def phase_tfdm_costs(report, dev, cli=None):
     """Phase 29: the tfdm app's frame loop at 512^2 (its defaults: ridges,
-    -h-scale 0.25, bilinear) at -base-res 24 and 32, TFDM_FRAMES frames
-    each: ms per pathTrace (fenced), kernel 1's launches a frame, peak
+    -h-scale 0.25, bilinear) at the -base-res of TFDM_FRAMES (24), its
+    frames each: ms per pathTrace (fenced), kernel 1's launches a frame, peak
     memory; each intersect_tfdm_v2 call fenced and recorded (its ms, host
     syncs, rounds, march iterations and prism-BVH steps, and the steps of
     its rays: mean over the rays that march, max), so the TFDM calls'
@@ -3325,6 +3350,522 @@ def phase_tfdm_costs(report, dev, cli=None):
     report["tfdm_costs"] = rows
 
 
+NRTDSM_RAYS = 65536  # phase 30's camera and bounce rays
+NRTDSM_EXACT_RAYS = 16384  # ... for intersect_nrtdsm_exact
+NRTDSM_RES = 64  # phase 30's card-against-CPU renders
+NRTDSM_SAMPLES = 1  # their samples (2 took 22 s of host-bound card time)
+NRTDSM_COST_RES = 512  # the app's default resolution (phase 31)
+NRTDSM_CLI_RES = 64  # the nrtdsm CLIs' images (phases 30-31)
+# card against CPU on the same rays: share of rays whose hit agrees, t
+# within rtol on that share of both-hit rays
+NRTDSM_BARS = {"hit": 0.999, "t_rtol": 1e-4, "t_share": 0.999}
+# phase 31's cells: the nrtdsm app's defaults (bilinear) and -shell
+NRTDSM_CELLS = {"bilinear": [], "shell": ["-shell"]}
+
+
+def _torus_obj():
+    """The torus OBJ of bench.write_mesh_files (the nrtdsm app's -shell-obj
+    here: the reference's bunny is not in the repository), written once:
+    phase 30's processes read it while the others run."""
+    mesh_dir = os.path.join(REPO, "out", "meshes_nrtdsm")
+    path = os.path.join(mesh_dir, "torus.obj")
+    if not os.path.exists(path):
+        path = bench.write_mesh_files(mesh_dir)["obj"]
+    return path
+
+
+def _nrtdsm_app(extra, width, height, traversal="widerow"):
+    """The nrtdsm app's demo scene at its defaults (-base-res 16,
+    -normal-tilt 0.3) and `extra` flags, compiled on the host for
+    `traversal`: (scene, bvh, camera, host seconds)."""
+    from gfxexp_torch.apps import nrtdsm as app
+    from gfxexp_torch.apps.common import make_camera_from_args
+    from gfxexp_torch.apps.tfdm import compile_demo
+
+    extra = list(extra)
+    if "-shell" in extra:
+        extra += ["-shell-obj", _torus_obj()]
+    args = app.parse_args(["-width", str(width), "-height", str(height),
+                           "-traversal", traversal, *extra])
+    t0 = time.time()
+    scene, bvh, _ = compile_demo(args, "nrtdsm",
+                                 app.displacement_params(args),
+                                 app.shell_contents(args))
+    return scene, bvh, make_camera_from_args(args), time.time() - t0
+
+
+def _displaced_rays(hit_fn, cam, dev, n, seed=SEED):
+    """n / 2 jittered camera rays through random pixels at 512^2, then as
+    many bounce rays from their hits (hit_fn(o, d) -> a hit record), in
+    random directions of the hit normal's hemisphere (rays whose camera ray
+    missed are dead, t_max < 0): (o, d, t_min, t_max)."""
+    from gfxexp_torch.render.camera import generate_rays_for_lanes
+
+    rng = np.random.default_rng(seed)
+    half = n // 2
+    lane = torch.from_numpy(rng.integers(0, 512 * 512, half)).to(dev)
+    jit = torch.from_numpy(rng.random((2, half), np.float32)).to(dev)
+    o0, d0 = generate_rays_for_lanes(cam, 512, 512, lane, jit[0], jit[1])
+    h0 = hit_fn(o0, d0)
+    dirs = torch.from_numpy(rng.normal(size=(half, 3)).astype(
+        np.float32)).to(dev)
+    dirs = dirs / torch.linalg.vector_norm(dirs, dim=1, keepdim=True)
+    side = torch.where((dirs * h0.normal).sum(1) < 0, -1.0, 1.0)
+    o = torch.cat([o0, torch.where(h0.hit[:, None], h0.position, o0)])
+    d = torch.cat([d0, dirs * side[:, None]])
+    t_min = torch.cat([torch.full((half,), 1e-4, device=dev),
+                       torch.full((half,), 1e-3, device=dev)])
+    t_max = torch.cat([torch.full((half,), 1e30, device=dev),
+                       torch.where(h0.hit, 1e30, -1.0)])
+    return o.contiguous(), d.contiguous(), t_min, t_max
+
+
+def _intersector_card_vs_cpu(tag, fn, geom_c, rays, dev):
+    """fn (an intersector of techniques/nrtdsm.py, shell.py or
+    core/curves.py) on the card and on the CPU on the same rays: agreement
+    (NRTDSM_BARS), the card's wall ms (fenced), peak memory and loop
+    counts."""
+    from gfxexp_torch.techniques import tfdm
+
+    o, d, t_min, t_max = rays
+    geom = geom_c.to(dev)
+    fn(geom, o[:1024], d[:1024], t_min[:1024], t_max[:1024])  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tfdm.reset_loop_stats()
+    t0 = time.perf_counter()
+    hk = fn(geom, o, d, t_min, t_max)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    stats = {k: v for k, v in tfdm.loop_stats.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    t0 = time.perf_counter()
+    hc = fn(geom_c, o.cpu(), d.cpu(), t_min.cpu(), t_max.cpu())
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    hk = hk.to(torch.device("cpu"))
+    hit_agree = float((hk.hit == hc.hit).float().mean())
+    both = hk.hit & hc.hit
+    rel = (hk.t[both] - hc.t[both]).abs() / hc.t[both].abs()
+    t_share = (float((rel <= NRTDSM_BARS["t_rtol"]).float().mean())
+               if rel.numel() else 1.0)
+    live = t_max.cpu() > t_min.cpu()
+    row = {"rays": o.shape[0], "live_rays": int(live.sum()),
+           "hits": int(hk.hit.sum()), "hit_agree": hit_agree,
+           "t_max_rel": float(rel.max()) if rel.numel() else 0.0,
+           "t_share": t_share,
+           "prim_equal": float((hk.prim[both] == hc.prim[both]).float()
+                               .mean()) if rel.numel() else 1.0,
+           "card_ms": ms, "cpu_ms": cpu_ms, "card_peak_mib": peak,
+           "loop": stats}
+    if hasattr(hk, "steps"):
+        row["steps_equal"] = float((hk.steps == hc.steps).float().mean())
+    check(hit_agree >= NRTDSM_BARS["hit"] and row["hits"] > 100
+          and t_share >= NRTDSM_BARS["t_share"],
+          f"30 {tag}: card vs CPU hit agree {hit_agree}, t within "
+          f"{NRTDSM_BARS['t_rtol']} on {t_share}, {row['hits']} hits")
+    print(f"[30 {tag}] {fn.__name__} on {o.shape[0]} camera and bounce rays "
+          f"({row['live_rays']} live, {row['hits']} hits): card vs CPU hit "
+          f"agree {hit_agree:.5f}, t max rel {row['t_max_rel']:.3g} (within "
+          f"{NRTDSM_BARS['t_rtol']} on {t_share:.5f}), prims equal "
+          f"{row['prim_equal']:.5f}, steps equal "
+          f"{row.get('steps_equal', 1.0):.5f}; card {ms:.1f} ms (CPU "
+          f"{cpu_ms:.0f} ms), peak {peak:.0f} MiB, loops {stats}",
+          flush=True)
+    return row, hk
+
+
+def _kernel6_on_shell_batches(tag, geom_c, rays, dev):
+    """One intersect_shell call on the card with its chord queries
+    recorded (each (o, d, t_min = 0, t_max) batch it sends the contents'
+    skip-link walk; t_max = -1 on lanes that need no query), then kernel 6
+    (walk_skip_cuda, the per-ray scope) against walk_skip_plain on every
+    batch: t, u, v, tri and hit equal. The call's kernel-6 launches are
+    counted apart from these comparisons."""
+    from gfxexp_torch.techniques import shell
+
+    o, d, t_min, t_max = rays
+    geom = geom_c.to(dev)
+    batches = []
+    real = shell.intersect_closest
+
+    def recorded(bvh, tris, q, sdir, t_min, t_max):
+        batches.append((q, sdir, t_max))
+        return real(bvh, tris, q, sdir, t_min=t_min, t_max=t_max)
+
+    _reset_counts()
+    shell.intersect_closest = recorded
+    try:
+        shell.intersect_shell(geom, o, d, t_min, t_max)
+    finally:
+        shell.intersect_closest = real
+    torch.cuda.synchronize()
+    launches = skip_traverse.launch_counts["closest_thread"]
+    check(launches == len(batches) > 0,
+          f"30 {tag}: {launches} kernel 6 launches for {len(batches)} "
+          f"chord batches")
+    lanes = dead = 0
+    for q, sdir, tm in batches:
+        kc = walk_skip_cuda(geom.shell_bvh, geom.shell_tris, q, sdir, 0.0,
+                            tm, False)
+        pc = walk_skip_plain(geom.shell_bvh, geom.shell_tris, q, sdir, 0.0,
+                             tm, False)
+        for f in ("t", "u", "v", "tri", "hit"):
+            check(torch.equal(getattr(kc, f), getattr(pc, f)),
+                  f"30 {tag}: kernel 6 {f} differs from plain on a chord "
+                  f"batch")
+        lanes += q.shape[0]
+        dead += int((tm < 0).sum())
+    row = {"batches": len(batches), "lanes": lanes, "dead_lanes": dead,
+           "live_lanes": lanes - dead, "kernel6_launches": launches,
+           "max_abs_err": 0.0}
+    check(dead > 0 and lanes > dead,
+          f"30 {tag}: chord batches without live or dead lanes: {row}")
+    print(f"[30 {tag} kernel 6] one intersect_shell call's {len(batches)} "
+          f"chord batches ({lanes} lanes, {dead} with t_max = -1, t_min = "
+          f"0): kernel 6 equal to walk_skip_plain bit for bit in t, u, v, "
+          f"tri, hit; the call launched kernel 6 {launches} times",
+          flush=True)
+    return row
+
+
+def _nrtdsm_curves():
+    """Eight cubic B-spline curves of six control points arching over the
+    nrtdsm patch (24 spans, r 0.02-0.05): phase 30's curve geometry."""
+    from gfxexp_torch.core.curves import CurveSpans, build_curve_spans
+
+    rng = np.random.default_rng(SEED)
+    parts = []
+    for i in range(8):
+        x = np.linspace(-0.9, 0.9, 6)
+        z = -0.8 + 0.22 * i + 0.1 * np.sin(3 * x + i)
+        y = 0.15 + 0.3 * np.sin(np.pi * (x + 0.9) / 1.8) + 0.05 * rng.random(6)
+        parts.append(build_curve_spans(
+            np.stack([x, y, z], -1), rng.uniform(0.02, 0.05, 6)))
+    return CurveSpans(**{f: torch.cat([getattr(p, f) for p in parts])
+                         for f in ("coef", "rcoef", "lo", "hi")})
+
+
+def nrtdsm_cpu_renders(out_path, res, samples):
+    """Phase 30's CPU renders, in a process of their own beside the card's:
+    the nrtdsm demo scene (bilinear) and its -shell form, wide rows, at
+    res^2, `samples` samples; images, rays and seconds to `out_path`
+    (npz)."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    out = {}
+    for cell, extra in NRTDSM_CELLS.items():
+        scene, bvh, cam, _ = _nrtdsm_app(extra, res, res)
+        t0 = time.perf_counter()
+        img, rays = _tex_render(scene, bvh, cam, res, samples,
+                                PTConfig(count_rays=True), 0)
+        out.update({f"img_{cell}": img, f"rays_{cell}": rays,
+                    f"seconds_{cell}": time.perf_counter() - t0})
+    np.savez(out_path, **out)
+
+
+def _nrtdsm_clis():
+    """Start the nrtdsm CLI at NRTDSM_CLI_RES^2, 4 frames, with -heatmap,
+    and with -shell (the torus OBJ): [(tag, output, process)]."""
+    return [(tag, *_png_cli(tag, "gfxexp_torch.apps.nrtdsm", argv,
+                            NRTDSM_CLI_RES))
+            for tag, argv in (
+                ("nrtdsm_heatmap", ["-heatmap"]),
+                ("nrtdsm_shell", ["-shell", "-shell-obj", _torus_obj(),
+                                  "-heatmap"]))]
+
+
+def phase_nrtdsm(report, dev):
+    """Phase 30: NRTDSM, shells and curves, card against CPU, on the
+    nrtdsm app's scene at its defaults (-base-res 16, curved shells):
+    intersect_nrtdsm_v2 and intersect_curve_spans (eight curves over the
+    patch) on NRTDSM_RAYS camera and bounce rays, intersect_nrtdsm_exact
+    on NRTDSM_EXACT_RAYS, intersect_shell (-shell, the torus OBJ) on
+    NRTDSM_RAYS of its own; kernel 6 against its plain version on the
+    chord batches one card shell call sends; kernels 1 and 6 against their
+    plain versions on the scene's rays and their shadow rays; the scene
+    and its -shell form at NRTDSM_RES^2, NRTDSM_SAMPLES samples, card
+    against CPU (the CPU's in a process of its own). The nrtdsm CLIs run
+    beside it and are read at its end (phase 31 prints them)."""
+    cpu_out = os.path.join(REPO, "out", "nrtdsm_cpu_renders.npz")
+    if os.path.exists(cpu_out):
+        os.remove(cpu_out)
+    os.makedirs(os.path.dirname(cpu_out), exist_ok=True)
+    _torus_obj()  # written once, before the processes that read it
+    cpu_proc = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke as c; "
+         f"c.nrtdsm_cpu_renders({cpu_out!r}, {NRTDSM_RES}, "
+         f"{NRTDSM_SAMPLES})"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES=""))
+    clis = _nrtdsm_clis()
+    procs = [cpu_proc] + [p for _, _, p in clis]
+    try:
+        return _phase_nrtdsm(report, dev, cpu_proc, cpu_out, clis)
+    except BaseException:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+        raise
+
+
+def _phase_nrtdsm(report, dev, cpu_proc, cpu_out, clis):
+    from gfxexp_torch.core.curves import intersect_curve_spans
+    from gfxexp_torch.techniques.nrtdsm import (
+        intersect_nrtdsm_exact,
+        intersect_nrtdsm_v2,
+    )
+    from gfxexp_torch.techniques.shell import intersect_shell
+
+    rows = {}
+    scene, bvh, cam, host_s = _nrtdsm_app([], 512, 512)
+    geom = scene.displaced[0]
+    sd, bd = scene.to(dev), bvh.to(dev)
+    camd = cam.to(dev)
+    gd = sd.displaced[0]
+    rays = _displaced_rays(lambda o, d: intersect_nrtdsm_v2(gd, o, d), camd,
+                           dev, NRTDSM_RAYS)
+    rows["nrtdsm_v2"], _ = _intersector_card_vs_cpu(
+        "nrtdsm v2", intersect_nrtdsm_v2, geom, rays, dev)
+    rows["nrtdsm_v2"]["host_build_s"] = host_s
+    rows["curve_spans"], _ = _intersector_card_vs_cpu(
+        "curve spans", intersect_curve_spans, _nrtdsm_curves(), rays, dev)
+    lamp = (0.8, 2.6, 0.8)
+    rows["kernel1"] = _walk_on("nrtdsm", "widerow", sd, bd, *rays, lamp, dev,
+                               phase="30")
+    sk_scene, sk_bvh = (x.to(dev) for x in _nrtdsm_app([], 512, 512,
+                                                       "skip")[:2])
+    rows["kernel6"] = _walk_on("nrtdsm", "skip", sk_scene, sk_bvh, *rays,
+                               lamp, dev, phase="30")
+    sk_scene = sk_bvh = None
+    exact_scene = _nrtdsm_app(["-local-intersection", "two_triangle"], 512,
+                              512)[0]
+    ex = exact_scene.displaced[0]
+    # the first camera rays and their bounce rays
+    half = NRTDSM_RAYS // 2
+    ex_rays = tuple(torch.cat([x[: NRTDSM_EXACT_RAYS // 2],
+                               x[half: half + NRTDSM_EXACT_RAYS // 2]])
+                    .contiguous() for x in rays)
+    rows["nrtdsm_exact"], _ = _intersector_card_vs_cpu(
+        "nrtdsm exact", intersect_nrtdsm_exact, ex, ex_rays, dev)
+
+    shell_scene, _, _, shell_s = _nrtdsm_app(["-shell"], 512, 512)
+    sg = shell_scene.displaced[0]
+    sgd = sg.to(dev)
+    s_rays = _displaced_rays(lambda o, d: intersect_shell(sgd, o, d), camd,
+                             dev, NRTDSM_RAYS, SEED + 2)
+    rows["shell"], _ = _intersector_card_vs_cpu(
+        "shell", intersect_shell, sg, s_rays, dev)
+    rows["shell"].update(host_build_s=shell_s,
+                         auto_segments=sg.auto_segments,
+                         content_triangles=sg.shell_tris.p0.shape[0])
+    rows["shell_kernel6"] = _kernel6_on_shell_batches("shell", sg, s_rays,
+                                                      dev)
+
+    # the renders, card against the CPU's process
+    cards = {}
+    for cell, extra in NRTDSM_CELLS.items():
+        c_scene, c_bvh, c_cam, _ = _nrtdsm_app(extra, NRTDSM_RES,
+                                               NRTDSM_RES)
+        _reset_counts()
+        t0 = time.perf_counter()
+        a, ra = _tex_render(c_scene.to(dev), c_bvh.to(dev), c_cam.to(dev),
+                            NRTDSM_RES, NRTDSM_SAMPLES,
+                            PTConfig(count_rays=True), 0)
+        cards[cell] = (a, ra, time.perf_counter() - t0, _all_counts())
+    _, err = cpu_proc.communicate(timeout=900)
+    check(cpu_proc.returncode == 0,
+          f"30 CPU renders exited {cpu_proc.returncode}: {err[-2000:]}")
+    cpu = np.load(cpu_out)
+    for cell, (a, ra, card_s, counts) in cards.items():
+        c = cpu[f"img_{cell}"]
+        rc = float(cpu[f"rays_{cell}"])
+        rel = _rel(a, c)
+        check(counts["kernel1"]["closest"] > 0 and counts["kernel1"]["any"]
+              > 0 and (cell != "shell"
+                       or counts["skip"]["closest_thread"] > 0),
+              f"30 render {cell}: walks {counts}")
+        check(np.isfinite(a).all() and a.mean() > 0 and rel < IMAGE_BAR
+              and abs(ra - rc) <= 0.005 * rc,
+              f"30 render {cell}: image rel diff {rel}, rays {ra} vs {rc}")
+        rows[f"render {cell}"] = {
+            "image_rel_diff": rel, "rays": ra, "cpu_rays": rc,
+            "mean": float(a.mean()), "card_s": card_s,
+            "cpu_s": float(cpu[f"seconds_{cell}"]),
+            "kernel1": counts["kernel1"],
+            "kernel6": counts["skip"]["closest_thread"]}
+        print(f"[30 render {cell}] {NRTDSM_RES}x{NRTDSM_RES}, "
+              f"{NRTDSM_SAMPLES} samples: card vs CPU image rel diff "
+              f"{rel:.3g} (bar {IMAGE_BAR}), rays {ra:.0f} / {rc:.0f}, mean "
+              f"{a.mean():.4f}; card {card_s:.1f} s, CPU "
+              f"{rows[f'render {cell}']['cpu_s']:.1f} s; kernel 1 "
+              f"{counts['kernel1']}, kernel 6 "
+              f"{counts['skip']['closest_thread']}", flush=True)
+        save_png(os.path.join(REPO, "out", f"torch_nrtdsm_{cell}_64.png"),
+                 (a / (1 + a)).reshape(NRTDSM_RES, NRTDSM_RES, 3))
+    cli_rows = {}
+    for tag, out, proc in clis:
+        _, err = proc.communicate(timeout=600)
+        check(proc.returncode == 0,
+              f"30 {tag} CLI exited {proc.returncode}: {err[-2000:]}")
+        px = _png_pixels(out + ".png")
+        heat = _png_pixels(out + "_heatmap.png")
+        check(px.shape == (NRTDSM_CLI_RES, NRTDSM_CLI_RES, 3) and px.any()
+              and heat.any(), f"30 {tag} CLI: PNGs {px.shape} {heat.shape}")
+        stats = [ln for ln in err.splitlines() if ln.startswith("final:")]
+        cli_rows[tag] = {"stats": stats[-1] if stats else None,
+                         "mean_pixel": float(px.mean()),
+                         "heatmap_mean_pixel": float(heat.mean())}
+    report["nrtdsm"] = rows
+    return cli_rows
+
+
+def phase_nrtdsm_costs(report, dev, cli_rows):
+    """Phase 31: the nrtdsm app's frame loop at 512^2 (its defaults:
+    -base-res 16, -normal-tilt 0.3, ridges, -h-scale 0.25, bilinear) and
+    with -shell (the torus OBJ tiled 3 x 3), one frame each: ms per
+    pathTrace (fenced); each displaced call fenced and recorded (its ms,
+    host syncs, rounds, exact-loop steps, prism-BVH steps), so the calls'
+    share of the frame; kernel 1's and kernel 6's launches in the frame
+    (counts set to 0 before it); peak memory; then a second frame under
+    a dispatch counter (op_counts), its walk launches counted; then one
+    displaced call on the frame's primary rays (the heatmap's), fenced,
+    counted the same way and under torch.profiler (CUDA activity): CUDA
+    kernels, launch calls, device busy and idle share, and so CUDA kernels
+    an op, which turns the second frame's ops into its CUDA kernels. Last,
+    the nrtdsm CLIs that phase 30 ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gfxexp_torch.apps.tfdm import heatmap
+    from gfxexp_torch.op_counts import _Count
+    from gfxexp_torch.techniques import nrtdsm, shell, tfdm
+
+    rows = {}
+    for cell, extra in NRTDSM_CELLS.items():
+        res = NRTDSM_COST_RES
+        scene, bvh, cam, _ = _nrtdsm_app(extra, res, res)
+        scene, bvh, cam = scene.to(dev), bvh.to(dev), cam.to(dev)
+        mod, name = ((shell, "intersect_shell") if cell == "shell"
+                     else (nrtdsm, "intersect_nrtdsm_v2"))
+        real = getattr(mod, name)
+        calls = []
+
+        def recorded(*a, **kw):
+            torch.cuda.synchronize()
+            before = dict(tfdm.loop_stats)
+            t0 = time.perf_counter()
+            h = real(*a, **kw)
+            torch.cuda.synchronize()
+            calls.append({"ms": (time.perf_counter() - t0) * 1e3, **{
+                k: tfdm.loop_stats[k] - before[k] for k in (
+                    "syncs", "rounds", "exact_iterations",
+                    "bvh_iterations")}})
+            return h
+
+        cfg = PTConfig()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timer = PassTimer(device=dev)
+        _reset_counts()
+        tfdm.reset_loop_stats()
+        setattr(mod, name, recorded)
+        try:
+            film, _, _, _ = frame_loop(scene, bvh, cam, [], "widerow", res,
+                                       res, 1, cfg, timer)
+        finally:
+            setattr(mod, name, real)
+        counts = _all_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        img = film.beauty
+        check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+              f"31 {cell}: bad image")
+        check(counts["kernel1"]["closest"] > 0 and counts["kernel1"]["any"]
+              > 0 and (cell != "shell"
+                       or counts["skip"]["closest_thread"] > 0),
+              f"31 {cell}: walks {counts}")
+        ms_frame = timer.mean_ms("pathTrace")
+        n_calls = max(len(calls), 1)
+        row = {"ms_per_pathTrace": ms_frame,
+               "kernel1_per_frame": counts["kernel1"],
+               "kernel6_per_frame": counts["skip"]["closest_thread"],
+               "calls_per_frame": len(calls),
+               "calls_ms_per_frame": sum(c["ms"] for c in calls),
+               "per_call": {k: sum(c[k] for c in calls) / n_calls for k in (
+                   "ms", "syncs", "rounds", "exact_iterations",
+                   "bvh_iterations")},
+               "calls": calls, "peak_mib": peak, "mean": float(img.mean())}
+        row["calls_share_of_frame"] = row["calls_ms_per_frame"] / ms_frame
+
+        # the second frame's dispatched ops (~ CUDA kernels) and walks
+        _reset_counts()
+        with _Count() as counter:
+            render_sample(scene, bvh, cam, res, res, 1, cfg)
+        torch.cuda.synchronize()
+        walks = sum(v for c in _all_counts().values() for v in c.values())
+        row["frame2_ops"] = counter.ops
+        row["frame2_walk_launches"] = walks
+
+        # one call on the primary rays (the heatmap's), fenced, its ops
+        # dispatched counted, then profiled: CUDA kernels an op
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, raw = heatmap(scene, cam, res, res, "nrtdsm")
+        wall = (time.perf_counter() - t0) * 1e3
+        with _Count() as call_ops:
+            heatmap(scene, cam, res, res, "nrtdsm")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            heatmap(scene, cam, res, res, "nrtdsm")
+            torch.cuda.synchronize()
+        events = prof.events()
+        kern = [e for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = _union_ms(kern) if kern else None
+        row["primary_call_profile"] = {
+            "wall_ms": wall, "kernels": len(kern) if kern else
+            "not measured",
+            "launch_calls": sum(1 for e in events if e.name in LAUNCH_CALLS),
+            "device_busy_ms": busy if kern else "not measured",
+            "idle_share": (1.0 - busy / wall) if kern else "not measured",
+            "ops": call_ops.ops,
+            "kernels_per_op": (len(kern) / call_ops.ops) if kern else
+            "not measured",
+            "steps_mean_hit_pixels": float(raw[raw > 0].mean()),
+            "steps_max": int(raw.max())}
+        if kern:
+            row["frame2_kernels_estimate"] = (
+                counter.ops * len(kern) / call_ops.ops + walks)
+        rows[cell] = row
+        p = row["primary_call_profile"]
+        pc = row["per_call"]
+        est = row.get("frame2_kernels_estimate", "not measured")
+        print(f"[31 nrtdsm {cell}] {res}x{res}, 1 frame (the app renders "
+              f"32): pathTrace {ms_frame:.1f} ms, of it "
+              f"{row['calls_ms_per_frame']:.1f} ms in {len(calls)} {name} "
+              f"calls ({row['calls_share_of_frame']:.3f}); kernel 1 "
+              f"{counts['kernel1']}, kernel 6 "
+              f"{row['kernel6_per_frame']} a frame; a call: {pc['ms']:.0f} "
+              f"ms, {pc['syncs']:.0f} host syncs, {pc['rounds']:.1f} "
+              f"rounds, {pc['exact_iterations']:.0f} exact steps, "
+              f"{pc['bvh_iterations']:.0f} BVH steps; peak {peak:.0f} MiB; "
+              f"frame 2: {counter.ops} ops dispatched + {walks} walk "
+              f"launches (~{_num(est, 0)} CUDA kernels); the primary "
+              f"rays' call: {wall:.0f} ms, "
+              f"{p['ops']} ops, {p['kernels']} CUDA kernels "
+              f"({_num(p['kernels_per_op'])} an op), {p['launch_calls']} "
+              f"launch calls, device busy {_num(p['device_busy_ms'])} ms, "
+              f"idle share {_num(p['idle_share'])}", flush=True)
+        save_png(os.path.join(REPO, "out", f"torch_nrtdsm_{cell}.png"),
+                 (img / (1.0 + img)).cpu().numpy())
+        scene = bvh = film = img = None
+    for tag, row in cli_rows.items():
+        print(f"[31 {tag} CLI] {NRTDSM_CLI_RES}x{NRTDSM_CLI_RES}, 4 frames "
+              f"(run beside phase 30): rc 0, "
+              f"mean pixel {row['mean_pixel']:.1f}, heatmap mean pixel "
+              f"{row['heatmap_mean_pixel']:.1f}; {row['stats'] or ''}",
+              flush=True)
+    rows["clis"] = cli_rows
+    report["nrtdsm_costs"] = rows
+
+
 def mark(report, t_start, phase):
     """Seconds since the start at the end of `phase`, kept and printed."""
     secs = time.time() - t_start
@@ -3400,6 +3941,10 @@ def main():
     mark(report, t_start, "28")
     phase_tfdm_costs(report, dev, cli)
     mark(report, t_start, "29")
+    clis = phase_nrtdsm(report, dev)
+    mark(report, t_start, "30")
+    phase_nrtdsm_costs(report, dev, clis)
+    mark(report, t_start, "31")
 
     kernels = [
         {"name": f"widerow_walk_{kind}", "route": "cuda",

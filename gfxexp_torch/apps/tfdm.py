@@ -89,10 +89,13 @@ def add_displacement_args(p):
     p.add_argument("-heatmap", action="store_true")
 
 
-def demo_scene(args, kind: str, params):
+def demo_scene(args, kind: str, params, shell_contents=None):
     """The demo scene's builder: a floor, an area light, a specular sphere
-    and the displaced base mesh (`kind` "tfdm"; the builder raises for the
-    kinds not ported yet)."""
+    and the displaced base mesh (`kind` "tfdm" or "nrtdsm"), its vertex
+    normals tilted radially by `args.normal_tilt` where the args have one
+    (curved shells, which NRTDSM traces exactly); shell_contents =
+    (positions, indices) in (u, v, hn) makes it a shell-mapped mesh
+    instead."""
     from gfxexp_torch.scene.builder import SceneBuilder, affine
 
     b = SceneBuilder()
@@ -109,56 +112,75 @@ def demo_scene(args, kind: str, params):
                    affine(translation=[-1.35, 0.35, -0.6]))
     disp_mat = b.add_lambert_material((0.65, 0.6, 0.55))
     positions, indices, uvs, normals = subdivided_plane(args.base_res)
-    b.add_displaced(positions, indices, uvs, load_or_procedural_height(args),
-                    params=params, material=disp_mat, kind=kind,
-                    normals=normals)
+    tilt = getattr(args, "normal_tilt", 0.0)
+    if tilt:
+        radial = positions * np.asarray([[1.0, 0.0, 1.0]], np.float32)
+        normals = normals + tilt * radial
+        normals = normals / np.maximum(
+            np.linalg.norm(normals, axis=-1, keepdims=True), 1e-12)
+    if shell_contents is not None:
+        spos, sidx = shell_contents
+        b.add_shell(positions, indices, uvs, spos, sidx, params=params,
+                    material=disp_mat, normals=normals)
+    else:
+        b.add_displaced(positions, indices, uvs,
+                        load_or_procedural_height(args), params=params,
+                        material=disp_mat, kind=kind, normals=normals)
     return b
 
 
 def heatmap(scene, camera, width: int, height: int, kind: str = "tfdm"):
-    """The march steps per primary ray (pixel centres) through the scene's
-    first displaced mesh, normalised to its maximum, as an RGB image
-    [H, W, 3] (numpy) and the raw steps [H, W]."""
+    """The steps per primary ray (pixel centres) through the scene's first
+    displaced mesh (march steps of intersect_tfdm_v2 for "tfdm", of
+    intersect_nrtdsm_v2 for the other kinds; chords of intersect_shell on a
+    shell), normalised to their maximum, as an RGB image [H, W, 3] (numpy)
+    and the raw steps [H, W]."""
     from gfxexp_torch.render.camera import generate_rays_for_lanes
+    from gfxexp_torch.techniques.nrtdsm import intersect_nrtdsm_v2
+    from gfxexp_torch.techniques.shell import ShellGeometry, intersect_shell
     from gfxexp_torch.techniques.tfdm import intersect_tfdm_v2
 
-    if kind != "tfdm":
-        raise NotImplementedError(f"the {kind} heatmap is not ported yet")
     dev = scene.device
     n = width * height
     jx = torch.full((n,), 0.5, device=dev)
     o, d = generate_rays_for_lanes(camera, width, height,
                                    torch.arange(n, device=dev), jx, jx)
-    steps = intersect_tfdm_v2(scene.displaced[0], o, d).steps
+    g = scene.displaced[0]
+    if isinstance(g, ShellGeometry):
+        fn = intersect_shell
+    else:
+        fn = intersect_tfdm_v2 if kind == "tfdm" else intersect_nrtdsm_v2
+    steps = fn(g, o, d).steps
     raw = steps.reshape(height, width).cpu().numpy()
     s = raw.astype(np.float64) / max(float(raw.max()), 1.0)
     return np.stack([s, 1.0 - np.abs(2 * s - 1), 1.0 - s], axis=-1), raw
 
 
-def compile_demo(args, kind: str, params):
+def compile_demo(args, kind: str, params, shell_contents=None):
     """The demo scene compiled on the CPU for `-traversal` (wide rows by
     default): (scene, bvh, traversal)."""
     from gfxexp_torch.scene.compile import compile_scene
 
-    builder = demo_scene(args, kind, params)
+    builder = demo_scene(args, kind, params, shell_contents)
     traversal = args.traversal or "widerow"
     scene, bvh = compile_scene(builder, traversal=traversal,
                                spatial_splits=args.spatial_splits)
     return scene, bvh, traversal
 
 
-def run_displaced_app(args, kind: str, params):
-    """Build and compile the demo scene, move it to `-device`, render
-    `-frames` frames (path_tracing.frame_loop: `pathTrace` a frame), write
-    the PNG and, with -heatmap, the heatmap. Returns the accumulated HDR
-    image [H, W, 3] (numpy)."""
+def run_displaced_app(args, kind: str, params, shell_contents=None):
+    """Build and compile the demo scene (shell-mapped with
+    `shell_contents`), move it to `-device`, render `-frames` frames
+    (path_tracing.frame_loop: `pathTrace` a frame), write the PNG and, with
+    -heatmap, the heatmap. Returns the accumulated HDR image [H, W, 3]
+    (numpy)."""
     from gfxexp_torch.apps.path_tracing import frame_loop
     from gfxexp_torch.render.pathtrace import PTConfig
     from gfxexp_torch.utils.image_io import save_png
 
     common.check_unported(args)
     dev = common.resolve_device(args)
-    scene, bvh, traversal = compile_demo(args, kind, params)
+    scene, bvh, traversal = compile_demo(args, kind, params, shell_contents)
     scene, bvh = scene.to(dev), bvh.to(dev)
     camera = common.make_camera_from_args(args).to(dev)
     cfg = PTConfig(max_path_length=args.max_path_length,

@@ -24,6 +24,21 @@ def cross(a, b):
     ], dim=-1)
 
 
+def sqrt_rn(x):
+    """The correctly rounded float32 square root on every device: PyTorch's
+    vectorized CPU kernel rounds about 1 in 150 float32 roots the other way
+    (XLA's, numpy's and CUDA's do not), so on the CPU the root is taken in
+    float64 and rounded once (exact for a square root)."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+    return torch.sqrt(x)
+
+
+def length_rn(v, keepdim=False):
+    """length() with the correctly rounded root (sqrt_rn)."""
+    return sqrt_rn(torch.clamp(dot(v, v, keepdim=keepdim), min=0.0))
+
+
 def length(v, keepdim=False):
     return torch.sqrt(torch.clamp(dot(v, v, keepdim=keepdim), min=0.0))
 

@@ -15,10 +15,13 @@ the default PTConfig, with bump mapping and texture LOD, with solid-angle
 NEE and with fused shadow rays; then the tfdm app's demo scene (wide
 rows) with its default base mesh (-base-res 24, 1,152 prisms, the slab
 sweep broad phase) and with -base-res 32 (2,048 prisms, the prism BVH's
-walk). `walks` is the number of walk launches; a TFDM row also has the
-host syncs and loop iterations of its intersect_tfdm_v2 calls
-(techniques/tfdm.py loop_stats), which grow with the rays' worst case and
-so with the resolution (`--res N` sets it, 32 by default).
+walk); then the nrtdsm app's demo scene at its defaults (-base-res 16,
+curved shells) on the bilinear surface, on the two-triangle surface and
+with -shell (the torus OBJ). `walks` is the number of walk launches (a
+shell's chord queries included); a displaced row also has the host syncs
+and loop iterations of its displaced calls (techniques/tfdm.py
+loop_stats), which grow with the rays' worst case and so with the
+resolution (`--res N` sets it, 32 by default).
 
 With --cuda it profiles one default sample of the small scene at 512x512
 on the card instead (render_accumulate, after a warm-up sample) and prints
@@ -65,9 +68,14 @@ class _Count(TorchDispatchMode):
 def count_sample(scene, bvh, camera, width: int, height: int,
                  cfg: PTConfig, debug_switches: int = 0) -> dict:
     """{"ops", "walks"} of one render_sample (sample 1, after sample 0)."""
+    from gfxexp_torch.techniques import shell
+
     counter = None
-    real = {n: getattr(pathtrace, n) for n in ("intersect_closest",
-                                              "intersect_any")}
+    # the walks: the path tracer's, and the shells' queries of their
+    # contents (one launch each on the card)
+    real = {(mod, n): getattr(mod, n) for mod, n in (
+        (pathtrace, "intersect_closest"), (pathtrace, "intersect_any"),
+        (shell, "intersect_closest"))}
 
     def walk(fn):
         def counted(*a, **kw):
@@ -82,8 +90,8 @@ def count_sample(scene, bvh, camera, width: int, height: int,
                 counter.walks += 1
         return counted
 
-    for name, fn in real.items():
-        setattr(pathtrace, name, walk(fn))
+    for (mod, name), fn in real.items():
+        setattr(mod, name, walk(fn))
     try:
         render_sample(scene, bvh, camera, width, height, 0, cfg,
                       debug_switches)
@@ -91,8 +99,8 @@ def count_sample(scene, bvh, camera, width: int, height: int,
             render_sample(scene, bvh, camera, width, height, 1, cfg,
                           debug_switches)
     finally:
-        for name, fn in real.items():
-            setattr(pathtrace, name, fn)
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
     return {"ops": counter.ops, "walks": counter.walks}
 
 
@@ -106,6 +114,32 @@ def tfdm_scene(base_res: int, width: int, height: int):
                            "-height", str(height)])
     scene, bvh, _ = app.compile_demo(args, "tfdm",
                                      app.displacement_params(args))
+    return scene, bvh, common.make_camera_from_args(args)
+
+
+NRTDSM_CASES = {"nrtdsm_bilinear": [],
+                "nrtdsm_two_triangle": ["-local-intersection",
+                                        "two_triangle"],
+                "nrtdsm_shell": ["-shell"]}
+
+
+def nrtdsm_scene(case: str, width: int, height: int, mesh_dir: str):
+    """The nrtdsm app's demo scene at its defaults (-base-res 16, -normal-
+    tilt 0.3) with the flags of NRTDSM_CASES[case], compiled as wide rows,
+    and its camera: (scene, bvh, camera) on the CPU. -shell instances the
+    torus OBJ that gfxexp_torch.bench.write_mesh_files writes into
+    mesh_dir."""
+    from gfxexp_torch.apps import common
+    from gfxexp_torch.apps import nrtdsm as app
+    from gfxexp_torch.apps.tfdm import compile_demo
+
+    extra = list(NRTDSM_CASES[case])
+    if "-shell" in extra:
+        extra += ["-shell-obj", bench.write_mesh_files(mesh_dir)["obj"]]
+    args = app.parse_args(["-width", str(width), "-height", str(height),
+                           *extra])
+    scene, bvh, _ = compile_demo(args, "nrtdsm", app.displacement_params(args),
+                                 app.shell_contents(args))
     return scene, bvh, common.make_camera_from_args(args)
 
 
@@ -172,6 +206,13 @@ def main(argv=None):
         # loop_stats covers the warm-up sample too: halve it
         rows[f"tfdm_base{base_res}"] = {
             **row, **{k: v / 2 for k, v in tfdm.loop_stats.items()}}
+    with tempfile.TemporaryDirectory() as mesh_dir:
+        for case in NRTDSM_CASES:
+            scene, bvh, cam = nrtdsm_scene(case, res, res, mesh_dir)
+            tfdm.reset_loop_stats()
+            row = count_sample(scene, bvh, cam, res, res, PTConfig())
+            rows[case] = {**row, **{k: v / 2 for k, v in
+                                    tfdm.loop_stats.items()}}
     for name, row in rows.items():
         print(json.dumps({"case": name, **row}), file=sys.stdout)
     return rows

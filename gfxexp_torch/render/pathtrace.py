@@ -15,8 +15,9 @@ texture layers, so the default path launches no kernel for them. With
 bounce's shadow rays go through one closest-hit walk of 2N lanes; NEE
 visibility is then applied one step later, in the same order of sums.
 
-A scene's displaced meshes (SceneData.displaced, techniques/tfdm.py) are
-traced after the triangle walk with its hit distance as tmax, and their
+A scene's displaced geometry (SceneData.displaced: TFDM and NRTDSM meshes,
+shells, direct curves; techniques/, core/curves.py) is traced after the
+triangle walk with its hit distance as tmax, and their
 hits replace the triangle hit's position, normals, texcoord, tangent,
 material and emittance; with `displaced_shadows` the shadow rays test them
 too. `fuse_shadow_rays` is ignored on such scenes. A scene without them
@@ -296,29 +297,53 @@ def _next_event_setup(scene, sp: SurfacePoint, v_out_local, frame, params,
     return contrib, shadow_dir, shadow_tmax
 
 
-def _tfdm_geometries(scene: SceneData):
-    """The scene's displaced meshes; the kinds the port does not have
-    (curves, shells, NRTDSM) raise."""
-    from gfxexp_torch.techniques.tfdm import TFDMGeometry
+def _displaced_hit(g, o, d, tmax):
+    """The closest hit of rays against one displaced geometry, clipped to
+    tmax, and the material of each ray's hit: TFDM, curve segments and
+    spans, shells (a material a content triangle) and NRTDSM (the exact
+    intersector on the two-triangle surface, else v2)."""
+    from gfxexp_torch.core.curves import (
+        CurveSegments,
+        CurveSpans,
+        intersect_curve_segments,
+        intersect_curve_spans,
+    )
+    from gfxexp_torch.techniques.nrtdsm import (
+        intersect_nrtdsm_exact,
+        intersect_nrtdsm_v2,
+    )
+    from gfxexp_torch.techniques.shell import ShellGeometry, intersect_shell
+    from gfxexp_torch.techniques.tfdm import (
+        LOCAL_INTERSECTION_TWO_TRIANGLE,
+        TFDMGeometry,
+        intersect_tfdm_v2,
+    )
 
-    for g in scene.displaced:
-        if not isinstance(g, TFDMGeometry):
-            raise NotImplementedError(
-                f"displaced {type(g).__name__} is not ported yet (ROADMAP "
-                f"Queue A #10); the port traces TFDM meshes")
-    return scene.displaced
+    if isinstance(g, ShellGeometry):
+        dh = intersect_shell(g, o, d, t_min=1e-4, t_max=tmax)
+        return dh, dh.mat
+    if isinstance(g, TFDMGeometry):
+        fn = intersect_tfdm_v2
+    elif isinstance(g, CurveSegments):
+        fn = intersect_curve_segments
+    elif isinstance(g, CurveSpans):
+        fn = intersect_curve_spans
+    elif (g.params.local_intersection_type
+          == LOCAL_INTERSECTION_TWO_TRIANGLE):
+        fn = intersect_nrtdsm_exact
+    else:
+        fn = intersect_nrtdsm_v2
+    dh = fn(g, o, d, t_min=1e-4, t_max=tmax)
+    return dh, torch.full_like(dh.prim, g.material)
 
 
 def _displaced_closest(scene: SceneData, ray_o, ray_d, tmax):
-    """Closest hit against the scene's displaced meshes, each clipped to
+    """Closest hit against the scene's displaced geometry, each clipped to
     `tmax` [R] (the triangle hit's distance; < 0 on dead lanes), composited
     by distance: (t, hit, position, normal, uv, material) [R, ...]."""
-    from gfxexp_torch.techniques.tfdm import intersect_tfdm_v2
-
     best = None
-    for g in _tfdm_geometries(scene):
-        dh = intersect_tfdm_v2(g, ray_o, ray_d, t_min=1e-4, t_max=tmax)
-        mat = torch.full_like(dh.prim, g.material)
+    for g in scene.displaced:
+        dh, mat = _displaced_hit(g, ray_o, ray_d, tmax)
         if best is None:
             best = (dh.t, dh.hit, dh.position, dh.normal, dh.uv, mat)
         else:
@@ -333,12 +358,10 @@ def _displaced_closest(scene: SceneData, ray_o, ray_d, tmax):
 
 
 def _displaced_occluded(scene: SceneData, o, d, tmax):
-    """Any hit of shadow rays against the scene's displaced meshes [R]."""
-    from gfxexp_torch.techniques.tfdm import intersect_tfdm_v2
-
+    """Any hit of shadow rays against the scene's displaced geometry [R]."""
     occ = torch.zeros(o.shape[:1], dtype=torch.bool, device=o.device)
-    for g in _tfdm_geometries(scene):
-        occ = occ | intersect_tfdm_v2(g, o, d, t_min=1e-4, t_max=tmax).hit
+    for g in scene.displaced:
+        occ = occ | _displaced_hit(g, o, d, tmax)[0].hit
     return occ
 
 

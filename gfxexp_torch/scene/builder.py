@@ -1,7 +1,7 @@
 """Host-side scene construction -> SceneData (port of
 gfxexp_tpu/scene/builder.py: materials, textures, meshes, rectangles,
-spheres, instances, TFDM displaced meshes, the environment light, and both
-compiles).
+spheres, curves, instances, displaced meshes (TFDM, NRTDSM) and shells,
+the environment light, and both compiles).
 
 `compile()` flattens the instance graph into world-space triangle tables and
 per-unit light distributions with numpy, as the JAX package does, and returns
@@ -103,9 +103,9 @@ class SceneBuilder:
         # sampling at a per-lane LOD (PTConfig.texture_lod)
         self.atlas = AtlasBuilder(mips=texture_mips)
         self._texture_cache: dict = {}
-        # add_displaced's base meshes, built by compile() into
-        # SceneData.displaced: (kind, positions, indices, uvs, height,
-        # params, material, normals)
+        # add_displaced's base meshes, add_shell's and add_curve(direct=
+        # True)'s, built by compile() into SceneData.displaced: (kind,
+        # positions, indices, uvs, height, params, material, normals)
         self.displaced_geoms: List[tuple] = []
 
     # -- textures ----------------------------------------------------------
@@ -131,17 +131,30 @@ class SceneBuilder:
     def _textures(self):
         return self.atlas.build() if self.atlas.images else None
 
-    # -- not ported yet ----------------------------------------------------
+    # -- curves ------------------------------------------------------------
 
-    def add_curve(self, *args, **kw):
-        raise NotImplementedError(
-            "curves are not ported yet (ROADMAP Queue A #10, the nrtdsm "
-            "slice)")
+    def add_curve(self, control_points, radii, material,
+                  curve_type: str = "cubic_bspline",
+                  n_axial: int = 8, n_radial: int = 8,
+                  direct: bool = False) -> int:
+        """A swept-sphere curve (core/curves.py). direct=False (the
+        default) tessellates it into a triangle tube, a geometry like any
+        other (the returned id). direct=True traces it exactly beside the
+        displaced meshes (SceneData.displaced): a linear curve as
+        round-linear segments, the other types as power-basis spans; the
+        returned id is then its index there, which cannot be instanced."""
+        if direct:
+            self.displaced_geoms.append(
+                ("curve", np.asarray(control_points, np.float32),
+                 None, None, np.asarray(radii, np.float32),
+                 curve_type, int(material), None))
+            return len(self.displaced_geoms) - 1
+        from gfxexp_torch.core.curves import tessellate_curve
 
-    def add_shell(self, *args, **kw):
-        raise NotImplementedError(
-            "shell mapping is not ported yet (ROADMAP Queue A #10, the "
-            "nrtdsm slice)")
+        v, n, f = tessellate_curve(
+            curve_type, np.asarray(control_points, np.float32),
+            np.asarray(radii, np.float32), n_axial=n_axial, n_radial=n_radial)
+        return self.add_geometry(v, f, material, normals=n)
 
     # -- materials ---------------------------------------------------------
 
@@ -242,30 +255,72 @@ class SceneBuilder:
                       material: int = 0, kind: str = "tfdm",
                       normals=None) -> int:
         """A height-mapped base mesh traced as a displaced surface beside
-        the triangles (SceneData.displaced; techniques/tfdm.py). Only
-        kind="tfdm" is ported; "nrtdsm" raises."""
-        if kind != "tfdm":
-            raise NotImplementedError(
-                f"displaced kind {kind!r} is not ported yet (ROADMAP Queue A "
-                f"#10, the nrtdsm slice); use kind='tfdm'")
+        the triangles (SceneData.displaced): kind "tfdm" (the tangent-space
+        texel walk, techniques/tfdm.py) or "nrtdsm" (the exact nonlinear
+        shells, techniques/nrtdsm.py)."""
         self.displaced_geoms.append(
             (kind, np.asarray(positions, np.float32),
              np.asarray(indices, np.int32), np.asarray(uvs, np.float32),
              np.asarray(height, np.float32), params, int(material), normals))
         return len(self.displaced_geoms) - 1
 
+    def add_shell(self, positions, indices, uvs, shell_positions,
+                  shell_indices, params=None, material: int = 0,
+                  normals=None, shell_materials=None) -> int:
+        """A shell-mapped base mesh: triangle contents in (u, v, hn)
+        instanced inside each prism (techniques/shell.py), with a material
+        slot a content triangle (`material` for all by default)."""
+        self.displaced_geoms.append(
+            ("shell", np.asarray(positions, np.float32),
+             np.asarray(indices, np.int32), np.asarray(uvs, np.float32),
+             (np.asarray(shell_positions, np.float32),
+              np.asarray(shell_indices, np.int32), shell_materials),
+             params, int(material), normals))
+        return len(self.displaced_geoms) - 1
+
     def _build_displaced(self):
-        """The TFDMGeometry of each add_displaced mesh (host build, CPU
-        tensors), or None without any."""
+        """The geometry of each displaced entry (host build, CPU tensors),
+        or None without any: curves as segments (linear) or spans, shells,
+        TFDM, and NRTDSM for every other kind, as the JAX package
+        dispatches."""
         if not self.displaced_geoms:
             return None
-        from gfxexp_torch.techniques.tfdm import build_tfdm_geometry
+        out = []
+        for (kind, pos, idx, uvs, height, params, mat,
+             normals) in self.displaced_geoms:
+            if kind == "curve":
+                from gfxexp_torch.core.curves import (
+                    CURVE_LINEAR,
+                    build_curve_segments,
+                    build_curve_spans,
+                )
 
-        return tuple(
-            build_tfdm_geometry(pos, idx, uvs, height, params=params,
-                                material=mat, normals=normals)
-            for (_, pos, idx, uvs, height, params, mat, normals)
-            in self.displaced_geoms)
+                build = (build_curve_segments if params == CURVE_LINEAR
+                         else build_curve_spans)
+                out.append(build(pos, height, material=mat,
+                                 curve_type=params))
+            elif kind == "shell":
+                from gfxexp_torch.techniques.shell import build_shell_geometry
+
+                spos, sidx, smats = height
+                out.append(build_shell_geometry(
+                    pos, idx, uvs, spos, sidx, params=params, material=mat,
+                    normals=normals, shell_materials=smats))
+            elif kind == "tfdm":
+                from gfxexp_torch.techniques.tfdm import build_tfdm_geometry
+
+                out.append(build_tfdm_geometry(
+                    pos, idx, uvs, height, params=params, material=mat,
+                    normals=normals))
+            else:
+                from gfxexp_torch.techniques.nrtdsm import (
+                    build_nrtdsm_geometry,
+                )
+
+                out.append(build_nrtdsm_geometry(
+                    pos, idx, uvs, height, params=params, material=mat,
+                    normals=normals))
+        return tuple(out)
 
     # -- environment -------------------------------------------------------
 

@@ -6,7 +6,7 @@ two-level (instanced) scene keeps object-space BLAS triangles instead and
 sets `inst_unit_base` (see SceneData); a flattened scene also keeps an
 object-space copy of its triangles for animation (`object_triangles`).
 `from_numpy` carries a gfxexp_tpu object (by attribute name, no jax import)
-into the port's classes; a scene's TFDM displaced meshes come along.
+into the port's classes; a scene's displaced geometry comes along.
 """
 
 from __future__ import annotations
@@ -149,8 +149,9 @@ class SceneData(TensorData):
     # the traversal-order triangle range of each instance's BLAS
     inst_tri_start: Optional[torch.Tensor] = None  # [I] int32
     inst_tri_count: Optional[torch.Tensor] = None  # [I] int32
-    # displaced meshes traced beside the triangles (techniques/tfdm.py
-    # TFDMGeometry), flattened scenes only; None when there are none
+    # displaced geometry traced beside the triangles (TFDMGeometry,
+    # NRTDSMGeometry, ShellGeometry, CurveSegments, CurveSpans: the path
+    # tracer's displaced hooks), flattened scenes only; None without any
     displaced: Optional[tuple] = None
 
     @property
@@ -198,32 +199,48 @@ def world_bounds(scene: SceneData):
 
 def from_numpy(obj):
     """gfxexp_tpu object (SceneData, its tables, Camera, WideRowBVH one table
-    or chunked, QRowBVH, InstancedAccel, TFDMGeometry, ...) -> the port's
-    object on the CPU. Reads fields by attribute name; fields the port does
-    not model are ignored. Textures, the probability texture and a scene's
-    TFDM meshes (with their prism BVH) come along; the other displaced
-    kinds (curves, shells, NRTDSM) raise NotImplementedError."""
+    or chunked, QRowBVH, InstancedAccel, a displaced geometry, ...) -> the
+    port's object on the CPU. Reads fields by attribute name; fields the
+    port does not model are ignored. Textures, the probability texture and
+    a scene's displaced geometry (TFDM and NRTDSM meshes with their prism
+    BVHs, shells with their contents' triangles and skip links, curve
+    segments and spans) come along."""
     # containers register on import; make sure the ones outside this module
     # are known
     import gfxexp_torch.accel.instanced  # noqa: F401
     import gfxexp_torch.accel.qrow  # noqa: F401
     import gfxexp_torch.accel.widerow  # noqa: F401
+    import gfxexp_torch.core.curves  # noqa: F401
     import gfxexp_torch.render.camera  # noqa: F401
     import gfxexp_torch.scene.textures  # noqa: F401
-    from gfxexp_torch.techniques.tfdm import tfdm_from_numpy
 
-    if type(obj).__name__ == "TFDMGeometry":
-        return tfdm_from_numpy(obj)
+    convert = _displaced_from_numpy(obj)
+    if convert is not None:
+        return convert
     displaced = getattr(obj, "displaced", None)
     if not displaced:
         return _from_numpy(obj)
-    for g in displaced:
-        if type(g).__name__ != "TFDMGeometry":
-            raise NotImplementedError(
-                f"the port carries TFDM displaced meshes only, not "
-                f"{type(g).__name__} (ROADMAP Queue A #10)")
-    return replace(_from_numpy(obj.replace(displaced=None)),
-                   displaced=tuple(tfdm_from_numpy(g) for g in displaced))
+    out = tuple(_displaced_from_numpy(g) for g in displaced)
+    for g, o in zip(displaced, out):
+        if o is None:
+            raise TypeError(f"no displaced geometry {type(g).__name__} in "
+                            f"the port")
+    return replace(_from_numpy(obj.replace(displaced=None)), displaced=out)
+
+
+def _displaced_from_numpy(g):
+    """The port's counterpart of one gfxexp_tpu displaced geometry, or None
+    when `g` is none of them."""
+    from gfxexp_torch.techniques.nrtdsm import nrtdsm_from_numpy
+    from gfxexp_torch.techniques.shell import shell_from_numpy
+    from gfxexp_torch.techniques.tfdm import tfdm_from_numpy
+
+    convert = {"TFDMGeometry": tfdm_from_numpy,
+               "NRTDSMGeometry": nrtdsm_from_numpy,
+               "ShellGeometry": shell_from_numpy,
+               "CurveSegments": _from_numpy,
+               "CurveSpans": _from_numpy}.get(type(g).__name__)
+    return None if convert is None else convert(g)
 
 
 def regir_state_from_numpy(obj):

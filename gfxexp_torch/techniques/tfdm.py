@@ -51,9 +51,14 @@ BVH_SYNC_EVERY = 4
 # `syncs` (tests of a loop condition that read the device), `rounds`
 # (candidate rounds of iterate_candidates), `march_iterations` (steps of
 # intersect_tfdm_v2's march loop, over all rounds), `bvh_iterations` (steps
-# of the prism BVH walk), `calls` (intersect_tfdm_v2 calls)
+# of the prism BVH walk), `calls` (intersect_tfdm_v2 calls); the other
+# displaced kinds, which share the candidate rounds: `nrtdsm_calls`
+# (intersect_nrtdsm_v2 and _exact, techniques/nrtdsm.py), `exact_iterations`
+# (steps of intersect_nrtdsm_exact's loop over occupied segments),
+# `shell_calls` (intersect_shell, techniques/shell.py)
 loop_stats = {"calls": 0, "syncs": 0, "rounds": 0, "march_iterations": 0,
-              "bvh_iterations": 0}
+              "bvh_iterations": 0, "nrtdsm_calls": 0, "exact_iterations": 0,
+              "shell_calls": 0}
 
 
 def reset_loop_stats():
@@ -325,34 +330,46 @@ def build_tfdm_geometry(positions, indices, uvs, height, params=None,
         material=int(material), params=params, prism_bvh=prism_bvh)
 
 
-def tfdm_from_numpy(g) -> TFDMGeometry:
-    """A gfxexp_tpu TFDMGeometry (read by attribute name) -> the port's on
-    the CPU, with its parameters and its prism BVH and permutation."""
-    from gfxexp_torch.core.tensors import from_numpy
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))
 
-    def t(x):
-        return torch.from_numpy(np.array(x))
 
-    p = g.params
-    params = DisplacementParameters(
+def params_from_numpy(p) -> DisplacementParameters:
+    """gfxexp_tpu's DisplacementParameters (read by attribute name) -> the
+    port's."""
+    return DisplacementParameters(
         h_offset=float(p.h_offset), h_scale=float(p.h_scale),
         h_bias=float(p.h_bias), target_mip_level=int(p.target_mip_level),
         local_intersection_type=int(p.local_intersection_type),
         uv_scale=float(p.uv_scale), uv_rotation=float(p.uv_rotation),
         uv_offset=tuple(float(x) for x in p.uv_offset))
-    prism_bvh = None
-    if g.prism_bvh is not None:
-        skip, perm = g.prism_bvh
-        prism_bvh = PrismBVH(skip=from_numpy(skip),
-                             perm=t(perm).to(torch.int32))
+
+
+def prism_bvh_from_numpy(pb) -> Optional[PrismBVH]:
+    """gfxexp_tpu's (SkipBVH, perm) prism BVH, or None -> the port's."""
+    from gfxexp_torch.core.tensors import from_numpy
+
+    if pb is None:
+        return None
+    skip, perm = pb
+    return PrismBVH(skip=from_numpy(skip), perm=_t(perm).to(torch.int32))
+
+
+def minmax_from_numpy(mm) -> MinMaxMipmap:
+    return MinMaxMipmap(levels=_t(mm.levels), base_size=int(mm.base_size),
+                        n_levels=int(mm.n_levels))
+
+
+def tfdm_from_numpy(g) -> TFDMGeometry:
+    """A gfxexp_tpu TFDMGeometry (read by attribute name) -> the port's on
+    the CPU, with its parameters and its prism BVH and permutation."""
     return TFDMGeometry(
-        **{k: t(getattr(g, k)) for k in (
+        **{k: _t(getattr(g, k)) for k in (
             "p0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
             "height", "aabb_min", "aabb_max")},
-        minmax=MinMaxMipmap(levels=t(g.minmax.levels),
-                            base_size=int(g.minmax.base_size),
-                            n_levels=int(g.minmax.n_levels)),
-        material=int(g.material), params=params, prism_bvh=prism_bvh)
+        minmax=minmax_from_numpy(g.minmax), material=int(g.material),
+        params=params_from_numpy(g.params),
+        prism_bvh=prism_bvh_from_numpy(g.prism_bvh))
 
 
 def _sample_height_at(height, params: DisplacementParameters, uv):

@@ -1311,3 +1311,139 @@ def test_tfdm_app_on_card_matches_cpu(dev, tmp_path):
     b = app.main([*argv, "-device", "cpu", "-output", str(tmp_path / "cpu")])
     assert np.isfinite(a).all() and a.mean() > 0
     assert S.image_rel_diff(a, b) < 5e-3
+
+
+def _patch_rays(n, seed):
+    """Rays from above the 2x2 patch toward it, a third of them grazing."""
+    rng = np.random.default_rng(seed)
+    o = np.stack([rng.uniform(-1, 1, n), rng.uniform(0.5, 2, n),
+                  rng.uniform(-1, 1, n)], -1).astype(np.float32)
+    d = np.stack([rng.uniform(-1, 1, n), np.zeros(n),
+                  rng.uniform(-1, 1, n)], -1) - o
+    d[: n // 3, 1] *= 0.05
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return torch.from_numpy(o), torch.from_numpy(d)
+
+
+def _tilted_plane(base, tilt=0.3):
+    from gfxexp_torch.apps.tfdm import subdivided_plane
+
+    pos, idx, uvs, nrm = subdivided_plane(base)
+    nrm = nrm + tilt * pos * np.asarray([[1.0, 0.0, 1.0]], np.float32)
+    return pos, idx, uvs, nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)
+
+
+def _card_agrees(k, c, min_hits):
+    """Hits equal on >= 0.999 of rays, t within rtol 1e-4 where both hit
+    (chip_smoke.py phase 30's bars)."""
+    k = k.to(torch.device("cpu"))
+    assert (k.hit == c.hit).float().mean() >= 0.999
+    both = k.hit & c.hit
+    assert both.sum() > min_hits
+    assert ((k.t[both] - c.t[both]).abs()
+            <= 1e-4 * c.t[both].abs()).float().mean() >= 0.999
+
+
+@pytest.mark.parametrize("fn, lit, base", [
+    ("intersect_nrtdsm_v2", 2, 6), ("intersect_nrtdsm_v2", 2, 32),
+    ("intersect_nrtdsm_exact", 1, 4)])
+def test_nrtdsm_intersect_on_card_matches_cpu(dev, fn, lit, base):
+    """NRTDSM on a tilted patch (-base-res 32: the prism BVH's walk) on the
+    card against the CPU, 4,096 rays."""
+    from gfxexp_torch.apps.tfdm import procedural_height
+    from gfxexp_torch.techniques import nrtdsm, tfdm
+
+    pos, idx, uvs, nrm = _tilted_plane(base)
+    g = nrtdsm.build_nrtdsm_geometry(
+        pos, idx, uvs, procedural_height(64), normals=nrm,
+        params=tfdm.DisplacementParameters(h_scale=0.25,
+                                           local_intersection_type=lit))
+    o, d = _patch_rays(4096, 9)
+    k = getattr(nrtdsm, fn)(g.to(dev), o.to(dev), d.to(dev))
+    c = getattr(nrtdsm, fn)(g, o, d)
+    _card_agrees(k, c, 1000)
+    assert (k.steps.cpu() == c.steps).float().mean() >= 0.99
+
+
+def test_shell_on_card_matches_cpu_and_kernel6_equals_plain(dev):
+    """intersect_shell on a tilted shell of boxes, card against CPU on
+    4,096 rays; and kernel 6 (the per-ray scope) on the chords the card's
+    call really sent (t_min 0, t_max a chord's length or -1 on lanes that
+    need no query) against walk_skip_plain: t, u, v, tri and hit equal."""
+    from gfxexp_torch.techniques import shell
+
+    pos, idx, uvs, nrm = _tilted_plane(4)
+    sv = np.array([[0.1, 0.1, 0.1], [0.7, 0.1, 0.1], [0.7, 0.7, 0.1],
+                   [0.1, 0.7, 0.9]], np.float32)
+    tets = np.array([[0, 2, 1], [0, 1, 3], [1, 2, 3], [0, 3, 2]], np.int32)
+    g = shell.build_shell_geometry(pos, idx, uvs, sv, tets, normals=nrm,
+                                   shell_materials=[0, 1, 2, 3])
+    assert g.auto_segments > 1
+    o, d = _patch_rays(4096, 10)
+    batches = []
+    real = shell.intersect_closest
+
+    def recorded(bvh, tris, q, sdir, t_min, t_max):
+        batches.append((q, sdir, t_max))
+        return real(bvh, tris, q, sdir, t_min=t_min, t_max=t_max)
+
+    shell.intersect_closest = recorded
+    try:
+        gk = g.to(dev)
+        k = shell.intersect_shell(gk, o.to(dev), d.to(dev))
+    finally:
+        shell.intersect_closest = real
+    c = shell.intersect_shell(g, o, d)
+    _card_agrees(k, c, 200)
+    assert len(batches) >= g.auto_segments
+    dead = 0
+    for q, sdir, t_max in batches:
+        kc = walk_skip_cuda(gk.shell_bvh, gk.shell_tris, q, sdir, 0.0, t_max,
+                            False)
+        pc = walk_skip_plain(gk.shell_bvh, gk.shell_tris, q, sdir, 0.0,
+                             t_max, False)
+        for f in ("t", "u", "v", "tri", "hit"):
+            assert torch.equal(getattr(kc, f), getattr(pc, f)), f
+        dead += int((t_max < 0).sum())
+    assert dead > 0
+
+
+@pytest.mark.parametrize("kind", ["segments", "spans"])
+def test_curves_on_card_match_cpu(dev, kind):
+    from gfxexp_torch.core import curves
+
+    cp = np.array([[0, 0, 0], [1, 1.2, 0.3], [2, -0.8, -0.4], [3, 0.2, 0.5],
+                   [4, 1.0, 0.0], [5, -0.3, 0.2]], np.float32)
+    rr = np.array([0.22, 0.15, 0.3, 0.18, 0.25, 0.2], np.float32)
+    if kind == "segments":
+        g = curves.build_curve_segments(cp, rr, curve_type="catmull_rom")
+        fn = curves.intersect_curve_segments
+    else:
+        g = curves.build_curve_spans(cp, rr, curve_type="catmull_rom")
+        fn = curves.intersect_curve_spans
+    rng = np.random.default_rng(11)
+    n = 4096
+    o = rng.uniform(-1, 5, (n, 3)).astype(np.float32)
+    o[:, 2] = rng.uniform(2, 4, n)
+    tgt = cp[rng.integers(1, 5, n)] + rng.normal(0, 0.3, (n, 3))
+    d = (tgt - o) / np.linalg.norm(tgt - o, axis=1, keepdims=True)
+    o, d = torch.from_numpy(o), torch.from_numpy(d.astype(np.float32))
+    _card_agrees(fn(g.to(dev), o.to(dev), d.to(dev)), fn(g, o, d), 500)
+
+
+def test_nrtdsm_app_on_card_matches_cpu(dev, tmp_path):
+    """The nrtdsm app at 32x32, 1 frame, -base-res 4, bilinear and -shell
+    (the torus OBJ): the card's image within 5e-3 (mean relative
+    difference) of its -device cpu image."""
+    from gfxexp_torch import bench
+    from gfxexp_torch.apps import nrtdsm as app
+
+    obj = bench.write_mesh_files(str(tmp_path / "meshes"))["obj"]
+    for extra in ([], ["-shell", "-shell-obj", obj, "-shell-grid", "2"]):
+        argv = ["-width", "32", "-height", "32", "-frames", "1",
+                "-base-res", "4", *extra]
+        a = app.main([*argv, "-output", str(tmp_path / "card")])
+        b = app.main([*argv, "-device", "cpu", "-output",
+                      str(tmp_path / "cpu")])
+        assert np.isfinite(a).all() and a.mean() > 0
+        assert S.image_rel_diff(a, b) < 5e-3

@@ -11,7 +11,10 @@ bump, texture LOD, solid-angle NEE and fused shadow rays, an EXR round
 trips, and the path_tracing app runs with -bump -texture-lod -exr; the
 tfdm app renders its displaced patch with -heatmap, the mesh loaders read
 an OBJ, a PLY, a GLB and a glTF written here, and the path_tracing app
-loads the OBJ through -obj. optax is blocked too: the NRC cache trains
+loads the OBJ through -obj; the nrtdsm app renders with -heatmap, the
+two-triangle surface and -shell (the OBJ inside the shells), noise and the
+affine forms evaluate, and a scene of tessellated and direct curves
+renders. optax is blocked too: the NRC cache trains
 without it. The package's sources and
 chip_smoke.py never name jax, flax, PIL or gfxexp_tpu."""
 
@@ -135,6 +138,29 @@ hdr = path_tracing.main(["-device", "cpu", "-width", "8", "-height", "8",
                          "-obj", paths["obj"], "1.0", "-name", "lamp",
                          "-emittance", "9", "9", "9", "-sphere", "0.2"])
 assert hdr.shape == (8, 8, 3) and np.isfinite(hdr).all()
+from gfxexp_torch.apps import nrtdsm as nrtdsm_app
+for extra in (["-heatmap"], ["-local-intersection", "two_triangle"],
+              ["-shell", "-shell-obj", paths["obj"], "-shell-grid", "2"]):
+    hdr = nrtdsm_app.main(["-device", "cpu", "-width", "8", "-height", "8",
+                           "-frames", "1", "-base-res", "2", "-output",
+                           OUT + "_nrtdsm", *extra])
+    assert hdr.shape == (8, 8, 3) and np.isfinite(hdr).all()
+assert load_png(OUT + "_nrtdsm_heatmap.png").shape == (8, 8, 3)
+from gfxexp_torch.core.noise import multi_octave_perlin3d
+from gfxexp_torch.core.interval import aa_to_iv, aa_var
+from gfxexp_torch.scene.compile import compile_scene
+assert bool(torch.isfinite(multi_octave_perlin3d(torch.rand(16, 3))).all())
+assert aa_to_iv(aa_var(0.0, 1.0, 0, 1))[1] > 1.0
+b = SceneBuilder()
+lamp = b.add_lambert_material((0, 0, 0), emittance=(9.0, 9.0, 9.0))
+cp = np.array([[0, 0, 0], [1, 1, 0], [2, 0, 0], [3, 1, 0]], np.float32)
+b.add_instance(b.add_curve(cp, np.full(4, 0.2, np.float32), lamp))
+b.add_curve(cp, np.full(4, 0.1, np.float32), lamp, curve_type="linear",
+            direct=True)
+b.add_curve(cp, np.full(4, 0.1, np.float32), lamp, direct=True)
+scene, bvh = compile_scene(b)
+img = render_sample(scene, bvh, bench_camera(8, 8), 8, 8, 0, PTConfig())
+assert len(scene.displaced) == 2 and bool(torch.isfinite(img).all())
 import gfxexp_torch.techniques.nrc  # noqa: F401
 assert not any(m == "jax" or m.startswith(("jax.", "flax", "optax", "PIL"))
                for m in sys.modules if sys.modules[m] is not None)

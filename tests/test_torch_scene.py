@@ -142,9 +142,3 @@ def test_unported_paths_raise():
         tcompile(b, traversal="wide")
     with pytest.raises(NotImplementedError):
         tcompile(b, traversal="widerow", spatial_splits=True)
-    with pytest.raises(NotImplementedError):
-        b.add_displaced(np.zeros((3, 3)), [[0, 1, 2]], np.zeros((3, 2)),
-                        np.zeros((4, 4)), kind="nrtdsm")
-    for fn in (b.add_curve, b.add_shell):
-        with pytest.raises(NotImplementedError):
-            fn()

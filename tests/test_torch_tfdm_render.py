@@ -3,8 +3,9 @@ app's demo scene (apps/tfdm.py demo_scene at -base-res 4: a floor, a lamp,
 a specular sphere and a 32-prism displaced patch), compiled skip-link,
 against gfxexp_tpu's render_sample at 16x16, 2 samples, with displaced
 shadows on and off; the scene carried across by from_numpy; fused shadow
-rays ignored on it; the tfdm CLI on the CPU; the kinds not ported yet
-raising; and a scene without displaced geometry dispatching the ops per
+rays ignored on it; the tfdm CLI on the CPU; every other displaced kind
+(curves, shells, NRTDSM) building and carried across, one unknown to the
+port raising; and a scene without displaced geometry dispatching the ops per
 sample it did before the hooks (gfxexp_torch/op_counts.py).
 
 Bars: mean relative image difference < 5e-4 against JAX (measured 1.8e-6)
@@ -25,7 +26,6 @@ import torch
 from gfxexp_torch.apps import tfdm as tapp
 from gfxexp_torch.render import pathtrace as tpt
 from gfxexp_torch.render.camera import make_camera as tcam
-from gfxexp_torch.scene.builder import SceneBuilder
 from gfxexp_torch.scene.compile import compile_scene as tcompile
 from gfxexp_torch.scene.types import from_numpy
 from gfxexp_torch.techniques import tfdm as T
@@ -115,23 +115,66 @@ def test_fused_shadow_rays_ignored_with_displaced(scenes):
     assert torch.equal(a, b) and ra == rb
 
 
-def test_unported_displaced_kinds_raise():
-    b = SceneBuilder()
-    with pytest.raises(NotImplementedError, match="#10"):
-        b.add_displaced(np.zeros((3, 3)), [[0, 1, 2]], np.zeros((3, 2)),
-                        np.zeros((4, 4)), kind="nrtdsm")
-    for fn in (b.add_curve, b.add_shell):
-        with pytest.raises(NotImplementedError, match="#10"):
-            fn()
+def _all_kinds(B, T):
+    """A builder of either package with every displaced kind under an
+    emissive tessellated curve tube: direct linear and cubic curves, a
+    shell and an NRTDSM patch."""
+    b = B.SceneBuilder()
+    m = b.add_lambert_material((0.5, 0.5, 0.5))
+    cp = np.array([[0, 0, 0], [1, 1.2, 0.3], [2, -0.8, -0.4], [3, 0.2, 0.5],
+                   [4, 1.0, 0.0]], np.float32)
+    rr = np.array([0.2, 0.15, 0.3, 0.18, 0.25], np.float32)
+    lamp = b.add_lambert_material((0, 0, 0), emittance=(20.0, 20.0, 20.0))
+    b.add_instance(b.add_curve(cp[:4] + [0.0, 2.0, 0.0], rr[:4], lamp,
+                               curve_type="bezier", n_axial=4, n_radial=5))
+    b.add_curve(cp, rr, m, curve_type="linear", direct=True)
+    b.add_curve(cp, rr, m, curve_type="cubic_bspline", direct=True)
+    pos, idx, uvs, nrm = japp.subdivided_plane(2)
+    box = np.array([[0.2, 0.2, 0.1], [0.6, 0.2, 0.1], [0.6, 0.6, 0.1],
+                    [0.2, 0.6, 0.8]], np.float32)
+    tets = np.array([[0, 2, 1], [0, 1, 3], [1, 2, 3], [0, 3, 2]], np.int32)
+    params = T.DisplacementParameters(h_scale=0.25)
+    b.add_shell(pos, idx, uvs, box, tets, params=params, material=m,
+                normals=nrm, shell_materials=[0, 1, 0, 1])
+    b.add_displaced(pos, idx, uvs, japp.procedural_height(16), params=params,
+                    material=m, kind="nrtdsm", normals=nrm)
+    return b
 
-    class ShellGeometry:
+
+def test_unported_displaced_kinds_raise():
+    """Curves, shells and NRTDSM raised here until the port had them; now
+    add_curve (tessellated, and direct as segments and as spans), add_shell
+    and add_displaced(kind="nrtdsm") build and compile, from_numpy carries
+    the JAX scene's geometry across equal to the port's build, field for
+    field, and the path tracer renders it. A displaced kind the port does
+    not have still raises."""
+    import gfxexp_tpu.scene.builder as JB
+    import gfxexp_torch.scene.builder as TB
+
+    js, _ = jcompile(_all_kinds(JB, J), traversal="skip")
+    ts, tb = tcompile(_all_kinds(TB, T), traversal="skip")
+    assert [type(g).__name__ for g in ts.displaced] == [
+        "CurveSegments", "CurveSpans", "ShellGeometry", "NRTDSMGeometry"]
+    assert ts.num_triangles == js.triangles.p0.shape[0]
+    fs = from_numpy(js)
+    for fg, tg in zip(fs.displaced, ts.displaced):
+        assert type(fg) is type(tg)
+        for f in ("p0", "p1", "r0", "coef", "lo", "shell_mat", "n2",
+                  "height"):
+            if hasattr(tg, f):
+                assert torch.equal(getattr(fg, f), getattr(tg, f)), f
+    assert torch.equal(fs.displaced[2].shell_bvh.node_pack,
+                       ts.displaced[2].shell_bvh.node_pack)
+    cam = tcam(position=[1.5, 1.5, 4.0], fov_y=math.radians(60),
+               aspect=1.0, target=[1.5, 0.0, 0.0])
+    img = tpt.render_sample(ts, tb, cam, 8, 8, 0, tpt.PTConfig())
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+
+    class FooGeometry:
         pass
 
-    fake = types.SimpleNamespace(displaced=(ShellGeometry(),))
-    with pytest.raises(NotImplementedError, match="ShellGeometry"):
-        from_numpy(fake)
-    with pytest.raises(NotImplementedError, match="ShellGeometry"):
-        tpt._tfdm_geometries(fake)
+    with pytest.raises(TypeError, match="FooGeometry"):
+        from_numpy(js.replace(displaced=(FooGeometry(),)))
 
 
 def test_scene_without_displaced_keeps_its_ops():
