@@ -10,8 +10,9 @@ Phases, one line each, any failure exits non-zero:
      scene on the host;
   3. kernel 1 vs plain: the wide-row walk (closest and any hit) on ~1M small
      bench scene rays against its plain PyTorch version, and both against
-     brute force on a 64k-ray subset; times and bounds at the main path's
-     batch size, and the lane utilisation of its schedules on that batch
+     brute force on a 64k-ray subset; times (the card alone: it spins
+     while the host enqueues, since a launch takes longer on the host) and
+     bounds at the main path's batch size, and the lane utilisation of its schedules on that batch
      (walk_trips.lane_steps: static grid, per-lane refill);
   4. slice: a 64x64, 2-sample render of the small scene on the card against
      the same render on the CPU (mean relative image difference < 5e-3, rays
@@ -25,7 +26,9 @@ Phases, one line each, any failure exits non-zero:
      build order, the ray-sorted tlas route), closest and any hit, against
      the plain version (exactly equal), the routes against each other, and
      brute force over the flattened world triangles on a 4,096-ray subset;
-     times and bounds at one 262,144-ray bounce batch, the candidate entry
+     each route's ms on one 262,144-ray bounce batch; on `city` (the
+     kernels line's scene; only there) the plain version's ms,
+     the bounds, the candidate entry
      boxes per live ray against the pick's kPick, the build order's lane
      utilisation under each schedule and the share of 32-entry union boxes
      rays enter (walk_trips.build_order_costs, group_shares), and ptxas's
@@ -43,7 +46,9 @@ Phases, one line each, any failure exits non-zero:
      plain version (t, u, v, tri exactly equal), the plain version against
      brute force over the world triangles on 4,096 rays, all again after 8
      frames of advance_frame (refit boxes); ms per 262,144-ray bounce batch
-     per scope, nodes and triangles visited per ray, the node and triangle
+     per scope; on `city` before the refit (only there) the
+     plain version's ms, nodes and triangles visited per ray, the node and
+     triangle
      rows the batch reads (the bound's bytes), and the per-ray scope's
      dependent round trips to memory per live ray (mean, p99, max) under
      the parent's schedule and the kernel's (skiplink.skip_trips), and the
@@ -52,7 +57,7 @@ Phases, one line each, any failure exits non-zero:
  12. animated slice: `big` after advance_frame at t = 0.5, 64x64, 2 samples,
      card against CPU (image rel diff < 5e-3, identical ray counts);
  13. animated main path: the path_tracing app's frame loop (advance_frame,
-     render_sample, film) at 512x512 for 16 frames on `city` and `big`:
+     render_sample, film) at 512x512 for 4 frames on `city` and `big`:
      update and pathTrace ms per frame, Mrays/s, peak memory, the skip
      kernel's launch counts (the thread scope's; kernels 1 and 3-5 must be
      0, and the warp and block scopes, which no user path takes, are 0 too),
@@ -74,10 +79,11 @@ Phases, one line each, any failure exits non-zero:
      (exactly equal) and against the per-ray walk (equal t, tri only on
      ties), with its steps per group and the share of lanes that take
      part on the timed batch (walk_trips.group_steps); ms per 262,144-ray
-     bounce batch, rows and chunks per ray, the
-     rows the batch reads, the bound, the candidate chunk boxes per live ray
-     against kPick, kernel 2's dependent round trips to memory per live ray
-     (mean, p99, max) under the parent's schedule and the kernel's
+     bounce batch, rows and chunks per ray; on `city` only, the plain
+     version's ms, the rows the batch reads, the bound, the candidate
+     chunk boxes per live ray against kPick, kernel 2's dependent round
+     trips to memory per live ray (mean, p99, max) under the parent's
+     schedule and the kernel's
      (persistent.chunked_trips), and ptxas's report of both kernels;
  17. single-level slice: `big` as chunked wide rows and as quantized rows at
      64x64, 2 samples, card against CPU;
@@ -95,7 +101,7 @@ Phases, one line each, any failure exits non-zero:
      launches;
  20. SVGF: 8 frames of svgf_frame at 128x128 on the card and on the CPU
      from the same G-buffers and lighting (mean relative difference <
-     SVGF_BAR); the svgf app's frame loop at 1920x1080, 16 frames, on the
+     SVGF_BAR); the svgf app's frame loop at 1920x1080, 8 frames, on the
      small scene (static, kernel 1) and `big` animated (kernel 6): ms per
      frame of update, gbuffer, pathTrace and svgf (fenced), the walks'
      launches, one svgf and one gbuffer pass under torch.profiler (CUDA
@@ -103,7 +109,7 @@ Phases, one line each, any failure exits non-zero:
  21. ReSTIR DI on 256 emitters over a floor with 16 spheres (built here):
      the classic and the rearchitected pipelines, 4 frames at 64x64 on the
      card against the CPU (image mean relative difference < 5e-3); at
-     1920x1080, 8 frames each: ms per frame of gbuffer and restir, shadow
+     1920x1080, 4 frames each: ms per frame of gbuffer and restir, shadow
      rays per frame, kernel 1's launches per frame, one frame under
      torch.profiler, out/torch_restir_{classic,rearch}.png; then the svgf,
      restir_di -rearch and path_tracing -denoise CLIs at 64x64, 4 frames,
@@ -115,7 +121,7 @@ Phases, one line each, any failure exits non-zero:
      and touch counts within 0.5%) on the 256-emitter scene (kernel 1) and
      on `big` animated, advanced on the CPU and copied (kernel 6); then the
      regir app's frame loop at 1920x1080 with the defaults (16^3 cells x
-     512 slots) on the 256-emitter scene, 8 frames: ms per frame of
+     512 slots) on the 256-emitter scene, 4 frames: ms per frame of
      buildCellReservoirs and pathTrace, one pass of each under
      torch.profiler, shadow rays and walk launches per frame, active
      cells, peak memory, out/torch_regir.png;
@@ -131,7 +137,7 @@ Phases, one line each, any failure exits non-zero:
      checkpoint; their PNGs;
  25. textures and PTConfig: the textured scene (bench.build_textured_scene;
      its PNG and DDS files written here and loaded through load_texture)
-     at 128x128, 4 samples, on the card against the CPU (image mean
+     at 128x128, 2 samples, on the card against the CPU (image mean
      relative difference < 5e-3, ray counts equal) as wide rows (kernel 1)
      and skip links (kernel 6), plain and with bump mapping, texture LOD,
      solid-angle NEE and fused shadow rays together, with the probability
@@ -140,7 +146,7 @@ Phases, one line each, any failure exits non-zero:
      no any-hit walks a sample); ReGIR's world-space grid and one frame on
      `big` two-level (kernel 5) against the same scene flattened;
  26. costs: the path_tracing app's frame loop on the textured scene at
-     1920x1080, 8 frames plain and with -bump -texture-lod (ms per
+     1920x1080, 4 frames plain and with -bump -texture-lod (ms per
      pathTrace, walk launches per frame, one frame under torch.profiler:
      CUDA kernels, idle share); the small scene at 512x512 with fused
      shadow rays off, on, on, off (Mrays/s, kernels and walk launches per
@@ -161,7 +167,7 @@ Phases, one line each, any failure exits non-zero:
      kernel 6 (-traversal skip) against their plain versions on those rays
      and on shadow rays from their hits to the lamp (equal hits and
      triangles); the demo scene at
-     128x128, 4 samples, displaced shadows on and off (image mean relative
+     128x128, 1 sample, displaced shadows on and off (image mean relative
      difference < 5e-3, rays within 0.5%: a march step can round across a
      texel edge on one device only); an OBJ + MTL (through -obj, with and
      without a convention word), a binary PLY and a GLB (through load_mesh)
@@ -192,11 +198,43 @@ Phases, one line each, any failure exits non-zero:
  31. NRTDSM costs: the nrtdsm app's frame loop at 512x512, one frame of the
      bilinear scene and one of -shell: ms per pathTrace, each displaced
      call fenced (ms, host syncs, rounds, exact steps), their share of the
-     frame, kernel 1's and kernel 6's launches a frame, peak memory; a
-     second frame's ops dispatched and walk launches; one call on the
+     frame, kernel 1's and kernel 6's launches a frame, peak memory; the
+     -shell cell's second frame's ops dispatched and walk launches; one
+     call on the
      primary rays fenced, its ops counted and under torch.profiler (CUDA
      kernels, CUDA kernels an op, launch calls, idle share); the CLIs'
      PNGs and stats.
+ 32. SBVH: `small` as wide rows and `big` flattened as quantized rows
+     (chunked), with and without spatial splits (references, rows, chunks,
+     host seconds; the numpy SBVH of `small` in a process of its own beside
+     the card's work); kernel 1 on small's SBVH table and kernel 7 on big's
+     chunked SBVH table, closest and any hit, on ~1M rays against their
+     plain versions (exactly equal) and against brute force over the
+     duplicated references on 4,096 rays (hits, t and the source triangle
+     perm[tri]); ms per 262,144-ray bounce batch on the SBVH tables beside
+     the tables without splits, timed in turns (without, SBVH, SBVH,
+     without) after the card spins ~10 ms, so that the calls the host
+     enqueues meanwhile run back to back, with the host's ms to enqueue a
+     launch beside each reading;
+     gfxexp_torch.bench.measure at 512x512 and
+     1920x1080 with and without splits (kernel 1's launches); a 64x64,
+     2-sample SBVH render, card against CPU;
+ 33. wide: `small` compiled traversal="wide" (the stack-based wide BVH in
+     plain torch): a 64x64, 2-sample render, card against CPU; one 512x512
+     sample: ms, CUDA kernels (torch.profiler), host syncs and loop steps a
+     query, no walk kernel launched;
+ 34. sharded, on a one-rank NCCL group (file:// rendezvous):
+     render_sample_sharded at 512x512 on small (kernel 1) and `big` as skip
+     links (kernel 6) equal to render_sample bit for bit; svgf_frame_sharded
+     on a 1920x1080 frame equal to svgf_frame; nrc_train_step_dp on 65,536
+     records on the card against train_step on the CPU (phase 23's bars);
+     the ms of each beside the unsharded call;
+ 35. options and utilities: sort_secondary_rays and compact_rays on small
+     and `city` flattened (wide rows) at 512x512 through bench.measure,
+     default, sort, compact, default: images and ray counts equal bit for
+     bit, Mrays/s of each; the path_tracing app at 128x128 with -live 0, an
+     orbit and a pick POSTed, the pick read back over localhost; a
+     DebugDraw PLY of small's top two BVH levels (chiprun_out/).
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -209,6 +247,7 @@ import struct
 import subprocess
 import sys
 import time
+import types
 import zlib
 
 import numpy as np
@@ -256,6 +295,7 @@ from gfxexp_torch.render.pathtrace import (
 )
 from gfxexp_torch.scene import animation
 from gfxexp_torch.utils.image_io import save_png
+from gfxexp_torch.utils.runtime import enable_compile_cache
 from gfxexp_torch.walk_trips import (
     build_order_costs,
     group_line,
@@ -319,7 +359,7 @@ SL_SCENES = ("big", "city")  # flattened, phases 15-18
 SL_FORMATS = ("widerow", "qrow")
 SL_WALKS = {"widerow": (walk_chunked_cuda, walk_chunked_plain),
             "qrow": (walk_qrow_cuda, walk_qrow_plain)}
-ANIM_FRAMES = 16  # frames of the animated main path (phase 13)
+ANIM_FRAMES = 4  # frames of the animated main path (phase 13)
 ANIM_RES = 512  # its resolution
 # phase 14's scene: a floor, an emissive sphere, and a sphere that moves
 APP_DSL = ["-cam-pos", "0", "1", "3.2", "-cam-pitch", "-12",
@@ -362,6 +402,35 @@ def bound(nbytes, ops):
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+SPIN_CYCLES = 20_000_000  # ~10 ms of the card's clock: the host's head start
+
+
+def _device_and_host_ms(fn, reps: int) -> tuple[float, float, bool]:
+    """(device ms per call, host ms per call to enqueue it, whether the host
+    finished enqueuing before the card reached the first call) over reps
+    calls after one warm call. The card spins for SPIN_CYCLES first, so
+    calls the host enqueues meanwhile run back to back: the events then
+    time the card alone, even where a call is shorter than the wrapper's
+    host work."""
+    fn()
+    torch.cuda.synchronize()
+    spun = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spun.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    h0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    h1 = time.perf_counter()
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (h1 - h0) * 1e3
+    return (start.elapsed_time(end) / reps, host_ms / reps,
+            host_ms < spun.elapsed_time(start))
 
 
 def phase_environment(report):
@@ -466,18 +535,24 @@ def phase_kernels(report, scene, bvh, dev):
     out = {}
     for kind, a in args.items():
         any_hit = kind == "any"
-        ms = time_ms(lambda: walk_cuda(bvh, *a, any_hit), 20)
+        # a launch takes less time on the card than on the host: the card
+        # spins while the host enqueues, so the events time the card alone
+        ms, host_ms, ahead = _device_and_host_ms(
+            lambda: walk_cuda(bvh, *a, any_hit), 20)
         plain_ms = time_ms(lambda: walk_plain(bvh, *a, any_hit), 2)
         _, rows = walk_plain(bvh, *a, any_hit, with_stats=True)
         live = int((a[3] >= 0).sum())
         bms, by = bound(BATCH * (RAY_IN + RAY_OUT) + table,
                         int(rows.sum()) * OPS_ROW)
-        out[kind] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+        out[kind] = {"ms": ms, "host_ms_per_launch": host_ms,
+                     "host_ahead_of_card": ahead,
+                     "plain_ms": plain_ms, "bound_ms": bms,
                      "bound_by": by, "rows_per_live_ray":
                      int(rows.sum()) / max(live, 1),
                      "lanes": lane_steps(rows.cpu().numpy())}
-    prim = time_ms(lambda: walk_cuda(bvh, o[:BATCH], d[:BATCH],
-                                     t_min[:BATCH], t_max[:BATCH], False), 20)
+    prim = _device_and_host_ms(lambda: walk_cuda(
+        bvh, o[:BATCH], d[:BATCH], t_min[:BATCH], t_max[:BATCH], False),
+        20)[0]
     report["kernels"] = {
         "rays": n, "closest_max_abs_err": err_c, "closest_t_rel": rel_t,
         "any_max_abs_err": err_a, "brute_subset": sub.numel(),
@@ -491,10 +566,12 @@ def phase_kernels(report, scene, bvh, dev):
           f" t rel {rel_t:.3g}), any == plain; brute {sub.numel()} rays: "
           f"{hit_mis} hit / {any_mis} any mismatches, "
           f"{int(tri_diff.sum())} tri ties; {BATCH}-ray bounce batch: "
-          f"closest {c['ms']:.4f} ms (plain {c['plain_ms']:.1f} ms, bound "
+          f"closest {c['ms']:.4f} ms (host {c['host_ms_per_launch']:.4f} "
+          f"ms a launch; plain {c['plain_ms']:.1f} ms, bound "
           f"{c['bound_ms']:.4f} ms by {c['bound_by']}, "
           f"{c['rows_per_live_ray']:.1f} rows/ray), any {a['ms']:.4f} ms "
-          f"(plain {a['plain_ms']:.1f} ms, bound {a['bound_ms']:.4f} ms by "
+          f"(host {a['host_ms_per_launch']:.4f} ms a launch; plain "
+          f"{a['plain_ms']:.1f} ms, bound {a['bound_ms']:.4f} ms by "
           f"{a['bound_by']}), primary closest {prim:.4f} ms", flush=True)
     for kind, e in out.items():
         print(f"[3 kernels] {BATCH}-ray bounce batch {kind}: "
@@ -736,7 +813,12 @@ def _pick_smem_line(what, count):
             f"memory per block, {math.ceil(count / tile)} tile(s)")
 
 
-def _inst_kernels_one(acc, world, dev, tag, which):
+def _inst_kernels_one(acc, world, dev, tag, which, detail=True):
+    """Every route against its plain version on ~1M rays, the routes
+    against each other, brute force on 4,096; the kernel's ms per route on
+    one bounce batch and, with `detail` (the scene the kernels line
+    reports), the plain version's ms, the bound, rows and entries per ray,
+    the candidate boxes and the build order's lane costs."""
     def first_hit(o0, d0):
         h, _ = walk_instanced_cuda(acc, o0, d0, 0.0, 1e30, False, "nearest")
         return h.t, h.hit
@@ -817,6 +899,9 @@ def _inst_kernels_one(acc, world, dev, tag, which):
             ms = time_ms(lambda: walk_instanced_cuda(
                 acc, *args, any_hit, route), 10)
             entry = {"ms": ms, "route_ms": route_ms}
+            out["times"][f"{kind}_{route}"] = entry
+            if not detail:
+                continue
             entry["plain_ms"] = time_ms(lambda: walk_instanced_plain(
                 acc, *args, any_hit, route), 1, warm=False)
             p_hit, _, rows, visits, seq = walk_instanced_plain(
@@ -841,7 +926,6 @@ def _inst_kernels_one(acc, world, dev, tag, which):
                     (args[3] >= 0).cpu().numpy(), stopped.cpu().numpy())
                 entry["lanes"]["groups"] = group_shares(
                     acc.chunk_lo, acc.chunk_hi, *args)
-            out["times"][f"{kind}_{route}"] = entry
             if route == "nearest":
                 out["candidates"][kind] = _candidates(
                     acc.chunk_lo, acc.chunk_hi, *args, visits)
@@ -856,7 +940,8 @@ def phase_inst_kernels(report, built, worlds, dev):
     for key, which in (("city", "city"), ("city_rebraid4", "city"),
                        ("big", "big")):
         acc = built[key][1]
-        out[key] = _inst_kernels_one(acc, worlds[which], dev, key, which)
+        out[key] = _inst_kernels_one(acc, worlds[which], dev, key, which,
+                                     detail=key == "city")
         r = out[key]
         t = r["times"]
         print(f"[7 inst kernels {key}] {r['rays']} rays: every route == "
@@ -873,12 +958,13 @@ def phase_inst_kernels(report, built, worlds, dev):
         for name, e in t.items():
             route = (f", whole route {e['route_ms']:.3f} ms"
                      if e["route_ms"] is not None else "")
+            more = (f", plain {e['plain_ms']:.1f} ms, bound "
+                    f"{e['bound_ms']:.4f} ms by {e['bound_by']}, "
+                    f"{e['rows_per_live_ray']:.1f} rows and "
+                    f"{e['entries_per_live_ray']:.2f} entries per live ray"
+                    if "plain_ms" in e else "")
             print(f"[7 inst kernels {key}] {BATCH}-ray bounce batch "
-                  f"{name}: {e['ms']:.4f} ms{route}, plain "
-                  f"{e['plain_ms']:.1f} ms, bound {e['bound_ms']:.4f} ms by "
-                  f"{e['bound_by']}, {e['rows_per_live_ray']:.1f} rows and "
-                  f"{e['entries_per_live_ray']:.2f} entries per live ray",
-                  flush=True)
+                  f"{name}: {e['ms']:.4f} ms{route}{more}", flush=True)
             if "lanes" in e:
                 print(f"[7 inst kernels {key}] {BATCH}-ray bounce batch "
                       f"{name}: lanes {lane_line(e['lanes'])}", flush=True)
@@ -1080,11 +1166,12 @@ def _skip_check(scene, bvh, which, dev, tag):
         o, d, t_min, t_max, sd, s_max)
 
 
-def _skip_times(scene, bvh, rays):
-    """Each scope's ms on one 262,144-ray bounce batch, the plain version's,
-    and the bound from what the plain version read on those rays: each ray
-    once, each node and triangle row it touched once (32 and 48 bytes), and
-    the operations of its node and triangle tests."""
+def _skip_times(scene, bvh, rays, detail=True):
+    """Each scope's ms on one 262,144-ray bounce batch; with `detail` (the
+    case the kernels line reports) also the plain version's, and the bound
+    from what the plain version read on those rays: each ray once, each
+    node and triangle row it touched once (32 and 48 bytes), and the
+    operations of its node and triangle tests."""
     o, d, t_min, t_max, sd, s_max = rays
     tris = scene.triangles
     b = slice(BATCH, 2 * BATCH)
@@ -1093,6 +1180,12 @@ def _skip_times(scene, bvh, rays):
         kind = "any" if any_hit else "closest"
         args = ((o[b], sd[b], t_min[b], s_max[b]) if any_hit
                 else (o[b], d[b], t_min[b], t_max[b]))
+        if not detail:
+            for scope in SCOPES:
+                out[f"{kind}_{scope}"] = {"ms": time_ms(
+                    lambda: walk_skip_cuda(bvh, tris, *args, any_hit,
+                                           scope), 10)}
+            continue
         plain_ms = time_ms(lambda: walk_skip_plain(bvh, tris, *args,
                                                    any_hit), 1, warm=False)
         _, st = walk_skip_plain(bvh, tris, *args, any_hit, with_stats=True)
@@ -1135,7 +1228,8 @@ def phase_skip_kernels(report, built, dev):
                 refit_s = time.perf_counter() - t0
             key = f"{which}_{state}"
             r, rays = _skip_check(scene, bvh, which, dev, key)
-            r["times"] = _skip_times(scene, bvh, rays)
+            r["times"] = _skip_times(scene, bvh, rays,
+                                     detail=key == "city_frame0")
             if state == "refit8":
                 r["advance_8_frames_s"] = refit_s
             out[key] = r
@@ -1151,6 +1245,11 @@ def phase_skip_kernels(report, built, dev):
                   f"{v['any']['tris_per_live_ray']:.2f} triangles",
                   flush=True)
             t = r["times"]
+            if "plain_ms" not in t["closest_thread"]:
+                print(f"[11 skip kernels {key}] {BATCH}-ray bounce batch: "
+                      + "; ".join(f"{k} {e['ms']:.4f} ms"
+                                  for k, e in t.items()), flush=True)
+                continue
             print(f"[11 skip kernels {key}] {BATCH}-ray bounce batch: " +
                   "; ".join(f"{k} {e['ms']:.4f} ms" for k, e in t.items())
                   + f"; plain closest {t['closest_thread']['plain_ms']:.1f}"
@@ -1455,13 +1554,15 @@ def _sl_check(scene, bvh, which, fmt, dev, tag):
             "brute_allowed": b_allowed}, rays, stats
 
 
-def _sl_times(bvh, fmt, rays, stats):
+def _sl_times(bvh, fmt, rays, stats, detail=True):
     """ms of the kernel on one 262,144-ray bounce batch, its plain
     version's (marking the rows it reads), and the bound from what the
     plain version read: each ray once, each row it touched once, the chunk
     boxes; the operations of its row visits and of one scan of the chunk
     boxes per live ray, however often the walk rescans them (`stats`: rows
-    and chunks per ray of every ray, from _sl_check)."""
+    and chunks per ray of every ray, from _sl_check). Without `detail` (a
+    scene the kernels line does not report) only the kernel's ms and the
+    rows and chunks per live ray."""
     kwalk, pwalk = SL_WALKS[fmt]
     o, d, t_min, t_max, sd, s_max = rays
     b = slice(BATCH, 2 * BATCH)
@@ -1472,22 +1573,24 @@ def _sl_times(bvh, fmt, rays, stats):
         args = ((o[b], sd[b], t_min[b], s_max[b]) if any_hit
                 else (o[b], d[b], t_min[b], t_max[b]))
         ms = time_ms(lambda: kwalk(bvh, *args, any_hit), 10)
+        rows, chunks, *tests = (x[b] for x in stats[kind])
+        live = max(int((args[3] >= 0).sum()), 1)
+        out[kind] = {"ms": ms, "rows_per_live_ray": int(rows.sum()) / live,
+                     "chunks_per_live_ray": int(chunks.sum()) / live}
+        if not detail:
+            continue
         logged, read = _row_log(bvh)
         plain_ms = time_ms(lambda: pwalk(logged, *args, any_hit), 1,
                            warm=False)
-        rows, chunks, *tests = (x[b] for x in stats[kind])
-        live = max(int((args[3] >= 0).sum()), 1)
         rows_read = int(read.sum())
         ops = (int(rows.sum()) * (OPS_ROW if fmt == "widerow" else OPS_QROW)
                + live * n_c * OPS_SLAB)
         bms, by = bound(BATCH * (RAY_IN + RAY_OUT) + rows_read
                         * ROW_BYTES[fmt] + n_c * CHUNK_BYTES, ops)
-        out[kind] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                     "bound_by": by, "rows_read": rows_read,
-                     "rows_per_live_ray": int(rows.sum()) / live,
-                     "chunks_per_live_ray": int(chunks.sum()) / live,
-                     "candidates": _candidates(bvh.chunk_lo, bvh.chunk_hi,
-                                               *args, chunks)}
+        out[kind].update(plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         rows_read=rows_read,
+                         candidates=_candidates(bvh.chunk_lo, bvh.chunk_hi,
+                                                *args, chunks))
         if tests:
             out[kind]["trips"] = _trips(
                 *chunked_trips(rows, tests[0], bvh.arity), args[3] >= 0)
@@ -1553,7 +1656,8 @@ def phase_sl_kernels(report, built, small_bvh, dev):
     for key, (scene, bvh) in built.items():
         which, fmt = key.split("_")
         r, rays, stats = _sl_check(scene, bvh, which, fmt, dev, key)
-        r["times"] = _sl_times(bvh, fmt, rays, stats)
+        r["times"] = _sl_times(bvh, fmt, rays, stats,
+                               detail=which == "city")
         del rays, stats
         out[key] = r
         t = r["times"]
@@ -1563,6 +1667,12 @@ def phase_sl_kernels(report, built, small_bvh, dev):
               f"{r['brute_allowed']}); pick: "
               f"{_pick_smem_line('chunks', bvh.num_chunks)}", flush=True)
         for kind, e in t.items():
+            if "plain_ms" not in e:
+                print(f"[16 single-level kernels {key}] {BATCH}-ray bounce "
+                      f"batch {kind}: {e['ms']:.4f} ms; per live ray "
+                      f"{e['rows_per_live_ray']:.1f} rows, "
+                      f"{e['chunks_per_live_ray']:.2f} chunks", flush=True)
+                continue
             print(f"[16 single-level kernels {key}] {BATCH}-ray bounce "
                   f"batch {kind}: {e['ms']:.4f} ms (plain "
                   f"{e['plain_ms']:.1f} ms, bound {e['bound_ms']:.4f} ms by "
@@ -1671,8 +1781,8 @@ def phase_sl_main(report, built, small, dev):
 
 GB_RES = 256  # phase 19's G-buffers
 TECH_W, TECH_H = 1920, 1080  # the techniques' frames (BASELINE.json's size)
-TECH_FRAMES = 16  # the svgf app's frames per scene (phase 20)
-RESTIR_FRAMES = 8  # ReSTIR frames per pipeline at 1080p (phase 21)
+TECH_FRAMES = 8  # the svgf app's frames per scene (phase 20)
+RESTIR_FRAMES = 4  # ReSTIR frames per pipeline at 1080p (phase 21)
 SVGF_BAR = 1e-3  # card vs CPU, mean relative difference per SVGF frame
 # card vs CPU G-buffer planes where hit, tri, unit and material agree. An
 # animated scene's world triangles come from each device's own
@@ -1774,7 +1884,7 @@ def _profile_pass(tag, fn, what):
 def phase_svgf(report, dev):
     """SVGF: 8 frames on the card against the CPU from the same inputs;
     then the svgf app's frame loop at 1920x1080 on the small scene (static,
-    kernel 1) and `big` animated (kernel 6), 16 frames each."""
+    kernel 1) and `big` animated (kernel 6), TECH_FRAMES each."""
     from gfxexp_torch.apps import svgf as svgf_app
     from gfxexp_torch.render.gbuffer import render_gbuffer
     from gfxexp_torch.techniques.svgf import (
@@ -2047,7 +2157,7 @@ def phase_restir(report, dev):
 
 CHECK_RES = 64  # ReGIR and NRC card-against-CPU frames (phases 22-23)
 REGIR_CHECK_FRAMES = 4
-REGIR_FRAMES = 8  # the regir app's frames at 1080p (phase 22)
+REGIR_FRAMES = 4  # the regir app's frames at 1080p (phase 22)
 # phase 22's card-against-CPU grid, (8, 4, 8) cells x 64 slots
 REGIR_SMALL = dict(grid_dimension=(8, 4, 8), num_light_slots_per_cell=64)
 SEL_BAR = 0.999  # card vs CPU: share of slots whose selected sample agrees
@@ -2440,8 +2550,8 @@ def phase_technique_clis(report):
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
 TEX_RES = 128  # phase 25's card-against-CPU renders
-TEX_SAMPLES = 4
-TEX_FRAMES = 8  # the path_tracing app's frames per run at 1080p (phase 26)
+TEX_SAMPLES = 2
+TEX_FRAMES = 4  # the path_tracing app's frames per run at 1080p (phase 26)
 FUSED_RUNS = ("off", "on", "on", "off")  # phase 26's small-scene turns
 # the default 512^2 sample of the small scene before the textures and the
 # rest of PTConfig came in: the CUDA kernels of its device trace and the
@@ -2810,7 +2920,7 @@ def phase_texture_clis(report, dev):
 
 TFDM_RAYS = 65536  # phase 28's camera and bounce rays
 TFDM_RES = 128  # phase 28's card-against-CPU renders
-TFDM_SAMPLES = 4
+TFDM_SAMPLES = 1
 MESH_RES = 64  # phase 28's mesh scenes, card against CPU
 # phase 29: the tfdm app's frames at 512^2 per base mesh (-base-res); the
 # app renders 32, cut to these, and -base-res 32's frame (20-24 s) dropped
@@ -3361,6 +3471,7 @@ NRTDSM_CLI_RES = 64  # the nrtdsm CLIs' images (phases 30-31)
 NRTDSM_BARS = {"hit": 0.999, "t_rtol": 1e-4, "t_share": 0.999}
 # phase 31's cells: the nrtdsm app's defaults (bilinear) and -shell
 NRTDSM_CELLS = {"bilinear": [], "shell": ["-shell"]}
+FRAME2_CELLS = ("shell",)  # phase 31's cells whose second frame is counted
 
 
 def _torus_obj():
@@ -3794,14 +3905,19 @@ def phase_nrtdsm_costs(report, dev, cli_rows):
                "calls": calls, "peak_mib": peak, "mean": float(img.mean())}
         row["calls_share_of_frame"] = row["calls_ms_per_frame"] / ms_frame
 
-        # the second frame's dispatched ops (~ CUDA kernels) and walks
-        _reset_counts()
-        with _Count() as counter:
-            render_sample(scene, bvh, cam, res, res, 1, cfg)
-        torch.cuda.synchronize()
-        walks = sum(v for c in _all_counts().values() for v in c.values())
-        row["frame2_ops"] = counter.ops
-        row["frame2_walk_launches"] = walks
+        # the second frame's dispatched ops (~ CUDA kernels) and walks,
+        # on the cells of FRAME2_CELLS only (the bilinear frame's, 13-18
+        # s, is left out for the script's time)
+        counter = walks = None
+        if cell in FRAME2_CELLS:
+            _reset_counts()
+            with _Count() as counter:
+                render_sample(scene, bvh, cam, res, res, 1, cfg)
+            torch.cuda.synchronize()
+            walks = sum(v for c in _all_counts().values()
+                        for v in c.values())
+            row["frame2_ops"] = counter.ops
+            row["frame2_walk_launches"] = walks
 
         # one call on the primary rays (the heatmap's), fenced, its ops
         # dispatched counted, then profiled: CUDA kernels an op
@@ -3830,7 +3946,7 @@ def phase_nrtdsm_costs(report, dev, cli_rows):
             "not measured",
             "steps_mean_hit_pixels": float(raw[raw > 0].mean()),
             "steps_max": int(raw.max())}
-        if kern:
+        if kern and counter is not None:
             row["frame2_kernels_estimate"] = (
                 counter.ops * len(kern) / call_ops.ops + walks)
         rows[cell] = row
@@ -3846,8 +3962,9 @@ def phase_nrtdsm_costs(report, dev, cli_rows):
               f"ms, {pc['syncs']:.0f} host syncs, {pc['rounds']:.1f} "
               f"rounds, {pc['exact_iterations']:.0f} exact steps, "
               f"{pc['bvh_iterations']:.0f} BVH steps; peak {peak:.0f} MiB; "
-              f"frame 2: {counter.ops} ops dispatched + {walks} walk "
-              f"launches (~{_num(est, 0)} CUDA kernels); the primary "
+              + (f"frame 2: {counter.ops} ops dispatched + {walks} walk "
+                 f"launches (~{_num(est, 0)} CUDA kernels); "
+                 if counter is not None else "") + f"the primary "
               f"rays' call: {wall:.0f} ms, "
               f"{p['ops']} ops, {p['kernels']} CUDA kernels "
               f"({_num(p['kernels_per_op'])} an op), {p['launch_calls']} "
@@ -3866,6 +3983,495 @@ def phase_nrtdsm_costs(report, dev, cli_rows):
     report["nrtdsm_costs"] = rows
 
 
+# ---------------------------------------------------------------------------
+# phases 32-35: SBVH, the wide BVH, sharding, the PTConfig options and the
+# runtime utilities
+# ---------------------------------------------------------------------------
+
+SBVH_CASES = (("small", "widerow"), ("big", "qrow"))  # (scene, table)
+SBVH_WALKS = {"widerow": (walk_cuda, walk_plain),
+              "qrow": (walk_qrow_cuda, walk_qrow_plain)}
+WIDE_RES = 64  # phase 33's card-against-CPU render
+NRC_DP_BATCH = 65536  # phase 34's data-parallel NRC batch
+OPTION_SCENES = ("small", "city")  # phase 35, city flattened as wide rows
+LIVE_RES = 128  # phase 35's path_tracing -live run
+
+
+def _numpy_sbvh_proc():
+    """A process that builds the small scene's SBVH with the numpy builder
+    and prints its host seconds and references as JSON (beside the card's
+    work of phase 32)."""
+    code = ("import json, time\n"
+            "from gfxexp_torch import bench\n"
+            "from gfxexp_torch.accel.bvh_build import build_bvh\n"
+            "t = bench.bench_scene_builder(scene='small').compile()"
+            ".triangles\n"
+            "t0 = time.time()\n"
+            "b, perm = build_bvh(t.p0.numpy(), t.e1.numpy(), t.e2.numpy(), "
+            "use_native=False, spatial_splits=True)\n"
+            "print(json.dumps({'seconds': time.time() - t0, 'references': "
+            "len(perm), 'triangles': t.p0.shape[0], 'nodes': "
+            "b.child_idx.shape[0], 'max_depth': b.max_depth}))\n")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _world_soup(which):
+    """The bench scene's world triangles (p0, e1, e2) on the host."""
+    t = bench.bench_scene_builder(scene=which).compile().triangles
+    return t.p0.numpy(), t.e1.numpy(), t.e2.numpy()
+
+
+def _sbvh_tables(report, dev):
+    """Each SBVH case's table built with and without splits: {(table kind,
+    splits): (table on the card, perm, soup in table order)}."""
+    tables, rows = {}, {}
+    for which, fmt in SBVH_CASES:
+        soup = _world_soup(which)
+        for splits in (False, True):
+            t0 = time.time()
+            if fmt == "widerow":
+                tab, perm = widerow.build_widerow(*soup,
+                                                  spatial_splits=splits)
+                dup = tuple(x[perm] for x in soup)
+            else:
+                tab, perm, dup = qrow.build_qrow(*soup,
+                                                 spatial_splits=splits)
+            secs = time.time() - t0
+            tables[(fmt, splits)] = (tab.to(dev), perm, dup)
+            key = f"{which}_{fmt}_{'sbvh' if splits else 'plain'}"
+            rows[key] = {"triangles": soup[0].shape[0],
+                         "references": int(perm.shape[0]),
+                         "chunks": tab.num_chunks,
+                         "rows": tab.num_chunks * tab.nodes.shape[1],
+                         "max_depth": tab.max_depth, "host_seconds": secs}
+            print(f"[32 sbvh build] {key}: {soup[0].shape[0]} triangles -> "
+                  f"{perm.shape[0]} references, {tab.num_chunks} chunks of "
+                  f"up to {tab.nodes.shape[1]} rows, max depth "
+                  f"{tab.max_depth}, native build + pack on the host "
+                  f"{secs:.2f}s", flush=True)
+    report["sbvh"] = {"build": rows}
+    return tables
+
+
+def _source_mismatches(perm, k, b, sub):
+    """Rays of `sub` where the walk and brute force (over the duplicated
+    soup) both hit at the same t (rtol 1e-4) but name different source
+    triangles perm[tri] beyond a tie."""
+    kt, kh, ktri = k.t[sub], k.hit[sub], k.tri[sub]
+    both = kh & b.hit
+    close = (kt - b.t).abs() <= 1e-4 * b.t.abs() + 1e-4
+    src_k = perm[ktri.clamp(min=0).long()]
+    src_b = perm[b.tri.clamp(min=0).long()]
+    same_t = (kt - b.t).abs() <= 1e-6 * b.t.abs()
+    return int((both & close & (src_k != src_b) & ~same_t).sum())
+
+
+def phase_sbvh(report, dev):
+    """SBVH: `small` as wide rows and `big` flattened as quantized rows,
+    with and without spatial splits; kernel 1 and kernel 7 on the SBVH
+    tables against their plain versions and brute force over the
+    duplicated soup; their ms per bounce batch beside the tables without
+    splits; bench.measure with and without splits; a card-against-CPU
+    render."""
+    proc = _numpy_sbvh_proc()
+    tables = _sbvh_tables(report, dev)
+    rep = report["sbvh"]
+    for which, fmt in SBVH_CASES:
+        tab, perm, dup = tables[(fmt, True)]
+        kwalk, pwalk = SBVH_WALKS[fmt]
+        tag = f"32 sbvh {which} {fmt}"
+
+        def first_hit(o0, d0):
+            h = kwalk(tab, o0, d0, 0.0, 1e30, False)
+            return h.t, h.hit
+
+        o, d, t_min, t_max, sd, s_max = _scene_rays(first_hit, which, dev)
+        res = {}
+        for any_hit in (False, True):
+            kind = "any" if any_hit else "closest"
+            dd, tm = (sd, s_max) if any_hit else (d, t_max)
+            k = kwalk(tab, o, dd, t_min, tm, any_hit)
+            p = pwalk(tab, o, dd, t_min, tm, any_hit)
+            torch.cuda.synchronize()
+            for f in ("hit", "t", "u", "v", "tri"):
+                diff = getattr(k, f) != getattr(p, f)
+                check(not bool(diff.any()), f"{tag} {kind}: {f} differs "
+                      f"from plain on {int(diff.sum())} rays")
+            res[kind] = k
+        n = o.shape[0]
+        sub = torch.arange(0, n, n // BRUTE_SUB, device=dev)[:BRUTE_SUB]
+        world = types.SimpleNamespace(
+            **{k: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+               for k, x in zip(("p0", "e1", "e2"), dup)}, count=len(perm))
+        brute = _brute_mismatches(world, res["closest"], res["any"], sub, o,
+                                  d, sd, t_min, t_max, s_max,
+                                  coplanar_apart=True)
+        _check_brute(brute, sub, tag)
+        bc = intersect_closest_brute(world, o[sub], d[sub], t_min[sub],
+                                     t_max[sub])
+        src = _source_mismatches(torch.from_numpy(perm).to(dev),
+                                 res["closest"], bc, sub)
+        check(src == 0, f"{tag}: {src} rays name another source triangle "
+              f"than brute force")
+        b = slice(BATCH, 2 * BATCH)
+        # the tables in turns, without splits, SBVH, SBVH, without: a drift
+        # of the card within the call shows as a spread between the two
+        # readings of one table; the host's ms to enqueue a launch, beside
+        # each, shows a reading the host held back
+        turns, host, ahead = {}, {}, {}
+        for any_hit in (False, True):
+            kind = "any" if any_hit else "closest"
+            args = ((o[b], sd[b], t_min[b], s_max[b]) if any_hit
+                    else (o[b], d[b], t_min[b], t_max[b]))
+            for splits in (False, True, True, False):
+                t_s = tables[(fmt, splits)][0]
+                key = f"{kind}_{'sbvh' if splits else 'plain'}"
+                ms, h_ms, first = _device_and_host_ms(
+                    lambda: kwalk(t_s, *args, any_hit), 20)
+                turns.setdefault(key, []).append(ms)
+                host.setdefault(key, []).append(h_ms)
+                ahead.setdefault(key, []).append(first)
+        times = {k: sum(v) / len(v) for k, v in turns.items()}
+        rep[f"{which}_{fmt}"] = {"rays": n, "brute": brute,
+                                 "source_mismatches": src, "ms": times,
+                                 "ms_turns": turns,
+                                 "host_ms_per_launch": host,
+                                 "host_ahead_of_card": ahead}
+        print(f"[32 {which} {fmt}] {n} rays: the kernel on the SBVH table "
+              f"== plain (closest, any); brute force over the "
+              f"{len(perm)} duplicated references on {sub.numel()} rays: "
+              f"{brute}, source triangles equal; ms per {BATCH}-ray bounce "
+              f"batch SBVH / without splits, the mean of two turns: closest "
+              f"{times['closest_sbvh']:.4f} / {times['closest_plain']:.4f},"
+              f" any {times['any_sbvh']:.4f} / {times['any_plain']:.4f}; "
+              f"turns (without, SBVH, SBVH, without; the host's enqueue "
+              f"ms a launch, * where it did not finish within the card's "
+              f"spin) "
+              + "; ".join(f"{k}: " + ", ".join(
+                  f"{m:.4f} (host {h:.4f}{'' if a else '*'})"
+                  for m, h, a in zip(turns[k], host[k], ahead[k]))
+                  for k in ("closest_plain", "closest_sbvh", "any_plain",
+                            "any_sbvh")),
+              flush=True)
+    tables = None
+    from gfxexp_torch.scene.compile import compile_scene
+
+    scene_s, bvh_s = compile_scene(bench.bench_scene_builder(scene="small"),
+                                   traversal="widerow", spatial_splits=True)
+    scene_s, bvh_s = scene_s.to(dev), bvh_s.to(dev)
+    scene_p, bvh_p = (x.to(dev) for x in bench.build_bench_scene("small"))
+    rows = {}
+    for size in ("512", "1080p"):
+        for name, s, bv in (("plain", scene_p, bvh_p),
+                            ("sbvh", scene_s, bvh_s)):
+            persistent.reset_launch_counts()
+            r = bench.measure(size, s, bv, device=dev)
+            _check_bench_row(r, f"32 bench {size} {name}")
+            lc = dict(persistent.launch_counts)
+            check(lc["closest"] > 0 and lc["any"] > 0,
+                  f"32 bench {size} {name}: kernel 1 not launched {lc}")
+            rows[f"{size}_{name}"] = {
+                "mrays": r["value"], "seconds": r["seconds"],
+                "rays": r["rays"], "kernel1_launches": lc}
+            print(f"[32 bench] small {size} {name}: {r['value']} Mrays/s "
+                  f"({r['rays']:.0f} rays in {r['seconds']:.3f}s), kernel 1 "
+                  f"launches {lc}", flush=True)
+    rep["bench"] = rows
+    rep["slice"] = _render_pair(scene_s, bvh_s, "small", dev, "32 sbvh slice")
+    out, err = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"32 numpy SBVH build failed: {err[-2000:]}")
+    rep["numpy_build"] = json.loads(out.strip().splitlines()[-1])
+    nb = rep["numpy_build"]
+    print(f"[32 sbvh] 64x64 2spp SBVH render cuda vs cpu: image rel diff "
+          f"{rep['slice']['image_rel_diff']:.3g}; numpy SBVH of small "
+          f"(beside the card's work): {nb['triangles']} -> "
+          f"{nb['references']} references in {nb['seconds']:.2f}s on the "
+          f"host", flush=True)
+
+
+def phase_wide(report, dev):
+    """traversal="wide": small compiled as the stack-based wide BVH, a
+    64x64 2-sample render card against CPU, then one 512x512 sample on the
+    card: ms, CUDA kernels, host syncs and loop steps a query."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gfxexp_torch.accel import traverse
+    from gfxexp_torch.scene.compile import compile_scene
+
+    scene, bvh = compile_scene(bench.bench_scene_builder(scene="small"),
+                               traversal="wide")
+    rep = {"nodes": int(bvh.child_idx.shape[0]), "max_depth": bvh.max_depth}
+    rep["slice"] = _render_pair(scene.to(dev), bvh.to(dev), "small", dev,
+                                "33 wide slice")
+    scene, bvh = scene.to(dev), bvh.to(dev)
+    cam = bench.bench_camera(512, 512).to(dev)
+    cfg = PTConfig(max_path_length=bench.MAX_PATH_LENGTH, count_rays=True)
+    _reset_counts()
+    traverse.reset_wide_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, rays = render_sample(scene, bvh, cam, 512, 512, 1, cfg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    stats = dict(traverse.wide_stats)
+    counts = _all_counts()
+    check(not any(v for c in counts.values() for v in c.values()),
+          f"33 wide: a walk kernel was launched: {counts}")
+    check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+          "33 wide: bad 512x512 image")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        render_sample(scene, bvh, cam, 512, 512, 1, cfg)
+        torch.cuda.synchronize()
+    kern = sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    q = max(stats["queries"], 1)
+    rep.update(ms_512=ms, rays=float(rays), cuda_kernels=kern or
+               "not measured", queries=stats["queries"],
+               syncs_per_query=stats["syncs"] / q,
+               steps_per_query=stats["steps"] / q)
+    report["wide"] = rep
+    print(f"[33 wide] small as a wide BVH ({rep['nodes']} nodes, depth "
+          f"{rep['max_depth']}): 64x64 2spp cuda vs cpu image rel diff "
+          f"{rep['slice']['image_rel_diff']:.3g}; one 512x512 sample "
+          f"{ms:.1f} ms, {rep['cuda_kernels']} CUDA kernels, "
+          f"{stats['queries']} queries, {rep['syncs_per_query']:.1f} syncs "
+          f"and {rep['steps_per_query']:.1f} loop steps a query, no walk "
+          f"kernel", flush=True)
+
+
+def _fenced_ms(fn, reps=1):
+    """Host ms of fn() fenced by torch.cuda.synchronize (mean of reps, after
+    a warm call) and its last result."""
+    out = fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps, out
+
+
+def phase_sharded(report, dev):
+    """The sharded entry points on a one-rank NCCL group (file://
+    rendezvous): the render at 512x512 on small (kernel 1) and `big` as
+    skip links (kernel 6), SVGF on a 1080p frame, the data-parallel NRC
+    step, each against its unsharded call (bit for bit; NRC at phase 23's
+    bars, card against CPU) and timed beside it."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from gfxexp_torch.core.tree import tree_leaves, tree_map
+    from gfxexp_torch.parallel import sharding
+    from gfxexp_torch.render.camera import lane_from_pixel
+    from gfxexp_torch.render.gbuffer import render_gbuffer
+    from gfxexp_torch.techniques import svgf
+    from gfxexp_torch.techniques.nrc import network as nrc
+
+    rdv = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{rdv}/rendezvous",
+                            world_size=1, rank=0)
+    rep = {}
+    try:
+        mesh = sharding.make_mesh()
+        cfg = PTConfig(max_path_length=bench.MAX_PATH_LENGTH)
+        order = lane_from_pixel(torch.arange(512 * 512, device=dev), 512,
+                                512)
+        for which, traversal, route in (("small", "widerow", "widerow"),
+                                        ("big", "skip", "skip")):
+            scene, bvh = (x.to(dev) for x in bench.build_bench_scene(
+                which, traversal=traversal))
+            cam = bench.bench_camera(512, 512, which).to(dev)
+            _reset_counts()
+            ms_s, lanes = _fenced_ms(lambda: sharding.render_sample_sharded(
+                mesh, scene, bvh, cam, 512, 512, 2, cfg))
+            counts = _all_counts()
+            ms_1, ref = _fenced_ms(lambda: render_sample(
+                scene, bvh, cam, 512, 512, 2, cfg))
+            check(torch.equal(lanes[order], ref),
+                  f"34 sharded render {which}: differs from render_sample")
+            check(_route_launched(counts, route),
+                  f"34 sharded render {which}: not on its kernel {counts}")
+            rep[f"render_{which}"] = {"ms": ms_s, "unsharded_ms": ms_1,
+                                      "launches": counts}
+            print(f"[34 sharded] render_sample_sharded {which} ({traversal})"
+                  f" 512x512 == render_sample bit for bit; {ms_s:.2f} ms "
+                  f"against {ms_1:.2f} ms unsharded; launches {counts}",
+                  flush=True)
+        scene, bvh = (x.to(dev) for x in bench.build_bench_scene("small"))
+        cam = bench.bench_camera(TECH_W, TECH_H).to(dev)
+        gb = render_gbuffer(scene, bvh, cam, cam, TECH_W, TECH_H, 0, False)
+        light = render_sample(scene, bvh, cam, TECH_W, TECH_H, 0,
+                              cfg).reshape(TECH_H, TECH_W, 3)
+        scfg = svgf.SVGFConfig()
+        st0 = svgf.make_svgf_state(TECH_W, TECH_H, dev)
+        ms_s, (a, st_a) = _fenced_ms(lambda: sharding.svgf_frame_sharded(
+            mesh, st0, gb, light, scfg), 3)
+        ms_1, (b, st_b) = _fenced_ms(lambda: svgf.svgf_frame(
+            st0, gb, light, scfg), 3)
+        check(torch.equal(a, b) and torch.equal(st_a.prev_noisy,
+                                                st_b.prev_noisy),
+              "34 sharded svgf: differs from svgf_frame")
+        rep["svgf"] = {"ms": ms_s, "unsharded_ms": ms_1}
+        print(f"[34 sharded] svgf_frame_sharded {TECH_W}x{TECH_H} == "
+              f"svgf_frame bit for bit; {ms_s:.2f} ms against {ms_1:.2f} ms",
+              flush=True)
+
+        ncfg = nrc.NRCConfig()
+        st_c = nrc.init_nrc(torch.Generator().manual_seed(SEED), ncfg, "cpu")
+        w = torch.randn(st_c["params"]["weights"][-1].shape,
+                        generator=torch.Generator().manual_seed(SEED)) * 0.1
+        for part in ("params", "ema"):
+            st_c[part]["weights"][-1] = w.clone()
+        rng = np.random.default_rng(SEED)
+        batch_c = (torch.from_numpy(rng.random((NRC_DP_BATCH, 14),
+                                               np.float32)),
+                   torch.from_numpy(rng.random((NRC_DP_BATCH, 3),
+                                               np.float32) * 2.0),
+                   torch.from_numpy(rng.random(NRC_DP_BATCH) < 0.8))
+        st_d = tree_map(lambda x: x.to(dev), st_c)
+        batch_d = tuple(x.to(dev) for x in batch_c)
+        ms_s, (sa, la) = _fenced_ms(lambda: sharding.nrc_train_step_dp(
+            mesh, st_d, *batch_d, ncfg), 3)
+        ms_1, _ = _fenced_ms(lambda: nrc.train_step(st_d, *batch_d, ncfg), 3)
+        sb, lb = nrc.train_step(st_c, *batch_c, ncfg)
+        diffs = torch.cat([(x.cpu() - y).abs().reshape(-1) for x, y in zip(
+            tree_leaves(sa["params"]), tree_leaves(sb["params"]))])
+        p_share = float((diffs <= NRC_PARAM_ATOL).float().mean())
+        loss_rel = abs(float(la) - float(lb)) / abs(float(lb))
+        check(loss_rel <= 1e-4 and p_share >= NRC_PARAM_SHARE,
+              f"34 sharded nrc: loss rel {loss_rel}, params within "
+              f"{NRC_PARAM_ATOL} on {p_share}")
+        rep["nrc"] = {"ms": ms_s, "unsharded_ms": ms_1,
+                      "loss_rel_diff": loss_rel, "param_share": p_share,
+                      "param_max_abs_err": float(diffs.max())}
+        print(f"[34 sharded] nrc_train_step_dp ({NRC_DP_BATCH} records) on "
+              f"the card against train_step on the CPU: loss rel diff "
+              f"{loss_rel:.3g} (bar 1e-4), params within {NRC_PARAM_ATOL} on"
+              f" {p_share:.5f} (bar {NRC_PARAM_SHARE}); {ms_s:.2f} ms against"
+              f" {ms_1:.2f} ms for train_step on the card", flush=True)
+    finally:
+        dist.destroy_process_group()
+    report["sharded"] = rep
+
+
+def _live_app(dev):
+    """The path_tracing app at LIVE_RES^2 with -live 0: an orbit and a pick
+    POSTed to the viewer before its first frame, the pick read back over
+    localhost. Returns (image, pick info, frames shown)."""
+    import urllib.request
+
+    from gfxexp_torch.apps import path_tracing
+    from gfxexp_torch.utils import viewer as viewer_mod
+
+    state = {}
+    orig = viewer_mod.LiveViewer.__init__
+
+    def post(port, ev):
+        req = urllib.request.Request(f"http://localhost:{port}/control",
+                                     data=json.dumps(ev).encode(),
+                                     method="POST")
+        return urllib.request.urlopen(req, timeout=10).status
+
+    def patched(self, port=0, **kw):
+        orig(self, port=0, **kw)
+        state["viewer"] = self
+        check(post(self.port, {"action": "orbit", "dx": 60, "dy": 10})
+              == 204 and post(self.port, {"action": "pick", "u": 0.5,
+                                          "v": 0.6}) == 204,
+              "35 live: a POST was refused")
+
+    viewer_mod.LiveViewer.__init__ = patched
+    try:
+        img = path_tracing.main(
+            ["-width", str(LIVE_RES), "-height", str(LIVE_RES), "-frames",
+             "4", "-live", "0", "-output",
+             os.path.join(REPO, "out", "torch_live")])
+    finally:
+        viewer_mod.LiveViewer.__init__ = orig
+    v = state["viewer"]
+    try:
+        port = v.port
+        with urllib.request.urlopen(f"http://localhost:{port}/pick",
+                                    timeout=10) as r:
+            pick = json.loads(r.read())
+        with urllib.request.urlopen(f"http://localhost:{port}/meta",
+                                    timeout=10) as r:
+            frames = int(r.read())
+    finally:
+        v.close()
+    return img, pick, frames
+
+
+def phase_options(report, dev, city):
+    """sort_secondary_rays and compact_rays on small at 512x512 and `city`
+    flattened (wide rows): bench.measure's 16-sample images equal the
+    default's bit for bit, with Mrays/s of each in turns; the path_tracing
+    app with -live; a DebugDraw PLY of small's top BVH levels."""
+    from gfxexp_torch.accel.bvh_build import build_bvh
+    from gfxexp_torch.utils.debug_draw import DebugDraw
+
+    rep = {}
+    built = {"small": bench.build_bench_scene("small"), "city": city}
+    for which in OPTION_SCENES:
+        scene, bvh = (x.to(dev) for x in built[which])
+        rows, ref = {}, None
+        for name in ("default", "sort_secondary_rays", "compact_rays",
+                     "default"):
+            kw = {} if name == "default" else {name: True}
+            r = bench.measure("512", scene, bvh, device=dev, which=which,
+                              cfg=PTConfig(max_path_length=bench
+                                           .MAX_PATH_LENGTH,
+                                           count_rays=True, **kw))
+            _check_bench_row(r, f"35 {which} {name}")
+            if ref is None:
+                ref = r
+            check(torch.equal(r["image"], ref["image"])
+                  and r["rays"] == ref["rays"],
+                  f"35 {which} {name}: the image differs from the default")
+            rows.setdefault(name, []).append(r["value"])
+        rep[which] = rows
+        print(f"[35 options] {which} 512x512, 16 samples: images equal bit "
+              f"for bit; Mrays/s " + ", ".join(
+                  f"{k} {v}" for k, v in rows.items()), flush=True)
+        built[which] = None
+    img, pick, frames = _live_app(dev)
+    check(np.isfinite(img).all() and img.mean() > 0 and frames == 4
+          and "hit" in pick and pick["pixel"] == [LIVE_RES // 2,
+                                                  int(0.6 * LIVE_RES)],
+          f"35 live: image / pick {pick} / frames {frames}")
+    rep["live"] = {"pick": pick, "frames": frames}
+    print(f"[35 live] path_tracing -live 0 at {LIVE_RES}x{LIVE_RES}, 4 "
+          f"frames, an orbit POSTed: mean pixel {img.mean():.4f}; pick read "
+          f"back over localhost: {pick}", flush=True)
+    soup = _world_soup("small")
+    b, _ = build_bvh(*soup)
+    dd = DebugDraw()
+    level, depth = [0], 0
+    while level and depth < 2:
+        nxt = []
+        for node in level:
+            for k in range(b.arity):
+                cnt = int(b.child_count[node, k])
+                if cnt < 0:
+                    continue
+                dd.set_color(*((1, 0, 0), (0, 1, 0))[depth])
+                dd.aabb(b.child_min[node, k].numpy(),
+                        b.child_max[node, k].numpy())
+                if cnt == 0:
+                    nxt.append(int(b.child_idx[node, k]))
+        level, depth = nxt, depth + 1
+    path = dd.save(os.path.join(REPO, "chiprun_out", "small_bvh_top.ply"))
+    verts, edges, _ = dd.counts
+    check(edges > 0 and edges % 12 == 0, f"35 debug draw: {dd.counts}")
+    rep["debug_draw"] = {"boxes": edges // 12, "vertices": verts}
+    print(f"[35 debug draw] small's BVH, top 2 levels: {edges // 12} boxes "
+          f"in {os.path.relpath(path, REPO)}", flush=True)
+    report["options"] = rep
+
+
 def mark(report, t_start, phase):
     """Seconds since the start at the end of `phase`, kept and printed."""
     secs = time.time() - t_start
@@ -3878,6 +4484,8 @@ def main():
     report = {}
     phase_environment(report)
     dev = torch.device("cuda", 0)
+    # the CLIs this script starts build into, and find, the same libraries
+    report["build_dir"] = enable_compile_cache()
     phase_build(report)
     t0 = time.time()
     scene, bvh = bench.build_bench_scene()
@@ -3909,8 +4517,10 @@ def main():
     phase_app_cli(report)
     built = skip_built = None  # free the card for the flattened tables
     mark(report, t_start, "14")
-    sl_built = {k: (s.to(dev), b.to(dev))
-                for k, (s, b) in phase_sl_build(report).items()}
+    sl_host = phase_sl_build(report)
+    sl_built = {k: (s.to(dev), b.to(dev)) for k, (s, b) in sl_host.items()}
+    city_host = sl_host["city_widerow"]  # phase 35 renders it again
+    sl_host = None
     mark(report, t_start, "15")
     sl = phase_sl_kernels(report, sl_built, bvh, dev)
     mark(report, t_start, "16")
@@ -3945,6 +4555,15 @@ def main():
     mark(report, t_start, "30")
     phase_nrtdsm_costs(report, dev, clis)
     mark(report, t_start, "31")
+    phase_sbvh(report, dev)
+    mark(report, t_start, "32")
+    phase_wide(report, dev)
+    mark(report, t_start, "33")
+    phase_sharded(report, dev)
+    mark(report, t_start, "34")
+    phase_options(report, dev, city_host)
+    city_host = None
+    mark(report, t_start, "35")
 
     kernels = [
         {"name": f"widerow_walk_{kind}", "route": "cuda",

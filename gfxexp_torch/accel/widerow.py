@@ -156,8 +156,10 @@ def morton_chunks(p0, e1, e2, est_rows: int, max_rows: int, min_tris: int,
     Morton order of their centroids (10 bits an axis) are cut into ranges of
     about n * max_rows / est_rows; `pack(sel, tri_offset)` builds one
     range's table and returns (table, leaf-order global ids, extra). A
-    table over max_rows rows is split in half and retried. Returns the
-    chunks' (table, ids, extra) in order."""
+    table over max_rows rows is split in half and retried. A chunk's
+    triangles start at the sum of the earlier chunks' ids (its leaf-order
+    references, duplicates included). Returns the chunks' (table, ids,
+    extra) in order."""
     n = p0.shape[0]
     c0 = p0 + (e1 + e2) / 3.0  # centroids
     lo = c0.min(axis=0)
@@ -190,7 +192,9 @@ def morton_chunks(p0, e1, e2, est_rows: int, max_rows: int, min_tris: int,
             work.append((start, mid))
             continue
         out.append((tab, gsel, extra))
-        tri_offset += end - start
+        # a chunk built with spatial splits holds more references than
+        # its range has triangles
+        tri_offset += len(gsel)
     return out
 
 

@@ -13,9 +13,11 @@ picks where the app runs: `cuda` (the default) or `cpu`; without a card,
 `-denoise` runs the SVGF denoiser (Denoiser) on the accumulated image
 every frame; `-exr` also writes the HDR image as EXR; `-env-texture` lights
 the scene with a lat-long EXR; `-bump`, `-texture-lod` (the builder then
-makes mips) and `-debug-switches` go to the path tracer. Not ported yet,
-and raising NotImplementedError when asked for: `-live` with its camera rig
-(utils/viewer.py).
+makes mips) and `-debug-switches` go to the path tracer. `-live [PORT]`
+serves the progressive image over HTTP (utils/viewer.py LiveViewer) and
+takes camera moves, debug toggles and picks from the page (CameraRig);
+the path_tracing and tfdm apps act on them, the others ignore them, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ def make_arg_parser(name: str) -> argparse.ArgumentParser:
     p.add_argument("-live", type=int, nargs="?", const=8716, default=None,
                    metavar="PORT", help="live progressive view over HTTP")
     p.add_argument("-traversal", type=str, default=None,
-                   choices=["skip", "widerow", "qrow", "instanced"],
+                   choices=["skip", "widerow", "qrow", "instanced",
+                            "wide"],
                    help="acceleration-structure format (default: widerow "
                         "for static scenes, skip for animated)")
     p.add_argument("-spatial-splits", action="store_true",
@@ -90,15 +93,6 @@ def parse_scene_args(parser, argv=None):
     args, rest = parser.parse_known_args(argv)
     args.scene_args = rest
     return args
-
-
-def check_unported(args):
-    """Raise for the viewer option, whose module the port does not have
-    yet."""
-    if getattr(args, "live", None) is not None:
-        raise NotImplementedError(
-            "-live needs the live viewer and its camera rig "
-            "(utils/viewer.py), which is not ported yet")
 
 
 def resolve_device(args) -> torch.device:
@@ -307,6 +301,59 @@ class PassTimer:
     def report(self) -> str:
         return ", ".join(f"{name}: {np.mean(vals):.2f} ms"
                          for name, vals in self.samples.items())
+
+
+def maybe_viewer(args):
+    """A LiveViewer on `-live`'s port when it was given, else None."""
+    if getattr(args, "live", None) is None:
+        return None
+    from gfxexp_torch.utils.viewer import LiveViewer
+
+    return LiveViewer(port=args.live)
+
+
+def viewer_update(viewer, film_beauty, frame: int, brightness: float = 1.0):
+    """Push the image [H, W, 3] (a tensor on any device) to the viewer."""
+    if viewer is not None:
+        viewer.update(film_beauty.detach().cpu().numpy(), frame=frame,
+                      brightness=brightness)
+
+
+def maybe_camera_rig(args, viewer):
+    """An interactive CameraRig when a live viewer is attached, orbiting a
+    point along the CLI camera's view at the camera's distance from the
+    origin (at least 1); None for offline renders. The view is the
+    orientation's +z column, as make_camera builds it (JAX's rig takes -z,
+    a point behind the camera: ROADMAP Queue C)."""
+    if viewer is None:
+        return None
+    from gfxexp_torch.utils.viewer import CameraRig
+
+    cam_pos = np.asarray(args.cam_pos, np.float64)
+    ori = euler_orientation(math.radians(args.cam_roll),
+                            math.radians(args.cam_pitch),
+                            math.radians(args.cam_yaw))
+    fwd = np.asarray(ori, np.float64) @ np.asarray([0.0, 0.0, 1.0])
+    dist = max(float(np.linalg.norm(cam_pos)), 1.0)
+    rig = CameraRig(cam_pos, cam_pos + fwd * dist)
+    rig.debug_switches = int(getattr(args, "debug_switches", 0))
+    return rig
+
+
+def rig_step(rig, viewer, args, film, make_film_fn):
+    """Drain the viewer's events into the rig. When the camera or the
+    switches changed, returns (camera on the CPU, make_film_fn(width,
+    height), debug switches): accumulation restarts, as the reference's
+    resetAccumulation on a move; else (None, film, None)."""
+    if rig is None or viewer is None:
+        return None, film, None
+    changed = rig.apply(viewer.drain_events())
+    if not changed and not rig.reset_requested:
+        return None, film, None
+    rig.reset_requested = False
+    camera = rig.make_camera(math.radians(args.fov),
+                             args.width / args.height)
+    return camera, make_film_fn(args.width, args.height), rig.debug_switches
 
 
 def save_outputs(args, hdr_image: np.ndarray):

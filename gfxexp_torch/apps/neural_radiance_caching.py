@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from gfxexp_torch.apps import common
+from gfxexp_torch.utils.runtime import enable_compile_cache
 
 
 def frame_loop(scene, bvh, camera, controllers, traversal: str, width: int,
@@ -120,7 +121,7 @@ def main(argv=None):
     p.add_argument("-resume", type=str, default=None,
                    help="load the cache's state before rendering")
     args = common.parse_scene_args(p, argv)
-    common.check_unported(args)
+    enable_compile_cache()
     dev = common.resolve_device(args)
     scene, bvh, controllers, traversal = common.compile_app_scene(args, dev)
     camera = common.make_camera_from_args(args).to(dev)

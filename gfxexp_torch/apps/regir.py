@@ -20,6 +20,7 @@ import sys
 import numpy as np
 
 from gfxexp_torch.apps import common
+from gfxexp_torch.utils.runtime import enable_compile_cache
 
 
 def frame_loop(scene, bvh, camera, controllers, traversal: str, width: int,
@@ -81,7 +82,7 @@ def main(argv=None):
     p.add_argument("-no-temporal", action="store_true")
     p.add_argument("-no-cell-randomization", action="store_true")
     args = common.parse_scene_args(p, argv)
-    common.check_unported(args)
+    enable_compile_cache()
     dev = common.resolve_device(args)
     scene, bvh, controllers, traversal = common.compile_app_scene(args, dev)
     camera = common.make_camera_from_args(args).to(dev)

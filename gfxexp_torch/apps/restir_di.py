@@ -21,6 +21,7 @@ import sys
 import numpy as np
 
 from gfxexp_torch.apps import common
+from gfxexp_torch.utils.runtime import enable_compile_cache
 
 
 def frame_loop(scene, bvh, camera, controllers, traversal: str, width: int,
@@ -94,7 +95,7 @@ def main(argv=None):
     p.add_argument("-light-subsets", type=int, default=128)
     p.add_argument("-light-subset-size", type=int, default=1024)
     args = common.parse_scene_args(p, argv)
-    common.check_unported(args)
+    enable_compile_cache()
     dev = common.resolve_device(args)
     scene, bvh, controllers, traversal = common.compile_app_scene(args, dev)
     camera = common.make_camera_from_args(args).to(dev)

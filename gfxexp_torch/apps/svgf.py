@@ -19,6 +19,7 @@ import sys
 import numpy as np
 
 from gfxexp_torch.apps import common
+from gfxexp_torch.utils.runtime import enable_compile_cache
 
 
 def frame_loop(scene, bvh, camera, controllers, traversal: str, width: int,
@@ -68,7 +69,7 @@ def main(argv=None):
     p.add_argument("-filter-stages", type=int, default=5)
     p.add_argument("-mollify-specular", action="store_true")
     args = common.parse_scene_args(p, argv)
-    common.check_unported(args)
+    enable_compile_cache()
     dev = common.resolve_device(args)
     scene, bvh, controllers, traversal = common.compile_app_scene(args, dev)
     camera = common.make_camera_from_args(args).to(dev)

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from gfxexp_torch.apps import common
+from gfxexp_torch.utils.runtime import enable_compile_cache
 
 
 def procedural_height(size: int = 128, kind: str = "ridges") -> np.ndarray:
@@ -171,14 +172,15 @@ def compile_demo(args, kind: str, params, shell_contents=None):
 def run_displaced_app(args, kind: str, params, shell_contents=None):
     """Build and compile the demo scene (shell-mapped with
     `shell_contents`), move it to `-device`, render `-frames` frames
-    (path_tracing.frame_loop: `pathTrace` a frame), write the PNG and, with
-    -heatmap, the heatmap. Returns the accumulated HDR image [H, W, 3]
+    (path_tracing.frame_loop: `pathTrace` a frame; with `-live`, the
+    viewer's camera, toggles and picks), write the PNG and, with -heatmap,
+    the heatmap. Returns the accumulated HDR image [H, W, 3]
     (numpy)."""
     from gfxexp_torch.apps.path_tracing import frame_loop
     from gfxexp_torch.render.pathtrace import PTConfig
     from gfxexp_torch.utils.image_io import save_png
 
-    common.check_unported(args)
+    enable_compile_cache()
     dev = common.resolve_device(args)
     scene, bvh, traversal = compile_demo(args, kind, params, shell_contents)
     scene, bvh = scene.to(dev), bvh.to(dev)
@@ -186,9 +188,12 @@ def run_displaced_app(args, kind: str, params, shell_contents=None):
     cfg = PTConfig(max_path_length=args.max_path_length,
                    enable_jitter=not args.no_jitter)
     timer = common.PassTimer(device=dev)
+    viewer = common.maybe_viewer(args)
+    live = (None if viewer is None
+            else (viewer, common.maybe_camera_rig(args, viewer), args))
     film, _, _, _ = frame_loop(scene, bvh, camera, [], traversal, args.width,
                                args.height, args.frames, cfg, timer,
-                               stats=args.stats)
+                               stats=args.stats, live=live)
     hdr = film.beauty.cpu().numpy()
     common.save_outputs(args, hdr)
     if args.heatmap:

@@ -1,9 +1,9 @@
 """Build the CUDA kernels in this directory with nvcc into shared libraries
 with a plain C interface, and load them with ctypes.
 
-Each `<name>.cu` becomes build/gfxexp_torch/lib<name>.so at first use, or
-when the source or any header in this directory (`*.cuh`) is newer than the
-library. Built for Hopper (`sm_90a`) with `--fmad=false`, so each kernel
+Each `<name>.cu` becomes lib<name>.so in `build_dir()` at first use, or
+when the source or any header in this directory (`*.cuh`) is newer than
+the library. Built for Hopper (`sm_90a`) with `--fmad=false`, so each kernel
 rounds every multiply and add on its own, as its plain PyTorch version does.
 `load_libraries` starts one nvcc per source, all at once.
 """
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import glob
+import hashlib
 import os
 import re
 import shutil
@@ -20,8 +21,9 @@ import tempfile
 import time
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build",
-                         "gfxexp_torch")
+_REPO = os.path.dirname(os.path.dirname(_DIR))
+# set by build_dir() at first use, or by enable_compile_cache(path)
+BUILD_DIR: str | None = None
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -31,6 +33,42 @@ _libs: dict = {}
 # library was reused) and nvcc's -Xptxas -v report (registers, spills)
 build_seconds: dict = {}
 build_log: dict = {}
+
+
+def _host_tag() -> str:
+    """Short hash of the host CPU's feature flags."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            flags = [ln for ln in f if ln.startswith("flags")][:1]
+        blob = flags[0] if flags else "unknown"
+    except OSError:
+        blob = "unknown"
+    return hashlib.sha1(blob.encode()).hexdigest()[:10]
+
+
+def _device_tag() -> str:
+    import torch
+
+    if not torch.cuda.is_available():
+        return "nocuda"
+    major, minor = torch.cuda.get_device_capability(0)
+    return f"sm{major}{minor}"
+
+
+def build_dir() -> str:
+    """The one directory the port's native libraries (the CUDA walks and
+    accel/native.py's libbvh.so) build into and load from:
+    `.cache/torch-<host>-<device>` in the repository. A library built on one
+    host can fault on another with a different instruction set (libbvh.so
+    is built with -march=native), so the directory is keyed by the host's
+    CPU flags, and by the compute capability of the first CUDA device
+    ("nocuda" without one). utils/runtime.enable_compile_cache(path) names
+    another directory."""
+    global BUILD_DIR
+    if BUILD_DIR is None:
+        BUILD_DIR = os.path.join(_REPO, ".cache",
+                                 f"torch-{_host_tag()}-{_device_tag()}")
+    return BUILD_DIR
 
 
 def _nvcc() -> str:
@@ -125,18 +163,19 @@ def load_libraries(names) -> dict:
     one nvcc per stale source in parallel. Raises when nvcc is missing or a
     build fails."""
     pending = {}
+    out_dir = build_dir()
     try:
         for name in names:
             if name in _libs or name in pending:
                 continue
             src = os.path.join(_DIR, name + ".cu")
-            so = os.path.join(BUILD_DIR, f"lib{name}.so")
+            so = os.path.join(out_dir, f"lib{name}.so")
             build_seconds[name] = 0.0
             if not _stale(src, so):
                 continue
             nvcc = _nvcc()
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.makedirs(out_dir, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
             os.close(fd)
             proc = subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-o", tmp, src],
@@ -158,7 +197,7 @@ def load_libraries(names) -> dict:
                 os.remove(tmp)
     for name in names:
         if name not in _libs:
-            lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
+            lib = ctypes.CDLL(os.path.join(out_dir, f"lib{name}.so"))
             _declare(name, lib)
             _libs[name] = lib
     return {name: _libs[name] for name in names}

@@ -87,11 +87,15 @@ _PI = float(np.pi)
 @dataclasses.dataclass(frozen=True)
 class PTConfig:
     """Integrator configuration: the fields and defaults of gfxexp_tpu's
-    PTConfig. `sort_secondary_rays` and `compact_rays` are not ported and
-    raise NotImplementedError when set; `displaced_shadows` traces shadow
-    rays against the scene's displaced meshes too. `texture_lod` needs an
-    atlas with mips (SceneBuilder(texture_mips=True)); `fuse_shadow_rays` is
-    ignored with a custom `nee_fn` and on scenes with displaced meshes."""
+    PTConfig. `sort_secondary_rays` sorts each bounce's closest-hit rays
+    by direction octant (dead lanes last) before the walk;
+    `compact_rays` partitions the lanes alive-first at each bounce after
+    the first; both leave the image bit-identical (the RNG is keyed by
+    pixel). `displaced_shadows` traces shadow rays against the scene's
+    displaced meshes too. `texture_lod` needs an atlas with mips
+    (SceneBuilder(texture_mips=True)); `fuse_shadow_rays` is ignored with
+    a custom `nee_fn`, on scenes with displaced meshes, and with ray
+    sorting or compaction."""
 
     max_path_length: int = 5
     enable_jitter: bool = True
@@ -113,15 +117,6 @@ class PTConfig:
     def use_mis(self):
         return (self.use_implicit_light_sampling
                 and self.use_explicit_light_sampling)
-
-
-_UNPORTED = ("sort_secondary_rays", "compact_rays")
-
-
-def _check_supported(cfg: PTConfig):
-    for name in _UNPORTED:
-        if getattr(cfg, name):
-            raise NotImplementedError(f"PTConfig.{name} is not ported yet")
 
 
 @dataclass(frozen=True)
@@ -381,6 +376,36 @@ def _next_event(scene, bvh, sp: SurfacePoint, v_out_local, frame, params, rs,
     return torch.where(occluded[..., None], 0.0, contrib)
 
 
+def _intersect_closest_sorted(bvh, tris, ray_o, ray_d, alive):
+    """Closest hit with the rays sorted by direction octant, dead lanes
+    last with tmax < 0 (no walk work), and the hits put back in lane order:
+    one stable argsort and the gathers."""
+    key = ((ray_d[:, 0] >= 0).to(torch.int64)
+           + 2 * (ray_d[:, 1] >= 0).to(torch.int64)
+           + 4 * (ray_d[:, 2] >= 0).to(torch.int64))
+    key = torch.where(alive, key, 8)
+    perm = torch.argsort(key, stable=True)
+    inv = torch.argsort(perm, stable=True)
+    t_max = torch.where(alive[perm], 1e30, -1.0)
+    hit = intersect_closest(bvh, tris, ray_o[perm], ray_d[perm], t_min=0.0,
+                            t_max=t_max)
+    return HitInfo(t=hit.t[inv], tri=hit.tri[inv], u=hit.u[inv],
+                   v=hit.v[inv], hit=hit.hit[inv],
+                   inst=None if hit.inst is None else hit.inst[inv])
+
+
+def _alive_first(alive):
+    """The stable alive-first order of the lanes [R] (JAX's cumsum
+    partition and scatter)."""
+    n = alive.shape[0]
+    a = alive.to(torch.int64)
+    n_alive = torch.cumsum(a, 0)
+    pos = torch.where(alive, n_alive - 1,
+                      n_alive[-1] + torch.cumsum(1 - a, 0) - 1)
+    return torch.zeros(n, dtype=torch.int64, device=alive.device).scatter_(
+        0, pos, torch.arange(n, device=alive.device))
+
+
 def _bump_normal(scene: SceneData, sp: SurfacePoint, nrm):
     """The shading normal rotated by the material's normal texture: a
     3-channel or 2-channel normal map or a height map, by the material's
@@ -421,7 +446,6 @@ def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
 
     `debug_switches` is the 8-bit field of DebugSwitches (None, an int or
     a 0-d tensor, read once on the host)."""
-    _check_supported(cfg)
     dbg = DebugSwitches.from_bits(debug_switches)
     has_aux = nee_aux is not None
     dev = scene.triangles.p0.device
@@ -460,7 +484,10 @@ def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
         lod_texels = (2.0 * torch.tan(camera.fov_y * 0.5) / height
                       * scene.textures.layers.shape[1])
     fuse = (cfg.fuse_shadow_rays and cfg.use_explicit_light_sampling
-            and nee_fn is None and not scene.displaced)
+            and nee_fn is None and not scene.displaced
+            and not cfg.sort_secondary_rays and not cfg.compact_rays)
+    # each lane's first lane (compaction permutes the lanes)
+    lane_ids = torch.arange(n, device=dev) if cfg.compact_rays else None
     # the previous bounce's shadow rays (fused mode): (contribution with
     # throughput and gates applied, origins, directions, tmax < 0 = none)
     pending = None
@@ -469,7 +496,15 @@ def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
     # no new direction) are peeled, as in the reference
     def step(bounce: int, first: bool, collect_only: bool):
         nonlocal ray_o, ray_d, throughput, alive, prev_pdf, contribution
-        nonlocal rays_traced, nee_aux, pending
+        nonlocal rays_traced, nee_aux, pending, pixel, lane_ids
+        if cfg.compact_rays and not first:
+            # dead lanes gather at the end, whole rows of them leave the
+            # walks at once; every lane keeps its pixel's random numbers
+            order = _alive_first(alive)
+            ray_o, ray_d = ray_o[order], ray_d[order]
+            throughput, alive = throughput[order], alive[order]
+            prev_pdf, contribution = prev_pdf[order], contribution[order]
+            pixel, lane_ids = pixel[order], lane_ids[order]
         rs = SampleStream(pixel, sample_idx, stream=bounce)
         if cfg.count_rays:
             rays_traced = rays_traced + alive.sum().to(torch.float32)
@@ -489,6 +524,9 @@ def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
             contribution = contribution + torch.where(
                 bh.hit[n:][..., None], 0.0, p_contrib)
             pending = None
+        elif cfg.sort_secondary_rays and not first and not scene.displaced:
+            hit = _intersect_closest_sorted(bvh, scene.triangles, ray_o,
+                                            ray_d, alive)
         else:
             hit = intersect_closest(bvh, scene.triangles, ray_o, ray_d,
                                     t_min=0.0, t_max=tmax)
@@ -650,6 +688,10 @@ def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
         step(bounce, first=False, collect_only=False)
     if L > 1:
         step(L, first=False, collect_only=True)
+    if cfg.compact_rays and L > 1:
+        # undo the bounces' alive-first orders
+        contribution = torch.zeros_like(contribution).index_copy_(
+            0, lane_ids, contribution)
 
     result = (contribution, rays_traced) if cfg.count_rays else contribution
     if has_aux:

@@ -1,6 +1,5 @@
 """Scene compilation: SceneBuilder -> (SceneData in traversal order, BVH)
-(port of gfxexp_tpu/scene/compile.py for the skip-link, wide-row,
-quantized-row and two-level traversals)."""
+(port of gfxexp_tpu/scene/compile.py)."""
 
 from __future__ import annotations
 
@@ -19,10 +18,15 @@ from gfxexp_torch.scene.types import SceneData
 
 def apply_triangle_permutation(scene: SceneData, perm) -> SceneData:
     """Reorder the triangles by `perm` (new[i] = old[perm[i]]) and remap the
-    light-order indirection to the new ids."""
+    light-order indirection to the new ids. An SBVH perm repeats the
+    triangles it split: an emitter then maps to its last copy (numpy's
+    scatter order, as the JAX package computes it), and every copy keeps
+    the emitter's pmf, as in JAX."""
     p = torch.as_tensor(np.asarray(perm), dtype=torch.int64)
-    inv = torch.empty_like(p)
-    inv[p] = torch.arange(p.shape[0])
+    # the last position of each old id: index_put_ leaves repeated indices
+    # to any order
+    inv = torch.full_like(p, -1).scatter_reduce(
+        0, p, torch.arange(p.shape[0]), "amax")
     tris = scene.triangles
     new_tris = dataclasses.replace(tris, **{
         f.name: getattr(tris, f.name)[p] for f in dataclasses.fields(tris)})
@@ -54,23 +58,27 @@ def compile_scene(builder: SceneBuilder, arity: int = 4, max_leaf: int = 4,
       traversal order, so shading sees the geometry that is traced;
     - "instanced": an InstancedAccel, per-group BLAS tables shared by the
       instances (`rebraid` > 1 opens the largest instances into subtree
-      entries).
-    Other structures (the stack-based wide BVH of traversal="wide") raise
-    NotImplementedError."""
+      entries);
+    - "wide": the stack-based wide BVH (a `BVH`, walked in plain torch).
+    `spatial_splits` builds the wide-row and quantized tables with SBVH
+    spatial splits (the permuted triangles then repeat the split ones); the
+    other traversals ignore it, as in the JAX package."""
     if traversal == "instanced":
         return builder.compile_instanced(arity=arity, max_leaf=max_leaf,
                                          rebraid=rebraid)
-    if traversal not in ("widerow", "qrow", "skip"):
-        raise NotImplementedError(
-            f"traversal={traversal!r} is not ported; use 'skip', 'widerow', "
-            f"'qrow' or 'instanced'")
+    if traversal not in ("widerow", "qrow", "skip", "wide"):
+        raise ValueError(
+            f"unknown traversal {traversal!r}: use 'skip', 'widerow', "
+            f"'qrow', 'instanced' or 'wide'")
     scene = builder.compile(use_probability_texture=use_probability_texture)
     tris = scene.triangles
-    if traversal == "skip":
+    if traversal in ("skip", "wide"):
         bvh, perm = build_bvh(tris.p0.numpy(), tris.e1.numpy(),
                               tris.e2.numpy(), arity=arity,
                               max_leaf=max_leaf)
         scene = apply_triangle_permutation(scene, perm)
+        if traversal == "wide":
+            return scene, bvh
         skip = build_skip_links(bvh.child_min, bvh.child_max, bvh.child_idx,
                                 bvh.child_count, max_leaf=max_leaf)
         return scene, pack_tables(skip, scene.triangles)

@@ -133,17 +133,23 @@ def apply(params, query, cfg: NRCConfig):
     return x
 
 
-def masked_loss(params, query, target, mask, cfg: NRCConfig):
+def masked_loss_sum(params, query, target, mask, cfg: NRCConfig):
     """tiny-cuda-nn's RelativeL2Luminance, (p - t)^2 / (lum(p)^2 + 0.01)
-    with the normaliser detached, over a batch: masked records weigh 0 and
-    the mean is over max(sum(mask), 1)."""
+    with the normaliser detached, summed over the records `mask` keeps
+    (the data-parallel step sums it over the devices)."""
     pred = apply(params, query, cfg)
     lum = (0.2126 * pred[..., 0] + 0.7152 * pred[..., 1]
            + 0.0722 * pred[..., 2])
     denom = (lum * lum).detach() + 0.01
     per = ((pred - target) ** 2).sum(dim=-1) / denom
-    per = torch.where(mask, per, 0.0)
-    return per.sum() / torch.clamp(mask.sum().to(torch.float32), min=1.0)
+    return torch.where(mask, per, 0.0).sum()
+
+
+def masked_loss(params, query, target, mask, cfg: NRCConfig):
+    """masked_loss_sum over max(sum(mask), 1): the batch's mean loss, the
+    masked records weighing 0."""
+    return (masked_loss_sum(params, query, target, mask, cfg)
+            / torch.clamp(mask.sum().to(torch.float32), min=1.0))
 
 
 def infer(state: NRCState, query, cfg: NRCConfig = NRCConfig()):
@@ -152,15 +158,20 @@ def infer(state: NRCState, query, cfg: NRCConfig = NRCConfig()):
         return apply(state["ema"], query, cfg)
 
 
-def loss_and_grads(params, query, target, mask, cfg: NRCConfig):
-    """(loss, grads with the structure of `params`)."""
+def value_and_grads(fn, params, *args):
+    """(fn(params, *args), its gradients with the structure of
+    `params`)."""
     leaves, structure = tree_flatten(params)
     with torch.enable_grad():
         leaves = [p.detach().requires_grad_(True) for p in leaves]
-        loss = masked_loss(tree_unflatten(structure, leaves), query, target,
-                           mask, cfg)
-        grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), tree_unflatten(structure, list(grads))
+        value = fn(tree_unflatten(structure, leaves), *args)
+        grads = torch.autograd.grad(value, leaves)
+    return value.detach(), tree_unflatten(structure, list(grads))
+
+
+def loss_and_grads(params, query, target, mask, cfg: NRCConfig):
+    """(loss, grads with the structure of `params`)."""
+    return value_and_grads(masked_loss, params, query, target, mask, cfg)
 
 
 def apply_step(state: NRCState, grads, cfg: NRCConfig) -> NRCState:

@@ -21,6 +21,14 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
 def save_png(path: str, image, apply_srgb: bool = True):
     """Write an [H, W, 3] linear float image in [0, 1] as 8-bit RGB PNG
     (sRGB-encoded unless apply_srgb is False)."""
+    data = encode_png(image, apply_srgb)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_png(image, apply_srgb: bool = True) -> bytes:
+    """save_png's file in memory (the live viewer's stream)."""
     img = np.clip(np.asarray(image, np.float64), 0.0, 1.0)
     if img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"expected [H, W, 3], got {img.shape}")
@@ -30,13 +38,10 @@ def save_png(path: str, image, apply_srgb: bool = True):
     px = np.round(img * 255.0).astype(np.uint8)
     h, w = px.shape[:2]
     raw = b"".join(b"\x00" + px[y].tobytes() for y in range(h))
-    data = (b"\x89PNG\r\n\x1a\n"
+    return (b"\x89PNG\r\n\x1a\n"
             + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
             + _chunk(b"IDAT", zlib.compress(raw, 6))
             + _chunk(b"IEND", b""))
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "wb") as f:
-        f.write(data)
 
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"

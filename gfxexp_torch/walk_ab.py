@@ -78,7 +78,7 @@ def build_trees(trees: dict) -> tuple[dict, dict]:
     each, up to MAX_NVCC at once. Returns ({name: {kernel: CDLL}}, {name:
     {kernel: ptxas lines}}); raises when a build fails."""
     nvcc = build._nvcc()
-    root = os.path.join(os.path.dirname(build.BUILD_DIR), "walk_ab")
+    root = os.path.join(os.path.dirname(build.build_dir()), "walk_ab")
     jobs = []
     for name, src_dir in trees.items():
         os.makedirs(os.path.join(root, name), exist_ok=True)
@@ -129,7 +129,7 @@ def sass_counts(trees: dict) -> dict:
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return {}
-    root = os.path.join(os.path.dirname(build.BUILD_DIR), "walk_ab")
+    root = os.path.join(os.path.dirname(build.build_dir()), "walk_ab")
     out = {}
     for name in trees:
         for k in KERNELS:

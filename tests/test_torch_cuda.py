@@ -1447,3 +1447,77 @@ def test_nrtdsm_app_on_card_matches_cpu(dev, tmp_path):
                       str(tmp_path / "cpu")])
         assert np.isfinite(a).all() and a.mean() > 0
         assert S.image_rel_diff(a, b) < 5e-3
+
+
+def _diagonal_soup(n_long=300, n_soup=2000, seed=3):
+    """Long thin diagonal triangles and a local soup (p0, e1, e2): spatial
+    splits duplicate many references."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-4, 4, size=(n_long, 3))
+    d = rng.normal(size=(n_long, 3))
+    d = 6.0 * d / np.linalg.norm(d, axis=-1, keepdims=True)
+    w = rng.normal(scale=0.05, size=(n_long, 3))
+    c = rng.uniform(-4, 4, size=(n_soup, 3))
+    s = [c + rng.normal(scale=0.4, size=(n_soup, 3)) for _ in range(3)]
+    p0 = np.concatenate([a, s[0]]).astype(np.float32)
+    p1 = np.concatenate([a + d, s[1]]).astype(np.float32)
+    p2 = np.concatenate([a + d * 0.5 + w, s[2]]).astype(np.float32)
+    return p0, p1 - p0, p2 - p0
+
+
+@pytest.mark.parametrize("fmt", ["widerow", "qrow_chunked", "qrow"])
+def test_sbvh_tables_kernels_match_plain(dev, fmt):
+    """Kernel 1 over an SBVH wide-row table and kernel 7 over SBVH
+    quantized tables (one, and chunked with duplicates in every chunk),
+    closest and any hit, dead lanes included: identical to the plain
+    walks."""
+    soup = _diagonal_soup()
+    if fmt == "widerow":
+        tb, perm = build_widerow(*soup, spatial_splits=True)
+        kernel, plain = walk_cuda, walk_plain
+    else:
+        tb, perm, _ = build_qrow(*soup, spatial_splits=True,
+                                 max_rows=200 if fmt == "qrow_chunked"
+                                 else 26000)
+        assert (tb.num_chunks >= 3) == (fmt == "qrow_chunked")
+        kernel, plain = walk_qrow_cuda, walk_qrow_plain
+    assert perm.shape[0] > soup[0].shape[0]
+    tb = tb.to(dev)
+    o, d = (x.to(dev) for x in _aimed(soup))
+    t_max = _dead_every_fifth(o.shape[0], dev)
+    for any_hit in (False, True):
+        k = kernel(tb, o, d, 1e-4, t_max, any_hit)
+        p = plain(tb, o, d, 1e-4, t_max, any_hit)
+        torch.cuda.synchronize()
+        assert k.hit.any() and not k.hit[t_max < 0].any()
+        for f in ("hit", "t", "u", "v", "tri"):
+            assert torch.equal(getattr(k, f), getattr(p, f)), f
+
+
+def test_sharded_render_world_one_matches_render_sample(dev, tmp_path):
+    """render_sample_sharded on a one-rank NCCL group (file:// rendezvous)
+    equals render_sample bit for bit, in lane order; ray sorting and
+    compaction leave the card's image bit-identical too."""
+    import torch.distributed as dist
+
+    from gfxexp_torch.parallel import sharding
+    from gfxexp_torch.render.camera import lane_from_pixel
+
+    scene, bvh = compile_scene(S.box_scene(TB), traversal="widerow")
+    scene, bvh = scene.to(dev), bvh.to(dev)
+    cam = make_camera(**S.BOX_CAMERA).to(dev)
+    cfg = tpt.PTConfig(max_path_length=4)
+    ref = tpt.render_sample(scene, bvh, cam, 64, 64, 3, cfg)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0)
+    try:
+        lanes = sharding.render_sample_sharded(sharding.make_mesh(), scene,
+                                               bvh, cam, 64, 64, 3, cfg)
+    finally:
+        dist.destroy_process_group()
+    order = lane_from_pixel(torch.arange(64 * 64, device=dev), 64, 64)
+    assert torch.equal(lanes[order], ref)
+    for opt in ("sort_secondary_rays", "compact_rays"):
+        img = tpt.render_sample(scene, bvh, cam, 64, 64, 3,
+                                dataclasses.replace(cfg, **{opt: True}))
+        assert torch.equal(img, ref), opt

@@ -14,8 +14,12 @@ an OBJ, a PLY, a GLB and a glTF written here, and the path_tracing app
 loads the OBJ through -obj; the nrtdsm app renders with -heatmap, the
 two-triangle surface and -shell (the OBJ inside the shells), noise and the
 affine forms evaluate, and a scene of tessellated and direct curves
-renders. optax is blocked too: the NRC cache trains
-without it. The package's sources and
+renders; a scene builds with spatial splits (wide and quantized rows), a
+"wide" BVH renders with ray sorting and compaction as without, the
+sharded render runs on a one-rank gloo group, the viewer, camera rig,
+DebugDraw and enable_compile_cache work, and the path_tracing app runs
+with -live -spatial-splits and with -traversal wide. optax is blocked
+too: the NRC cache trains without it. The package's sources and
 chip_smoke.py never name jax, flax, PIL or gfxexp_tpu."""
 
 import os
@@ -162,6 +166,48 @@ scene, bvh = compile_scene(b)
 img = render_sample(scene, bvh, bench_camera(8, 8), 8, 8, 0, PTConfig())
 assert len(scene.displaced) == 2 and bool(torch.isfinite(img).all())
 import gfxexp_torch.techniques.nrc  # noqa: F401
+from gfxexp_torch.accel.bvh_build import BVH
+from gfxexp_torch.accel.qrow import build_qrow
+b = SceneBuilder()
+b.add_instance(b.add_sphere(0.5, b.add_lambert_material((0.5, 0.5, 0.5))))
+b.add_instance(b.add_rectangle(4.0, 4.0, lamp))
+sw, wr = compile_scene(b, traversal="widerow", spatial_splits=True)
+t = sw.triangles
+_, perm, _ = build_qrow(t.p0.numpy(), t.e1.numpy(), t.e2.numpy(),
+                        max_rows=24, spatial_splits=True)
+assert len(perm) >= sw.num_triangles
+scene, wide = compile_scene(b, traversal="wide")
+assert isinstance(wide, BVH)
+ref = render_sample(scene, wide, bench_camera(8, 8), 8, 8, 0, PTConfig())
+for opt in ("sort_secondary_rays", "compact_rays"):
+    img = render_sample(scene, wide, bench_camera(8, 8), 8, 8, 0,
+                        PTConfig(**{opt: True}))
+    assert torch.equal(img, ref)
+import torch.distributed as dist
+from gfxexp_torch.parallel import sharding
+dist.init_process_group("gloo", init_method="file://" + OUT + "_rdv",
+                        world_size=1, rank=0)
+lanes = sharding.render_sample_sharded(sharding.make_mesh(), scene, wide,
+                                       bench_camera(8, 8), 8, 8, 0)
+dist.destroy_process_group()
+from gfxexp_torch.render.camera import lane_from_pixel
+assert torch.equal(lanes[lane_from_pixel(torch.arange(64), 8, 8)], ref)
+from gfxexp_torch.utils.debug_draw import DebugDraw
+from gfxexp_torch.utils.runtime import enable_compile_cache
+from gfxexp_torch.utils.viewer import CameraRig, LiveViewer
+v = LiveViewer(port=0)
+v.update(np.ones((4, 4, 3), np.float32))
+v.close()
+assert CameraRig([0, 0, 2], [0, 0, 0]).apply([{"action": "dolly"}])
+DebugDraw().aabb([0, 0, 0], [1, 1, 1]).save(OUT + ".ply")
+assert os.path.isdir(enable_compile_cache())
+hdr = path_tracing.main(["-device", "cpu", "-width", "8", "-height", "8",
+                         "-frames", "1", "-output", OUT, "-live", "0",
+                         "-spatial-splits"])
+hdr = path_tracing.main(["-device", "cpu", "-width", "8", "-height", "8",
+                         "-frames", "1", "-output", OUT, "-traversal",
+                         "wide"])
+assert hdr.shape == (8, 8, 3) and np.isfinite(hdr).all()
 assert not any(m == "jax" or m.startswith(("jax.", "flax", "optax", "PIL"))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK", len(names))

@@ -1,6 +1,7 @@
 """gfxexp_torch's host build against gfxexp_tpu's: compile_scene with the
-wide-row traversal gives the same row table, triangle order and light
-tables, and `from_numpy` carries JAX objects into the port unchanged."""
+wide-row traversal (and "wide", and spatial splits) gives the same
+structure, triangle order and light tables, and `from_numpy` carries JAX
+objects into the port unchanged."""
 
 import dataclasses
 import sys
@@ -136,9 +137,29 @@ def test_primary_rays_match_jax():
                                np.asarray(jc.orientation), atol=1e-6)
 
 
-def test_unported_paths_raise():
-    b = S.box_scene(TB)
-    with pytest.raises(NotImplementedError):
-        tcompile(b, traversal="wide")
-    with pytest.raises(NotImplementedError):
-        tcompile(b, traversal="widerow", spatial_splits=True)
+@pytest.mark.parametrize("traversal,splits", [("wide", False),
+                                               ("widerow", True),
+                                               ("qrow", True)])
+def test_unported_paths_raise(traversal, splits):
+    """The paths that raised before the port had them ("wide", spatial
+    splits) build what JAX builds: the structure and the scene's triangles
+    and light tables, bit for bit."""
+    js, jb = jcompile(S.instanced_spheres_scene(JB), traversal=traversal,
+                      spatial_splits=splits)
+    ts, tb = tcompile(S.instanced_spheres_scene(TB), traversal=traversal,
+                      spatial_splits=splits)
+    fields = (("child_min", "child_max", "child_idx", "child_count")
+              if traversal == "wide" else ("nodes",))
+    for f in fields:
+        np.testing.assert_array_equal(_bits(getattr(tb, f).numpy()),
+                                      _bits(getattr(jb, f)), err_msg=f)
+    assert tb.max_depth == jb.max_depth
+    for part, names in (("triangles", ("p0", "e1", "e2", "n0", "uv0",
+                                       "unit_id")),
+                        ("units", ("light_tri_index", "light_tri_pmf"))):
+        for f in names:
+            np.testing.assert_array_equal(
+                _bits(getattr(getattr(ts, part), f).numpy()),
+                _bits(getattr(getattr(js, part), f)), err_msg=f)
+    with pytest.raises(ValueError, match="traversal"):
+        tcompile(S.box_scene(TB), traversal="bogus")

@@ -167,7 +167,7 @@ def test_bad_inputs_raise():
     with pytest.raises(ValueError):
         intersect_closest_widerow(tb, torch.from_numpy(o)[:, :2],
                                   torch.from_numpy(d)[:, :2])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         intersect_closest(object(), None, torch.from_numpy(o),
                           torch.from_numpy(d))
 
