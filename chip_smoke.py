@@ -234,12 +234,21 @@ Phases, one line each, any failure exits non-zero:
      default, sort, compact, default: images and ray counts equal bit for
      bit, Mrays/s of each; the path_tracing app at 128x128 with -live 0, an
      orbit and a pick POSTed, the pick read back over localhost; a
-     DebugDraw PLY of small's top two BVH levels (chiprun_out/).
+     DebugDraw PLY of small's top two BVH levels (chiprun_out/);
+ 36. images, on a machine without PIL: every fixture of tests/torch_images
+     (JPEG baseline, progressive, CMYK and arithmetic-coded; 16-bit PNGs,
+     one Adam7; TGA RLE; BMP; GIF; PPM) decoded by the port and held to
+     the sha256 of PIL's decode (digests.json); the textured scene with a
+     512^2 progressive 4:2:0 JPEG, a 16-bit Adam7 PNG normal map and an
+     RLE TGA in place of its DDS and PNG files, TEX_RES^2, TEX_SAMPLES
+     samples as wide rows (kernel 1), card against CPU; the host's decode
+     ms per megapixel of that JPEG (best of IMAGE_REPS).
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -294,7 +303,7 @@ from gfxexp_torch.render.pathtrace import (
     render_sample,
 )
 from gfxexp_torch.scene import animation
-from gfxexp_torch.utils.image_io import save_png
+from gfxexp_torch.utils.image_io import decode_samples, save_png
 from gfxexp_torch.utils.runtime import enable_compile_cache
 from gfxexp_torch.walk_trips import (
     build_order_costs,
@@ -4472,6 +4481,94 @@ def phase_options(report, dev, city):
     report["options"] = rep
 
 
+IMAGE_DIR = os.path.join(REPO, "tests", "torch_images")
+# phase 36's image files in place of the textured scene's PNG and DDS files
+IMAGE_TEXTURES = {"normal": "normal_64_rgb16_adam7.png",
+                  "bc1": "photo_512_progressive420.jpg",
+                  "bc7": "albedo_64_rle.tga"}
+IMAGE_TIMED = "photo_512_progressive420.jpg"
+IMAGE_REPS = 5
+
+
+def phase_images(report, dev):
+    """Phase 36: the image decoders where there is no PIL. Every fixture
+    decodes to PIL's samples (by digest); the textured scene with JPEG,
+    16-bit Adam7 PNG and TGA textures renders on the card as on the CPU
+    (kernel 1 launched, counts reset just before); the host's decode time
+    of the 512^2 progressive JPEG."""
+    with open(os.path.join(IMAGE_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    rows = {}
+    for name, rec in sorted(digests.items()):
+        with open(os.path.join(IMAGE_DIR, name), "rb") as f:
+            data = f.read()
+        t0 = time.perf_counter()
+        px = decode_samples(data, name)
+        ms = (time.perf_counter() - t0) * 1e3
+        digest = hashlib.sha256(np.ascontiguousarray(px).tobytes()
+                                ).hexdigest()
+        check(digest == rec["sha256"] and str(px.dtype) == rec["dtype"]
+              and list(px.shape) == rec["shape"],
+              f"36 images {name}: {px.dtype} {list(px.shape)} digest "
+              f"{digest[:16]} vs PIL's {rec['dtype']} {rec['shape']} "
+              f"{rec['sha256'][:16]}")
+        rows[name] = {"ms": ms, "dtype": str(px.dtype),
+                      "shape": list(px.shape)}
+        print(f"[36 images {name}] {px.dtype} {list(px.shape)}, digest "
+              f"equal to PIL's, decoded in {ms:.1f} ms", flush=True)
+    with open(os.path.join(IMAGE_DIR, IMAGE_TIMED), "rb") as f:
+        data = f.read()
+    times = []
+    for _ in range(IMAGE_REPS):
+        t0 = time.perf_counter()
+        px = decode_samples(data, IMAGE_TIMED)
+        times.append(time.perf_counter() - t0)
+    mpix = px.shape[0] * px.shape[1] / 1e6
+    best = min(times) * 1e3
+    rows["timed"] = {"file": IMAGE_TIMED, "best_ms": best,
+                     "median_ms": float(np.median(times)) * 1e3,
+                     "ms_per_megapixel": best / mpix,
+                     "host_cores": os.cpu_count()}
+    print(f"[36 images decode] {IMAGE_TIMED} ({len(data)} bytes, "
+          f"{px.shape[1]}x{px.shape[0]}): best {best:.1f} ms, median "
+          f"{rows['timed']['median_ms']:.1f} ms of {IMAGE_REPS} on the host "
+          f"({os.cpu_count()} cores): {best / mpix:.1f} ms per megapixel",
+          flush=True)
+    files = {k: os.path.join(IMAGE_DIR, v) for k, v in IMAGE_TEXTURES.items()}
+    t0 = time.time()
+    s, b = bench.build_textured_scene(os.path.join(_tex_dir(), "images"),
+                                      traversal="widerow", files=files)
+    build_s = time.time() - t0
+    cam = bench.textured_camera(TEX_RES, TEX_RES)
+    cfg = PTConfig(max_path_length=bench.MAX_PATH_LENGTH, count_rays=True)
+    sd, bd = s.to(dev), b.to(dev)
+    _reset_counts()
+    a, ra = _tex_render(sd, bd, cam.to(dev), TEX_RES, TEX_SAMPLES, cfg, 0)
+    torch.cuda.synchronize()
+    counts = _all_counts()
+    c, rc = _tex_render(s, b, cam, TEX_RES, TEX_SAMPLES, cfg, 0)
+    rel = _rel(a, c)
+    check(_route_launched(counts, "widerow"),
+          f"36 images render: kernel 1 not launched: {counts}")
+    check(np.isfinite(a).all() and a.mean() > 0,
+          "36 images render: non-finite or black image")
+    check(rel < IMAGE_BAR and ra == rc,
+          f"36 images render: image rel diff {rel}, rays {ra} vs {rc}")
+    launches = {k: v for k, v in counts["kernel1"].items() if v}
+    rows["render"] = {"image_rel_diff": rel, "rays": ra,
+                      "launches": launches, "host_build_s": build_s,
+                      "textures": IMAGE_TEXTURES}
+    print(f"[36 images render] textured scene with {IMAGE_TEXTURES}, "
+          f"{TEX_RES}x{TEX_RES}, {TEX_SAMPLES} samples, wide rows: card vs "
+          f"CPU image rel diff {rel:.3g} (bar {IMAGE_BAR}), rays {ra:.0f} "
+          f"equal, kernel 1 launches {launches}, host build {build_s:.2f}s",
+          flush=True)
+    save_png(os.path.join(REPO, "out", "torch_textured_images.png"),
+             a.reshape(TEX_RES, TEX_RES, 3) / (1.0 + a.reshape(
+                 TEX_RES, TEX_RES, 3)))
+    report["images"] = rows
+
+
 def mark(report, t_start, phase):
     """Seconds since the start at the end of `phase`, kept and printed."""
     secs = time.time() - t_start
@@ -4564,6 +4661,8 @@ def main():
     phase_options(report, dev, city_host)
     city_host = None
     mark(report, t_start, "35")
+    phase_images(report, dev)
+    mark(report, t_start, "36")
 
     kernels = [
         {"name": f"widerow_walk_{kind}", "route": "cuda",

@@ -8,7 +8,8 @@ triangles, `-base-res n`) over the demo scene (a floor, an area light and a
 specular sphere) with the path tracer, whose displaced hooks trace it beside
 the triangles (techniques/tfdm.py). The height map is procedural
 (`-height-kind ridges|bumps|flat`, 128^2) or read from `-height-map` (a
-.dds through load_dds, else an 8-bit PNG), displaced by `-h-offset`,
+.dds through load_dds, else any image load_png reads; a 16-bit grey PNG
+keeps its full precision), displaced by `-h-offset`,
 `-h-scale` and `-h-bias`, with the `-local-intersection` surface type.
 `-heatmap` also writes `<output>_heatmap.png`, the march steps per primary
 ray. Runs on the card (`-device cuda`, the default) or on the CPU
@@ -78,7 +79,9 @@ def load_or_procedural_height(args) -> np.ndarray:
 
 def add_displacement_args(p):
     p.add_argument("-height-map", type=str, default=None,
-                   help="height map file (.dds/.png); procedural if omitted")
+                   help="height map file (.dds, or an image load_png reads: "
+                        "PNG, JPEG, TGA, BMP, GIF, PNM); procedural if "
+                        "omitted")
     p.add_argument("-height-kind", choices=["ridges", "bumps", "flat"],
                    default="ridges")
     p.add_argument("-h-offset", type=float, default=0.0)

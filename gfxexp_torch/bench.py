@@ -150,7 +150,8 @@ def _write_dds(path: str, blocks: bytes, width: int, height: int,
         f.write(head + blocks)
 
 
-def textured_scene_builder(b, tex_dir: str, seed: int = 5):
+def textured_scene_builder(b, tex_dir: str, seed: int = 5,
+                           files: dict = None):
     """Populate a fresh SceneBuilder (either package's: tests build the
     same scene in the JAX package) with the textured scene, writing its
     texture files into `tex_dir` first: a 4x4 floor with a checker of
@@ -159,7 +160,10 @@ def textured_scene_builder(b, tex_dir: str, seed: int = 5):
     diffuse texture, one with a height map and a BC7 diffuse texture (both
     DDS files of random blocks from `seed`); a 1x1 lamp facing down at
     y = 2 whose emission is a striped texture (emittance 40 and 10, the
-    constant 25 weights it for NEE); a dim constant environment (0.1)."""
+    constant 25 weights it for NEE); a dim constant environment (0.1).
+    `files` names other image files to load in place of the PNG and DDS
+    files, by key: "normal" (the normal map), "bc1" and "bc7" (the
+    spheres' diffuse textures)."""
     import importlib
     import os
 
@@ -186,6 +190,7 @@ def textured_scene_builder(b, tex_dir: str, seed: int = 5):
     bc7 = os.path.join(tex_dir, "bc7.dds")
     _write_dds(bc7, rng.integers(0, 256, 16 * 16 * 16, np.uint8).tobytes(),
                64, 64, dxgi=98)
+    files = {"normal": normal_png, "bc1": bc1, "bc7": bc7, **(files or {})}
     stripes = np.where((np.arange(32) // 4) % 2 == 0, 40.0, 10.0)
     stripes = np.broadcast_to(stripes[None, :, None], (32, 32, 3))
 
@@ -198,11 +203,12 @@ def textured_scene_builder(b, tex_dir: str, seed: int = 5):
                      diffuse_tex=b.add_texture(checker),
                      normal_tex=b.add_texture(ripple), normal_map_kind=1)
     ball_a = material(diffuse_color=(1.0, 1.0, 1.0),
-                      diffuse_tex=b.load_texture(bc1),
-                      normal_tex=b.load_texture(normal_png, to_linear=False),
+                      diffuse_tex=b.load_texture(files["bc1"]),
+                      normal_tex=b.load_texture(files["normal"],
+                                                to_linear=False),
                       normal_map_kind=0)
     ball_b = material(diffuse_color=(1.0, 1.0, 1.0),
-                      diffuse_tex=b.load_texture(bc7),
+                      diffuse_tex=b.load_texture(files["bc7"]),
                       normal_tex=b.add_texture(height), normal_map_kind=2)
     lamp = material(diffuse_color=(0.0, 0.0, 0.0),
                     emittance=(25.0, 25.0, 25.0),
@@ -407,11 +413,13 @@ def mesh_scene_builder(b, mesh_dir: str):
 
 def build_textured_scene(tex_dir: str, traversal: str = "skip",
                          texture_mips: bool = True,
-                         use_probability_texture: bool = False):
+                         use_probability_texture: bool = False,
+                         files: dict = None):
     """(SceneData, structure) of the textured scene on the CPU, compiled
-    as the apps compile a scene (`skip` by default, as compile_scene)."""
+    as the apps compile a scene (`skip` by default, as compile_scene);
+    `files` as textured_scene_builder takes them."""
     b = textured_scene_builder(SceneBuilder(texture_mips=texture_mips),
-                               tex_dir)
+                               tex_dir, files=files)
     return compile_scene(b, traversal=traversal,
                          use_probability_texture=use_probability_texture)
 

@@ -116,9 +116,10 @@ class SceneBuilder:
         return self.atlas.add(image)
 
     def load_texture(self, path: str, to_linear: bool = True) -> int:
-        """Load a texture file once (DDS through the BC decoders, else an
-        8-bit PNG) and return its id; a second load of the same path and
-        conversion returns the first id."""
+        """Load a texture file once and return its id: a `.dds` through the
+        BC decoders, any other file through load_png, which reads PNG,
+        JPEG, TGA, BMP, GIF and PNM by their signatures. A second load of
+        the same path and conversion returns the first id."""
         key = (path, to_linear)
         if key not in self._texture_cache:
             if path.lower().endswith(".dds"):

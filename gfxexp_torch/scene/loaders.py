@@ -8,8 +8,10 @@ from Kd / Ks / Ns) and "simple_pbr" (base colour, roughness Pr, metallic
 Pm). glTF materials are always the simple PBR model, from
 pbrMetallicRoughness; the node tree's TRS or matrix transforms are
 flattened into instances. Texture maps load through
-SceneBuilder.load_texture (PNG and BC1-7 DDS); an image the port cannot
-decode leaves the material's constant colour.
+SceneBuilder.load_texture (BC1-7 DDS, and PNG, JPEG, TGA, BMP, GIF and PNM
+through load_png); glTF images in a buffer view decode through
+decode_image. A glTF image the port cannot decode leaves the material's
+constant colour.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from gfxexp_torch.scene.builder import (
     compute_smooth_normals,
 )
 from gfxexp_torch.scene.types import BSDF_DIFFUSE_SPECULAR, BSDF_SIMPLE_PBR
-from gfxexp_torch.utils.image_io import decode_png
+from gfxexp_torch.utils.image_io import decode_image
 
 
 def parse_mtl(path: str) -> Dict[str, dict]:
@@ -446,7 +448,7 @@ def load_gltf(path: str, builder: SceneBuilder,
     buffers = _gltf_read_buffers(doc, base_dir, glb_bin)
 
     # --- textures -> atlas ids (external image files through
-    # builder.load_texture; images in a buffer view decoded as PNG) ---
+    # builder.load_texture; images in a buffer view through decode_image) ---
     tex_atlas: dict = {}
 
     def texture_id(tex_index: Optional[int], srgb: bool) -> int:
@@ -469,7 +471,7 @@ def load_gltf(path: str, builder: SceneBuilder,
                 blob = buffers[bv["buffer"]][
                     bv.get("byteOffset", 0):
                     bv.get("byteOffset", 0) + bv["byteLength"]]
-                tid = builder.add_texture(decode_png(
+                tid = builder.add_texture(decode_image(
                     blob, to_linear=srgb, name=f"{path} image {img_idx}"))
         except Exception as e:  # missing/unsupported image: constant color
             print(f"gltf: texture {tex_index} skipped ({e})")

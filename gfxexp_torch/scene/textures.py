@@ -254,7 +254,7 @@ _DXGI_TO_BC = {71: "BC1", 72: "BC1", 74: "BC2", 75: "BC2", 77: "BC3",
 def load_dds(path: str) -> np.ndarray:
     """A BC1-7 compressed DDS file -> [H, W, C] float32 (C = 4 for BC1-3
     and BC7, 1 for BC4, 2 for BC5, 3 for BC6H). Other formats raise
-    NotImplementedError."""
+    ValueError, as the JAX package's load_dds does."""
     with open(path, "rb") as f:
         data = f.read()
     (magic,) = struct.unpack_from("<I", data, 0)
@@ -272,8 +272,8 @@ def load_dds(path: str) -> np.ndarray:
             fmt = _DXGI_TO_BC.get(dxgi)
             off = 148
     if fmt is None:
-        raise NotImplementedError(
-            f"{path}: DDS format {fourcc!r} is not a BC1-7 format")
+        raise ValueError(f"{path}: unsupported DDS format {fourcc!r} (BC1-7 "
+                         f"only)")
     if fmt in ("BC6H", "BC7"):
         from gfxexp_torch.scene.bc67 import decode_bc6h, decode_bc7
 

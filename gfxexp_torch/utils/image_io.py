@@ -1,7 +1,22 @@
 """Image input and output with the standard library and numpy only (port of
-gfxexp_tpu/utils/image_io.py): PNG (8-bit) through zlib + struct, and a
-minimal scanline OpenEXR codec (no compression, ZIP/ZIPS; float32 and
-half) for HDR output and lat-long environment maps."""
+gfxexp_tpu/utils/image_io.py).
+
+Reading: `load_png` (JAX's name) and `decode_image` read what the JAX
+package reads through PIL, from the file's signature as PIL picks its
+plugin, not from its name: PNG (every bit depth and colour type, Adam7),
+JPEG (utils/jpeg.py), TGA, BMP, GIF (the first frame) and PNM P1-P6
+(utils/image_formats.py). The samples are PIL's, with three differences,
+each where JAX's result is not an image in [0, 1]: palettes expand to RGB
+(RGBA with transparency) where JAX hands back the indices / 255; 16-bit
+grey (PNG, and PNM with a maxval over 255) is divided by 65535 where JAX
+divides by 255; 1-bit grey (PNG, PNM P1 / P4, BMP and TGA) is 0 or 1 where
+JAX's is 0 or 1/255. Other formats PIL reads (TIFF, WebP, PSD, ICO, ...)
+raise NotImplementedError naming the format.
+
+Writing: `save_png` / `encode_png` ([H, W], [H, W, 2 | 3 | 4], float or
+uint8 passthrough) as JAX's do, and a minimal scanline OpenEXR codec (no
+compression, ZIP/ZIPS; float32 and half) for HDR output and lat-long
+environment maps."""
 
 from __future__ import annotations
 
@@ -19,8 +34,9 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
 
 
 def save_png(path: str, image, apply_srgb: bool = True):
-    """Write an [H, W, 3] linear float image in [0, 1] as 8-bit RGB PNG
-    (sRGB-encoded unless apply_srgb is False)."""
+    """Write an image as an 8-bit PNG: [H, W] grey, [H, W, 2] grey + alpha,
+    [H, W, 3] RGB or [H, W, 4] RGBA; float linear in [0, 1] (sRGB-encoded
+    unless apply_srgb is False) or uint8 written as it is."""
     data = encode_png(image, apply_srgb)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:
@@ -28,61 +44,74 @@ def save_png(path: str, image, apply_srgb: bool = True):
 
 
 def encode_png(image, apply_srgb: bool = True) -> bytes:
-    """save_png's file in memory (the live viewer's stream)."""
-    img = np.clip(np.asarray(image, np.float64), 0.0, 1.0)
-    if img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"expected [H, W, 3], got {img.shape}")
-    if apply_srgb:
-        img = np.where(img <= 0.0031308, img * 12.92,
-                       1.055 * np.power(img, 1.0 / 2.4) - 0.055)
-    px = np.round(img * 255.0).astype(np.uint8)
-    h, w = px.shape[:2]
-    raw = b"".join(b"\x00" + px[y].tobytes() for y in range(h))
-    return (b"\x89PNG\r\n\x1a\n"
-            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+    """save_png's file in memory (the live viewer's stream). Float images
+    are quantised in float32 as the JAX package's are."""
+    arr = np.asarray(image)
+    if arr.dtype != np.uint8:
+        arr = arr.astype(np.float32)
+        if apply_srgb:
+            arr = np.where(arr <= 0.0031308, arr * 12.92,
+                           1.055 * np.power(np.clip(arr, 0, 1), 1 / 2.4)
+                           - 0.055)
+        arr = (np.clip(arr, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    if arr.ndim == 3 and arr.shape[2] == 1:
+        arr = arr[:, :, 0]
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    if arr.ndim != 3 or arr.shape[2] not in _PNG_CTYPE:
+        raise ValueError(f"expected [H, W] or [H, W, 1-4], got {arr.shape}")
+    h, w, c = arr.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, w * c)],
+                         axis=1).tobytes()
+    return (_PNG_SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, _PNG_CTYPE[c],
+                                          0, 0, 0))
             + _chunk(b"IDAT", zlib.compress(raw, 6))
             + _chunk(b"IEND", b""))
 
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# channels per colour type: grey, RGB, palette, grey + alpha, RGBA
+# channels per colour type: grey, RGB, palette, grey + alpha, RGBA; the
+# bit depths each allows
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+_PNG_CTYPE = {1: 0, 2: 4, 3: 2, 4: 6}  # channels -> colour type written
+# Adam7's passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
-def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
-    """Undo the per-scanline filters (None, Sub, Up, Average, Paeth) of
-    8-bit samples: [h, w * bpp] uint8."""
-    stride = w * bpp
-    rows = np.frombuffer(raw, np.uint8, count=h * (stride + 1)).reshape(
-        h, stride + 1)
+def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the per-scanline filters (None, Sub, Up, Average, Paeth):
+    rows [h, 1 + stride] uint8 (filter byte first) -> [h, stride] uint8;
+    `bpp` bytes per complete pixel (1 below 8 bits)."""
+    h, stride = rows.shape[0], rows.shape[1] - 1
     out = np.zeros((h, stride), np.uint8)
-    prior = np.zeros(stride, np.int32)
+    prior = np.zeros(stride, np.int64)
     for y in range(h):
         ftype = int(rows[y, 0])
-        line = rows[y, 1:].astype(np.int32)
+        line = rows[y, 1:].astype(np.int64)
         if ftype == 0:
             cur = line
-        elif ftype == 1:  # Sub: a running sum per channel
-            cur = np.cumsum(line.reshape(w, bpp), axis=0).reshape(-1) & 255
+        elif ftype == 1:  # Sub: a running sum per byte of the pixel
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0).reshape(-1) & 255
         elif ftype == 2:  # Up
             cur = (line + prior) & 255
-        elif ftype in (3, 4):  # Average, Paeth: left to right by pixel
-            cur = np.zeros(stride, np.int32)
-            left = np.zeros(bpp, np.int32)
-            up_left = np.zeros(bpp, np.int32)
-            for x in range(0, stride, bpp):
-                up = prior[x:x + bpp]
+        elif ftype in (3, 4):  # Average, Paeth: left to right by byte
+            ln, up = line.tolist(), prior.tolist()
+            c = [0] * stride
+            for i in range(stride):
+                a = c[i - bpp] if i >= bpp else 0
+                b = up[i]
                 if ftype == 3:
-                    pred = (left + up) >> 1
-                else:
-                    p = left + up - up_left
-                    pa, pb, pc = (np.abs(p - left), np.abs(p - up),
-                                  np.abs(p - up_left))
-                    pred = np.where((pa <= pb) & (pa <= pc), left,
-                                    np.where(pb <= pc, up, up_left))
-                left = (line[x:x + bpp] + pred) & 255
-                cur[x:x + bpp] = left
-                up_left = up
+                    c[i] = (ln[i] + ((a + b) >> 1)) & 255
+                    continue
+                cc = up[i - bpp] if i >= bpp else 0
+                pa, pb, pc = abs(b - cc), abs(a - cc), abs(a + b - 2 * cc)
+                pred = a if pa <= pb and pa <= pc else (b if pb <= pc else cc)
+                c[i] = (ln[i] + pred) & 255
+            cur = np.asarray(c, np.int64)
         else:
             raise ValueError(f"PNG filter type {ftype} on row {y}")
         out[y] = cur
@@ -90,26 +119,33 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
     return out
 
 
-def load_png(path: str, to_linear: bool = True) -> np.ndarray:
-    """An 8-bit, non-interlaced PNG (grey, grey + alpha, RGB, RGBA or
-    palette) -> float32 in [0, 1]: [H, W] for grey, [H, W, C] otherwise
-    (a palette expands to RGB, or RGBA when it has transparency). With
-    to_linear every channel goes from sRGB to linear. Other PNGs raise
-    NotImplementedError."""
-    with open(path, "rb") as f:
-        return decode_png(f.read(), to_linear, path)
+def _png_pass(raw: bytes, off: int, w: int, h: int, c: int, depth: int):
+    """One image (or Adam7 pass) from `off` of the inflated stream ->
+    (samples [h, w, c] uint8 or uint16, offset after it)."""
+    stride = (w * c * depth + 7) // 8
+    n = h * (stride + 1)
+    if off + n > len(raw):
+        raise ValueError("PNG image data ends early")
+    rows = np.frombuffer(raw, np.uint8, count=n, offset=off).reshape(
+        h, stride + 1)
+    px = _unfilter(rows, max(1, c * depth // 8))
+    if depth == 16:
+        px = px.view(">u2").astype(np.uint16)
+    elif depth < 8:
+        bits = np.unpackbits(px, axis=1).reshape(h, -1, depth)
+        px = (bits * (1 << np.arange(depth - 1, -1, -1))).sum(-1).astype(
+            np.uint8)
+    return px[:, :w * c].reshape(h, w, c), off + n
 
 
-def decode_png(data: bytes, to_linear: bool = True,
-               name: str = "PNG data") -> np.ndarray:
-    """load_png on the bytes of a PNG file (`name` labels the errors)."""
-    if data[:8] != _PNG_SIGNATURE:
-        raise NotImplementedError(
-            f"{name}: not a PNG file; load_png reads PNG only (JPEG and the "
-            f"other formats PIL reads are not ported)")
+def _png_samples(data: bytes, name: str = "PNG data") -> np.ndarray:
+    """A PNG file's samples as PIL hands them back, palettes expanded:
+    uint8 for 8-bit and smaller depths (grey 2 and 4 bits scaled to 8 bits),
+    the high byte of 16-bit colour and grey + alpha (grey + alpha at 16 bits
+    becomes RGBA, as in PIL), uint16 for 16-bit grey, bool for 1-bit grey."""
     off = 8
     idat, palette, trns, hdr = [], None, None, None
-    while off < len(data):
+    while off + 8 <= len(data):
         (n,) = struct.unpack_from(">I", data, off)
         tag = data[off + 4:off + 8]
         body = data[off + 8:off + 8 + n]
@@ -127,29 +163,93 @@ def decode_png(data: bytes, to_linear: bool = True,
     if hdr is None:
         raise ValueError(f"{name}: no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = hdr
-    if depth != 8 or ctype not in _PNG_CHANNELS or interlace != 0:
-        raise NotImplementedError(
-            f"{name}: PNG with bit depth {depth}, colour type {ctype}, "
-            f"interlace {interlace}; load_png reads 8-bit non-interlaced "
-            f"grey, grey + alpha, RGB, RGBA and palette images")
+    if depth not in _PNG_DEPTHS.get(ctype, ()) or interlace > 1:
+        raise ValueError(f"{name}: PNG with bit depth {depth}, colour type "
+                         f"{ctype}, interlace {interlace}")
     c = _PNG_CHANNELS[ctype]
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w, c).reshape(h, w, c)
+    raw = zlib.decompress(b"".join(idat))
+    if interlace == 0:
+        px, _ = _png_pass(raw, 0, w, h, c, depth)
+    else:
+        px = np.zeros((h, w, c), np.uint16 if depth == 16 else np.uint8)
+        off = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = (w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy
+            if pw > 0 and ph > 0:
+                px[y0::dy, x0::dx], off = _png_pass(raw, off, pw, ph, c,
+                                                    depth)
     if ctype == 3:
         if palette is None:
             raise ValueError(f"{name}: palette image without PLTE")
-        idx = px[:, :, 0]
-        px = palette[idx]
+        full = np.zeros((256, 4), np.uint8)
+        full[:, 3] = 255
+        full[:len(palette), :3] = palette[:256]
         if trns is not None:
-            alpha = np.full(len(palette), 255, np.uint8)
-            alpha[:len(trns)] = trns[:len(palette)]
-            px = np.concatenate([px, alpha[idx][:, :, None]], axis=2)
-    elif ctype == 0:
+            full[:min(len(trns), 256), 3] = trns[:256]
+        return full[px[:, :, 0], :4 if trns is not None else 3]
+    if ctype == 0:
         px = px[:, :, 0]
-    arr = px.astype(np.float32) / 255.0
+        if depth == 1:
+            return px.astype(bool)
+        return px if depth == 16 else (px * (255 // ((1 << depth) - 1))
+                                       ).astype(np.uint8)
+    if depth == 16:
+        px = (px >> 8).astype(np.uint8)
+        if ctype == 4:  # PIL's LA;16B -> RGBA
+            px = px[:, :, [0, 0, 0, 1]]
+    return px
+
+
+def _samples_to_float(px: np.ndarray, to_linear: bool) -> np.ndarray:
+    """Samples -> float32 as JAX's load_png computes it: / 255 for uint8,
+    / 65535 for uint16, 0 or 1 for bool; with to_linear every channel goes
+    from sRGB to linear."""
+    if px.dtype == np.bool_:
+        arr = px.astype(np.float32)
+    elif px.dtype == np.uint16:
+        arr = px.astype(np.float32) / 65535.0
+    else:
+        arr = px.astype(np.float32) / 255.0
     if to_linear:
         arr = np.where(arr <= 0.04045, arr / 12.92,
                        np.power((arr + 0.055) / 1.055, 2.4))
     return arr
+
+
+def decode_samples(data: bytes, name: str = "image data") -> np.ndarray:
+    """The samples of an image file of any format the port reads, found
+    from its signature as PIL finds its plugin (see the module's
+    docstring): uint8, uint16 (16-bit grey) or bool (1-bit grey); [H, W]
+    grey or [H, W, C]."""
+    from gfxexp_torch.utils import image_formats as fmt
+
+    kind = fmt.sniff(data)
+    if kind == "PNG":
+        return _png_samples(data, name)
+    if kind == "JPEG":
+        from gfxexp_torch.utils.jpeg import decode_jpeg
+
+        return decode_jpeg(data, name)
+    if kind in fmt.DECODERS:
+        return fmt.DECODERS[kind](data, name)
+    raise NotImplementedError(
+        f"{name}: {kind} image; the port reads PNG, JPEG, TGA, BMP, GIF and "
+        f"PNM (P1-P6), not the other formats PIL reads")
+
+
+def decode_image(data: bytes, to_linear: bool = True,
+                 name: str = "image data") -> np.ndarray:
+    """load_png on the bytes of an image file (`name` labels the errors):
+    float32 [H, W] for grey, [H, W, C] otherwise."""
+    return _samples_to_float(decode_samples(data, name), to_linear)
+
+
+def load_png(path: str, to_linear: bool = True) -> np.ndarray:
+    """An image file of any format the port reads (JAX's name, which reads
+    whatever PIL reads) -> float32 in [0, 1]: [H, W] for grey, [H, W, C]
+    otherwise. With to_linear every channel goes from sRGB to linear."""
+    with open(path, "rb") as f:
+        return decode_image(f.read(), to_linear, path)
 
 
 # ---------------------------------------------------------------------------

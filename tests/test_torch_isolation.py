@@ -8,7 +8,9 @@ the lane-group walk runs, and the path_tracing, svgf, restir_di (-rearch
 -denoise), regir and neural_radiance_caching apps render on the CPU; the
 textured scene (its PNG and DDS files written and loaded) renders with
 bump, texture LOD, solid-angle NEE and fused shadow rays, an EXR round
-trips, and the path_tracing app runs with -bump -texture-lod -exr; the
+trips, the path_tracing app runs with -bump -texture-lod -exr, and
+SceneBuilder.load_texture reads a progressive JPEG, a 16-bit grey PNG and
+an RLE TGA (tests/torch_images/) through the port's own decoders; the
 tfdm app renders its displaced patch with -heatmap, the mesh loaders read
 an OBJ, a PLY, a GLB and a glTF written here, and the path_tracing app
 loads the OBJ through -obj; the nrtdsm app renders with -heatmap, the
@@ -118,6 +120,13 @@ img = render_sample(scene, bvh, textured_camera(16, 16), 16, 16, 0,
 assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0
 assert load_png(os.path.join(tex, "normal.png")).shape == (64, 64, 3)
 assert load_dds(os.path.join(tex, "bc7.dds")).shape == (64, 64, 4)
+from gfxexp_torch.scene.builder import SceneBuilder
+b = SceneBuilder()
+ids = [b.load_texture(os.path.join("tests", "torch_images", name))
+       for name in ("photo_512_progressive420.jpg", "height_64_grey16.png",
+                    "albedo_64_rle.tga")]
+assert ids == [0, 1, 2] and len(b.atlas.images) == 3
+assert load_png("tests/torch_images/height_64_grey16.png").shape == (64, 64)
 save_exr(OUT + "_rt.exr", np.ones((4, 5, 3), np.float32))
 assert (load_exr(OUT + "_rt.exr") == 1.0).all()
 hdr = path_tracing.main(["-device", "cpu", "-width", "8", "-height", "8",

@@ -10,7 +10,9 @@ Bars: the atlas layers and mip chain, every BC decode, load_dds and the
 probability texture's levels bit-equal; load_png equal to PIL's reader
 (gfxexp_tpu's load_png) on 8-bit grey, grey + alpha, RGB and RGBA files,
 and to PIL's RGB / RGBA conversion on palette files (JAX's reader hands
-back palette indices); the EXR codec round trip exact (float) and equal
+back palette indices; every other format and depth is in
+tests/test_torch_image_formats.py); load_dds raising ValueError in both
+packages on a DDS that is not BC1-7; the EXR codec round trip exact (float) and equal
 across the packages; samplers, normal readers and bump within 1e-6;
 probability-texture draws equal in texel, pmf and remapped uniforms within
 1e-6; solid-angle light samples as that test states; the textured G-buffer's
@@ -215,10 +217,14 @@ def test_load_dds_bit_equal(tmp_path, name):
 
 
 def test_load_dds_raises_for_other_formats(tmp_path):
+    """Both packages raise ValueError on a DDS that is not BC1-7."""
     path = str(tmp_path / "rgba.dds")
     bench._write_dds(path, b"\x00" * 64, 4, 4, fourcc=b"RGBA")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError) as jax_err:
+        jt.load_dds(path)
+    with pytest.raises(ValueError) as port_err:
         tt.load_dds(path)
+    assert type(port_err.value) is type(jax_err.value)
 
 
 def _png_filtered(path, px):
@@ -297,26 +303,6 @@ def test_load_png_of_save_png(tmp_path):
                                       jio.load_png(path, to_linear))
     # sRGB out and back in: within half an 8-bit step of the linear input
     np.testing.assert_allclose(tio.load_png(path), img, atol=5e-3)
-
-
-@pytest.mark.parametrize("header", [(16, 2, 0), (8, 2, 1), (4, 0, 0)])
-def test_load_png_raises_for_other_formats(tmp_path, header):
-    depth, ctype, interlace = header
-    path = str(tmp_path / "other.png")
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + tio._chunk(
-            b"IHDR", struct.pack(">IIBBBBB", 4, 4, depth, ctype, 0, 0,
-                                 interlace)) + tio._chunk(b"IEND", b""))
-    with pytest.raises(NotImplementedError):
-        tio.load_png(path)
-
-
-def test_load_texture_raises_for_jpeg(tmp_path):
-    path = str(tmp_path / "photo.jpg")
-    with open(path, "wb") as f:
-        f.write(b"\xff\xd8\xff\xe0\x00\x10JFIF\x00" + b"\x00" * 32)
-    with pytest.raises(NotImplementedError, match="PNG"):
-        TB.SceneBuilder().load_texture(path)
 
 
 @pytest.mark.parametrize("half", [False, True])
