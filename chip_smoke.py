@@ -236,13 +236,15 @@ Phases, one line each, any failure exits non-zero:
      orbit and a pick POSTed, the pick read back over localhost; a
      DebugDraw PLY of small's top two BVH levels (chiprun_out/);
  36. images, on a machine without PIL: every fixture of tests/torch_images
-     (JPEG baseline, progressive, CMYK and arithmetic-coded; 16-bit PNGs,
-     one Adam7; TGA RLE; BMP; GIF; PPM) decoded by the port and held to
-     the sha256 of PIL's decode (digests.json); the textured scene with a
-     512^2 progressive 4:2:0 JPEG, a 16-bit Adam7 PNG normal map and an
-     RLE TGA in place of its DDS and PNG files, TEX_RES^2, TEX_SAMPLES
-     samples as wide rows (kernel 1), card against CPU; the host's decode
-     ms per megapixel of that JPEG (best of IMAGE_REPS).
+     (JPEG baseline, progressive, cut after a scan (block smoothing),
+     lossless, CMYK and arithmetic-coded; 16-bit PNGs, one Adam7; TGA RLE;
+     BMP; GIF; PPM) decoded by the port and held to the sha256 of PIL's
+     decode (digests.json); the textured scene with a 512^2 progressive
+     4:2:0 JPEG, a 16-bit Adam7 PNG normal map and an RLE TGA in place of
+     its DDS and PNG files, TEX_RES^2, TEX_SAMPLES samples as wide rows
+     (kernel 1), card against CPU; the host's decode ms per megapixel of
+     that JPEG and of its copy cut after the first AC scan (best of
+     IMAGE_REPS).
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -303,6 +305,7 @@ from gfxexp_torch.render.pathtrace import (
     render_sample,
 )
 from gfxexp_torch.scene import animation
+from gfxexp_torch.utils import jpeg as jpeg_decoder
 from gfxexp_torch.utils.image_io import decode_samples, save_png
 from gfxexp_torch.utils.runtime import enable_compile_cache
 from gfxexp_torch.walk_trips import (
@@ -4487,6 +4490,8 @@ IMAGE_TEXTURES = {"normal": "normal_64_rgb16_adam7.png",
                   "bc1": "photo_512_progressive420.jpg",
                   "bc7": "albedo_64_rle.tga"}
 IMAGE_TIMED = "photo_512_progressive420.jpg"
+# the same file cut after its first AC scan: libjpeg's block smoothing
+IMAGE_TIMED_SMOOTHED = "photo_512_progressive420_cut2.jpg"
 IMAGE_REPS = 5
 
 
@@ -4495,7 +4500,8 @@ def phase_images(report, dev):
     decodes to PIL's samples (by digest); the textured scene with JPEG,
     16-bit Adam7 PNG and TGA textures renders on the card as on the CPU
     (kernel 1 launched, counts reset just before); the host's decode time
-    of the 512^2 progressive JPEG."""
+    of the 512^2 progressive JPEG, whole and cut after its first AC scan
+    (block smoothing)."""
     with open(os.path.join(IMAGE_DIR, "digests.json")) as f:
         digests = json.load(f)
     rows = {}
@@ -4516,24 +4522,28 @@ def phase_images(report, dev):
                       "shape": list(px.shape)}
         print(f"[36 images {name}] {px.dtype} {list(px.shape)}, digest "
               f"equal to PIL's, decoded in {ms:.1f} ms", flush=True)
-    with open(os.path.join(IMAGE_DIR, IMAGE_TIMED), "rb") as f:
-        data = f.read()
-    times = []
-    for _ in range(IMAGE_REPS):
-        t0 = time.perf_counter()
-        px = decode_samples(data, IMAGE_TIMED)
-        times.append(time.perf_counter() - t0)
-    mpix = px.shape[0] * px.shape[1] / 1e6
-    best = min(times) * 1e3
-    rows["timed"] = {"file": IMAGE_TIMED, "best_ms": best,
+    for key, name in (("timed", IMAGE_TIMED),
+                      ("timed_smoothed", IMAGE_TIMED_SMOOTHED)):
+        with open(os.path.join(IMAGE_DIR, name), "rb") as f:
+            data = f.read()
+        times = []
+        for _ in range(IMAGE_REPS):
+            # a cold decode: no Huffman table kept from the rep before
+            jpeg_decoder._huffman_lookup.cache_clear()
+            t0 = time.perf_counter()
+            px = decode_samples(data, name)
+            times.append(time.perf_counter() - t0)
+        mpix = px.shape[0] * px.shape[1] / 1e6
+        best = min(times) * 1e3
+        rows[key] = {"file": name, "best_ms": best,
                      "median_ms": float(np.median(times)) * 1e3,
                      "ms_per_megapixel": best / mpix,
                      "host_cores": os.cpu_count()}
-    print(f"[36 images decode] {IMAGE_TIMED} ({len(data)} bytes, "
-          f"{px.shape[1]}x{px.shape[0]}): best {best:.1f} ms, median "
-          f"{rows['timed']['median_ms']:.1f} ms of {IMAGE_REPS} on the host "
-          f"({os.cpu_count()} cores): {best / mpix:.1f} ms per megapixel",
-          flush=True)
+        print(f"[36 images decode{' smoothed' * (key != 'timed')}] {name} "
+              f"({len(data)} bytes, {px.shape[1]}x{px.shape[0]}): best "
+              f"{best:.1f} ms, median {rows[key]['median_ms']:.1f} ms of "
+              f"{IMAGE_REPS} on the host ({os.cpu_count()} cores): "
+              f"{best / mpix:.1f} ms per megapixel", flush=True)
     files = {k: os.path.join(IMAGE_DIR, v) for k, v in IMAGE_TEXTURES.items()}
     t0 = time.time()
     s, b = bench.build_textured_scene(os.path.join(_tex_dir(), "images"),

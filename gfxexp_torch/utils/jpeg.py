@@ -6,32 +6,42 @@ the reference reads it through stb_image. The port reproduces libjpeg-turbo
 as PIL drives it, so that both packages hand back the same 8-bit samples:
 
 * frames: SOF0 (baseline), SOF1 (extended Huffman, 8-bit precision), SOF2
-  (progressive: spectral selection and successive approximation), and
-  SOF9 / SOF10 (sequential and progressive arithmetic coding);
-  restart intervals; 1, 3 or 4 components at any sampling factors whose
-  ratios to the largest are whole;
+  (progressive: spectral selection and successive approximation), SOF3
+  (lossless, 8-bit) and SOF9 / SOF10 (sequential and progressive
+  arithmetic coding); restart intervals; 1, 3 or 4 components at any
+  sampling factors whose ratios to the largest are whole;
 * entropy decoding in Python, one lookup per Huffman code (a table of all
   16-bit prefixes, where libjpeg looks 8 bits ahead) and the QM coder of
   jdarith.c; then dequantisation, the `islow` integer IDCT (jidctint.c) with
   its range limit, fancy upsampling (jdsample.c: triangle filters for h2v1,
   h2v2 and h1v2, replication otherwise) and the fixed-point YCbCr to RGB
   tables (jdcolor.c), for all blocks at once in numpy;
+* block smoothing (jdcoefct.c decompress_smooth_data), which PIL leaves on:
+  where a progressive file's scans leave some of coefficients 1-9
+  unrefined (a file cut after a scan, or a script that stops early), each
+  still-zero one is predicted from the DC values of the 5x5 blocks around
+  it, and where no AC coefficient has arrived the DC is interpolated too;
+* lossless frames (jdlhuff.c, jddiffct.c, jdlossls.c): difference
+  categories through the same Huffman lookup, undifferenced by the scan's
+  predictor modulo 2^16, shifted back by the point transform; subsampled
+  components replicated, as libjpeg does without DCT blocks;
 * colour spaces as libjpeg guesses them (JFIF or component ids 1, 2, 3:
   YCbCr; an Adobe marker's transform 0: RGB or CMYK; transform 2 or ids
-  'R', 'G', 'B' ...) and as PIL hands them back: grey [H, W], RGB [H, W, 3],
-  and four components as CMYK with every sample inverted (PIL's "CMYK;I",
-  the Adobe convention), YCCK converted to CMYK first. EXIF orientation is
+  'R', 'G', 'B' ...; a lossless frame is RGB unless JFIF or Adobe say
+  otherwise) and as PIL hands them back: grey [H, W], RGB [H, W, 3], and
+  four components as CMYK with every sample inverted (PIL's "CMYK;I", the
+  Adobe convention), YCCK converted to CMYK first. EXIF orientation is
   left alone, as PIL leaves it.
 
-A progressive file whose scans leave low coefficients unrefined is
-rejected: libjpeg smooths such blocks (jdcoefct.c decompress_smooth_data)
-and the port does not. Lossless and hierarchical frames, 12-bit samples
-and the DNL marker raise NotImplementedError; a damaged stream raises
-ValueError.
+What PIL refuses raises NotImplementedError: hierarchical frames (SOF5-7,
+SOF13-15), lossless arithmetic coding (SOF11), any precision but 8, a
+lossless frame that needs a colour conversion (YCbCr or YCCK), the DNL
+marker. A damaged stream raises ValueError.
 """
 
 from __future__ import annotations
 
+import functools
 import struct
 
 import numpy as np
@@ -43,7 +53,7 @@ _NATURAL = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19,
             56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52,
             45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63] + [63] * 16
 
-_SOF_NAMES = {0xC3: "lossless", 0xC5: "differential sequential",
+_SOF_NAMES = {0xC5: "differential sequential",
               0xC6: "differential progressive", 0xC7: "differential lossless",
               0xCB: "lossless (arithmetic)",
               0xCD: "differential sequential (arithmetic)",
@@ -53,12 +63,14 @@ _SOF_NAMES = {0xC3: "lossless", 0xC5: "differential sequential",
 
 class _Component:
     __slots__ = ("cid", "h", "v", "tq", "qtable", "bw", "bh", "bw_alloc",
-                 "bh_alloc", "coef", "dw", "dh", "coef_bits")
+                 "bh_alloc", "coef", "dw", "dh", "coef_bits", "samples")
 
 
-def _huffman_lookup(counts, symbols):
+@functools.lru_cache(maxsize=64)
+def _huffman_lookup(counts: bytes, symbols: bytes):
     """All 16-bit prefixes -> (code length << 8) | symbol; 0 where no code
-    starts (a damaged stream)."""
+    starts (a damaged stream). Cached: a progressive file sends its tables
+    again before each scan."""
     tab = np.zeros(1 << 16, np.int32)
     code, k = 0, 0
     for length in range(1, 17):
@@ -70,7 +82,7 @@ def _huffman_lookup(counts, symbols):
             k += 1
             code += 1
         code <<= 1
-    return tab.tolist()
+    return tuple(tab.tolist())
 
 
 def _entropy_segments(data: bytes, pos: int):
@@ -509,6 +521,258 @@ def _scan_arith(segs, layout, comps, dc_tbl, ac_tbl, dc_cond, ac_cond, ri,
                     k += 1
 
 
+
+# ---------------------------------------------------------------------------
+# lossless frames (jdlhuff.c, jddiffct.c, jdlossls.c)
+# ---------------------------------------------------------------------------
+
+
+def _scan_lossless(segs, frame, comps, tabs, ri, name):
+    """The Huffman-coded differences of one lossless scan (jdlhuff.c), one
+    array per component: [MCU rows * v, MCUs per row * h] of an
+    interleaved scan (each MCU holds v rows of h samples of each
+    component), the component's own [dh, dw] of a scan of one; and per
+    component the rows whose prediction restarts."""
+    if len(comps) > 1:
+        mx, my = frame["mcux"], frame["mcuy"]
+        shapes = [(c.v, c.h) for c in comps]
+    else:
+        my, mx = comps[0].dh, comps[0].dw
+        shapes = [(1, 1)]
+    if ri % mx:
+        raise ValueError(f"{name}: lossless JPEG restart interval {ri} is "
+                         f"not a whole number of MCU rows ({mx} MCUs)")
+    unit_tabs = [t for t, (v, h) in zip(tabs, shapes) for _ in range(v * h)]
+    diffs = []
+    nseg = 0
+    win = _windows(segs[0])
+    pos = 0
+    for m in range(mx * my):
+        if ri and m and m % ri == 0:
+            _check_end(pos, segs[nseg], name)
+            nseg += 1
+            if nseg >= len(segs):
+                raise ValueError(f"{name}: JPEG restart marker missing")
+            win = _windows(segs[nseg])
+            pos = 0
+        for tab in unit_tabs:
+            e = tab[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+            if not e:
+                raise ValueError(f"{name}: bad JPEG Huffman code")
+            pos += e >> 8
+            s = e & 255
+            if s == 16:
+                diffs.append(32768)
+            elif s:
+                r = (win[pos >> 3] >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
+                pos += s
+                diffs.append(r if r >= 1 << (s - 1) else r - (1 << s) + 1)
+            else:
+                diffs.append(0)
+    _check_end(pos, segs[nseg], name)
+    d = np.array(diffs, np.int64).reshape(my, mx, -1)
+    out, o = [], 0
+    for v, h in shapes:
+        u = d[:, :, o:o + v * h].reshape(my, mx, v, h)
+        out.append(u.transpose(0, 2, 1, 3).reshape(my * v, mx * h))
+        o += v * h
+    # the MCU rows that start the scan or a restart interval. jddiffct.c
+    # decodes an iMCU row whole before it undifferences its rows, so the
+    # predictor restarts at the first row of an iMCU row that holds such
+    # an MCU row: one MCU row of v sample rows when interleaved, v rows
+    # of one sample row each in a scan of one component
+    starts = range(0, my, ri // mx if ri else my)
+    if len(comps) > 1:
+        return out, [{m * c.v for m in starts} for c in comps]
+    v = comps[0].v
+    return out, [{m - m % v for m in starts}]
+
+
+def _undifference(d: np.ndarray, predictor: int, first_rows,
+                  initial: int) -> np.ndarray:
+    """jdlossls.c on one component's differences [R, C]: the rows in
+    `first_rows` (the scan's first and each restart's) from `initial`,
+    then from the left; every other row's first sample from above, the
+    rest by the selection value (Ra left, Rb above, Rc above left); all
+    modulo 2^16. Predictors 1-5 are linear in Ra, so their rows are
+    cumulative sums."""
+    rows, cols = d.shape
+    x = np.empty_like(d)
+    for r in range(rows):
+        row = d[r]
+        if r in first_rows:
+            x[r] = (np.cumsum(row) + initial) & 0xFFFF
+            continue
+        up = x[r - 1]
+        if predictor == 2:
+            x[r] = (row + up) & 0xFFFF
+        elif predictor == 3:
+            x[r, 0] = (row[0] + up[0]) & 0xFFFF
+            x[r, 1:] = (row[1:] + up[:-1]) & 0xFFFF
+        elif predictor in (1, 4, 5):
+            step = row.copy()
+            if predictor == 4:
+                step[1:] += up[1:] - up[:-1]
+            elif predictor == 5:
+                step[1:] += (up[1:] - up[:-1]) >> 1
+            x[r] = (np.cumsum(step) + up[0]) & 0xFFFF
+        else:  # 6: Rb + ((Ra - Rc) >> 1), 7: (Ra + Rb) >> 1
+            dl, ul = row.tolist(), up.tolist()
+            ra = (dl[0] + ul[0]) & 0xFFFF
+            out = [ra]
+            for i in range(1, cols):
+                if predictor == 6:
+                    ra = (dl[i] + ul[i] + ((ra - ul[i - 1]) >> 1)) & 0xFFFF
+                else:
+                    ra = (dl[i] + ((ra + ul[i]) >> 1)) & 0xFFFF
+                out.append(ra)
+            x[r] = out
+    return x
+
+
+def _lossless_samples(frame, comps, jfif, adobe, transform, name):
+    """The samples of a lossless frame as PIL hands them back: libjpeg
+    converts no colour in lossless mode, so it refuses a frame whose
+    colour space it takes for YCbCr or YCCK, and replicates subsampled
+    components (its fancy upsampling needs DCT blocks)."""
+    w, h = frame["w"], frame["h"]
+    nc = len(comps)
+    if nc == 3 and (jfif or (adobe and transform != 0)):
+        raise NotImplementedError(
+            f"{name}: lossless JPEG in YCbCr (libjpeg converts no colour in "
+            f"lossless mode)")
+    if nc == 4 and adobe and transform != 0:
+        raise NotImplementedError(
+            f"{name}: lossless JPEG in YCCK (libjpeg converts no colour in "
+            f"lossless mode)")
+    hmax, vmax = frame["hmax"], frame["vmax"]
+    planes = []
+    for c in comps:
+        if c.samples is None:
+            raise ValueError(f"{name}: a lossless JPEG component has no scan")
+        if hmax % c.h or vmax % c.v:
+            raise NotImplementedError(
+                f"JPEG sampling factors {c.h}x{c.v} against {hmax}x{vmax} "
+                f"(libjpeg refuses fractional ratios)")
+        p = np.repeat(np.repeat(c.samples, vmax // c.v, axis=0),
+                      hmax // c.h, axis=1)
+        planes.append(p[:h, :w])
+    if nc == 1:
+        return planes[0]
+    out = np.stack(planes, axis=-1)
+    return out if nc == 3 else 255 - out
+
+
+# ---------------------------------------------------------------------------
+# block smoothing (jdcoefct.c smoothing_ok, decompress_smooth_data)
+# ---------------------------------------------------------------------------
+
+
+def _grid(*rows):
+    """A 5x5 weight grid over the DC values two blocks around a block (row
+    0 two block rows above, column 0 two block columns left); a row given
+    as one list of five stands for itself, one number for a row of zeros."""
+    return np.array([r if isinstance(r, list) else [0] * 5 for r in rows],
+                    np.int64)
+
+
+# per zigzag coefficient 1-9: the weights of the AC prediction (only 1-5
+# are predicted there) and of the DC interpolation, used when no AC
+# coefficient of the component has arrived; _DC_WEIGHTS replaces the DC
+# then. Each sum is scaled by Q00 and divided by Qk << 8, rounded half
+# away from zero.
+_AC01 = _grid([-1, -1, 0, 1, 1], [-3, 13, 0, -13, 3], [-3, 38, 0, -38, 3],
+              [-3, 13, 0, -13, 3], [-1, -1, 0, 1, 1])
+_AC20 = _grid([0, 0, 1, 0, 0], [0, 2, 7, 2, 0], [0, -5, -14, -5, 0],
+              [0, 2, 7, 2, 0], [0, 0, 1, 0, 0])
+_AC03 = _grid(0, [0, 1, 0, -1, 0], [0, 2, 0, -2, 0], [0, 1, 0, -1, 0], 0)
+_AC12 = _grid(0, [0, 1, -3, 1, 0], 0, [0, -1, 3, -1, 0], 0)
+_SMOOTH_AC = [
+    None,
+    _grid(0, 0, [-7, 50, 0, -50, 7], 0, 0),
+    _grid(0, 0, [-7, 50, 0, -50, 7], 0, 0).T,
+    _grid(0, 0, [-1, 13, -24, 13, -1], 0, 0).T,
+    _grid([0, -1, 0, 1, 0], [-1, 10, 0, -10, 1], 0, [1, -10, 0, 10, -1],
+          [0, 1, 0, -1, 0]),
+    _grid(0, 0, [-1, 13, -24, 13, -1], 0, 0)]
+_SMOOTH_DC = [
+    None, _AC01, _AC01.T, _AC20,
+    _grid([-1, 0, 0, 0, 1], [0, 9, 0, -9, 0], 0, [0, -9, 0, 9, 0],
+          [1, 0, 0, 0, -1]),
+    _AC20.T, _AC03, _AC12, _AC12.T, _AC03.T]
+_DC_WEIGHTS = _grid([-2, -6, -8, -6, -2], [-6, 6, 42, 6, -6],
+                    [-8, 42, 152, 42, -8], [-6, 6, 42, 6, -6],
+                    [-2, -6, -8, -6, -2])
+
+
+def _smooth_rows(bh: int, v: int, imcu_rows: int) -> np.ndarray:
+    """The block rows [r - 2, r - 1, r, r + 1, r + 2] that
+    decompress_smooth_data reads for each block row r < bh of a component
+    [bh, 5]: clamped at the image's edges as libjpeg counts them, from
+    the block rows of the current iMCU row (fewer in the last one), so a
+    row past bh can be read where a component's height is not a whole
+    number of iMCU rows."""
+    out = []
+    for m in range(imcu_rows):
+        nrows = v if m < imcu_rows - 1 else (bh % v or v)
+        total = nrows * imcu_rows
+        for br in range(nrows):
+            r, i = m * v + br, m * nrows + br
+            up = r - 1 if i > 0 else r
+            up2 = r - 2 if i > 1 else up
+            down = r + 1 if i < total - 1 else r
+            down2 = r + 2 if i < total - 2 else down
+            out.append([up2, up, r, down, down2])
+    return np.array(out[:bh], np.int64)
+
+
+def _smoothing_ok(frame, comps) -> bool:
+    """jdcoefct.c smoothing_ok, over all components at once: a progressive
+    frame, every DC at least partly known, no zero among the quantisation
+    steps of coefficients 0-9, and some of coefficients 1-9 of some
+    component not yet known to full precision."""
+    if not frame["progressive"]:
+        return False
+    for c in comps:
+        if (c.qtable is None or c.coef_bits[0] < 0
+                or not all(c.qtable[_NATURAL[:10]])):
+            return False
+    return any(b for c in comps for b in c.coef_bits[1:10])
+
+
+def _smooth(c: _Component, coef: np.ndarray, imcu_rows: int) -> np.ndarray:
+    """decompress_smooth_data for one component's coefficients [bh_alloc,
+    bw_alloc, 64]: each coefficient 1-9 still zero and not known to full
+    precision is predicted from the DC values of the 5x5 blocks around it;
+    where no AC coefficient has arrived the DC is interpolated too."""
+    bits = c.coef_bits
+    change_dc = all(b == -1 for b in bits[1:10])
+    weights = _SMOOTH_DC if change_dc else _SMOOTH_AC
+    rows = _smooth_rows(c.bh, c.v, imcu_rows)
+    cols = np.clip(np.arange(c.bw)[:, None] + np.arange(-2, 3), 0, c.bw - 1)
+    dcs = coef[..., 0][rows[:, None, :, None], cols[None, :, None, :]]
+    coef = coef.copy()
+    blocks = coef[:c.bh, :c.bw]
+    q = c.qtable
+    q00 = int(q[0])
+
+    def predict(w, qk, al):
+        num = q00 * np.tensordot(dcs, w, 2)
+        pred = ((qk << 7) + np.abs(num)) // (qk << 8)
+        if al > 0:
+            pred = np.minimum(pred, (1 << al) - 1)
+        return np.where(num < 0, -pred, pred)
+
+    for k in range(1, len(weights)):
+        if bits[k]:
+            p = _NATURAL[k]
+            cur = blocks[..., p]
+            blocks[..., p] = np.where(cur == 0, predict(
+                weights[k], int(q[p]), bits[k]), cur)
+    if change_dc:
+        blocks[..., 0] = predict(_DC_WEIGHTS, q00, 0)
+    return coef
+
 # ---------------------------------------------------------------------------
 # samples: the islow IDCT, upsampling, colour conversion
 # ---------------------------------------------------------------------------
@@ -557,9 +821,10 @@ def _idct_islow(coef: np.ndarray, qtable: np.ndarray) -> np.ndarray:
     return _RANGE[out.transpose(1, 2, 0) & 1023]  # [N, row, column]
 
 
-def _plane(c: _Component) -> np.ndarray:
-    """A component's samples over its allocated blocks [bh * 8, bw * 8]."""
-    px = _idct_islow(np.asarray(c.coef, np.int64).reshape(-1, 64), c.qtable)
+def _plane(c: _Component, coef: np.ndarray) -> np.ndarray:
+    """A component's samples over its allocated blocks [bh * 8, bw * 8]
+    from its coefficients [bh_alloc, bw_alloc, 64]."""
+    px = _idct_islow(coef.reshape(-1, 64), c.qtable)
     return px.reshape(c.bh_alloc, c.bw_alloc, 8, 8).transpose(
         0, 2, 1, 3).reshape(c.bh_alloc * 8, c.bw_alloc * 8)
 
@@ -669,8 +934,9 @@ def decode_jpeg(data: bytes, name: str = "JPEG data") -> np.ndarray:
         while pos < n and data[pos] == 0xFF:
             pos += 1
         if pos >= n:
-            if frame is not None and all(c.qtable is not None
-                                         for c in comps):
+            if frame is not None and all(
+                    c.qtable is not None or c.samples is not None
+                    for c in comps):
                 break  # no EOI after the last scan, as libjpeg allows
             raise ValueError(f"{name}: JPEG ends before its image")
         marker = data[pos]
@@ -707,8 +973,8 @@ def decode_jpeg(data: bytes, name: str = "JPEG data") -> np.ndarray:
             o = 0
             while o < len(seg):
                 tc, th = seg[o] >> 4, seg[o] & 15
-                counts = list(seg[o + 1:o + 17])
-                syms = list(seg[o + 17:o + 17 + sum(counts)])
+                counts = bytes(seg[o + 1:o + 17])
+                syms = bytes(seg[o + 17:o + 17 + sum(counts)])
                 o += 17 + sum(counts)
                 (ac_tables if tc else dc_tables)[th] = _huffman_lookup(
                     counts, syms)
@@ -726,13 +992,15 @@ def decode_jpeg(data: bytes, name: str = "JPEG data") -> np.ndarray:
         elif marker in _SOF_NAMES:
             raise NotImplementedError(
                 f"{name}: {_SOF_NAMES[marker]} JPEG (SOF{marker - 0xC0})")
-        elif marker in (0xC0, 0xC1, 0xC2, 0xC9, 0xCA):
+        elif marker in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA):
             if frame is not None:
                 raise ValueError(f"{name}: JPEG with two frames")
             prec, h, w, nc = struct.unpack_from(">BHHB", seg, 0)
+            lossless = marker == 0xC3
             if prec != 8:
                 raise NotImplementedError(
-                    f"{name}: {prec}-bit JPEG (8-bit samples only)")
+                    f"{name}: {prec}-bit {'lossless ' * lossless}JPEG (8-bit "
+                    f"samples only, as PIL reads)")
             if nc not in (1, 3, 4) or w == 0 or h == 0:
                 raise NotImplementedError(
                     f"{name}: JPEG with {nc} components, size {w}x{h}")
@@ -747,17 +1015,21 @@ def decode_jpeg(data: bytes, name: str = "JPEG data") -> np.ndarray:
                 comps.append(c)
             hmax = max(c.h for c in comps)
             vmax = max(c.v for c in comps)
-            mcux = -(-w // (8 * hmax))
-            mcuy = -(-h // (8 * vmax))
+            unit = 1 if lossless else 8  # a lossless data unit: 1 sample
+            mcux = -(-w // (unit * hmax))
+            mcuy = -(-h // (unit * vmax))
             for c in comps:
                 c.dw = -(-w * c.h // hmax)
                 c.dh = -(-h * c.v // vmax)
+                c.samples = None
+                if lossless:
+                    continue
                 c.bw, c.bh = -(-c.dw // 8), -(-c.dh // 8)
                 c.bw_alloc, c.bh_alloc = mcux * c.h, mcuy * c.v
                 c.coef = [0] * (c.bw_alloc * c.bh_alloc * 64)
                 c.coef_bits = [-1] * 64
             frame = {"w": w, "h": h, "mcux": mcux, "mcuy": mcuy,
-                     "hmax": hmax, "vmax": vmax,
+                     "hmax": hmax, "vmax": vmax, "lossless": lossless,
                      "progressive": marker in (0xC2, 0xCA),
                      "arith": marker in (0xC9, 0xCA)}
         elif marker == 0xDA:  # SOS
@@ -775,6 +1047,21 @@ def decode_jpeg(data: bytes, name: str = "JPEG data") -> np.ndarray:
                 tas.append(seg[2 + 2 * i] & 15)
             ss, se = seg[1 + 2 * ns], seg[2 + 2 * ns]
             ah, al = seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
+            if frame["lossless"]:  # Ss: the predictor, Al: point transform
+                if not 1 <= ss <= 7 or se or ah or al >= 8:
+                    raise ValueError(f"{name}: bad lossless JPEG scan")
+                try:
+                    tabs = [dc_tables[t] for t in tds]
+                except KeyError:
+                    raise ValueError(f"{name}: JPEG Huffman table missing")
+                segs, pos = _entropy_segments(data, pos)
+                diffs, firsts = _scan_lossless(segs, frame, scomps, tabs, ri,
+                                               name)
+                for c, d, first in zip(scomps, diffs, firsts):
+                    x = _undifference(d, ss, first, 1 << (7 - al))
+                    c.samples = ((x[:c.dh, :c.dw] << al) & 255).astype(
+                        np.uint8)
+                continue
             progressive = frame["progressive"]
             if not progressive:
                 ss, se, ah, al = 0, 63, 0, 0
@@ -811,20 +1098,27 @@ def decode_jpeg(data: bytes, name: str = "JPEG data") -> np.ndarray:
                               al, progressive, name)
     if frame is None:
         raise ValueError(f"{name}: JPEG without a frame")
+    if frame["lossless"]:
+        return _lossless_samples(frame, comps, jfif, adobe, transform, name)
     return _samples(frame, comps, jfif, adobe, transform, name)
 
 
 def _samples(frame, comps, jfif, adobe, transform, name):
     w, h = frame["w"], frame["h"]
-    if any(c.qtable is None for c in comps):
-        raise ValueError(f"{name}: a JPEG component has no scan")
-    if frame["progressive"] and any(b != 0 for c in comps
-                                    for b in c.coef_bits[:10]):
-        raise NotImplementedError(
-            f"{name}: progressive JPEG whose scans leave low coefficients "
-            f"unrefined (libjpeg smooths those blocks)")
+    if all(c.qtable is None for c in comps):
+        raise ValueError(f"{name}: JPEG without a scan")
+    smooth = _smoothing_ok(frame, comps)
+    for c in comps:
+        if c.qtable is None:  # no scan reached it: libjpeg's IDCT has no
+            c.qtable = np.zeros(64, np.int64)  # table and gives 128
     hmax, vmax = frame["hmax"], frame["vmax"]
-    planes = [_upsample(_plane(c), c, hmax, vmax)[:h, :w] for c in comps]
+    planes = []
+    for c in comps:
+        coef = np.asarray(c.coef, np.int64).reshape(c.bh_alloc, c.bw_alloc,
+                                                    64)
+        if smooth:
+            coef = _smooth(c, coef, frame["mcuy"])
+        planes.append(_upsample(_plane(c, coef), c, hmax, vmax)[:h, :w])
     nc = len(comps)
     if nc == 1:
         return planes[0].astype(np.uint8)

@@ -10,6 +10,9 @@ on, except where JAX's result is not an image in [0, 1]:
 - 16-bit grey (PNG, PNM with a maxval over 255): port * 65535 equals
   jax * 255 (both rounded to the nearest integer, the sample);
 - 1-bit grey (PNG, PNM P1 / P4, BMP): port equals jax * 255.
+JPEG: progressive files cut after each scan (libjpeg's block smoothing)
+and lossless (SOF3) files decode to PIL's uint8 samples too; every JPEG
+frame PIL refuses raises in the port.
 Also: an OBJ whose MTL names a .jpg and a GLB with an embedded JPEG build
 atlases equal to JAX's; the tfdm app reads a 16-bit grey height map at full
 precision; save_png / encode_png write files that decode to JAX's pixels;
@@ -239,15 +242,245 @@ def test_jpeg_variant_matches_jax(tmp_path, case):
 
 
 def test_jpeg_unsupported_frames_raise():
+    """Frames PIL refuses raise in the port too: 12-bit lossless, lossless
+    with arithmetic coding (SOF11) and hierarchical (SOF5); a stream cut
+    inside a scan raises ValueError."""
+    from PIL import Image
+
     from gfxexp_torch.utils.jpeg import decode_jpeg
 
     a = _photo(8, 8, 1, 0)
     data = W.jpeg([a[..., 0]], [(1, 1)])
-    lossless = data.replace(b"\xff\xc0", b"\xff\xc3", 1)
-    with pytest.raises(NotImplementedError, match="lossless"):
-        decode_jpeg(lossless)
+    for frame, match in (
+            (W.jpeg_lossless([a[..., 0].astype(np.int64) * 16],
+                             precision=12), "12-bit lossless"),
+            (W.jpeg_lossless([a[..., 0]], sof=0xCB), "SOF11"),
+            (data.replace(b"\xff\xc0", b"\xff\xc5", 1), "SOF5")):
+        with pytest.raises(Exception):
+            Image.open(io.BytesIO(frame)).load()
+        with pytest.raises(NotImplementedError, match=match):
+            decode_jpeg(frame)
     with pytest.raises(ValueError):
         decode_jpeg(data[:len(data) // 2])
+
+
+def _pil_samples(data):
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(data)))
+
+
+def _check_jpeg(tmp_path, data, shape=None):
+    """The port's decode_jpeg equals PIL's uint8 samples, and its load_png
+    JAX's (to_linear off and on)."""
+    from gfxexp_torch.utils.jpeg import decode_jpeg
+
+    np.testing.assert_array_equal(decode_jpeg(data), _pil_samples(data))
+    port = _check(tmp_path, data, ext=".jpg")
+    if shape is not None:
+        assert port.shape == shape
+
+
+# progressive files cut after each scan: libjpeg smooths the blocks whose
+# low coefficients are not yet whole. 24x9 4:2:0 has a luma component of 3
+# block rows in 2 iMCU rows and 2 block columns: the edges of the 5x5
+# neighbourhood.
+PIL_CUT = {
+    "grey": ("L", 29, 31, {}),
+    "420": ("RGB", 40, 35, dict(subsampling=2)),
+    "420_narrow": ("RGB", 24, 9, dict(subsampling=2)),
+    "444": ("RGB", 19, 23, dict(subsampling=0, quality=90)),
+    "cmyk": ("CMYK", 17, 24, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(PIL_CUT))
+def test_jpeg_cut_after_each_scan_matches_jax(tmp_path, case):
+    from PIL import Image
+
+    mode, h, w, kw = PIL_CUT[case]
+    c = {"L": 1, "RGB": 3, "CMYK": 4}[mode]
+    a = _photo(h, w, c, len(case) + 40)
+    buf = io.BytesIO()
+    Image.fromarray(a[..., 0] if c == 1 else a, mode).save(
+        buf, "JPEG", progressive=True, **kw)
+    data = buf.getvalue()
+    n = len(W.jpeg_scan_ends(data))
+    assert n >= 6
+    for k in range(1, n):
+        _check_jpeg(tmp_path, W.jpeg_cut(data, k),
+                    (h, w) if c == 1 else (h, w, c))
+
+
+# the writer's progressive scripts stopped after each scan, Huffman (SOF2)
+# and arithmetic (SOF10); luma 2x2 against chroma 1x1, and 4x1 / 1x2
+WRITER_CUT = {
+    "huffman_420": (0xC2, 3, [(2, 2), (1, 1), (1, 1)]),
+    "arith_420": (0xCA, 3, [(2, 2), (1, 1), (1, 1)]),
+    "huffman_grey": (0xC2, 1, [(1, 1)]),
+    "arith_h4v1_h1v2": (0xCA, 3, [(4, 1), (1, 2), (1, 1)]),
+}
+
+
+@pytest.mark.parametrize("case", list(WRITER_CUT))
+def test_jpeg_script_stopped_early_matches_jax(tmp_path, case):
+    sof, nc, factors = WRITER_CUT[case]
+    h, w = 27, 35
+    a = _photo(h, w, nc, len(case) + 50)
+    script = W.progressive_script(nc)
+    for k in range(1, len(script)):
+        data = W.jpeg([a[..., i] for i in range(nc)], factors,
+                      app=_JFIF if nc == 3 else b"", sof=sof,
+                      restart=3 if k % 2 else 0, scans=script[:k])
+        _check_jpeg(tmp_path, data, (h, w) if nc == 1 else (h, w, nc))
+
+
+@pytest.mark.parametrize("sof", [0xC2, 0xCA])
+def test_jpeg_whole_script_left_unrefined_matches_jax(tmp_path, sof):
+    """A complete file whose script never refines AC to Al 0; and one whose
+    DC scans are one per component, so that a cut after the first leaves
+    two components without a scan (libjpeg gives them 128)."""
+    a = _photo(26, 30, 3, sof)
+    planes = [a[..., i] for i in range(3)]
+    factors = [(2, 1), (1, 1), (1, 1)]
+    unrefined = [([0, 1, 2], 0, 0, 0, 0)] + [([s], 1, 63, 0, 2)
+                                             for s in range(3)]
+    _check_jpeg(tmp_path, W.jpeg(planes, factors, app=_JFIF, sof=sof,
+                                 scans=unrefined), (26, 30, 3))
+    separate = [([s], 0, 0, 0, 0) for s in range(3)] + [
+        ([s], 1, 63, 0, 0) for s in range(3)]
+    data = W.jpeg(planes, factors, app=_JFIF, sof=sof, scans=separate)
+    for k in (1, 2, 4):
+        _check_jpeg(tmp_path, W.jpeg_cut(data, k), (26, 30, 3))
+
+
+@pytest.mark.parametrize("zero", [1, 24, 32])
+def test_jpeg_zero_quantiser_step_turns_smoothing_off(tmp_path, zero):
+    """A zero step at any of coefficients 0-9 (natural positions 1 and 24:
+    Q01, Q30), in the chroma table alone, turns smoothing off for every
+    component; a zero elsewhere (32) leaves it on."""
+    import gfxexp_torch.utils.jpeg as J
+
+    a = _photo(24, 32, 3, zero)
+    q = 2 + np.add.outer(np.arange(8), np.arange(8))
+    qz = q.copy()
+    qz.reshape(64)[zero] = 0
+    data = W.jpeg([a[..., i] for i in range(3)], [(2, 2), (1, 1), (1, 1)],
+                  app=_JFIF, sof=0xC2, q=(q, qz),
+                  scans=W.progressive_script(3)[:3])
+    _check_jpeg(tmp_path, data, (24, 32, 3))
+    frame = {"progressive": True}
+    comps = []
+    for table in (q, qz):
+        c = J._Component()
+        c.qtable = table.reshape(64)
+        c.coef_bits = [0] + [2] * 9 + [-1] * 54
+        comps.append(c)
+    assert J._smoothing_ok(frame, comps) == (zero == 32)
+
+
+# lossless (SOF3) frames at 8 bits: every predictor, point transforms 0
+# and 2; restarts; 1, 3 and 4 components with the colour spaces libjpeg
+# reads without conversion; subsampled components, which it replicates
+
+
+@pytest.mark.parametrize("pt", [0, 2])
+@pytest.mark.parametrize("predictor", range(1, 8))
+def test_jpeg_lossless_predictors_match_jax(tmp_path, predictor, pt):
+    a = _photo(13, 17, 1, predictor)[..., 0]
+    data = W.jpeg_lossless([a], predictor, pt)
+    _check_jpeg(tmp_path, data, (13, 17))
+    np.testing.assert_array_equal(_pil_samples(data), (a >> pt) << pt)
+
+
+@pytest.mark.parametrize("predictor", [1, 6])
+def test_jpeg_lossless_restart_matches_jax(tmp_path, predictor):
+    a = _photo(11, 9, 3, predictor)
+    _check_jpeg(tmp_path, W.jpeg_lossless([a[..., 0]], predictor,
+                                          restart=9), (11, 9))
+    _check_jpeg(tmp_path, W.jpeg_lossless([a[..., i] for i in range(3)],
+                                          predictor, restart=18),
+                (11, 9, 3))
+
+
+# (components, ids, APP segment, PIL's mode)
+LOSSLESS_COLOUR = {
+    "ids_123": (3, None, b"", "RGB"),
+    "ids_rgb": (3, [82, 71, 66], b"", "RGB"),
+    "adobe_rgb": (3, None, _adobe(0), "RGB"),
+    "cmyk": (4, None, b"", "CMYK"),
+    "adobe_cmyk": (4, None, _adobe(0), "CMYK"),
+}
+
+
+@pytest.mark.parametrize("interleaved", [True, False])
+@pytest.mark.parametrize("case", list(LOSSLESS_COLOUR))
+def test_jpeg_lossless_colour_matches_jax(tmp_path, case, interleaved):
+    from PIL import Image
+
+    nc, ids, app, mode = LOSSLESS_COLOUR[case]
+    a = _photo(10, 12, nc, nc + len(case))
+    data = W.jpeg_lossless([a[..., i] for i in range(nc)], 4, 0, ids, app,
+                           interleaved=interleaved)
+    assert Image.open(io.BytesIO(data)).mode == mode
+    _check_jpeg(tmp_path, data, (10, 12, nc))
+    np.testing.assert_array_equal(_pil_samples(data),
+                                  a if nc == 3 else 255 - a)
+
+
+# sampling factors; interleaved or not; restart interval in MCUs
+LOSSLESS_SUBSAMPLED = {
+    "h2v2": ([(2, 2), (1, 1), (1, 1)], True, 0),
+    "h2v2_separate_restart": ([(2, 2), (1, 1), (1, 1)], False, 16),
+    "h4v1_h2v1": ([(4, 1), (2, 1), (1, 1)], True, 4),
+    "h1v2_grey": ([(1, 2)], True, 16),
+}
+
+
+@pytest.mark.parametrize("case", list(LOSSLESS_SUBSAMPLED))
+def test_jpeg_lossless_subsampled_matches_jax(tmp_path, case):
+    factors, interleaved, restart = LOSSLESS_SUBSAMPLED[case]
+    h, w = 11, 16
+    hmax = max(f[0] for f in factors)
+    vmax = max(f[1] for f in factors)
+    planes = [_photo(-(-h * v // vmax), -(-w * fh // hmax), 1, i)[..., 0]
+              for i, (fh, v) in enumerate(factors)]
+    data = W.jpeg_lossless(planes, 5, 1, restart=restart,
+                           interleaved=interleaved, factors=factors)
+    nc = len(factors)
+    _check_jpeg(tmp_path, data, (h, w) if nc == 1 else (h, w, nc))
+
+
+# lossless frames PIL refuses: a colour conversion, a restart interval
+# that is not a whole number of MCU rows, a bad predictor, 2-bit samples
+LOSSLESS_REFUSED = {
+    "jfif_ycc": ([0, 1, 2], _JFIF, {}, NotImplementedError),
+    "adobe_ycc": ([0, 1, 2], _adobe(1), {}, NotImplementedError),
+    "adobe_ycck": ([0, 1, 2, 3], _adobe(2), {}, NotImplementedError),
+    "restart_in_row": ([0], b"", dict(restart=5), ValueError),
+    "predictor_0": ([0], b"", dict(ss=0), ValueError),
+    "2_bit": ([0], b"", dict(precision=2), NotImplementedError),
+}
+
+
+@pytest.mark.parametrize("case", list(LOSSLESS_REFUSED))
+def test_jpeg_lossless_refused_by_pil_raises(case):
+    from gfxexp_torch.utils.jpeg import decode_jpeg
+
+    slots, app, kw, error = LOSSLESS_REFUSED[case]
+    kw = dict(kw)
+    a = _photo(8, 10, len(slots), 3)
+    if kw.get("precision") == 2:
+        a = a >> 6
+    ss = kw.pop("ss", None)
+    data = W.jpeg_lossless([a[..., i] for i in slots], app=app, **kw)
+    if ss is not None:  # the selection value, after Ns, Cs and Td / Ta
+        o = data.index(b"\xff\xda") + 7
+        data = data[:o] + bytes([ss]) + data[o + 1:]
+    with pytest.raises(Exception):
+        _pil_samples(data)
+    with pytest.raises(error):
+        decode_jpeg(data)
 
 
 # ---------------------------------------------------------------------------
@@ -575,6 +808,25 @@ def test_glb_with_embedded_jpeg_matches_jax(tmp_path):
     assert JL.load_mesh(path, jb) == TL.load_mesh(path, tb)
     assert tb.materials[0].diffuse_tex == 0
     _atlases_equal(jb, tb)
+
+
+def test_tfdm_reads_lossless_jpeg_height_map(tmp_path):
+    """The lossless grey fixture as -height-map: the samples / 255, as
+    JAX's load_png reads them, cut to 64x64, and a frame renders."""
+    from gfxexp_torch.apps import tfdm as tfdm_app
+
+    path = os.path.join(FIXTURES, "height_64_lossless.jpg")
+    with open(path, "rb") as f:
+        samples = tio.decode_samples(f.read(), path)
+    height = tfdm_app.load_or_procedural_height(types.SimpleNamespace(
+        height_map=path, height_kind="ridges"))
+    np.testing.assert_array_equal(height, samples.astype(np.float32) / 255.0)
+    np.testing.assert_array_equal(height, jio.load_png(path, False))
+    hdr = tfdm_app.main(["-device", "cpu", "-width", "16", "-height", "16",
+                         "-frames", "1", "-base-res", "3", "-height-map",
+                         path, "-output", str(tmp_path / "tfdm")])
+    assert hdr.shape == (16, 16, 3) and np.isfinite(hdr).all()
+    assert hdr.mean() > 0
 
 
 def test_tfdm_reads_16bit_height_map(tmp_path):

@@ -3,8 +3,8 @@
     python tests/torch_images/make_fixtures.py
 
 Each fixture is written with PIL, or by writers.py where PIL cannot write
-the variant (Adam7, 16-bit RGB, arithmetic coding), from seeded numpy
-data. digests.json records, for each, the sha256 of PIL's decode
+the variant (Adam7, 16-bit RGB, arithmetic coding, lossless JPEG, a
+progressive JPEG cut after a scan), from seeded numpy data. digests.json records, for each, the sha256 of PIL's decode
 (np.asarray(Image.open(path)).tobytes()), its dtype and shape: every
 fixture is one whose PIL decode is not a palette, so the port's
 decode_samples hands back the same array. tests/test_torch_image_formats.py
@@ -53,6 +53,10 @@ def write_all():
     pil("photo_512_progressive420.jpg", Image.fromarray(
         _texture(512, 512, 3, 1, noise=9.0)), "JPEG", quality=70,
         subsampling=2, progressive=True)
+    # the same file cut after its first AC scan (luma AC 1-5 at Al 2,
+    # chroma DC only): libjpeg's block smoothing, both of its branches
+    with open(os.path.join(HERE, "photo_512_progressive420.jpg"), "rb") as f:
+        raw("photo_512_progressive420_cut2.jpg", W.jpeg_cut(f.read(), 2))
     pil("diffuse_64_baseline422_restart.jpg", Image.fromarray(
         _texture(64, 64, 3, 2)), "JPEG", quality=85, subsampling=1,
         restart_marker_blocks=4)
@@ -74,6 +78,10 @@ def write_all():
     h16 = np.round((0.5 + 0.4 * np.sin(10 * np.pi * xx)
                     * np.sin(10 * np.pi * yy)) * 65535).astype(np.uint16)
     raw("height_64_grey16.png", W.png(h16, 16, 0))
+    # an 8-bit lossless (SOF3) height map, predictor 7, a restart every 8
+    # rows
+    raw("height_64_lossless.jpg", W.jpeg_lossless(
+        [(h16 >> 8).astype(np.uint8)], predictor=7, restart=8 * 64))
     pil("albedo_64_rle.tga", Image.fromarray(_texture(64, 64, 3, 5,
                                                       noise=0.0)),
         "TGA", rle=True)

@@ -4,8 +4,10 @@ depth and colour type, Adam7 interlaced, with tRNS; TGA 16-bit, colour-
 mapped and right-to-left; BMP at 4 and 16 bits, BI_BITFIELDS, RLE4 / RLE8,
 top-down and with the OS/2 header; GIF with a local palette, a frame offset
 and a transparent index; PNM plain and binary at any maxval; and a baseline
-JPEG encoder (Huffman or arithmetic-coded, sequential or progressive) for
-any sampling factors, component ids, Adobe marker and scan layout.
+JPEG encoder (Huffman or arithmetic-coded, sequential or progressive,
+with a scan script that may stop early) for any sampling factors,
+component ids, Adobe marker, quantisation table and scan layout; and a
+lossless (SOF3) JPEG encoder.
 
 Each writer returns the file's bytes. Pure numpy and the standard library.
 """
@@ -344,7 +346,9 @@ def _coefficients(plane, h, v, hmax, vmax, mcux, mcuy, q):
     t = _dct_matrix()
     blocks = p.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3) - 128.0
     c = np.einsum("ux,abxy,vy->abuv", t, blocks, t).reshape(bh, bw, 64)
-    return np.round(c / q.reshape(64)).astype(np.int64)[:, :, _ZZ]
+    q = np.asarray(q, np.float64).reshape(64)
+    c = np.divide(c, q, out=np.zeros_like(c), where=q != 0)  # 0: step 0
+    return np.round(c).astype(np.int64)[:, :, _ZZ]
 
 
 class _Bits:
@@ -356,6 +360,9 @@ class _Bits:
 
     def put(self, code, n):
         self.bits.extend((code >> (n - 1 - i)) & 1 for i in range(n))
+
+    def extend_bits(self, bits):
+        self.bits.extend(bits)
 
     def flush(self):
         self.bits.extend([1] * ((-len(self.bits)) % 8))
@@ -409,6 +416,52 @@ def _huff_block(bits, zz, pred, dc, ac):
     if last < 63:
         bits.put(*ac[0x00])
     return int(zz[0])
+
+
+def _huff_prog(bits, zz, pred, ss, se, ah, al, dc, ac):
+    """One block of a progressive Huffman scan (jcphuff.c), each AC band
+    ending in its own EOB (a run of one); returns the new DC prediction."""
+    if ss == 0:
+        v = int(zz[0]) >> al
+        if ah:
+            bits.put(v & 1, 1)
+            return pred
+        diff = v - pred
+        s = _category(diff)
+        bits.put(*dc[s])
+        if s:
+            bits.put(diff if diff > 0 else diff + (1 << s) - 1, s)
+        return v
+    mag = [abs(int(zz[k])) >> al for k in range(64)]
+    # the last coefficient this scan makes non-zero: no ZRL after it
+    last = max([k for k in range(ss, se + 1)
+                if mag[k] == 1 or (mag[k] and not ah)], default=-1)
+    run, pending = 0, []
+    for k in range(ss, se + 1):
+        a = mag[k]
+        if not a:
+            run += 1
+            continue
+        while run > 15 and k <= last:
+            bits.put(*ac[0xF0])
+            bits.extend_bits(pending)
+            pending = []
+            run -= 16
+        if ah and a > 1:  # known before: a correction bit, sent later
+            pending.append(a & 1)
+            continue
+        s = 1 if ah else _category(a)
+        bits.put(*ac[(run << 4) | s])
+        if ah:
+            bits.put(int(zz[k] > 0), 1)
+        else:
+            bits.put(a if zz[k] > 0 else ~a & ((1 << s) - 1), s)
+        bits.extend_bits(pending)
+        pending, run = [], 0
+    if run or pending:
+        bits.put(*ac[0x00])
+        bits.extend_bits(pending)
+    return pred
 
 
 # the QM coder's table (T.81 Table D.2; jaricom.c): Qe, next LPS, next
@@ -681,13 +734,30 @@ def _arith_ac_refine(s, tbl, zz, ss, se, ah, al):
         s.enc.encode(st, 3 * (k - 1), 1)
 
 
+def progressive_script(nc):
+    """The default scan script of the progressive modes, as (component
+    slots, Ss, Se, Ah, Al): DC at Al 1 then 0, AC 1-5 and 6-63 at Al 1,
+    then their refinements."""
+    every = list(range(nc))
+    return ([(every, 0, 0, 0, 1)]
+            + [([s], ss, se, 0, 1) for s in every for ss, se in ((1, 5),
+                                                                 (6, 63))]
+            + [(every, 0, 0, 1, 0)]
+            + [([s], 1, 63, 1, 0) for s in every])
+
+
 def jpeg(planes, factors, ids=None, app=b"", restart=0, interleaved=True,
-         sof=0xC0, q=None):
+         sof=0xC0, q=None, scans=None):
     """A JPEG of full-resolution component planes (uint8 [H, W] each, in
     the file's colour space) at sampling factors [(h, v)]: sof 0xC0 / 0xC1
-    (Huffman, flat tables), 0xC9 (arithmetic, sequential) or 0xCA
-    (arithmetic, progressive: DC at Al 1 then 0, AC 1-5 and 6-63 at Al 1,
-    then their refinements). `app` goes after SOI (JFIF, Adobe, ...)."""
+    (Huffman, flat tables), 0xC2 (progressive Huffman), 0xC9 (arithmetic,
+    sequential) or 0xCA (arithmetic, progressive). The progressive modes
+    follow `scans`, a list of (component slots, Ss, Se, Ah, Al), by default
+    progressive_script(nc); a script may stop before the coefficients are
+    whole, as a file cut after a scan does. `q` is the quantisation table
+    (8x8, natural order; a zero step codes its coefficient as 0), or a
+    pair: the first component's and the others'. `app` goes after SOI
+    (JFIF, Adobe, ...)."""
     nc = len(planes)
     H, W = planes[0].shape
     ids = ids or list(range(1, nc + 1))
@@ -696,12 +766,13 @@ def jpeg(planes, factors, ids=None, app=b"", restart=0, interleaved=True,
     mcux, mcuy = -(-W // (8 * hmax)), -(-H // (8 * vmax))
     if q is None:
         q = 2 + np.add.outer(np.arange(8), np.arange(8))
-    coefs = [_coefficients(p, h, v, hmax, vmax, mcux, mcuy, q)
-             for p, (h, v) in zip(planes, factors)]
+    qs = list(q) if len(q) == 2 else [q, q]  # (first component's, others')
     tq = [0 if i == 0 else 1 for i in range(nc)]
+    coefs = [_coefficients(p, h, v, hmax, vmax, mcux, mcuy, qs[t])
+             for p, (h, v), t in zip(planes, factors, tq)]
     out = b"\xff\xd8" + app
     for t in (0, 1):
-        qz = np.asarray(q, np.int64).reshape(64)[_ZZ]
+        qz = np.asarray(qs[t], np.int64).reshape(64)[_ZZ]
         out += b"\xff\xdb" + struct.pack(">HB", 67, t) + bytes(qz.tolist())
     out += bytes([0xFF, sof]) + struct.pack(">HBHHB", 8 + 3 * nc, 8, H, W,
                                             nc)
@@ -765,8 +836,13 @@ def jpeg(planes, factors, ids=None, app=b"", restart=0, interleaved=True,
                 pred = [0] * nc
                 for blocks in chunk:
                     for slot, by, bx in blocks:
-                        pred[slot] = _huff_block(bits, coefs[slot][by, bx],
-                                                 pred[slot], dc, ac)
+                        zz = coefs[slot][by, bx]
+                        if sof == 0xC2:
+                            pred[slot] = _huff_prog(bits, zz, pred[slot], ss,
+                                                    se, ah, al, dc, ac)
+                        else:
+                            pred[slot] = _huff_block(bits, zz, pred[slot],
+                                                     dc, ac)
                 bits.flush()
                 body += bits.out
             if start + (restart or len(mcus)) < len(mcus):
@@ -774,17 +850,150 @@ def jpeg(planes, factors, ids=None, app=b"", restart=0, interleaved=True,
         return (b"\xff\xda" + struct.pack(">H", 2 + len(hdr)) + hdr
                 + bytes(body))
 
-    if sof == 0xCA:
-        out += scan(list(range(nc)), 0, 0, 0, 1)
-        for s in range(nc):
-            out += scan([s], 1, 5, 0, 1)
-            out += scan([s], 6, 63, 0, 1)
-        out += scan(list(range(nc)), 0, 0, 1, 0)
-        for s in range(nc):
-            out += scan([s], 1, 63, 1, 0)
+    if sof in (0xC2, 0xCA):
+        for slots, ss, se, ah, al in scans or progressive_script(nc):
+            out += scan(list(slots), ss, se, ah, al)
     elif interleaved and nc > 1:
         out += scan(list(range(nc)), 0, 63, 0, 0)
     else:
         for s in range(nc):
             out += scan([s], 0, 63, 0, 0)
     return out + b"\xff\xd9"
+
+
+def _lossless_diffs(x, predictor, first_rows, initial):
+    """The differences an encoder sends for one component's point-
+    transformed samples x [h, w] (jcdiffct.c / jclossls.c): a first row
+    (the scan's and each restart's) from `initial` then from the left;
+    every other row's first sample from above, the rest by `predictor`."""
+    x = x.astype(np.int64)
+    ra = np.concatenate([np.zeros_like(x[:, :1]), x[:, :-1]], 1)
+    rb = np.concatenate([np.zeros_like(x[:1]), x[:-1]], 0)
+    rc = np.concatenate([np.zeros_like(rb[:, :1]), rb[:, :-1]], 1)
+    pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+            6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[predictor].copy()
+    pred[:, 0] = rb[:, 0]
+    for r in first_rows:
+        pred[r] = ra[r]
+        pred[r, 0] = initial
+    return (x - pred) & 0xFFFF
+
+
+def jpeg_lossless(planes, predictor=1, pt=0, ids=None, app=b"", restart=0,
+                  interleaved=True, factors=None, precision=8, sof=0xC3):
+    """A lossless JPEG (SOF3; `sof` names another marker for a file PIL
+    should refuse) of component planes (uint [h, w] each, at the
+    component's own size: [ceil(H v / vmax), ceil(W h / hmax)] of the
+    frame [H, W] that the first full-size plane sets) at sampling factors
+    [(h, v)] (default 1x1), selection value `predictor` (1-7) and point
+    transform `pt`: one Huffman table of all 17 difference categories,
+    restart markers every `restart` MCUs (a multiple of an MCU row, as
+    libjpeg requires), one interleaved scan or one scan per component."""
+    nc = len(planes)
+    factors = factors or [(1, 1)] * nc
+    ids = ids or list(range(1, nc + 1))
+    hmax = max(h for h, _ in factors)
+    vmax = max(v for _, v in factors)
+    full = [i for i, f in enumerate(factors) if f == (hmax, vmax)]
+    H, W = planes[full[0] if full else 0].shape
+    counts, syms, table = _flat_table(list(range(17)))
+    out = b"\xff\xd8" + app
+    out += b"\xff\xc4" + struct.pack(">HB", 3 + 16 + len(syms), 0) \
+        + bytes(counts) + bytes(syms)
+    out += bytes([0xFF, sof]) + struct.pack(">HBHHB", 8 + 3 * nc, precision,
+                                            H, W, nc)
+    for i, (h, v) in enumerate(factors):
+        out += bytes([ids[i], (h << 4) | v, 0])
+    if restart:
+        out += b"\xff\xdd" + struct.pack(">HH", 4, restart)
+    initial = 1 << (precision - pt - 1)
+
+    def scan(slots):
+        if len(slots) > 1:
+            mx, my = -(-W // hmax), -(-H // vmax)
+        else:
+            my, mx = planes[slots[0]].shape
+        # rows a restart interval spans (at least one, so that a file
+        # with a restart inside a row, which libjpeg refuses, is written)
+        per = max(1, restart // mx) if restart else my
+        diffs = {}
+        for s in slots:
+            h, v = factors[s] if len(slots) > 1 else (1, 1)
+            p = np.asarray(planes[s], np.int64) >> pt
+            # interleaved MCUs cover whole MCU rows and columns: pad by
+            # replication, as an encoder's edge expansion does
+            p = np.pad(p, ((0, my * v - p.shape[0]), (0, mx * h - p.shape[1])),
+                       mode="edge")
+            # libjpeg restarts the prediction at the first row of each
+            # iMCU row that holds a restart: MCU rows of v sample rows
+            # when interleaved, v sample rows of a scan of one component
+            if len(slots) > 1:
+                first = [m * v for m in range(0, my, per)]
+            else:
+                vs = factors[s][1]
+                first = sorted({m - m % vs for m in range(0, my, per)})
+            diffs[s] = _lossless_diffs(p, predictor, first, initial)
+        hdr = bytes([len(slots)])
+        for s in slots:
+            hdr += bytes([ids[s], 0])
+        hdr += bytes([predictor, 0, pt])
+        body = bytearray()
+        bits = _Bits()
+        n = 0
+        for y in range(my):
+            for x in range(mx):
+                if restart and n and n % restart == 0:
+                    bits.flush()
+                    body += bits.out + bytes([0xFF, 0xD0 + (n // restart - 1)
+                                              % 8])
+                    bits = _Bits()
+                n += 1
+                for s in slots:
+                    h, v = factors[s] if len(slots) > 1 else (1, 1)
+                    for yy in range(v):
+                        for xx in range(h):
+                            d = int(diffs[s][y * v + yy, x * h + xx])
+                            d = d - 65536 if d > 32768 else d
+                            cat = 16 if d == 32768 else _category(d)
+                            bits.put(*table[cat])
+                            if 0 < cat < 16:
+                                bits.put(d if d > 0 else d + (1 << cat) - 1,
+                                         cat)
+        bits.flush()
+        body += bits.out
+        return (b"\xff\xda" + struct.pack(">H", 2 + len(hdr)) + hdr
+                + bytes(body))
+
+    if interleaved and nc > 1:
+        out += scan(list(range(nc)))
+    else:
+        for s in range(nc):
+            out += scan([s])
+    return out + b"\xff\xd9"
+
+
+def jpeg_scan_ends(data):
+    """The offset of the marker after each scan's entropy-coded data."""
+    pos, ends = 2, []
+    while pos < len(data):
+        while data[pos] != 0xFF:
+            pos += 1
+        while data[pos] == 0xFF:
+            pos += 1
+        marker = data[pos]
+        pos += 1
+        if marker == 0xD9:
+            break
+        pos += struct.unpack_from(">H", data, pos)[0]
+        if marker == 0xDA:
+            while data[pos] != 0xFF or data[pos + 1] == 0 or (
+                    0xD0 <= data[pos + 1] <= 0xD7):
+                pos += 1
+            ends.append(pos)
+    return ends
+
+
+def jpeg_cut(data, scans):
+    """A JPEG file cut after its first `scans` scans and closed with EOI,
+    as a download stopped at a scan boundary leaves it."""
+    return data[:jpeg_scan_ends(data)[scans - 1]] + b"\xff\xd9"
