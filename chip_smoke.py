@@ -244,7 +244,18 @@ Phases, one line each, any failure exits non-zero:
      its DDS and PNG files, TEX_RES^2, TEX_SAMPLES samples as wide rows
      (kernel 1), card against CPU; the host's decode ms per megapixel of
      that JPEG and of its copy cut after the first AC scan (best of
-     IMAGE_REPS).
+     IMAGE_REPS);
+ 37. core toolkit, card against CPU at full width: generate_rays at
+     1920x1080 (origins equal, directions within 1e-6); an alias table
+     over 2^20 weights built on the host, 2^22 samples equal bit for bit;
+     a discrete distribution over 2^16 weights built on the card, its CDF
+     within CORE_CDF_ULPS of the CPU's, 2^22 sampled indices equal but
+     where u lies within the CDFs' largest difference of an edge (counted,
+     against the mass between the two CDFs; beside it, how often a float32
+     scan on the card steps down or gives an empty item a bin); octahedral round trips of
+     2^22 normals (encode equal, decode within 4 ulps); power_heuristic
+     and simple_tonemap equal, srgb_to_linear within 8 ulps; device ms of
+     each call.
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -4579,6 +4590,176 @@ def phase_images(report, dev):
     report["images"] = rows
 
 
+# phase 37: the core toolkit at full width
+CORE_RES = (1920, 1080)  # generate_rays
+CORE_ALIAS_N = 1 << 20  # alias table entries (built on the host)
+CORE_DISCRETE_N = 1 << 16  # discrete distribution entries (built on the card)
+CORE_SAMPLES = 1 << 22  # uniforms sampled, normals round-tripped
+# the card's CDF against the CPU's: both accumulate in float64 and round
+# once, but the card's scan associates each prefix its own way, so a prefix
+# and the total it is divided by may each round the other way
+CORE_CDF_ULPS = 4
+CORE_REPS = 10
+
+
+def _ulps(a, b):
+    """Distance in float32 ulps of same-signed values [N] (bit patterns)."""
+    return (a.contiguous().view(torch.int32).to(torch.int64)
+            - b.contiguous().view(torch.int32).to(torch.int64)).abs()
+
+
+def phase_core(report, dev):
+    """Phase 37: the core toolkit (core/math.py, core/distributions.py,
+    core/rng.py, render/camera.py) on the card against the CPU, at full
+    width: generate_rays at 1920x1080; an alias table over 2^20 weights
+    (host build) sampled with 2^22 uniforms, indices equal bit for bit; a
+    discrete distribution over 2^16 weights built on the card, its CDF
+    within CORE_CDF_ULPS of the CPU's and its 2^22 sampled indices equal
+    off the edges (the rest counted; the faults of a float32 scan
+    printed beside them); octahedral round trips of 2^22
+    normals; power_heuristic, simple_tonemap, srgb_to_linear. Device ms
+    per call from CUDA events, the card spinning while the host
+    enqueues."""
+    from gfxexp_torch.core import distributions as dist
+    from gfxexp_torch.core import math as cm
+    from gfxexp_torch.core.rng import uniform4
+    from gfxexp_torch.render.camera import generate_rays
+
+    t_phase = time.time()
+    cpu = torch.device("cpu")
+    r = np.random.default_rng(SEED)
+    rep, ms = {}, {}
+
+    def both(fn, *host):
+        """fn on the card and on the CPU, the card's result on the host."""
+        out = fn(*(x.to(dev) for x in host))
+        ref = fn(*host)
+        if isinstance(out, tuple):
+            return tuple(o.cpu() for o in out), ref
+        return out.cpu(), ref
+
+    def timed(name, fn, *host):
+        args = [x.to(dev) for x in host]
+        ms[name] = _device_and_host_ms(lambda: fn(*args), CORE_REPS)[0]
+
+    # primary rays: origins bit for bit, directions within 1e-6 (tan)
+    w, h = CORE_RES
+    cam = bench.bench_camera(w, h)
+    jx, jy = (torch.from_numpy(x) for x in
+              r.random((2, w * h), dtype=np.float32))
+    (go, gd), (ro, rd) = both(lambda c, a, b: generate_rays(c, w, h, a, b),
+                              cam, jx, jy)
+    ray_err = float((gd - rd).abs().max())
+    check(torch.equal(go, ro) and ray_err <= 1e-6
+          and bool(torch.isfinite(gd).all()),
+          f"37 core generate_rays: direction err {ray_err}")
+    timed("generate_rays", lambda c, a, b: generate_rays(c, w, h, a, b),
+          cam, jx, jy)
+
+    u = uniform4(torch.arange(CORE_SAMPLES), SEED, 37, 0)[0]
+    # the alias table: host build, samples bit for bit
+    wa = r.random(CORE_ALIAS_N)
+    wa[r.random(CORE_ALIAS_N) < 0.1] = 0.0
+    t0 = time.perf_counter()
+    table = dist.build_alias_table(wa)
+    alias_build_s = time.perf_counter() - t0
+    (gi, gp), (ri, rp) = both(lambda t, x: dist.sample_alias(t, x),
+                              table, u)
+    check(torch.equal(gi, ri) and torch.equal(gp, rp),
+          f"37 core sample_alias: {int((gi != ri).sum())} indices differ")
+    timed("sample_alias", dist.sample_alias, table, u)
+
+    # the discrete distribution, built on each device
+    wd = torch.from_numpy(r.random(CORE_DISCRETE_N).astype(np.float32))
+    wd[torch.from_numpy(r.random(CORE_DISCRETE_N) < 0.1)] = 0.0
+    gdist, rdist = dist.build_discrete_1d(wd.to(dev)), dist.build_discrete_1d(
+        wd)
+    gcdf = gdist.cdf.cpu()
+    cdf_ulps = int(_ulps(gcdf, rdist.cdf).max())
+    check(cdf_ulps <= CORE_CDF_ULPS,
+          f"37 core build_discrete_1d: cdf {cdf_ulps} ulps from the CPU's")
+    gi = dist.sample_discrete_1d(gdist, u.to(dev))[0].cpu()
+    ri = dist.sample_discrete_1d(rdist, u)[0]
+    # u can pick otherwise only where it lies between the two CDFs' values
+    # of an edge: within their largest difference of the CPU's edges; the
+    # share that does is about the mass between the two CDFs
+    cdf, window = rdist.cdf, max(cdf_ulps, 1)
+    edge = torch.minimum(_ulps(u, cdf[ri]), _ulps(u, cdf[ri + 1])) <= window
+    differ = gi != ri
+    n_differ, n_edge = int(differ.sum()), int(edge.sum())
+    mass = float((gcdf.double() - cdf.double()).abs().sum())
+    check(not bool((differ & ~edge).any())
+          and n_differ <= 2 * mass * len(u) + 16
+          and bool((wd[gi] > 0).all()),
+          f"37 core sample_discrete_1d: {n_differ} indices differ "
+          f"(mass between the CDFs {mass:.3g}), "
+          f"{int((differ & ~edge).sum())} off the edges")
+    # why the CDF is accumulated in float64: the card's float32 scan of the
+    # same pmf steps down, and gives empty items a bin
+    scan32 = torch.cumsum(gdist.pmf, dim=0)
+    steps_down = int((scan32[1:] < scan32[:-1]).sum())
+    empty_binned = int(((gdist.pmf[1:] == 0) & (scan32[1:] > scan32[:-1])
+                        ).sum())
+    timed("build_discrete_1d", dist.build_discrete_1d, wd)
+    timed("sample_discrete_1d", dist.sample_discrete_1d, gdist, u)
+
+    # octahedral normals: encode bit for bit, decode within 4 ulps (sqrt)
+    v = torch.from_numpy(r.normal(size=(CORE_SAMPLES, 3)).astype(np.float32))
+    n = cm.normalize(v)
+    (ge, re_), (gn, rn) = (both(cm.octahedral_encode, n),
+                           both(lambda x: cm.octahedral_decode(
+                               cm.octahedral_encode(x)), n))
+    oct_ulps = int(_ulps(gn.flatten(), rn.flatten()).max())
+    oct_err = float((gn - n).abs().max())
+    check(torch.equal(ge, re_) and oct_ulps <= 4 and oct_err < 1e-5,
+          f"37 core octahedral: decode {oct_ulps} ulps from the CPU, round "
+          f"trip err {oct_err}")
+    timed("octahedral_round_trip",
+          lambda x: cm.octahedral_decode(cm.octahedral_encode(x)), n)
+
+    # MIS and colour: power_heuristic and simple_tonemap bit for bit,
+    # srgb_to_linear within 8 ulps (pow)
+    pa, pb = (torch.from_numpy(x) for x in
+              r.random((2, CORE_SAMPLES), dtype=np.float32))
+    pa[:4], pb[:2] = 0.0, 0.0
+    gm, rm = both(cm.power_heuristic, pa, pb)
+    col = torch.from_numpy((r.random((CORE_SAMPLES, 3)) * 4.0).astype(
+        np.float32))
+    gt, rt = both(cm.simple_tonemap, col)
+    gs, rs = both(cm.srgb_to_linear, pa)
+    srgb_ulps = int(_ulps(gs, rs).max())
+    check(torch.equal(gm, rm) and torch.equal(gt, rt) and srgb_ulps <= 8,
+          f"37 core colour: power_heuristic {torch.equal(gm, rm)}, "
+          f"simple_tonemap {torch.equal(gt, rt)}, srgb {srgb_ulps} ulps")
+    timed("power_heuristic", cm.power_heuristic, pa, pb)
+    timed("simple_tonemap", cm.simple_tonemap, col)
+    timed("srgb_to_linear", cm.srgb_to_linear, pa)
+
+    rep.update(direction_max_abs=ray_err, alias_host_build_s=alias_build_s,
+               cdf_max_ulps=cdf_ulps, discrete_differ=n_differ,
+               discrete_near_edge=n_edge, cdf_mass_between=mass,
+               float32_scan_steps_down=steps_down,
+               float32_scan_empty_items_binned=empty_binned, octahedral_decode_max_ulps=oct_ulps,
+               octahedral_round_trip_max_abs=oct_err,
+               srgb_max_ulps=srgb_ulps, device_ms=ms,
+               seconds=time.time() - t_phase)
+    report["core"] = rep
+    print(f"[37 core] {w}x{h} rays (dir err {ray_err:.3g}), alias "
+          f"{CORE_ALIAS_N} (host build {alias_build_s:.2f} s) x "
+          f"{CORE_SAMPLES} samples equal, discrete {CORE_DISCRETE_N} cdf "
+          f"{cdf_ulps} ulps (bound {CORE_CDF_ULPS}), {n_differ} of "
+          f"{CORE_SAMPLES} indices differ ({n_edge} within {window} ulps "
+          f"of an edge, none off one; mass between the CDFs {mass:.3g}; a "
+          f"float32 scan would step down {steps_down} times and give "
+          f"{empty_binned} of {int((wd == 0).sum())} empty items a bin), "
+          f"octahedral "
+          f"{CORE_SAMPLES} encode equal, decode {oct_ulps} ulps, round trip "
+          f"{oct_err:.3g}; power_heuristic, simple_tonemap equal, srgb "
+          f"{srgb_ulps} ulps | device ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+          + f" | {rep['seconds']:.1f} s", flush=True)
+
+
 def mark(report, t_start, phase):
     """Seconds since the start at the end of `phase`, kept and printed."""
     secs = time.time() - t_start
@@ -4673,6 +4854,8 @@ def main():
     mark(report, t_start, "35")
     phase_images(report, dev)
     mark(report, t_start, "36")
+    phase_core(report, dev)
+    mark(report, t_start, "37")
 
     kernels = [
         {"name": f"widerow_walk_{kind}", "route": "cuda",

@@ -36,6 +36,10 @@ class BVH(TensorData):
     arity: int = 4
     max_leaf: int = 4
 
+    @property
+    def num_nodes(self):
+        return self.child_idx.shape[0]
+
 
 class _Bvh2(NamedTuple):
     mins: np.ndarray  # [N, 3]

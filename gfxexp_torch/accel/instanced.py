@@ -118,6 +118,10 @@ class InstancedAccel(TensorData):
     def num_entries(self) -> int:
         return self.blas_ids.shape[0]
 
+    # the JAX package's name: the TLAS entry count, which exceeds the
+    # instance count after rebraiding
+    num_instances = num_entries
+
 
 # ---------------------------------------------------------------------------
 # host build (numpy)
@@ -487,6 +491,14 @@ def walk_tlas(walk, acc: InstancedAccel, o, d, t_min, t_max, any_hit: bool):
     return hit, unperm(ent)
 
 
+def persistent_inst_supported(acc) -> bool:
+    """The nearest-first route walks every two-level table (its rows are
+    64 wide by construction; the TPU kernel's bound on the tables' size is
+    its on-chip memory, and the CUDA walk reads them from device
+    memory)."""
+    return isinstance(acc, InstancedAccel)
+
+
 def _traverse(acc: InstancedAccel, o, d, t_min, t_max, any_hit: bool,
               tlas: bool):
     walk = _walker(o)
@@ -494,8 +506,9 @@ def _traverse(acc: InstancedAccel, o, d, t_min, t_max, any_hit: bool,
     if tlas and acc.chunk_lo is not None and acc.num_entries > 1:
         hit, ent = walk_tlas(walk, acc, o, d, t_min, t_max, any_hit)
     else:
+        nearest = persist_on() and persistent_inst_supported(acc)
         hit, ent = walk(acc, o, d, t_min, t_max, any_hit,
-                        route="nearest" if persist_on() else "build")
+                        route="nearest" if nearest else "build")
     inst = torch.where(ent >= 0,
                        acc.inst_of_chunk[torch.clamp(ent, min=0).long()],
                        -1).to(torch.int32)

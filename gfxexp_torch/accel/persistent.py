@@ -599,10 +599,16 @@ def walk_chunked_cuda(bvh: WideRowBVH, o, d, t_min, t_max,
 # ---------------------------------------------------------------------------
 
 
+def persistent_supported(bvh) -> bool:
+    """Kernel 1 walks single-chunk wide-row tables."""
+    return (isinstance(bvh, WideRowBVH) and bvh.num_chunks == 1
+            and bvh.width == WIDTH)
+
+
 def use_kernel1(bvh: WideRowBVH) -> bool:
-    """Kernel 1 for a single-chunk table with the switch on, else kernel 2
+    """Kernel 1 for a table it walks with the switch on, else kernel 2
     (pallas_widestack.py `_use_persistent`)."""
-    return persist_on() and bvh.num_chunks == 1
+    return persist_on() and persistent_supported(bvh)
 
 
 def _walk(bvh, o, d, t_min, t_max, any_hit):

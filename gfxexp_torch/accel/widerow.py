@@ -80,6 +80,11 @@ class WideRowBVH(TensorData):
     def rows_per_chunk(self) -> int:
         return self.nodes.shape[1]
 
+    @property
+    def num_nodes(self) -> int:
+        """Rows of all chunks, padding rows included."""
+        return self.nodes.shape[0] * self.nodes.shape[1]
+
     def flat(self) -> "WideRowBVH":
         """The chunks as one [1, C*R, 64] table (a view, no chunk boxes):
         child rows of chunk c then count from row c * R."""
@@ -147,6 +152,16 @@ def _pack_one(bvh: BVH, p0, e1, e2, tri_offset: int = 0) -> np.ndarray:
             | (leaf_count << COUNT_SHIFT)).view(np.float32)
     tab[n_int:, WIDTH - 1] = 1.0  # tag: leaf
     return tab
+
+
+def pack_widerows(bvh: BVH, tris) -> WideRowBVH:
+    """Single-chunk table [1, R, 64] of one wide BVH and its triangles
+    (a TriangleSoA in the BVH's leaf order), on the host."""
+    tab = _pack_one(bvh, *(np.asarray(x.cpu(), np.float32)
+                           for x in (tris.p0, tris.e1, tris.e2)))
+    return WideRowBVH(nodes=torch.from_numpy(tab[None]), arity=int(bvh.arity),
+                      width=WIDTH, max_leaf=int(bvh.max_leaf),
+                      max_depth=int(bvh.max_depth))
 
 
 def morton_chunks(p0, e1, e2, est_rows: int, max_rows: int, min_tris: int,

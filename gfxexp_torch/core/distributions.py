@@ -1,6 +1,19 @@
-"""Importance-sampling distributions (port of gfxexp_tpu/core/distributions.py:
-the host alias-table build and the 2D piecewise-constant distribution that
-samples the environment light)."""
+"""Importance-sampling distributions (port of
+gfxexp_tpu/core/distributions.py): discrete CDFs built on the device and
+sampled by a search, Walker alias tables built on the host (Vose, O(n)) and
+sampled by one gather, the 2D piecewise-constant distribution that samples
+the environment light, and the hierarchical probability texture.
+
+Host builders return CPU containers that `.to(device)` moves; the samplers
+and `build_discrete_1d` follow their inputs' device.
+
+A prefix sum rounds differently on every backend. The port accumulates its
+CDF in float64 and rounds it once, on every device (as PyTorch's CPU
+`cumsum` does for float32); XLA's scan runs in float32 in an order of its
+own. So a CDF built here agrees with the JAX package's to a few ulps, not
+bit for bit, and a uniform within that distance of a CDF edge may pick the
+neighbouring item.
+"""
 
 from __future__ import annotations
 
@@ -10,6 +23,74 @@ import numpy as np
 import torch
 
 from gfxexp_torch.core.tensors import TensorData
+
+
+@dataclass
+class DiscreteDistribution1D(TensorData):
+    """Discrete PMF over n items: `cdf` [..., n + 1] with cdf[0] = 0 and
+    cdf[n] = 1, `pmf` [..., n] normalised, `integral` [...] the sum of the
+    raw weights."""
+
+    pmf: torch.Tensor
+    cdf: torch.Tensor
+    integral: torch.Tensor
+
+    @property
+    def size(self):
+        return self.pmf.shape[-1]
+
+
+def build_discrete_1d(weights) -> DiscreteDistribution1D:
+    """Build from non-negative weights [..., n], on their device."""
+    w = torch.clamp(torch.as_tensor(weights, dtype=torch.float32), min=0.0)
+    integral = w.sum(dim=-1)
+    safe = torch.where(integral > 0.0, integral, 1.0)
+    pmf = w / safe[..., None]
+    # prefix sums accumulated in float64 and rounded once, as PyTorch's CPU
+    # cumsum forms them (CUDA's float32 scan associates each prefix its own
+    # way: it can step down, or give an empty item a bin of an ulp)
+    prefix = torch.cumsum(pmf, dim=-1, dtype=torch.float64).to(pmf.dtype)
+    # an empty item's edge repeats the one before it, so that it is never
+    # picked, and the CDF never decreases
+    prefix = torch.cummax(torch.where(pmf > 0.0, prefix, 0.0), dim=-1).values
+    cdf = torch.cat([torch.zeros_like(pmf[..., :1]), prefix], dim=-1)
+    # exactly 1.0 at the end, so that the search stays in range
+    cdf = cdf / torch.clamp(cdf[..., -1:], min=1e-20)
+    return DiscreteDistribution1D(pmf=pmf, cdf=cdf, integral=integral)
+
+
+def sample_discrete_1d(dist: DiscreteDistribution1D, u):
+    """Item indices for uniforms u [...] in [0, 1) of a 1D distribution:
+    the last i with cdf[i] <= u, so an empty item is never picked. Returns
+    (index int64, pmf)."""
+    idx = torch.searchsorted(dist.cdf, u, right=True) - 1
+    idx = torch.clamp(idx, 0, dist.size - 1)
+    return idx, dist.pmf[idx]
+
+
+def sample_discrete_1d_remapped(dist: DiscreteDistribution1D, u):
+    """sample_discrete_1d, and the uniform remapped into the chosen item's
+    bin (reused downstream as a fresh uniform). Returns (index, pmf,
+    u_remapped in [0, 1))."""
+    idx, pmf = sample_discrete_1d(dist, u)
+    lo = dist.cdf[idx]
+    width = dist.cdf[idx + 1] - lo
+    u_re = torch.where(width > 0.0,
+                       (u - lo) / torch.where(width > 0.0, width, 1.0), 0.0)
+    return idx, pmf, torch.clamp(u_re, 0.0, 1.0 - 1e-7)
+
+
+# ---------------------------------------------------------------------------
+# Walker alias method
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class AliasTable(TensorData):
+    pmf: torch.Tensor  # [n] float32
+    prob: torch.Tensor  # [n] float32 probability of keeping the bucket's item
+    alias: torch.Tensor  # [n] int32 the bucket's other item
+    integral: torch.Tensor  # [] float32
 
 
 def vose_alias_arrays(weights: np.ndarray):
@@ -37,6 +118,29 @@ def vose_alias_arrays(weights: np.ndarray):
     for i in large + small:
         prob[i] = 1.0
     return p, prob, alias, integral
+
+
+def build_alias_table(weights: np.ndarray) -> AliasTable:
+    """Vose's O(n) construction from non-negative weights [n], on the host;
+    the table's tensors lie on the CPU."""
+    p, prob, alias, integral = vose_alias_arrays(weights)
+    return AliasTable(pmf=torch.from_numpy(p.astype(np.float32)),
+                      prob=torch.from_numpy(prob.astype(np.float32)),
+                      alias=torch.from_numpy(alias.astype(np.int32)),
+                      integral=torch.tensor(np.float32(integral)))
+
+
+def sample_alias(table: AliasTable, u):
+    """O(1) sampling of uniforms u [...] in [0, 1): bucket int(u * n), kept
+    when the fraction left is below its prob, else its alias. Returns
+    (index int32, pmf)."""
+    n = table.pmf.shape[0]
+    scaled = u * n
+    bucket = torch.clamp(scaled.to(torch.int32), 0, n - 1)
+    frac = scaled - bucket.to(torch.float32)
+    keep = frac < table.prob[bucket]
+    idx = torch.where(keep, bucket, table.alias[bucket])
+    return idx, table.pmf[idx]
 
 
 @dataclass

@@ -1,8 +1,12 @@
-"""Vector math over batched `[..., 3]` tensors (port of the parts of
-gfxexp_tpu/core/math.py the path tracer uses).
+"""Vector, transform, sampling and colour math over batched `[..., 3]`
+tensors (port of gfxexp_tpu/core/math.py).
 
 Reductions over the 3 components are written out as `a*b + c*d + e*f`, so
-the CPU and the CUDA device round them in the same order.
+the CPU and the CUDA device round them in the same order; the 3x3 products
+are written out per component in float32 (JAX's precision=HIGHEST, with no
+TF32). Functions follow their inputs' device; those that make a tensor from
+Python values only (`identity_transform`, `make_transform`) take a
+`device`, None for torch's default.
 """
 
 from __future__ import annotations
@@ -43,9 +47,19 @@ def length(v, keepdim=False):
     return torch.sqrt(torch.clamp(dot(v, v, keepdim=keepdim), min=0.0))
 
 
+def sq_length(v, keepdim=False):
+    return dot(v, v, keepdim=keepdim)
+
+
 def normalize(v, eps=1e-20):
     return v * (1.0 / torch.sqrt(torch.clamp(dot(v, v, keepdim=True),
                                              min=eps)))
+
+
+def reflect(v, n):
+    """Reflect direction `v` about normal `n` (both pointing away from the
+    surface)."""
+    return 2.0 * dot(v, n, keepdim=True) * n - v
 
 
 def luminance(rgb):
@@ -79,6 +93,59 @@ def to_local(t, b, n, v):
 
 def to_world(t, b, n, v):
     return v[..., 0:1] * t + v[..., 1:2] * b + v[..., 2:3] * n
+
+
+# ---------------------------------------------------------------------------
+# octahedral normal encoding
+# ---------------------------------------------------------------------------
+
+
+def octahedral_encode(n):
+    """Unit vector [..., 3] -> octahedral [..., 2] in [-1, 1]."""
+    denom = torch.abs(n[..., 0]) + torch.abs(n[..., 1]) + torch.abs(n[..., 2])
+    p = n[..., :2] / torch.clamp(denom, min=1e-20)[..., None]
+    flip = (1.0 - torch.abs(p.flip(-1))) * torch.where(p >= 0.0, 1.0, -1.0)
+    return torch.where(n[..., 2:3] < 0.0, flip, p)
+
+
+def octahedral_decode(e):
+    """Octahedral [..., 2] -> unit vector [..., 3]."""
+    z = 1.0 - torch.abs(e[..., 0]) - torch.abs(e[..., 1])
+    t = torch.clamp(-z, min=0.0)
+    xy = e - torch.where(e >= 0.0, 1.0, -1.0) * t[..., None]
+    return normalize(torch.stack([xy[..., 0], xy[..., 1], z], dim=-1))
+
+
+# ---------------------------------------------------------------------------
+# AABB helpers
+# ---------------------------------------------------------------------------
+
+
+def aabb_union(mins_a, maxs_a, mins_b, maxs_b):
+    return torch.minimum(mins_a, mins_b), torch.maximum(maxs_a, maxs_b)
+
+
+def aabb_surface_area(mins, maxs):
+    d = torch.clamp(maxs - mins, min=0.0)
+    return 2.0 * (d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2]
+                  + d[..., 2] * d[..., 0])
+
+
+def ray_aabb_intersect(o, inv_d, t_min, t_max, box_min, box_max):
+    """Slab test. o, inv_d [..., 3]; box_min, box_max broadcastable to
+    [..., 3]; t_min, t_max numbers or tensors broadcastable to [...].
+    Returns (hit [...], t_near [...]) with t_near clamped to t_min."""
+    t0 = (box_min - o) * inv_d
+    t1 = (box_max - o) * inv_d
+    t_lo = torch.minimum(t0, t1)
+    t_hi = torch.maximum(t0, t1)
+    lo = torch.maximum(torch.maximum(t_lo[..., 0], t_lo[..., 1]), t_lo[..., 2])
+    hi = torch.minimum(torch.minimum(t_hi[..., 0], t_hi[..., 1]), t_hi[..., 2])
+    near = torch.maximum(lo, torch.as_tensor(t_min, dtype=lo.dtype,
+                                             device=lo.device))
+    far = torch.minimum(hi, torch.as_tensor(t_max, dtype=hi.dtype,
+                                            device=hi.device))
+    return near <= far, near
 
 
 _RAY_ORG_INT_SCALE = 256.0
@@ -116,10 +183,35 @@ def cosine_sample_hemisphere(u0, u1):
     return torch.stack([x, y, z], dim=-1)
 
 
+def uniform_sample_sphere(u0, u1):
+    z = 1.0 - 2.0 * u0
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * np.pi * u1
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def power_heuristic(pdf_a, pdf_b):
+    """Power heuristic (beta = 2) MIS weight of strategy a; 0 where both
+    pdfs are 0."""
+    a2 = pdf_a * pdf_a
+    b2 = pdf_b * pdf_b
+    return safe_divide(a2, a2 + b2)
+
+
+def srgb_to_linear(c):
+    return torch.where(c <= 0.04045, c / 12.92,
+                       torch.pow((c + 0.055) / 1.055, 2.4))
+
+
 def linear_to_srgb(c):
     c = torch.clamp(c, 0.0, 1.0)
     return torch.where(c <= 0.0031308, c * 12.92,
                        1.055 * torch.pow(c, 1.0 / 2.4) - 0.055)
+
+
+def simple_tonemap(c):
+    """Reinhard-style tonemap by luminance for SDR output."""
+    return c / (1.0 + luminance(c))[..., None]
 
 
 def np_normalize(v):
@@ -139,6 +231,36 @@ def rotate(m, v):
 # ---------------------------------------------------------------------------
 
 
+def _device_of(*xs):
+    return next((x.device for x in xs if isinstance(x, torch.Tensor)), None)
+
+
+def _f32(x, device):
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def identity_transform(device=None):
+    """The [3, 4] identity affine."""
+    return torch.cat([torch.eye(3, device=device),
+                      torch.zeros((3, 1), device=device)], dim=-1)
+
+
+def make_transform(rotation=None, translation=None, scale=None,
+                   device=None):
+    """Compose scale, then rotation, then translation into a [3, 4] affine,
+    on `device`, else on the device of a tensor argument."""
+    if device is None:
+        device = _device_of(rotation, translation, scale)
+    r = (torch.eye(3, device=device) if rotation is None
+         else _f32(rotation, device))
+    if scale is not None:
+        s = torch.broadcast_to(torch.atleast_1d(_f32(scale, device)), (3,))
+        r = r * s[None, :]
+    t = (torch.zeros(3, device=device) if translation is None
+         else _f32(translation, device))
+    return torch.cat([r, t[:, None]], dim=-1)
+
+
 def transform_vector(m, v):
     """m [..., 3, 4] (or [..., 3, 3]), v [..., 3] -> the 3x3 part applied
     to v."""
@@ -156,6 +278,15 @@ def transform_normal(m_inv, n):
                         + m_inv[..., 1, i] * n[..., 1]
                         + m_inv[..., 2, i] * n[..., 2] for i in range(3)],
                        dim=-1)
+
+
+def compose_transforms(a, b):
+    """The [..., 3, 4] affine that applies b first, then a."""
+    r = torch.stack([torch.stack([
+        a[..., i, 0] * b[..., 0, k] + a[..., i, 1] * b[..., 1, k]
+        + a[..., i, 2] * b[..., 2, k] for k in range(3)], dim=-1)
+        for i in range(3)], dim=-2)
+    return torch.cat([r, transform_point(a, b[..., 3])[..., None]], dim=-1)
 
 
 def det3(r):
@@ -191,6 +322,30 @@ def invert_transform(m):
     r_inv = inverse3(m[..., :3])
     t = -transform_vector(r_inv, m[..., 3])
     return torch.cat([r_inv, t[..., None]], dim=-1)
+
+
+def axis_angle_quaternion(axis, angle):
+    """Quaternion [..., 4] (x, y, z, w) of a rotation by `angle` radians
+    about `axis` [..., 3] (normalised here)."""
+    device = _device_of(axis, angle)
+    axis = normalize(_f32(axis, device))
+    half = _f32(angle, device) * 0.5
+    s = torch.sin(half)
+    return torch.cat([axis * s[..., None], torch.cos(half)[..., None]],
+                     dim=-1)
+
+
+def look_at(position, target, up):
+    """Camera-to-world rotation [3, 3] whose columns are (right, up,
+    -forward): the view looks down -z, x right, y up. This is the JAX
+    package's convention, kept as it is; render/camera.py `make_camera`
+    builds its own orientation, which looks along +z."""
+    device = _device_of(position, target, up)
+    position, target, up = (_f32(x, device) for x in (position, target, up))
+    fwd = normalize(target - position)
+    right = normalize(cross(fwd, up))
+    true_up = cross(right, fwd)
+    return torch.stack([right, true_up, -fwd], dim=-1)
 
 
 def quaternion_to_matrix(q):

@@ -79,6 +79,11 @@ def bits_to_unit_float(bits):
     return ((bits >> 8) & 0xFFFFFF).to(torch.float32) * (1.0 / 16777216.0)
 
 
+def uniform4(v0, v1, v2, v3):
+    """Four independent U[0, 1) floats from a 4D counter."""
+    return tuple(bits_to_unit_float(x) for x in pcg4d(v0, v1, v2, v3))
+
+
 class SampleStream:
     """A (lane, sample, stream) counter plus a dimension index; each pcg4d
     evaluation yields four draws, buffered (gfxexp_tpu SampleStream)."""
@@ -102,6 +107,9 @@ class SampleStream:
 
     def next2(self):
         return self.next(), self.next()
+
+    def next3(self):
+        return self.next(), self.next(), self.next()
 
     def next_bits(self):
         return self._next_raw()

@@ -116,6 +116,14 @@ def lane_from_pixel(pixel, width: int, height: int):
     return block * (BLOCK_W * BLOCK_H) + within
 
 
+def generate_rays(camera: Camera, width: int, height: int, jx, jy):
+    """Primary rays for every pixel in linear (row-major) order, on the
+    camera's device. jx, jy: [H*W] jitter in [0, 1) (0.5 for the pixel
+    centres). Returns (origins [N, 3], directions [N, 3])."""
+    lane = torch.arange(width * height, device=camera.position.device)
+    return generate_rays_for_lanes(camera, width, height, lane, jx, jy)
+
+
 def generate_rays_for_lanes(camera: Camera, width: int, height: int, lane,
                             jx, jy):
     """Primary rays for linear pixel indices `lane`. The 3x3 rotation is

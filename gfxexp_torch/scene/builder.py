@@ -26,6 +26,7 @@ from gfxexp_torch.core.math import np_normalize
 from gfxexp_torch.scene.types import (
     BSDF_DIFFUSE_SPECULAR,
     BSDF_LAMBERT,
+    BSDF_SIMPLE_PBR,
     EnvLight,
     InstanceTable,
     MaterialTable,
@@ -55,6 +56,20 @@ class HostMaterial:
     name: str = ""
 
 
+def simple_pbr_material(base_color, roughness, metallic, emittance=(0, 0, 0),
+                        name="", **fields) -> HostMaterial:
+    """A SimplePBR material on the diffuse + specular parameterisation:
+    diffuse = base (1 - metallic), F0 = 0.04 (1 - metallic) + base metallic;
+    `fields` sets the other HostMaterial fields (textures)."""
+    base = np.asarray(base_color, np.float64)
+    m = float(metallic)
+    return HostMaterial(
+        bsdf_type=BSDF_SIMPLE_PBR, diffuse_color=tuple(base * (1.0 - m)),
+        specular_f0=tuple(0.04 * (1.0 - m) + base * m),
+        roughness=float(roughness), metallic=m, emittance=tuple(emittance),
+        name=name, **fields)
+
+
 @dataclasses.dataclass
 class HostGeometry:
     """One triangle mesh with a single material slot (object space)."""
@@ -72,6 +87,8 @@ class HostInstance:
 
     geometries: List[int]
     transform: np.ndarray  # [3, 4] object -> world
+    # scene/animation.py InstanceController; stored, read by no build
+    controller: Optional[object] = None
 
 
 def affine(rotation=None, translation=None, scale=None) -> np.ndarray:
@@ -177,6 +194,11 @@ class SceneBuilder:
             roughness=float(1.0 - smoothness), emittance=tuple(emittance),
             name=name))
 
+    def add_simple_pbr_material(self, base_color, roughness, metallic,
+                                emittance=(0, 0, 0), name="") -> int:
+        return self.add_material(simple_pbr_material(
+            base_color, roughness, metallic, emittance=emittance, name=name))
+
     # -- geometry ----------------------------------------------------------
 
     def add_geometry(self, positions, indices, material, normals=None,
@@ -241,13 +263,14 @@ class SceneBuilder:
 
     # -- instances ---------------------------------------------------------
 
-    def add_instance(self, geometries, transform=None) -> int:
+    def add_instance(self, geometries, transform=None,
+                     controller=None) -> int:
         if isinstance(geometries, int):
             geometries = [geometries]
         if transform is None:
             transform = affine()
         self.instances.append(HostInstance(
-            list(geometries), np.asarray(transform, np.float32)))
+            list(geometries), np.asarray(transform, np.float32), controller))
         return len(self.instances) - 1
 
     # -- displaced geometry ------------------------------------------------

@@ -25,6 +25,7 @@ from gfxexp_torch.scene.builder import (
     HostMaterial,
     SceneBuilder,
     compute_smooth_normals,
+    simple_pbr_material,
 )
 from gfxexp_torch.scene.types import BSDF_DIFFUSE_SPECULAR, BSDF_SIMPLE_PBR
 from gfxexp_torch.utils.image_io import decode_image
@@ -76,19 +77,9 @@ def _mtl_to_material(props: dict, convention: str, builder=None,
                 break
     if convention == "simple_pbr":
         # base colour, roughness and metallic
-        rough = props.get("Pr", 0.5)
-        metal = props.get("Pm", 0.0)
-        base = np.asarray(kd, np.float64)
-        return HostMaterial(
-            bsdf_type=BSDF_SIMPLE_PBR,
-            diffuse_color=tuple(base * (1.0 - metal)),
-            specular_f0=tuple(0.04 * (1.0 - metal) + base * metal),
-            roughness=float(rough),
-            metallic=float(metal),
-            emittance=tuple(ke),
-            diffuse_tex=diffuse_tex,
-            normal_tex=normal_tex,
-        )
+        return simple_pbr_material(
+            kd, props.get("Pr", 0.5), props.get("Pm", 0.0), emittance=ke,
+            diffuse_tex=diffuse_tex, normal_tex=normal_tex)
     # traditional: the Phong exponent Ns -> smoothness sqrt(Ns / 1000)
     smoothness = float(np.clip(np.sqrt(max(ns, 0.0) / 1000.0), 0.0, 1.0))
     return HostMaterial(

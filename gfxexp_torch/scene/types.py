@@ -166,6 +166,11 @@ class SceneData(TensorData):
     def num_units(self):
         return self.units.material.shape[0]
 
+    @property
+    def has_emissive(self):
+        """Bool tensor [] on the scene's device (no host sync)."""
+        return self.total_emissive_importance > 0.0
+
 
 def world_bounds(scene: SceneData):
     """The world-space AABB of the scene's triangles, (lo [3], hi [3])

@@ -24,7 +24,10 @@ ONE_BLOB_BINS = 4
 HASH_LEVELS = 16
 HASH_FEATURES = 2
 LOG2_HASH_SIZE = 15
-HASH_BASE_RES = 16  # each level doubles it
+HASH_BASE_RES = 16
+# each level's resolution is HASH_BASE_RES * HASH_PER_LEVEL_SCALE**level;
+# hash_grid_encoding makes the powers of 2 exactly (_pow2)
+HASH_PER_LEVEL_SCALE = 2
 
 _PRIMES = (1, 2654435761, 805459861)
 
@@ -62,7 +65,7 @@ def one_blob_encoding(x, n_bins: int = ONE_BLOB_BINS):
 
 def init_hash_table(generator: torch.Generator, n_levels: int = HASH_LEVELS,
                     features: int = HASH_FEATURES,
-                    log2_size: int = LOG2_HASH_SIZE, device="cpu"):
+                    log2_size: int = LOG2_HASH_SIZE, device="cuda"):
     """[L, T, F] feature table, U(-1e-4, 1e-4) as tiny-cuda-nn initialises
     it, drawn from `generator` (on the generator's device) and moved to
     `device`."""

@@ -34,6 +34,9 @@ from gfxexp_torch.core.tree import (
 )
 from gfxexp_torch.techniques.nrc import encoding as enc
 
+# a query: position 3, direction 2, normal 2, roughness 1, diffuse 3,
+# specular 3
+NUM_INPUT_DIMS = 14
 NUM_OUTPUT_DIMS = 3
 WEIGHT_DECAY = 1e-6
 ADAM_B1 = 0.9
@@ -133,15 +136,24 @@ def apply(params, query, cfg: NRCConfig):
     return x
 
 
-def masked_loss_sum(params, query, target, mask, cfg: NRCConfig):
-    """tiny-cuda-nn's RelativeL2Luminance, (p - t)^2 / (lum(p)^2 + 0.01)
-    with the normaliser detached, summed over the records `mask` keeps
-    (the data-parallel step sums it over the devices)."""
-    pred = apply(params, query, cfg)
+def _relative_l2_luminance(pred, target):
+    """tiny-cuda-nn's RelativeL2Luminance per record, (p - t)^2 /
+    (lum(p)^2 + 0.01), with the normaliser detached."""
     lum = (0.2126 * pred[..., 0] + 0.7152 * pred[..., 1]
            + 0.0722 * pred[..., 2])
     denom = (lum * lum).detach() + 0.01
-    per = ((pred - target) ** 2).sum(dim=-1) / denom
+    return ((pred - target) ** 2).sum(dim=-1) / denom
+
+
+def relative_l2_luminance_loss(pred, target):
+    """The mean RelativeL2Luminance loss of predictions [..., 3]."""
+    return _relative_l2_luminance(pred, target).mean()
+
+
+def masked_loss_sum(params, query, target, mask, cfg: NRCConfig):
+    """The RelativeL2Luminance loss summed over the records `mask` keeps
+    (the data-parallel step sums it over the devices)."""
+    per = _relative_l2_luminance(apply(params, query, cfg), target)
     return torch.where(mask, per, 0.0).sum()
 
 
@@ -251,7 +263,7 @@ def train_on_frame(state: NRCState, query, target, mask,
     return state, torch.stack(losses).mean()
 
 
-def nrc_state_from_jax(tree, device="cpu") -> NRCState:
+def nrc_state_from_jax(tree, device="cuda") -> NRCState:
     """The port's state from the JAX package's NRC state with numpy leaves
     (e.g. jax.tree_util.tree_map(np.asarray, state)): params and EMA
     ({"weights": [...], "hash_table"?}), optax's opt state

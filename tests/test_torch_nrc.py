@@ -82,7 +82,8 @@ def _jax_state(enc, seed=1, out_scale=0.1):
 
 
 def _port(jstate):
-    return tn.nrc_state_from_jax(jax.tree_util.tree_map(np.asarray, jstate))
+    return tn.nrc_state_from_jax(jax.tree_util.tree_map(np.asarray, jstate),
+                                 device="cpu")
 
 
 def _batch(n, seed=0):
@@ -131,7 +132,7 @@ def test_hash_grid_matches_jax():
     assert a.shape == (400, tenc.HASH_LEVELS * tenc.HASH_FEATURES)
     np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-9)
     # the port's table is U(-1e-4, 1e-4) from a torch generator
-    t = tenc.init_hash_table(torch.Generator().manual_seed(0))
+    t = tenc.init_hash_table(torch.Generator().manual_seed(0), device="cpu")
     assert t.shape == table.shape and float(t.abs().max()) <= 1e-4
 
 

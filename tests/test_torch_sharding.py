@@ -148,7 +148,8 @@ def ranks(tmp_path_factory):
 
     tmp = str(tmp_path_factory.mktemp("sharding"))
     jcfg, jst, (q, t, m) = _jax_nrc_state()
-    tst = tn.nrc_state_from_jax(jax.tree_util.tree_map(np.asarray, jst))
+    tst = tn.nrc_state_from_jax(jax.tree_util.tree_map(np.asarray, jst),
+                                device="cpu")
     torch.save({"state": tst, "q": torch.from_numpy(q),
                 "t": torch.from_numpy(t), "m": torch.from_numpy(m)},
                os.path.join(tmp, "nrc_in.pt"))
@@ -202,8 +203,10 @@ def test_nrc_dp_step_matches_jax(ranks):
                                  jnp.asarray(m), jcfg)
     st, loss = ranks["nrc"]
     np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
-    ref = tn.nrc_state_from_jax(jax.tree_util.tree_map(np.asarray, jst2))
-    before = tn.nrc_state_from_jax(jax.tree_util.tree_map(np.asarray, jst))
+    ref = tn.nrc_state_from_jax(jax.tree_util.tree_map(np.asarray, jst2),
+                                device="cpu")
+    before = tn.nrc_state_from_jax(jax.tree_util.tree_map(np.asarray, jst),
+                                   device="cpu")
     for g, mu, p in zip(tree_leaves(ranks["nrc_grads"]),
                         tree_leaves(ref["opt"]["mu"]),
                         tree_leaves(before["params"])):
