@@ -1,0 +1,7 @@
+"""svgf_ms: mean fenced wall time of the frame loop's `svgf` pass over
+the window's frames, in ms (none where the loop has no such pass)."""
+
+
+def read(rec):
+    samples = rec.passes.get("svgf")
+    return sum(samples) / len(samples) if samples else None
