@@ -282,7 +282,6 @@ from gfxexp_torch.accel import (
     native,
     persistent,
     qrow,
-    skip_traverse,
     widerow,
 )
 from gfxexp_torch.accel.instanced import (
@@ -317,6 +316,7 @@ from gfxexp_torch.render.pathtrace import (
 )
 from gfxexp_torch.scene import animation
 from gfxexp_torch.utils import jpeg as jpeg_decoder
+from gfxexp_torch.utils import trace
 from gfxexp_torch.utils.image_io import decode_samples, save_png
 from gfxexp_torch.utils.runtime import enable_compile_cache
 from gfxexp_torch.walk_trips import (
@@ -644,14 +644,14 @@ def _save(r, name):
 
 
 def phase_main(report, scene, bvh, dev):
-    persistent.reset_launch_counts()
-    instanced.reset_launch_counts()
+    _reset_counts()
     rows = {size: bench.measure(size, scene, bvh, device=dev)
             for size in ("512", "1080p")}
-    launches = dict(persistent.launch_counts)
-    check(not any(instanced.launch_counts.values()),
+    counts = _all_counts()
+    launches = counts["kernel1"]
+    check(not any(counts["instanced"].values()),
           f"small scene launched the two-level walk: "
-          f"{instanced.launch_counts}")
+          f"{counts['instanced']}")
     report["main"] = {s: {k: v for k, v in r.items() if k != "image"}
                       for s, r in rows.items()}
     report["main_launches"] = launches
@@ -1075,8 +1075,7 @@ def phase_inst_main(report, built, dev):
     runs = (("big", "big", None, False), ("city", "city", None, False),
             ("big_nopersist", "big", False, False),
             ("city_tlas", "city", None, True))
-    persistent.reset_launch_counts()
-    instanced.reset_launch_counts()
+    _reset_counts()
     rows = {}
     try:
         for key, which, persist, tlas in runs:
@@ -1092,9 +1091,10 @@ def phase_inst_main(report, built, dev):
         instanced.set_persistent(None)
         for _, acc in built.values():
             acc.use_tlas = False
-    launches = dict(instanced.launch_counts)
-    check(not any(persistent.launch_counts.values()),
-          f"two-level scenes launched kernel 1: {persistent.launch_counts}")
+    counts = _all_counts()
+    launches = counts["instanced"]
+    check(not any(counts["kernel1"].values()),
+          f"two-level scenes launched kernel 1: {counts['kernel1']}")
     check(all(v > 0 for v in launches.values()),
           f"two-level main path left a route unlaunched: {launches}")
     for key, r in rows.items():
@@ -1322,8 +1322,7 @@ def phase_anim_main(report, built, dev):
     runs = (("city", "city"), ("big", "big"))
     cfg = PTConfig(max_path_length=bench.MAX_PATH_LENGTH, count_rays=True)
     res = ANIM_RES
-    for mod in (persistent, instanced, skip_traverse):
-        mod.reset_launch_counts()
+    _reset_counts()
     rows = {}
     frames = ANIM_FRAMES
     for key, which in runs:
@@ -1362,11 +1361,12 @@ def phase_anim_main(report, built, dev):
               f"wall {r['wall_s']:.3f}s, peak memory "
               f"{r['peak_memory_bytes'] / 1e9:.2f} GB, mean radiance "
               f"{r['mean_radiance']:.5f}", flush=True)
-    launches = dict(skip_traverse.launch_counts)
-    check(not any(persistent.launch_counts.values())
-          and not any(instanced.launch_counts.values()),
+    counts = _all_counts()
+    launches = counts["skip"]
+    check(not any(counts["kernel1"].values())
+          and not any(counts["instanced"].values()),
           f"animated scenes launched kernels 1/3-5: "
-          f"{persistent.launch_counts} {instanced.launch_counts}")
+          f"{counts['kernel1']} {counts['instanced']}")
     # the main path queries through intersect_*_pallas: the thread scope;
     # the shared scopes are reached only by their direct entry points
     check(launches["closest_thread"] > 0 and launches["any_thread"] > 0,
@@ -1735,12 +1735,26 @@ def phase_sl_slice(report, built, dev):
 
 
 def _all_counts():
-    return {"kernel1": dict(persistent.launch_counts),
-            "chunked": dict(persistent.chunked_launch_counts),
-            "qrow": dict(qrow.launch_counts),
-            "lanegroup": dict(lanegroup.launch_counts),
-            "instanced": dict(instanced.launch_counts),
-            "skip": dict(skip_traverse.launch_counts)}
+    """The walk launches counted since the last _reset_counts(), by kernel
+    and query, 0 where a kernel was not launched (lane-group walks by their
+    group count)."""
+    c = trace.counters("walk.")
+    qs = ("closest", "any")
+    keys = {"kernel1": qs, "chunked": qs, "qrow": qs,
+            "lanegroup": lanegroup.GROUPS,
+            "instanced": [f"{q}_{r}" for q in qs for r in instanced.ROUTES],
+            "skip": [f"{q}_{s}" for q in qs for s in SCOPES]}
+    return {kind: {k: c.get(f"walk.{kind}.{k}", 0) for k in ks}
+            for kind, ks in keys.items()}
+
+
+def _loop_counts():
+    """The displaced calls' loop counters (techniques/tfdm.py
+    LOOP_COUNTERS) since their last reset, 0 where none counted."""
+    from gfxexp_torch.techniques import tfdm
+
+    c = trace.counters("tfdm.")
+    return {k: c.get(f"tfdm.{k}", 0) for k in tfdm.LOOP_COUNTERS}
 
 
 def phase_sl_main(report, built, small, dev):
@@ -1750,8 +1764,7 @@ def phase_sl_main(report, built, small, dev):
             ("city_qrow", "city", built["city_qrow"], None),
             ("small_qrow", "small", small_q, None),
             ("small_nopersist", "small", small, False))
-    for mod in (persistent, qrow, lanegroup, instanced, skip_traverse):
-        mod.reset_launch_counts()
+    _reset_counts()
     rows = {}
     try:
         for key, which, (scene, bvh), persist in runs:
@@ -1822,8 +1835,7 @@ def _rel(a, b):
 
 
 def _reset_counts():
-    for mod in (persistent, qrow, lanegroup, instanced, skip_traverse):
-        mod.reset_launch_counts()
+    trace.reset_counters("walk.")
 
 
 def _route_launched(counts, route, kinds=("closest", "any")):
@@ -3007,12 +3019,12 @@ def _tfdm_card_vs_cpu(tag, geom_c, o, d, t_min, t_max, dev):
                            t_max[:1024])  # warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tfdm.reset_loop_stats()
+    trace.reset_counters("tfdm.")
     t0 = time.perf_counter()
     hk = tfdm.intersect_tfdm_v2(geom, o, d, t_min, t_max)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    stats = dict(tfdm.loop_stats)
+    stats = _loop_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     t0 = time.perf_counter()
     hc = tfdm.intersect_tfdm_v2(geom_c, o.cpu(), d.cpu(), t_min.cpu(),
@@ -3227,12 +3239,12 @@ def _phase_tfdm(report, dev, cpu_proc, cpu_out):
             for shadows in (True, False):
                 cfg = PTConfig(displaced_shadows=shadows, count_rays=True)
                 _reset_counts()
-                tfdm.reset_loop_stats()
+                trace.reset_counters("tfdm.")
                 t0 = time.perf_counter()
                 a, ra = _tex_render(sd, bd, c_cam.to(dev), TFDM_RES,
                                     TFDM_SAMPLES, cfg, 0)
                 cards[shadows] = (a, ra, time.perf_counter() - t0,
-                                  _all_counts(), dict(tfdm.loop_stats))
+                                  _all_counts(), _loop_counts())
             _, err = cpu_proc.communicate(timeout=600)
             check(cpu_proc.returncode == 0,
                   f"28 CPU renders exited {cpu_proc.returncode}: "
@@ -3372,25 +3384,26 @@ def phase_tfdm_costs(report, dev, cli=None):
 
         def recorded(*a, **kw):
             torch.cuda.synchronize()
-            before = dict(tfdm.loop_stats)
+            before = _loop_counts()
             t0 = time.perf_counter()
             h = real(*a, **kw)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
+            after = _loop_counts()
             live = h.steps > 0
             calls.append({
                 "ms": ms, "marching_rays": int(live.sum()),
                 "steps_mean_marching": (float(h.steps[live].float().mean())
                                         if bool(live.any()) else 0.0),
                 "steps_max": int(h.steps.max()),
-                **{k: tfdm.loop_stats[k] - before[k] for k in (
+                **{k: after[k] - before[k] for k in (
                     "syncs", "rounds", "march_iterations",
                     "bvh_iterations")}})
             return h
 
         timer = PassTimer(device=dev)
         _reset_counts()
-        tfdm.reset_loop_stats()
+        trace.reset_counters("tfdm.")
         tfdm.intersect_tfdm_v2 = recorded
         try:
             film, _, _, _ = frame_loop(scene, bvh, cam, [], "widerow", res,
@@ -3566,12 +3579,12 @@ def _intersector_card_vs_cpu(tag, fn, geom_c, rays, dev):
     fn(geom, o[:1024], d[:1024], t_min[:1024], t_max[:1024])  # warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tfdm.reset_loop_stats()
+    trace.reset_counters("tfdm.")
     t0 = time.perf_counter()
     hk = fn(geom, o, d, t_min, t_max)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    stats = {k: v for k, v in tfdm.loop_stats.items() if v}
+    stats = {k: v for k, v in _loop_counts().items() if v}
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     t0 = time.perf_counter()
     hc = fn(geom_c, o.cpu(), d.cpu(), t_min.cpu(), t_max.cpu())
@@ -3633,7 +3646,7 @@ def _kernel6_on_shell_batches(tag, geom_c, rays, dev):
     finally:
         shell.intersect_closest = real
     torch.cuda.synchronize()
-    launches = skip_traverse.launch_counts["closest_thread"]
+    launches = _all_counts()["skip"]["closest_thread"]
     check(launches == len(batches) > 0,
           f"30 {tag}: {launches} kernel 6 launches for {len(batches)} "
           f"chord batches")
@@ -3884,12 +3897,13 @@ def phase_nrtdsm_costs(report, dev, cli_rows):
 
         def recorded(*a, **kw):
             torch.cuda.synchronize()
-            before = dict(tfdm.loop_stats)
+            before = _loop_counts()
             t0 = time.perf_counter()
             h = real(*a, **kw)
             torch.cuda.synchronize()
+            after = _loop_counts()
             calls.append({"ms": (time.perf_counter() - t0) * 1e3, **{
-                k: tfdm.loop_stats[k] - before[k] for k in (
+                k: after[k] - before[k] for k in (
                     "syncs", "rounds", "exact_iterations",
                     "bvh_iterations")}})
             return h
@@ -3899,7 +3913,7 @@ def phase_nrtdsm_costs(report, dev, cli_rows):
         torch.cuda.reset_peak_memory_stats()
         timer = PassTimer(device=dev)
         _reset_counts()
-        tfdm.reset_loop_stats()
+        trace.reset_counters("tfdm.")
         setattr(mod, name, recorded)
         try:
             film, _, _, _ = frame_loop(scene, bvh, cam, [], "widerow", res,
@@ -4189,10 +4203,10 @@ def phase_sbvh(report, dev):
     for size in ("512", "1080p"):
         for name, s, bv in (("plain", scene_p, bvh_p),
                             ("sbvh", scene_s, bvh_s)):
-            persistent.reset_launch_counts()
+            _reset_counts()
             r = bench.measure(size, s, bv, device=dev)
             _check_bench_row(r, f"32 bench {size} {name}")
-            lc = dict(persistent.launch_counts)
+            lc = _all_counts()["kernel1"]
             check(lc["closest"] > 0 and lc["any"] > 0,
                   f"32 bench {size} {name}: kernel 1 not launched {lc}")
             rows[f"{size}_{name}"] = {
@@ -4220,7 +4234,6 @@ def phase_wide(report, dev):
     card: ms, CUDA kernels, host syncs and loop steps a query."""
     from torch.profiler import ProfilerActivity, profile
 
-    from gfxexp_torch.accel import traverse
     from gfxexp_torch.scene.compile import compile_scene
 
     scene, bvh = compile_scene(bench.bench_scene_builder(scene="small"),
@@ -4232,13 +4245,14 @@ def phase_wide(report, dev):
     cam = bench.bench_camera(512, 512).to(dev)
     cfg = PTConfig(max_path_length=bench.MAX_PATH_LENGTH, count_rays=True)
     _reset_counts()
-    traverse.reset_wide_stats()
+    trace.reset_counters("wide.")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     img, rays = render_sample(scene, bvh, cam, 512, 512, 1, cfg)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    stats = dict(traverse.wide_stats)
+    stats = {k: trace.counters("wide.").get(f"wide.{k}", 0)
+             for k in ("queries", "syncs", "steps")}
     counts = _all_counts()
     check(not any(v for c in counts.values() for v in c.values()),
           f"33 wide: a walk kernel was launched: {counts}")

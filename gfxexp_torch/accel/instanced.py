@@ -62,6 +62,7 @@ from gfxexp_torch.accel.widerow import (  # noqa: F401 (set_persistent)
     set_persistent,
 )
 from gfxexp_torch.core.tensors import TensorData
+from gfxexp_torch.utils import trace
 
 # entries under one union box for the build-order kernel: its windows
 # (kWindow in csrc/instanced_traverse.cu) and the runs inside them (kSub)
@@ -71,13 +72,6 @@ SUB_GROUP = 8
 # first entries), "build" (entries in build order) and "sorted" (nearest-
 # first over rays the tlas route has sorted by their nearest entry).
 ROUTES = ("nearest", "build", "sorted")
-# kernel launches per (query, route), counted where the kernel is launched
-launch_counts = {f"{q}_{r}": 0 for q in ("closest", "any") for r in ROUTES}
-
-
-def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 @dataclass
@@ -427,7 +421,8 @@ def walk_instanced_cuda(acc: InstancedAccel, o, d, t_min, t_max,
         if rc != 0:
             raise RuntimeError(f"instanced_walk launch failed: CUDA error "
                                f"{rc}")
-        launch_counts[("any_" if any_hit else "closest_") + route] += 1
+        trace.count(f"walk.instanced.{'any' if any_hit else 'closest'}_"
+                    f"{route}")
     return HitInfo(t=t, tri=tri, u=u, v=v, hit=hit), entry
 
 

@@ -44,17 +44,10 @@ from gfxexp_torch.accel.persistent import (
 )
 from gfxexp_torch.accel.traverse import HitInfo
 from gfxexp_torch.accel.widerow import COUNT_SHIFT, WIDTH, WideRowBVH
+from gfxexp_torch.utils import trace
 
 LANES = 128  # rays of a block, split into G groups
 GROUPS = (1, 2, 4)  # the kernel's group counts
-
-# kernel launches per group count, counted where the kernel is launched
-launch_counts = {g: 0 for g in GROUPS}
-
-
-def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 def _check(bvh: WideRowBVH, groups: int):
@@ -244,7 +237,7 @@ def walk_lanegroup_cuda(bvh: WideRowBVH, o, d, t_min, t_max, groups: int,
         if rc != 0:
             raise RuntimeError(f"lanegroup_walk launch failed: CUDA error "
                                f"{rc}")
-        launch_counts[groups] += 1
+        trace.count(f"walk.lanegroup.{groups}")
     h = HitInfo(t=t, tri=tri, u=u, v=v, hit=hit)
     return (h, rows.to(torch.int64)) if with_stats else h
 

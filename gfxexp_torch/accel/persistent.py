@@ -61,11 +61,8 @@ from gfxexp_torch.accel.widerow import (
     WideRowBVH,
     persist_on,
 )
+from gfxexp_torch.utils import trace
 
-# kernel launches per instantiation, counted where each kernel is launched:
-# kernel 1 (one table) and kernel 2 (chunk tables)
-launch_counts = {"closest": 0, "any": 0}
-chunked_launch_counts = {"closest": 0, "any": 0}
 # the persistent grids' counters (kernels 1, 2 and the two-level walk in
 # build order), one pair per (device, stream): zeroed once here, left at
 # zero by every launch (its last warp resets them), so the kernels of one
@@ -84,12 +81,6 @@ _NET8 = (
     (1, 2), (5, 6), (0, 4), (3, 7),
     (1, 5), (2, 6), (3, 6), (2, 4), (1, 2), (3, 5), (4, 5), (3, 4),
 )
-
-
-def reset_launch_counts():
-    for counts in (launch_counts, chunked_launch_counts):
-        for k in counts:
-            counts[k] = 0
 
 
 def stack_depth(bvh: WideRowBVH) -> int:
@@ -553,7 +544,8 @@ def walk_cuda(bvh: WideRowBVH, o, d, t_min, t_max, any_hit: bool) -> HitInfo:
                                                             stream)))
         if rc != 0:
             raise RuntimeError(f"widerow_walk launch failed: CUDA error {rc}")
-        launch_counts["any" if any_hit else "closest"] += 1
+        trace.count("walk.kernel1.any" if any_hit
+                    else "walk.kernel1.closest")
     return HitInfo(t=t, tri=tri, u=u, v=v, hit=hit)
 
 
@@ -590,7 +582,8 @@ def walk_chunked_cuda(bvh: WideRowBVH, o, d, t_min, t_max,
                 ctypes.c_void_p(stream), _ptr(counters))
         if rc != 0:
             raise RuntimeError(f"chunked_walk launch failed: CUDA error {rc}")
-        chunked_launch_counts["any" if any_hit else "closest"] += 1
+        trace.count("walk.chunked.any" if any_hit
+                    else "walk.chunked.closest")
     return HitInfo(t=t, tri=tri, u=u, v=v, hit=hit)
 
 

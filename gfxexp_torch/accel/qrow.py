@@ -59,6 +59,7 @@ from gfxexp_torch.accel.persistent import (
 from gfxexp_torch.accel.traverse import HitInfo
 from gfxexp_torch.accel.widerow import morton_chunks, stack_chunks
 from gfxexp_torch.core.tensors import TensorData
+from gfxexp_torch.utils import trace
 
 WIDTH = 32
 ARITY = 8
@@ -66,15 +67,6 @@ MAX_LEAF = 5
 COUNT_SHIFT = 24
 LEAF_BIT = 1 << 30
 MAX_ROWS_PER_CHUNK = 26000
-
-# kernel launches per instantiation, counted where the kernel is launched
-launch_counts = {"closest": 0, "any": 0}
-
-
-def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
-
 
 @dataclass
 class QRowBVH(TensorData):
@@ -514,7 +506,7 @@ def walk_qrow_cuda(bvh: QRowBVH, o, d, t_min, t_max,
                 _ptr(tri), _ptr(hit), ctypes.c_void_p(stream))
         if rc != 0:
             raise RuntimeError(f"qrow_walk launch failed: CUDA error {rc}")
-        launch_counts["any" if any_hit else "closest"] += 1
+        trace.count("walk.qrow.any" if any_hit else "walk.qrow.closest")
     return HitInfo(t=t, tri=tri, u=u, v=v, hit=hit)
 
 

@@ -31,18 +31,10 @@ import torch
 from gfxexp_torch.accel.persistent import prepare_rays
 from gfxexp_torch.accel.skiplink import SkipBVH, packed, walk_skip_plain
 from gfxexp_torch.accel.traverse import HitInfo
+from gfxexp_torch.utils import trace
 
 SCOPES = ("thread", "warp", "block")
 _SCOPE_ID = {s: i for i, s in enumerate(SCOPES)}
-
-# kernel launches per query and cursor scope, counted where the kernel is
-# launched
-launch_counts = {f"{q}_{s}": 0 for q in ("closest", "any") for s in SCOPES}
-
-
-def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 def _ptr(x: torch.Tensor):
@@ -84,7 +76,7 @@ def walk_skip_cuda(bvh: SkipBVH, tris, o, d, t_min, t_max, any_hit: bool,
                 _ptr(tri), _ptr(hit), ctypes.c_void_p(stream))
         if rc != 0:
             raise RuntimeError(f"skiplink_walk launch failed: CUDA error {rc}")
-        launch_counts[("any_" if any_hit else "closest_") + scope] += 1
+        trace.count(f"walk.skip.{'any' if any_hit else 'closest'}_{scope}")
     return HitInfo(t=t, tri=tri, u=u, v=v, hit=hit)
 
 

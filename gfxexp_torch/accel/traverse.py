@@ -8,8 +8,9 @@ one step pops a node per ray, tests its K child boxes, pushes the hit
 internal children unordered and tests the hit leaves' triangles. JAX's
 `while_loop` becomes a host loop: every update is masked by the ray's stack
 being non-empty, so the loop tests its condition (one host sync) every
-WIDE_SYNC_EVERY steps without changing a result. `wide_stats` counts the
-queries, syncs and steps.
+WIDE_SYNC_EVERY steps without changing a result. The counters `wide.queries`,
+`wide.syncs` and `wide.steps` (utils/trace.py) count the queries, the tests
+of the loop condition and the loop steps of all queries.
 """
 
 from __future__ import annotations
@@ -21,17 +22,9 @@ import torch
 
 from gfxexp_torch.core.math import cross, dot
 from gfxexp_torch.core.tensors import TensorData
+from gfxexp_torch.utils import trace
 
 WIDE_SYNC_EVERY = 4  # steps of the wide walk between tests of its condition
-
-# since the last reset_wide_stats(): `queries` (walks of a wide BVH),
-# `syncs` (tests of the loop condition), `steps` (loop steps, all queries)
-wide_stats = {"queries": 0, "syncs": 0, "steps": 0}
-
-
-def reset_wide_stats():
-    for k in wide_stats:
-        wide_stats[k] = 0
 
 
 @dataclass
@@ -119,11 +112,11 @@ def _traverse(bvh, tris, o, d, t_min, t_max, any_hit: bool) -> HitInfo:
     o3, d3 = o[:, None, :], d[:, None, :]
     inv3 = inv_d[:, None, :]
     jj = torch.arange(max_leaf, device=dev)
-    wide_stats["queries"] += 1
+    trace.count("wide.queries")
     step = 0
     while True:
         if step % WIDE_SYNC_EVERY == 0:
-            wide_stats["syncs"] += 1
+            trace.count("wide.syncs")
             if not bool((sp > 0).any()):
                 break
         step += 1
@@ -169,7 +162,7 @@ def _traverse(bvh, tris, o, d, t_min, t_max, any_hit: bool) -> HitInfo:
         best_v = torch.where(take, torch.gather(v, 1, j)[:, 0], best_v)
         if any_hit:
             sp = torch.where(best_tri >= 0, 0, sp)
-    wide_stats["steps"] += step
+    trace.count("wide.steps", step)
     return HitInfo(t=best_t, tri=best_tri, u=best_u, v=best_v,
                    hit=best_tri >= 0)
 
@@ -178,43 +171,47 @@ def intersect_closest(bvh, tris, o, d, t_min=1e-4, t_max=1e30) -> HitInfo:
     """Closest-hit query for a ray batch; o, d: [R, 3]. `tris` (the world
     triangles in traversal order) is read by the skip-link and wide BVH
     walks only: the row tables bake their triangles. Two-level structures
-    also return the hit instance."""
+    also return the hit instance. Span `gfx.walk.closest`: the routing,
+    the rays' preparation and the walk's launch."""
     from gfxexp_torch.accel.instanced import intersect_closest_instanced
     from gfxexp_torch.accel.persistent import intersect_closest_widerow
     from gfxexp_torch.accel.qrow import intersect_closest_qrow
     from gfxexp_torch.accel.skip_traverse import intersect_closest_pallas
 
-    kind = _check_structure(bvh)
-    if kind == "wide":
-        return _traverse(bvh, tris, o, d, t_min, t_max, any_hit=False)
-    if kind == "instanced":
-        hit, inst = intersect_closest_instanced(bvh, o, d, t_min, t_max)
-        hit.inst = inst
-        return hit
-    if kind == "skip":
-        return intersect_closest_pallas(bvh, tris, o, d, t_min, t_max)
-    if kind == "qrow":
-        return intersect_closest_qrow(bvh, tris, o, d, t_min, t_max)
-    return intersect_closest_widerow(bvh, o, d, t_min, t_max)
+    with trace.span("gfx.walk.closest"):
+        kind = _check_structure(bvh)
+        if kind == "wide":
+            return _traverse(bvh, tris, o, d, t_min, t_max, any_hit=False)
+        if kind == "instanced":
+            hit, inst = intersect_closest_instanced(bvh, o, d, t_min, t_max)
+            hit.inst = inst
+            return hit
+        if kind == "skip":
+            return intersect_closest_pallas(bvh, tris, o, d, t_min, t_max)
+        if kind == "qrow":
+            return intersect_closest_qrow(bvh, tris, o, d, t_min, t_max)
+        return intersect_closest_widerow(bvh, o, d, t_min, t_max)
 
 
 def intersect_any(bvh, tris, o, d, t_min=1e-4, t_max=1e30) -> torch.Tensor:
-    """Shadow-ray query: occluded [R] bool."""
+    """Shadow-ray query: occluded [R] bool. Span `gfx.walk.any`, as
+    intersect_closest's."""
     from gfxexp_torch.accel.instanced import intersect_any_instanced
     from gfxexp_torch.accel.persistent import intersect_any_widerow
     from gfxexp_torch.accel.qrow import intersect_any_qrow
     from gfxexp_torch.accel.skip_traverse import intersect_any_pallas
 
-    kind = _check_structure(bvh)
-    if kind == "wide":
-        return _traverse(bvh, tris, o, d, t_min, t_max, any_hit=True).hit
-    if kind == "instanced":
-        return intersect_any_instanced(bvh, o, d, t_min, t_max)
-    if kind == "skip":
-        return intersect_any_pallas(bvh, tris, o, d, t_min, t_max)
-    if kind == "qrow":
-        return intersect_any_qrow(bvh, tris, o, d, t_min, t_max)
-    return intersect_any_widerow(bvh, o, d, t_min, t_max)
+    with trace.span("gfx.walk.any"):
+        kind = _check_structure(bvh)
+        if kind == "wide":
+            return _traverse(bvh, tris, o, d, t_min, t_max, any_hit=True).hit
+        if kind == "instanced":
+            return intersect_any_instanced(bvh, o, d, t_min, t_max)
+        if kind == "skip":
+            return intersect_any_pallas(bvh, tris, o, d, t_min, t_max)
+        if kind == "qrow":
+            return intersect_any_qrow(bvh, tris, o, d, t_min, t_max)
+        return intersect_any_widerow(bvh, o, d, t_min, t_max)
 
 
 def intersect_closest_brute(tris, o, d, t_min=1e-4, t_max=1e30,

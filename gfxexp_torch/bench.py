@@ -49,7 +49,7 @@ import time
 import numpy as np
 import torch
 
-from gfxexp_torch.accel import instanced, lanegroup, persistent, qrow, widerow
+from gfxexp_torch.accel import instanced, lanegroup, widerow
 from gfxexp_torch.render.camera import generate_rays_for_lanes, make_camera
 from gfxexp_torch.render.pathtrace import (
     PTConfig,
@@ -58,6 +58,7 @@ from gfxexp_torch.render.pathtrace import (
 )
 from gfxexp_torch.scene.builder import SceneBuilder, affine
 from gfxexp_torch.scene.compile import compile_scene
+from gfxexp_torch.utils import trace
 
 MAX_PATH_LENGTH = 5
 TIMED_SAMPLES = 16
@@ -540,14 +541,16 @@ def _counts():
     reach: kernel 1 (widerow_*), kernel 2 (chunked_*), the quantized walk
     (qrow_*), the two-level walk (instanced_*) and the lane-group walk
     (lanegroup_g*), which no bench route takes."""
-    return {**{f"widerow_{k}": v for k, v in persistent.launch_counts.items()},
-            **{f"chunked_{k}": v
-               for k, v in persistent.chunked_launch_counts.items()},
-            **{f"qrow_{k}": v for k, v in qrow.launch_counts.items()},
-            **{f"instanced_{k}": v
-               for k, v in instanced.launch_counts.items()},
-            **{f"lanegroup_g{k}": v
-               for k, v in lanegroup.launch_counts.items()}}
+    c = trace.counters("walk.")
+    qs = ("closest", "any")
+    names = {**{f"widerow_{q}": f"walk.kernel1.{q}" for q in qs},
+             **{f"chunked_{q}": f"walk.chunked.{q}" for q in qs},
+             **{f"qrow_{q}": f"walk.qrow.{q}" for q in qs},
+             **{f"instanced_{q}_{r}": f"walk.instanced.{q}_{r}"
+                for q in qs for r in instanced.ROUTES},
+             **{f"lanegroup_g{g}": f"walk.lanegroup.{g}"
+                for g in lanegroup.GROUPS}}
+    return {k: c.get(name, 0) for k, name in names.items()}
 
 
 def measure(size: str, scene=None, bvh=None, device="cuda",

@@ -19,9 +19,10 @@ walk); then the nrtdsm app's demo scene at its defaults (-base-res 16,
 curved shells) on the bilinear surface, on the two-triangle surface and
 with -shell (the torus OBJ). `walks` is the number of walk launches (a
 shell's chord queries included); a displaced row also has the host syncs
-and loop iterations of its displaced calls (techniques/tfdm.py
-loop_stats), which grow with the rays' worst case and so with the
-resolution (`--res N` sets it, 32 by default).
+and loop iterations of its displaced calls (the `tfdm.*` counters of
+utils/trace.py, techniques/tfdm.py LOOP_COUNTERS), which grow with the
+rays' worst case and so with the resolution (`--res N` sets it, 32 by
+default).
 
 With --cuda it profiles one default sample of the small scene at 512x512
 on the card instead (render_accumulate, after a warm-up sample) and prints
@@ -44,6 +45,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from gfxexp_torch import bench
 from gfxexp_torch.render import pathtrace
 from gfxexp_torch.render.pathtrace import PTConfig, render_sample
+from gfxexp_torch.utils import trace
 
 _VIEWS = ("select.int", "slice.Tensor", "view.default", "t.default",
           "unsqueeze.default", "expand.default", "alias.default",
@@ -147,6 +149,16 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
 
 
+def _loop_counts() -> dict:
+    """The displaced calls' loop counters (techniques/tfdm.py
+    LOOP_COUNTERS) a sample: they cover the warm-up sample too, so they
+    are halved."""
+    from gfxexp_torch.techniques import tfdm
+
+    c = trace.counters("tfdm.")
+    return {k: c.get(f"tfdm.{k}", 0) / 2 for k in tfdm.LOOP_COUNTERS}
+
+
 def count_cuda_sample() -> dict:
     """Kernels in the device trace and launch calls of one default 512x512
     sample of the small scene on the card."""
@@ -197,22 +209,17 @@ def main(argv=None):
             ("textured_solid_angle", PTConfig(use_solid_angle_sampling=True)),
             ("textured_fused", PTConfig(fuse_shadow_rays=True))):
         rows[name] = count_sample(scene, bvh, cam, res, res, cfg)
-    from gfxexp_torch.techniques import tfdm
-
     for base_res in (24, 32):
         scene, bvh, cam = tfdm_scene(base_res, res, res)
-        tfdm.reset_loop_stats()
+        trace.reset_counters("tfdm.")
         row = count_sample(scene, bvh, cam, res, res, PTConfig())
-        # loop_stats covers the warm-up sample too: halve it
-        rows[f"tfdm_base{base_res}"] = {
-            **row, **{k: v / 2 for k, v in tfdm.loop_stats.items()}}
+        rows[f"tfdm_base{base_res}"] = {**row, **_loop_counts()}
     with tempfile.TemporaryDirectory() as mesh_dir:
         for case in NRTDSM_CASES:
             scene, bvh, cam = nrtdsm_scene(case, res, res, mesh_dir)
-            tfdm.reset_loop_stats()
+            trace.reset_counters("tfdm.")
             row = count_sample(scene, bvh, cam, res, res, PTConfig())
-            rows[case] = {**row, **{k: v / 2 for k, v in
-                                    tfdm.loop_stats.items()}}
+            rows[case] = {**row, **_loop_counts()}
     for name, row in rows.items():
         print(json.dumps({"case": name, **row}), file=sys.stdout)
     return rows

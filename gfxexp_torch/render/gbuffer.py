@@ -30,6 +30,7 @@ from gfxexp_torch.render.camera import (
 )
 from gfxexp_torch.render.pathtrace import compute_surface_point
 from gfxexp_torch.scene.types import SceneData
+from gfxexp_torch.utils import trace
 
 
 @dataclass
@@ -59,62 +60,64 @@ def render_gbuffer(scene: SceneData, bvh, camera: Camera,
     jitter draws the path tracer's camera numbers (stream 0xFFFF), so a
     G-buffer and a path-traced sample of the same index see the same
     primary rays."""
-    dev = scene.triangles.p0.device
-    n = width * height
-    lane = torch.arange(n, dtype=torch.int64, device=dev)
-    pixel = pixel_from_lane(lane, width, height)
-    if enable_jitter:
-        rs = SampleStream(pixel, int(sample_idx), stream=0xFFFF)
-        jx, jy = rs.next2()
-    else:
-        jx = torch.full((n,), 0.5, device=dev)
-        jy = torch.full((n,), 0.5, device=dev)
-    ray_o, ray_d = generate_rays_for_lanes(camera, width, height, pixel,
-                                           jx, jy)
+    with trace.span("gfx.gbuffer"):
+        dev = scene.triangles.p0.device
+        n = width * height
+        lane = torch.arange(n, dtype=torch.int64, device=dev)
+        pixel = pixel_from_lane(lane, width, height)
+        if enable_jitter:
+            rs = SampleStream(pixel, int(sample_idx), stream=0xFFFF)
+            jx, jy = rs.next2()
+        else:
+            jx = torch.full((n,), 0.5, device=dev)
+            jy = torch.full((n,), 0.5, device=dev)
+        ray_o, ray_d = generate_rays_for_lanes(camera, width, height, pixel,
+                                               jx, jy)
 
-    hit = intersect_closest(bvh, scene.triangles, ray_o, ray_d, t_min=0.0,
-                            t_max=1e30)
-    sp = compute_surface_point(scene, hit.tri, hit.u, hit.v, inst=hit.inst)
-    hm = hit.hit
-    hm1 = hm[..., None]
+        hit = intersect_closest(bvh, scene.triangles, ray_o, ray_d, t_min=0.0,
+                                t_max=1e30)
+        sp = compute_surface_point(scene, hit.tri, hit.u, hit.v, inst=hit.inst)
+        hm = hit.hit
+        hm1 = hm[..., None]
 
-    # the denoiser's albedo: the DH-reflectance estimate
-    t, b = make_frame(sp.shading_normal)
-    v_out_local = to_local(t, b, sp.shading_normal, -ray_d)
-    params = material_params_textured(scene.materials, scene.textures,
-                                      sp.material, sp.texcoord)
-    albedo = bsdf_dh_reflectance(params, v_out_local)
+        # the denoiser's albedo: the DH-reflectance estimate
+        t, b = make_frame(sp.shading_normal)
+        v_out_local = to_local(t, b, sp.shading_normal, -ray_d)
+        params = material_params_textured(scene.materials, scene.textures,
+                                          sp.material, sp.texcoord)
+        albedo = bsdf_dh_reflectance(params, v_out_local)
 
-    # motion: world -> object (current inverse) -> previous world
-    # (previous transform) -> previous screen position
-    inst = scene.units.instance[sp.unit].to(torch.int64)
-    obj_p = transform_point(scene.instances.inv_transform[inst], sp.position)
-    prev_p = transform_point(scene.instances.prev_transform[inst], obj_p)
-    cur_uv = screen_position(camera, sp.position)
-    prev_uv = screen_position(prev_camera, prev_p)
-    size = torch.tensor([width, height], dtype=torch.float32, device=dev)
-    motion = torch.where(hm1, (cur_uv - prev_uv) * size, 0.0)
+        # motion: world -> object (current inverse) -> previous world
+        # (previous transform) -> previous screen position
+        inst = scene.units.instance[sp.unit].to(torch.int64)
+        obj_p = transform_point(scene.instances.inv_transform[inst],
+                                sp.position)
+        prev_p = transform_point(scene.instances.prev_transform[inst], obj_p)
+        cur_uv = screen_position(camera, sp.position)
+        prev_uv = screen_position(prev_camera, prev_p)
+        size = torch.tensor([width, height], dtype=torch.float32, device=dev)
+        motion = torch.where(hm1, (cur_uv - prev_uv) * size, 0.0)
 
-    order = lane_from_pixel(torch.arange(n, dtype=torch.int64, device=dev),
-                            width, height)
+        order = lane_from_pixel(torch.arange(n, dtype=torch.int64, device=dev),
+                                width, height)
 
-    def img(x):
-        return x[order].reshape(height, width, *x.shape[1:])
+        def img(x):
+            return x[order].reshape(height, width, *x.shape[1:])
 
-    i32 = torch.int32
-    return GBuffer(
-        position=img(torch.where(hm1, sp.position, 0.0)),
-        normal=img(torch.where(hm1, sp.shading_normal, 0.0)),
-        geom_normal=img(torch.where(hm1, sp.geom_normal, 0.0)),
-        albedo=img(torch.where(hm1, albedo, 0.0)),
-        emittance=img(torch.where(hm1, sp.emittance, 0.0)),
-        texcoord=img(torch.where(hm1, sp.texcoord, 0.0)),
-        motion=img(motion),
-        depth=img(torch.where(hm, hit.t, torch.inf)),
-        tri=img(torch.where(hm, hit.tri, -1).to(i32)),
-        bary=img(torch.stack([hit.u, hit.v], dim=-1)),
-        unit=img(torch.where(hm, sp.unit, -1).to(i32)),
-        material=img(torch.where(hm, sp.material, -1).to(i32)),
-        hit=img(hm),
-        view_dir=img(ray_d),
-    )
+        i32 = torch.int32
+        return GBuffer(
+            position=img(torch.where(hm1, sp.position, 0.0)),
+            normal=img(torch.where(hm1, sp.shading_normal, 0.0)),
+            geom_normal=img(torch.where(hm1, sp.geom_normal, 0.0)),
+            albedo=img(torch.where(hm1, albedo, 0.0)),
+            emittance=img(torch.where(hm1, sp.emittance, 0.0)),
+            texcoord=img(torch.where(hm1, sp.texcoord, 0.0)),
+            motion=img(motion),
+            depth=img(torch.where(hm, hit.t, torch.inf)),
+            tri=img(torch.where(hm, hit.tri, -1).to(i32)),
+            bary=img(torch.stack([hit.u, hit.v], dim=-1)),
+            unit=img(torch.where(hm, sp.unit, -1).to(i32)),
+            material=img(torch.where(hm, sp.material, -1).to(i32)),
+            hit=img(hm),
+            view_dir=img(ray_d),
+        )

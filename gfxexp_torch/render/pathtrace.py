@@ -80,6 +80,7 @@ from gfxexp_torch.scene.textures import (
     sample_bilinear,
 )
 from gfxexp_torch.scene.types import SceneData
+from gfxexp_torch.utils import trace
 
 _PI = float(np.pi)
 
@@ -497,201 +498,218 @@ def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
     def step(bounce: int, first: bool, collect_only: bool):
         nonlocal ray_o, ray_d, throughput, alive, prev_pdf, contribution
         nonlocal rays_traced, nee_aux, pending, pixel, lane_ids
-        if cfg.compact_rays and not first:
-            # dead lanes gather at the end, whole rows of them leave the
-            # walks at once; every lane keeps its pixel's random numbers
-            order = _alive_first(alive)
-            ray_o, ray_d = ray_o[order], ray_d[order]
-            throughput, alive = throughput[order], alive[order]
-            prev_pdf, contribution = prev_pdf[order], contribution[order]
-            pixel, lane_ids = pixel[order], lane_ids[order]
-        rs = SampleStream(pixel, sample_idx, stream=bounce)
-        if cfg.count_rays:
-            rays_traced = rays_traced + alive.sum().to(torch.float32)
-        # dead lanes trace with tmax < 0: no traversal work
-        tmax = torch.where(alive, 1e30, -1.0)
-        if pending is not None:
-            # one closest-hit walk over this bounce's rays and the previous
-            # bounce's shadow rays, whose visibility resolves here
-            p_contrib, p_o, p_d, p_tmax = pending
-            bh = intersect_closest(bvh, scene.triangles,
-                                   torch.cat([ray_o, p_o]),
-                                   torch.cat([ray_d, p_d]), t_min=0.0,
-                                   t_max=torch.cat([tmax, p_tmax]))
-            hit = HitInfo(t=bh.t[:n], tri=bh.tri[:n], u=bh.u[:n],
-                          v=bh.v[:n], hit=bh.hit[:n],
-                          inst=None if bh.inst is None else bh.inst[:n])
-            contribution = contribution + torch.where(
-                bh.hit[n:][..., None], 0.0, p_contrib)
-            pending = None
-        elif cfg.sort_secondary_rays and not first and not scene.displaced:
-            hit = _intersect_closest_sorted(bvh, scene.triangles, ray_o,
-                                            ray_d, alive)
-        else:
-            hit = intersect_closest(bvh, scene.triangles, ray_o, ray_d,
-                                    t_min=0.0, t_max=tmax)
-        disp = None
-        if scene.displaced:
-            # the displaced hits are clipped by the triangle hit's t, so a
-            # reported one is the nearer
-            disp = _displaced_closest(scene, ray_o, ray_d,
-                                      torch.where(alive, hit.t, -1.0))
-            d_take = alive & disp[1]
-            hit = dataclasses.replace(
-                hit, t=torch.where(d_take, disp[0], hit.t),
-                hit=hit.hit | d_take)
-        hit_ok = alive & hit.hit
-        miss = alive & ~hit.hit
-        emission = cfg.use_implicit_light_sampling or first
-        if not first and dbg.no_implicit:
-            emission = False
-
-        # ---- miss: environment ------------------------------------------
-        if use_env and emission:
-            env_l = env_radiance(scene.env, ray_d)
-            if first or not cfg.use_mis:
-                env_mis = torch.ones(n, device=dev)
+        name = f"gfx.pathtrace.bounce{bounce}"
+        with trace.span(name + ".trace"):
+            if cfg.compact_rays and not first:
+                # dead lanes gather at the end, whole rows of them leave
+                # the walks at once; every lane keeps its pixel's random
+                # numbers
+                order = _alive_first(alive)
+                ray_o, ray_d = ray_o[order], ray_d[order]
+                throughput, alive = throughput[order], alive[order]
+                prev_pdf, contribution = prev_pdf[order], contribution[order]
+                pixel, lane_ids = pixel[order], lane_ids[order]
+            rs = SampleStream(pixel, sample_idx, stream=bounce)
+            if cfg.count_rays:
+                rays_traced = rays_traced + alive.sum().to(torch.float32)
+            # dead lanes trace with tmax < 0: no traversal work
+            tmax = torch.where(alive, 1e30, -1.0)
+            if pending is not None:
+                # one closest-hit walk over this bounce's rays and the
+                # previous bounce's shadow rays, whose visibility resolves
+                # here
+                p_contrib, p_o, p_d, p_tmax = pending
+                bh = intersect_closest(bvh, scene.triangles,
+                                       torch.cat([ray_o, p_o]),
+                                       torch.cat([ray_d, p_d]), t_min=0.0,
+                                       t_max=torch.cat([tmax, p_tmax]))
+                hit = HitInfo(t=bh.t[:n], tri=bh.tri[:n], u=bh.u[:n],
+                              v=bh.v[:n], hit=bh.hit[:n],
+                              inst=None if bh.inst is None else bh.inst[:n])
+                contribution = contribution + torch.where(
+                    bh.hit[n:][..., None], 0.0, p_contrib)
+                pending = None
+            elif (cfg.sort_secondary_rays and not first
+                  and not scene.displaced):
+                hit = _intersect_closest_sorted(bvh, scene.triangles, ray_o,
+                                                ray_d, alive)
             else:
-                light_p = p_env_sel * env_pdf(scene.env, ray_d)
-                env_mis = prev_pdf ** 2 / torch.clamp(
-                    prev_pdf ** 2 + light_p ** 2, min=1e-30)
-            contribution = contribution + torch.where(
-                miss[..., None], throughput * env_l * env_mis[..., None],
-                0.0)
+                hit = intersect_closest(bvh, scene.triangles, ray_o, ray_d,
+                                        t_min=0.0, t_max=tmax)
+            disp = None
+            if scene.displaced:
+                # the displaced hits are clipped by the triangle hit's t,
+                # so a reported one is the nearer
+                disp = _displaced_closest(scene, ray_o, ray_d,
+                                          torch.where(alive, hit.t, -1.0))
+                d_take = alive & disp[1]
+                hit = dataclasses.replace(
+                    hit, t=torch.where(d_take, disp[0], hit.t),
+                    hit=hit.hit | d_take)
 
-        sp = compute_surface_point(scene, hit.tri, hit.u, hit.v,
-                                   inst=hit.inst, packed=tri_packed)
-        if disp is not None:
-            _, _, d_pos, d_nrm, d_uv, d_mat = disp
-            d3 = d_take[:, None]
-            d_mat = d_mat.to(torch.int64)
-            sp = dataclasses.replace(
-                sp, position=torch.where(d3, d_pos, sp.position),
-                geom_normal=torch.where(d3, d_nrm, sp.geom_normal),
-                shading_normal=torch.where(d3, d_nrm, sp.shading_normal),
-                texcoord=torch.where(d3, d_uv, sp.texcoord),
-                tangent=torch.where(d3, make_frame(d_nrm)[0], sp.tangent),
-                material=torch.where(d_take, d_mat, sp.material),
-                emittance=torch.where(d3, scene.materials.emittance[d_mat],
-                                      sp.emittance))
-        v_out = -ray_d
-        front = dot(v_out, sp.geom_normal) >= 0.0
-        gn_signed = torch.where(front[..., None], sp.geom_normal,
-                                -sp.geom_normal)
-        pos_off = offset_ray_origin(sp.position, gn_signed)
-        nrm = sp.shading_normal
-        if bump:
-            nrm = _bump_normal(scene, sp, nrm)
-        if dbg.geom_normal:
-            nrm = gn_signed
-        t, b = make_frame(nrm)
-        v_out_local = to_local(t, b, nrm, v_out)
+        with trace.span(name + ".surface"):
+            hit_ok = alive & hit.hit
+            miss = alive & ~hit.hit
+            emission = cfg.use_implicit_light_sampling or first
+            if not first and dbg.no_implicit:
+                emission = False
 
-        # ---- implicit emitter hit ---------------------------------------
-        if emission:
-            emissive = ((sp.emittance > 0.0).any(dim=-1)
-                        & (v_out_local[..., 2] > 0.0))
-            if first or not cfg.use_mis:
-                mis_w = torch.ones(n, device=dev)
-            else:
-                dist2 = torch.clamp(hit.t ** 2, min=1e-12)
-                tri = torch.clamp(hit.tri.to(torch.int64), min=0)
-                if scene.is_instanced:
-                    hyp_area = surface_light_pdf(scene, tri, inst=hit.inst)
+            # ---- miss: environment --------------------------------------
+            if use_env and emission:
+                env_l = env_radiance(scene.env, ray_d)
+                if first or not cfg.use_mis:
+                    env_mis = torch.ones(n, device=dev)
                 else:
-                    hyp_area = tri_packed[tri, 25]
-                light_p = (p_surf_sel * hyp_area * dist2
-                           / torch.clamp(v_out_local[..., 2], min=1e-6))
-                mis_w = prev_pdf ** 2 / torch.clamp(
-                    prev_pdf ** 2 + light_p ** 2, min=1e-30)
-            gate = hit_ok & emissive
-            contribution = contribution + torch.where(
-                gate[..., None],
-                throughput * sp.emittance * (mis_w / _PI)[..., None], 0.0)
+                    light_p = p_env_sel * env_pdf(scene.env, ray_d)
+                    env_mis = prev_pdf ** 2 / torch.clamp(
+                        prev_pdf ** 2 + light_p ** 2, min=1e-30)
+                contribution = contribution + torch.where(
+                    miss[..., None], throughput * env_l * env_mis[..., None],
+                    0.0)
 
-        alive = hit_ok
+            sp = compute_surface_point(scene, hit.tri, hit.u, hit.v,
+                                       inst=hit.inst, packed=tri_packed)
+            if disp is not None:
+                _, _, d_pos, d_nrm, d_uv, d_mat = disp
+                d3 = d_take[:, None]
+                d_mat = d_mat.to(torch.int64)
+                sp = dataclasses.replace(
+                    sp, position=torch.where(d3, d_pos, sp.position),
+                    geom_normal=torch.where(d3, d_nrm, sp.geom_normal),
+                    shading_normal=torch.where(d3, d_nrm,
+                                               sp.shading_normal),
+                    texcoord=torch.where(d3, d_uv, sp.texcoord),
+                    tangent=torch.where(d3, make_frame(d_nrm)[0],
+                                        sp.tangent),
+                    material=torch.where(d_take, d_mat, sp.material),
+                    emittance=torch.where(
+                        d3, scene.materials.emittance[d_mat], sp.emittance))
+            v_out = -ray_d
+            front = dot(v_out, sp.geom_normal) >= 0.0
+            gn_signed = torch.where(front[..., None], sp.geom_normal,
+                                    -sp.geom_normal)
+            pos_off = offset_ray_origin(sp.position, gn_signed)
+            nrm = sp.shading_normal
+            if bump:
+                nrm = _bump_normal(scene, sp, nrm)
+            if dbg.geom_normal:
+                nrm = gn_signed
+            t, b = make_frame(nrm)
+            v_out_local = to_local(t, b, nrm, v_out)
 
-        # ---- Russian roulette (skipped where it cannot change the image)
-        if cfg.russian_roulette and not first and not collect_only:
-            if dbg.no_rr:
-                # continuation probability 1: the draw is consumed, and
-                # u < 1 keeps every lane
-                rs.skip(1)
-            else:
-                cont_prob = torch.clamp(luminance(throughput), max=1.0)
-                u_rr = rs.next()
-                alive = alive & (u_rr < cont_prob)
-                throughput = throughput / torch.clamp(cont_prob,
-                                                      min=1e-8)[..., None]
+            # ---- implicit emitter hit -----------------------------------
+            if emission:
+                emissive = ((sp.emittance > 0.0).any(dim=-1)
+                            & (v_out_local[..., 2] > 0.0))
+                if first or not cfg.use_mis:
+                    mis_w = torch.ones(n, device=dev)
+                else:
+                    dist2 = torch.clamp(hit.t ** 2, min=1e-12)
+                    tri = torch.clamp(hit.tri.to(torch.int64), min=0)
+                    if scene.is_instanced:
+                        hyp_area = surface_light_pdf(scene, tri,
+                                                     inst=hit.inst)
+                    else:
+                        hyp_area = tri_packed[tri, 25]
+                    light_p = (p_surf_sel * hyp_area * dist2
+                               / torch.clamp(v_out_local[..., 2], min=1e-6))
+                    mis_w = prev_pdf ** 2 / torch.clamp(
+                        prev_pdf ** 2 + light_p ** 2, min=1e-30)
+                gate = hit_ok & emissive
+                contribution = contribution + torch.where(
+                    gate[..., None],
+                    throughput * sp.emittance * (mis_w / _PI)[..., None],
+                    0.0)
+
+            alive = hit_ok
         if collect_only:
             return
 
-        # ---- NEE ---------------------------------------------------------
-        lod = None
-        if lod_texels is not None:
-            cosg = torch.abs(dot(v_out, sp.geom_normal))
-            footprint = hit.t * lod_texels / torch.clamp(cosg, min=0.1)
-            lod = torch.log2(torch.clamp(footprint * sp.texel_density,
-                                         min=1.0))
-        params = material_params_textured(scene.materials, scene.textures,
-                                          sp.material, sp.texcoord, lod=lod)
-        if cfg.mollify_specular and not first:
-            params.roughness = 1.0 - 0.5 * (1.0 - params.roughness)
-        if dbg.white_albedo:
-            params.diffuse = torch.full_like(params.diffuse, 0.8)
-        sp_off = dataclasses.replace(sp, position=pos_off)
-        if cfg.use_explicit_light_sampling:
-            if cfg.count_rays:
-                rays_traced = rays_traced + alive.sum().to(torch.float32)
-            frame = (t, b, nrm)
-            if nee_fn is not None:
-                nee, nee_aux = nee_fn(scene, bvh, sp_off, v_out_local, frame,
-                                      params, rs, cfg, alive, nee_aux)
-                if not dbg.no_nee:
+        with trace.span(name + ".bsdf"):
+            # ---- Russian roulette (skipped where it cannot change the
+            # image)
+            if cfg.russian_roulette and not first:
+                if dbg.no_rr:
+                    # continuation probability 1: the draw is consumed,
+                    # and u < 1 keeps every lane
+                    rs.skip(1)
+                else:
+                    cont_prob = torch.clamp(luminance(throughput), max=1.0)
+                    u_rr = rs.next()
+                    alive = alive & (u_rr < cont_prob)
+                    throughput = throughput / torch.clamp(
+                        cont_prob, min=1e-8)[..., None]
+
+            # ---- the BSDF at the hit ------------------------------------
+            lod = None
+            if lod_texels is not None:
+                cosg = torch.abs(dot(v_out, sp.geom_normal))
+                footprint = hit.t * lod_texels / torch.clamp(cosg, min=0.1)
+                lod = torch.log2(torch.clamp(footprint * sp.texel_density,
+                                             min=1.0))
+            params = material_params_textured(scene.materials,
+                                              scene.textures, sp.material,
+                                              sp.texcoord, lod=lod)
+            if cfg.mollify_specular and not first:
+                params.roughness = 1.0 - 0.5 * (1.0 - params.roughness)
+            if dbg.white_albedo:
+                params.diffuse = torch.full_like(params.diffuse, 0.8)
+
+        with trace.span(name + ".nee"):
+            sp_off = dataclasses.replace(sp, position=pos_off)
+            if cfg.use_explicit_light_sampling:
+                if cfg.count_rays:
+                    rays_traced = rays_traced + alive.sum().to(torch.float32)
+                frame = (t, b, nrm)
+                if nee_fn is not None:
+                    nee, nee_aux = nee_fn(scene, bvh, sp_off, v_out_local,
+                                          frame, params, rs, cfg, alive,
+                                          nee_aux)
+                    if not dbg.no_nee:
+                        contribution = contribution + torch.where(
+                            alive[..., None], throughput * nee, 0.0)
+                elif dbg.no_nee:
+                    rs.skip(3)  # u_light, u0, u1
+                elif fuse:
+                    # the shadow ray joins the next bounce's walk;
+                    # throughput and gates fold into its contribution now
+                    nee_c, sdir, stmax = _next_event_setup(
+                        scene, sp_off, v_out_local, frame, params, rs, cfg,
+                        alive, light_packed, dbg.no_env)
+                    a3 = alive[..., None]
+                    pending = (torch.where(a3, throughput * nee_c, 0.0),
+                               pos_off, sdir, torch.where(alive, stmax, -1.0))
+                else:
+                    nee = _next_event(scene, bvh, sp_off, v_out_local, frame,
+                                      params, rs, cfg, alive,
+                                      light_packed=light_packed,
+                                      env_off=dbg.no_env)
                     contribution = contribution + torch.where(
                         alive[..., None], throughput * nee, 0.0)
-            elif dbg.no_nee:
-                rs.skip(3)  # u_light, u0, u1
-            elif fuse:
-                # the shadow ray joins the next bounce's walk; throughput
-                # and gates fold into its contribution now
-                nee_c, sdir, stmax = _next_event_setup(
-                    scene, sp_off, v_out_local, frame, params, rs, cfg,
-                    alive, light_packed, dbg.no_env)
-                a3 = alive[..., None]
-                pending = (torch.where(a3, throughput * nee_c, 0.0),
-                           pos_off, sdir, torch.where(alive, stmax, -1.0))
-            else:
-                nee = _next_event(scene, bvh, sp_off, v_out_local, frame,
-                                  params, rs, cfg, alive,
-                                  light_packed=light_packed,
-                                  env_off=dbg.no_env)
-                contribution = contribution + torch.where(
-                    alive[..., None], throughput * nee, 0.0)
 
-        # ---- next direction ---------------------------------------------
-        u0, u1 = rs.next2()
-        v_in_local, f_val, pdf = bsdf_sample(params, v_out_local, u0, u1)
-        valid = (pdf > 0.0) & torch.isfinite(pdf)
-        thr = f_val * (torch.abs(v_in_local[..., 2])
-                       / torch.clamp(pdf, min=1e-30))[..., None]
-        throughput = torch.where((alive & valid)[..., None],
-                                 throughput * thr, throughput)
-        alive = alive & valid
-        ray_o = pos_off
-        ray_d = normalize(to_world(t, b, nrm, v_in_local))
-        prev_pdf = pdf
+        with trace.span(name + ".bsdf"):
+            # ---- next direction -----------------------------------------
+            u0, u1 = rs.next2()
+            v_in_local, f_val, pdf = bsdf_sample(params, v_out_local, u0, u1)
+            valid = (pdf > 0.0) & torch.isfinite(pdf)
+            thr = f_val * (torch.abs(v_in_local[..., 2])
+                           / torch.clamp(pdf, min=1e-30))[..., None]
+            throughput = torch.where((alive & valid)[..., None],
+                                     throughput * thr, throughput)
+            alive = alive & valid
+            ray_o = pos_off
+            ray_d = normalize(to_world(t, b, nrm, v_in_local))
+            prev_pdf = pdf
 
     L = cfg.max_path_length
-    step(1, first=True, collect_only=(L == 1))
-    for bounce in range(2, L):
-        step(bounce, first=False, collect_only=False)
-    if L > 1:
-        step(L, first=False, collect_only=True)
+    for bounce in range(1, max(L, 1) + 1):
+        with trace.span(f"gfx.pathtrace.bounce{bounce}"):
+            step(bounce, first=bounce == 1, collect_only=bounce == L)
     if cfg.compact_rays and L > 1:
-        # undo the bounces' alive-first orders
-        contribution = torch.zeros_like(contribution).index_copy_(
-            0, lane_ids, contribution)
+        with trace.span("gfx.pathtrace.resolve"):
+            # undo the bounces' alive-first orders
+            contribution = torch.zeros_like(contribution).index_copy_(
+                0, lane_ids, contribution)
 
     result = (contribution, rays_traced) if cfg.count_rays else contribution
     if has_aux:
@@ -709,13 +727,16 @@ def render_sample(scene: SceneData, bvh, camera: Camera, width: int,
                   debug_switches=None):
     """One sample for every pixel: radiance [H*W, 3] in row-major pixel
     order (plus the ray count when cfg.count_rays)."""
-    out = render_lanes(scene, bvh, camera, width, height, 0, width * height,
-                       sample_idx, cfg, debug_switches=debug_switches)
-    order = _pixel_order(width, height, scene.triangles.p0.device)
-    if cfg.count_rays:
-        contribution, nrays = out
-        return contribution[order], nrays
-    return out[order]
+    with trace.span("gfx.pathtrace"):
+        out = render_lanes(scene, bvh, camera, width, height, 0,
+                           width * height, sample_idx, cfg,
+                           debug_switches=debug_switches)
+        with trace.span("gfx.pathtrace.resolve"):
+            order = _pixel_order(width, height, scene.triangles.p0.device)
+            if cfg.count_rays:
+                contribution, nrays = out
+                return contribution[order], nrays
+            return out[order]
 
 
 def render_tile(scene: SceneData, bvh, camera: Camera, width: int,

@@ -31,7 +31,7 @@ sub-intervals, the three points of a normal's finite difference) are
 evaluated together, stacked on a leading axis, which changes no result;
 the bisections run step by step. The data-dependent loop of the exact
 intersector is a host loop over the rays still live, one sync a test
-(`tfdm.loop_stats`). A division by a constant rounds as the JAX package's
+(the counter `tfdm.syncs`). A division by a constant rounds as the JAX package's
 does: XLA compiles one inside a traced loop (the candidate rounds, every
 fori_loop) as a product with the float32 reciprocal (`_rcp`), the eager
 v1 intersector's as a division, which the port makes by a tensor on the
@@ -61,8 +61,8 @@ from gfxexp_torch.techniques.tfdm import (
     _uv_transform,
     build_minmax_mipmap,
     iterate_candidates,
-    loop_stats,
 )
+from gfxexp_torch.utils import trace
 
 
 def _div(x, n: float):
@@ -549,7 +549,7 @@ def intersect_nrtdsm_v2(geom: NRTDSMGeometry, o, d, t_min=1e-4, t_max=1e30,
     nearest first, until the next prism box lies past the best hit: in each
     prism the exact height cubic's march and bisection (a round marches
     only the rays that enter a prism; `steps` counts march steps)."""
-    loop_stats["nrtdsm_calls"] += 1
+    trace.count("tfdm.nrtdsm_calls")
     n = o.shape[0]
     dev = o.device
     lo, hi = prism_boxes(geom)
@@ -678,7 +678,7 @@ def intersect_nrtdsm_exact(geom: NRTDSMGeometry, o, d, t_min=1e-4,
     visits only the occupied ones, nearest first, in a host loop over the
     rays that still have one (one sync a step; `steps` counts the visits);
     ordered=False runs every segment, predicated on occupancy."""
-    loop_stats["nrtdsm_calls"] += 1
+    trace.count("tfdm.nrtdsm_calls")
     n = o.shape[0]
     dev = o.device
     s = geom.height.shape[0]
@@ -759,7 +759,7 @@ def intersect_nrtdsm_exact(geom: NRTDSMGeometry, o, d, t_min=1e-4,
             live = _select(nxt < n_h)
             if live.numel() == 0:
                 break
-            loop_stats["exact_iterations"] += 1
+            trace.count("tfdm.exact_iterations")
             sub = {k: _rows(v, live) for k, v in ray.items()}
             kk = nxt[live]
             h0, h1, gx, gy = _seg_geom(sub, kk.to(torch.float32), geom.h_lo,

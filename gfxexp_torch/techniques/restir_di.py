@@ -56,6 +56,7 @@ from gfxexp_torch.scene.lights import (
     sample_surface_light,
 )
 from gfxexp_torch.scene.types import SceneData
+from gfxexp_torch.utils import trace
 
 _PI = float(np.pi)
 
@@ -748,42 +749,55 @@ def restir_di_frame(scene: SceneData, bvh, gb: GBuffer, camera: Camera,
     (colour [H, W, 3], reservoir, ctx, SampleVisibility): carry all four
     into the next frame (the visibility matters only for the rearchitected
     pipeline's reuse_visibility_for_temporal)."""
-    h, w = gb.depth.shape
-    n = h * w
-    dev = gb.depth.device
-    frame_idx = int(frame_idx)
-    pixel = torch.arange(n, dtype=torch.int64, device=dev)
-    ctx = pixel_ctx(scene, gb, camera)
-    if prev_vis is None:
-        prev_vis = empty_sample_visibility(n, dev)
+    with trace.span("gfx.restir"):
+        h, w = gb.depth.shape
+        n = h * w
+        dev = gb.depth.device
+        frame_idx = int(frame_idx)
+        pixel = torch.arange(n, dtype=torch.int64, device=dev)
+        ctx = pixel_ctx(scene, gb, camera)
+        if prev_vis is None:
+            prev_vis = empty_sample_visibility(n, dev)
 
-    if cfg.use_rearchitected_pipeline:
-        pool = presample_lights(scene, frame_idx, cfg)
-        res = initial_ris_presampled(scene, bvh, ctx, pool, gb, pixel,
-                                     frame_idx, cfg)
-        if cfg.enable_temporal_reuse:
-            vis, _ = trace_shadow_rays(scene, bvh, ctx, res, prev_reservoir,
-                                       prev_vis, prev_ctx, gb, prev_hit,
-                                       prev_pos, prev_nrm, camera, pixel,
-                                       cfg)
-            color, res, vis = shade_and_resample(
-                scene, res, prev_reservoir, vis, ctx, prev_ctx, gb, pixel,
-                frame_idx, cfg)
-            if cfg.enable_spatial_reuse:
-                for p in range(cfg.num_spatial_passes):
+        if cfg.use_rearchitected_pipeline:
+            with trace.span("gfx.restir.presample"):
+                pool = presample_lights(scene, frame_idx, cfg)
+            with trace.span("gfx.restir.initial"):
+                res = initial_ris_presampled(scene, bvh, ctx, pool, gb,
+                                             pixel, frame_idx, cfg)
+            if cfg.enable_temporal_reuse:
+                with trace.span("gfx.restir.shadow"):
+                    vis, _ = trace_shadow_rays(
+                        scene, bvh, ctx, res, prev_reservoir, prev_vis,
+                        prev_ctx, gb, prev_hit, prev_pos, prev_nrm, camera,
+                        pixel, cfg)
+                with trace.span("gfx.restir.resample"):
+                    color, res, vis = shade_and_resample(
+                        scene, res, prev_reservoir, vis, ctx, prev_ctx, gb,
+                        pixel, frame_idx, cfg)
+                if cfg.enable_spatial_reuse:
+                    for p in range(cfg.num_spatial_passes):
+                        with trace.span(f"gfx.restir.spatial{p}"):
+                            res = spatial_reuse(scene, bvh, res, ctx, gb,
+                                                camera, pixel, frame_idx, p,
+                                                cfg)
+                    with trace.span("gfx.restir.shade"):
+                        color = shade(scene, bvh, res, ctx, gb)
+                return color, res, ctx, vis
+        else:
+            with trace.span("gfx.restir.initial"):
+                res = initial_ris(scene, bvh, ctx, pixel, frame_idx, cfg)
+            if cfg.enable_temporal_reuse:
+                with trace.span("gfx.restir.temporal"):
+                    res = temporal_reuse(scene, res, prev_reservoir, ctx,
+                                         prev_ctx, gb, prev_hit, prev_pos,
+                                         prev_nrm, camera, pixel, frame_idx,
+                                         cfg)
+        if cfg.enable_spatial_reuse:
+            for p in range(cfg.num_spatial_passes):
+                with trace.span(f"gfx.restir.spatial{p}"):
                     res = spatial_reuse(scene, bvh, res, ctx, gb, camera,
                                         pixel, frame_idx, p, cfg)
-                color = shade(scene, bvh, res, ctx, gb)
-            return color, res, ctx, vis
-    else:
-        res = initial_ris(scene, bvh, ctx, pixel, frame_idx, cfg)
-        if cfg.enable_temporal_reuse:
-            res = temporal_reuse(scene, res, prev_reservoir, ctx, prev_ctx,
-                                 gb, prev_hit, prev_pos, prev_nrm, camera,
-                                 pixel, frame_idx, cfg)
-    if cfg.enable_spatial_reuse:
-        for p in range(cfg.num_spatial_passes):
-            res = spatial_reuse(scene, bvh, res, ctx, gb, camera, pixel,
-                                frame_idx, p, cfg)
-    color = shade(scene, bvh, res, ctx, gb)
-    return color, res, ctx, empty_sample_visibility(n, dev)
+        with trace.span("gfx.restir.shade"):
+            color = shade(scene, bvh, res, ctx, gb)
+        return color, res, ctx, empty_sample_visibility(n, dev)

@@ -49,8 +49,8 @@ from gfxexp_torch.techniques.tfdm import (
     _select,
     _uv_transform,
     iterate_candidates,
-    loop_stats,
 )
+from gfxexp_torch.utils import trace
 
 
 @dataclass
@@ -259,7 +259,7 @@ def intersect_shell(geom: ShellGeometry, o, d, t_min=1e-4, t_max=1e30,
     contents' BVH (one closest-hit query a chord a round, rays that need
     no query given t_max = -1). A round traces only the rays that enter a
     prism."""
-    loop_stats["shell_calls"] += 1
+    trace.count("tfdm.shell_calls")
     if n_segments is None:
         n_segments = geom.auto_segments
     n = o.shape[0]

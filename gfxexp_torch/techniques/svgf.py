@@ -22,6 +22,7 @@ import torch
 from gfxexp_torch.core.math import dot, luminance
 from gfxexp_torch.core.tensors import TensorData
 from gfxexp_torch.render.gbuffer import GBuffer
+from gfxexp_torch.utils import trace
 
 _EPS = 1e-6
 
@@ -372,8 +373,9 @@ def _atrous_pyramid(noisy, variance, gb: GBuffer, cfg: SVGFConfig):
     color = noisy
     first_filtered = noisy
     for stage, step in enumerate(_STEP_WIDTHS[:cfg.num_filter_stages]):
-        color, variance = atrous_stage(color, variance, gb.depth, gb.normal,
-                                       gb.hit, step, cfg)
+        with trace.span(f"gfx.svgf.atrous{stage}"):
+            color, variance = atrous_stage(color, variance, gb.depth,
+                                           gb.normal, gb.hit, step, cfg)
         if stage == 0:
             first_filtered = color
     return color, first_filtered
@@ -388,35 +390,39 @@ def svgf_frame(state: SVGFState, gb: GBuffer, lighting,
     `pyramid_fn(noisy, variance, gb, cfg) -> (filtered, first_filtered)`
     replaces the à-trous pyramid only (a sharded pyramid takes this hook),
     so the temporal, demodulation and TAA steps around it stay shared."""
-    hit = gb.hit
-    dem = demodulate_albedo(lighting, gb.albedo)
-    noisy, moments, count = temporal_accumulate(state, gb, dem, cfg)
+    with trace.span("gfx.svgf"):
+        hit = gb.hit
+        with trace.span("gfx.svgf.temporal"):
+            dem = demodulate_albedo(lighting, gb.albedo)
+            noisy, moments, count = temporal_accumulate(state, gb, dem, cfg)
 
-    if cfg.enable_svgf:
-        variance = estimate_variance(moments, count, gb.depth, gb.normal,
-                                     hit, cfg)
-        filtered, first_filtered = (pyramid_fn or _atrous_pyramid)(
-            noisy, variance, gb, cfg)
-        feedback = first_filtered if cfg.feedback_1st_filtered else noisy
-    else:
-        filtered = noisy
-        feedback = noisy
+        if cfg.enable_svgf:
+            with trace.span("gfx.svgf.variance"):
+                variance = estimate_variance(moments, count, gb.depth,
+                                             gb.normal, hit, cfg)
+            filtered, first_filtered = (pyramid_fn or _atrous_pyramid)(
+                noisy, variance, gb, cfg)
+            feedback = first_filtered if cfg.feedback_1st_filtered else noisy
+        else:
+            filtered = noisy
+            feedback = noisy
 
-    # remodulate; miss pixels keep the raw lighting (the environment)
-    final = torch.where(hit[..., None], filtered * gb.albedo, lighting)
-    if cfg.enable_taa:
-        final = taa(final, state.taa_history, gb.motion, state.first_frame,
-                    cfg)
+        # remodulate; miss pixels keep the raw lighting (the environment)
+        final = torch.where(hit[..., None], filtered * gb.albedo, lighting)
+        if cfg.enable_taa:
+            with trace.span("gfx.svgf.taa"):
+                final = taa(final, state.taa_history, gb.motion,
+                            state.first_frame, cfg)
 
-    new_state = SVGFState(
-        prev_noisy=torch.where(hit[..., None], feedback, 0.0),
-        moments=moments,
-        sample_count=torch.where(hit, count, 0.0),
-        prev_position=gb.position,
-        prev_normal=gb.normal,
-        prev_unit=gb.unit,
-        prev_material=gb.material,
-        taa_history=final,
-        first_frame=torch.zeros_like(state.first_frame),
-    )
-    return final, new_state
+        new_state = SVGFState(
+            prev_noisy=torch.where(hit[..., None], feedback, 0.0),
+            moments=moments,
+            sample_count=torch.where(hit, count, 0.0),
+            prev_position=gb.position,
+            prev_normal=gb.normal,
+            prev_unit=gb.unit,
+            prev_material=gb.material,
+            taa_history=final,
+            first_frame=torch.zeros_like(state.first_frame),
+        )
+        return final, new_state

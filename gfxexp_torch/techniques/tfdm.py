@@ -18,7 +18,8 @@ geometry. The JAX package's data-dependent loops (its while loops and
 conds, ended by an `any` over the rays) are Python loops here, each test of
 their condition a host sync on the card; every update in them is masked by
 the rays still running, so an iteration past a ray's end changes nothing.
-`loop_stats` counts the syncs and iterations. Ties in the candidate order
+The counters `tfdm.<key>` (utils/trace.py, LOOP_COUNTERS) count the syncs
+and iterations. Ties in the candidate order
 are broken as in the JAX package: lowest id first among equal entry
 distances.
 """
@@ -34,6 +35,7 @@ import torch
 
 from gfxexp_torch.core.math import cross, dot, length
 from gfxexp_torch.core.tensors import TensorData
+from gfxexp_torch.utils import trace
 
 LOCAL_INTERSECTION_BOX = 0
 LOCAL_INTERSECTION_TWO_TRIANGLE = 1
@@ -47,8 +49,9 @@ _SLAB_ELEMS = 1 << 24
 # every this many steps (a step past a ray's end is a no-op for it)
 BVH_SYNC_EVERY = 4
 
-# host syncs and loop iterations since the last reset_loop_stats():
-# `syncs` (tests of a loop condition that read the device), `rounds`
+# the counters of host syncs and loop iterations, `tfdm.<key>` in
+# utils/trace.py: `syncs` (tests of a loop condition that read the device),
+# `rounds`
 # (candidate rounds of iterate_candidates), `march_iterations` (steps of
 # intersect_tfdm_v2's march loop, over all rounds), `bvh_iterations` (steps
 # of the prism BVH walk), `calls` (intersect_tfdm_v2 calls); the other
@@ -56,24 +59,19 @@ BVH_SYNC_EVERY = 4
 # (intersect_nrtdsm_v2 and _exact, techniques/nrtdsm.py), `exact_iterations`
 # (steps of intersect_nrtdsm_exact's loop over occupied segments),
 # `shell_calls` (intersect_shell, techniques/shell.py)
-loop_stats = {"calls": 0, "syncs": 0, "rounds": 0, "march_iterations": 0,
-              "bvh_iterations": 0, "nrtdsm_calls": 0, "exact_iterations": 0,
-              "shell_calls": 0}
-
-
-def reset_loop_stats():
-    for k in loop_stats:
-        loop_stats[k] = 0
+LOOP_COUNTERS = ("calls", "syncs", "rounds", "march_iterations",
+                 "bvh_iterations", "nrtdsm_calls", "exact_iterations",
+                 "shell_calls")
 
 
 def _any(x) -> bool:
-    loop_stats["syncs"] += 1
+    trace.count("tfdm.syncs")
     return bool(x.any())
 
 
 def _select(mask):
     """The indices of the set lanes of `mask` (one host sync)."""
-    loop_stats["syncs"] += 1
+    trace.count("tfdm.syncs")
     return torch.nonzero(mask).squeeze(1)
 
 
@@ -746,7 +744,7 @@ def _next_candidate_bvh(bvh: PrismBVH, o, d, t_min, t_cap, last_near,
         if step % BVH_SYNC_EVERY == 0 and not _any(cur < m):
             break
         step += 1
-        loop_stats["bvh_iterations"] += 1
+        trace.count("tfdm.bvh_iterations")
         rows = nodes[cur]
         meta = rows[:, 6:8].contiguous().view(torch.int32)
         cnt = meta[:, 0] >> COUNT_SHIFT
@@ -826,7 +824,7 @@ def iterate_candidates(aabb_min, aabb_max, o, d, t_min, t_max, k, state0,
                 (sel,), found[1])
             cfr = torch.full((n,), -torch.inf, device=dev).index_put(
                 (sel,), found[2])
-        loop_stats["rounds"] += 1
+        trace.count("tfdm.rounds")
         live = (cid >= 0) & (cnr < best_t)
         state = process_fn(state, torch.where(live, cid, -1), cnr, cfr)
         # a round without a candidate means none will follow
@@ -980,7 +978,7 @@ def intersect_tfdm_v2(geom: TFDMGeometry, o, d, t_min=1e-4, t_max=1e30,
     computes twice (the gap at a texel's entry is the previous step's gap
     at its exit) are computed once, and points evaluated together are
     stacked on a leading axis, which changes no result."""
-    loop_stats["calls"] += 1
+    trace.count("tfdm.calls")
     n_rays = o.shape[0]
     dev = o.device
     s = geom.height.shape[0]
@@ -1090,7 +1088,7 @@ def intersect_tfdm_v2(geom: TFDMGeometry, o, d, t_min=1e-4, t_max=1e30,
             gap_prev = torch.zeros((m,), device=dev)
             prev_valid = torch.zeros((m,), dtype=torch.bool, device=dev)
         while _any(running):
-            loop_stats["march_iterations"] += 1
+            trace.count("tfdm.march_iterations")
             steps = steps + running.to(torch.int32)
             if not conservative:
                 uv2, b1, b2, w, h = _uv_of(pr, p,

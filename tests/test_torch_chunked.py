@@ -38,6 +38,7 @@ from gfxexp_torch.accel.traverse import (  # noqa: E402
 from gfxexp_torch.accel.widerow import build_widerow as t_build  # noqa: E402
 from gfxexp_torch.scene.types import TriangleSoA as TSoA  # noqa: E402
 from gfxexp_torch.scene.types import from_numpy  # noqa: E402
+from gfxexp_torch.utils import trace  # noqa: E402
 from gfxexp_tpu.accel import pallas_widestack  # noqa: E402
 from gfxexp_tpu.accel.pallas_widestack import (  # noqa: E402
     build_widerow as j_build,
@@ -123,7 +124,7 @@ def test_chunked_walk_matches_jax():
     soa = _jsoa(p0[perm], e1[perm], e2[perm])
     jh = intersect_closest_widestack(jb, soa, jnp.asarray(o), jnp.asarray(d),
                                      t_max=jnp.asarray(t_max), rows=4)
-    persistent.reset_launch_counts()
+    trace.reset_counters("walk.")
     h = intersect_closest(tb, None, torch.from_numpy(o), torch.from_numpy(d),
                           t_max=torch.from_numpy(t_max))
     assert int(h.hit.sum()) > 100
@@ -135,8 +136,8 @@ def test_chunked_walk_matches_jax():
     np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
     assert not a.numpy()[t_max < 0].any()
     # CPU tensors take the plain walk, never a kernel
-    assert persistent.launch_counts == {"closest": 0, "any": 0}
-    assert persistent.chunked_launch_counts == {"closest": 0, "any": 0}
+    assert trace.counters("walk.kernel1.") == {}
+    assert trace.counters("walk.chunked.") == {}
     with pytest.raises(ValueError):
         walk_chunked_cuda(tb, torch.from_numpy(o), torch.from_numpy(d), 1e-4,
                           1e30, any_hit=False)

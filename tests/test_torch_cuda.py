@@ -18,14 +18,7 @@ sys.path.insert(0, "tests")
 import torch_scenes as S  # noqa: E402
 
 import gfxexp_torch.scene.builder as TB  # noqa: E402
-from gfxexp_torch.accel import (  # noqa: E402
-    instanced,
-    lanegroup,
-    persistent,
-    qrow,
-    skip_traverse,
-    widerow,
-)
+from gfxexp_torch.accel import instanced, persistent, widerow  # noqa: E402
 from gfxexp_torch.accel.bvh_build import build_bvh  # noqa: E402
 from gfxexp_torch.accel.instanced import (  # noqa: E402
     GROUP,
@@ -64,6 +57,7 @@ from gfxexp_torch.render import pathtrace as tpt  # noqa: E402
 from gfxexp_torch.render.camera import make_camera  # noqa: E402
 from gfxexp_torch.scene import animation  # noqa: E402
 from gfxexp_torch.scene.compile import compile_scene  # noqa: E402
+from gfxexp_torch.utils import trace  # noqa: E402
 from gfxexp_torch.walk_trips import warp_windows  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -74,6 +68,12 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     return torch.device("cuda")
+
+
+def _launches(prefix):
+    """The walk launches counted under `prefix` (utils/trace.py), by the
+    rest of the counter's name; a kernel never launched is absent."""
+    return {k[len(prefix):]: v for k, v in trace.counters(prefix).items()}
 
 
 def _soup_table(arity, n=2000, seed=1234):
@@ -112,11 +112,11 @@ def test_kernel_matches_plain(dev, arity):
 def test_wrappers_launch_the_kernel_and_count(dev):
     tb = _soup_table(4, n=300).to(dev)
     o, d = (x.to(dev) for x in _rays(1000))
-    persistent.reset_launch_counts()
+    trace.reset_counters("walk.")
     intersect_closest(tb, None, o, d)
     intersect_any(tb, None, o, d)
     intersect_any(tb, None, o[:0], d[:0])  # nothing to launch
-    assert persistent.launch_counts == {"closest": 1, "any": 1}
+    assert _launches("walk.kernel1.") == {"closest": 1, "any": 1}
 
 
 def test_oversized_stack_raises(dev):
@@ -257,14 +257,13 @@ def test_chunked_overflow_matches_plain(dev, fmt):
 def test_instanced_wrappers_launch_and_count(dev):
     acc = _instanced(0.0).to(dev)
     o, d = (x.to(dev) for x in _instanced_rays(1000))
-    instanced.reset_launch_counts()
+    trace.reset_counters("walk.")
     intersect_closest(acc, None, o, d)
     intersect_any(acc, None, o, d)
     acc.use_tlas = True
     intersect_closest(acc, None, o, d)
-    assert instanced.launch_counts == {
-        "closest_nearest": 1, "any_nearest": 1, "closest_build": 0,
-        "any_build": 0, "closest_sorted": 1, "any_sorted": 0}
+    assert _launches("walk.instanced.") == {
+        "closest_nearest": 1, "any_nearest": 1, "closest_sorted": 1}
 
 
 def test_instanced_oversized_stack_raises(dev):
@@ -328,14 +327,14 @@ def test_skip_kernel_matches_plain(dev, scope):
 def test_skip_wrappers_launch_and_count(dev):
     ts, tb = _skip_frames(dev)[0]
     o, d = (x.to(dev) for x in _rays(1000))
-    skip_traverse.reset_launch_counts()
+    trace.reset_counters("walk.")
     intersect_closest(tb, ts.triangles, o, d)
     intersect_any(tb, ts.triangles, o, d)
     intersect_any_rowcursor(tb, ts.triangles, o, d)
     walk_skip_cuda(tb, ts.triangles, o, d, 1e-4, 1e30, False, "block")
-    assert skip_traverse.launch_counts == {
-        "closest_thread": 1, "any_thread": 1, "closest_warp": 0,
-        "any_warp": 1, "closest_block": 1, "any_block": 0}
+    assert _launches("walk.skip.") == {
+        "closest_thread": 1, "any_thread": 1, "any_warp": 1,
+        "closest_block": 1}
 
 
 def test_animated_render_on_card_matches_cpu(dev):
@@ -436,8 +435,7 @@ def test_single_level_routes_launch_and_count(dev):
     chunked = _chunked_table(4, 300)[0].to(dev)
     q = build_qrow(*S.soup(np.random.default_rng(2), 300, 3.0))[0].to(dev)
     o, d = (x.to(dev) for x in _rays(1000))
-    for mod in (persistent, qrow, lanegroup):
-        mod.reset_launch_counts()
+    trace.reset_counters("walk.")
     intersect_closest(one, None, o, d)
     intersect_closest(chunked, None, o, d)
     intersect_any(chunked, None, o, d)
@@ -449,10 +447,10 @@ def test_single_level_routes_launch_and_count(dev):
     finally:
         widerow.set_persistent(None)
     intersect_closest_lanegroup(one, None, o, d, groups=4)
-    assert persistent.launch_counts == {"closest": 1, "any": 0}
-    assert persistent.chunked_launch_counts == {"closest": 1, "any": 2}
-    assert qrow.launch_counts == {"closest": 1, "any": 1}
-    assert lanegroup.launch_counts == {1: 0, 2: 0, 4: 1}
+    assert _launches("walk.kernel1.") == {"closest": 1}
+    assert _launches("walk.chunked.") == {"closest": 1, "any": 2}
+    assert _launches("walk.qrow.") == {"closest": 1, "any": 1}
+    assert _launches("walk.lanegroup.") == {"4": 1}
 
 
 def test_new_kernels_refuse_oversized_stacks(dev):
@@ -578,7 +576,7 @@ def test_chunked_kernel_fed_grid_matches_plain(dev):
     o, d = (x.to(dev) for x in _aimed(soup, n=600001, seed=43))
     t_max = _dead_every_fifth(o.shape[0], dev)
     side = torch.cuda.Stream(dev)
-    persistent.reset_launch_counts()
+    trace.reset_counters("walk.")
     for any_hit in (False, True):
         p = walk_chunked_plain(tb, o, d, 1e-4, t_max, any_hit)
         runs = [walk_chunked_cuda(tb, o, d, 1e-4, t_max, any_hit)
@@ -595,7 +593,7 @@ def test_chunked_kernel_fed_grid_matches_plain(dev):
                 assert torch.equal(getattr(k, f), getattr(p, f)), f
         for f in ("hit", "t", "u", "v", "tri"):
             assert torch.equal(getattr(small, f), getattr(p, f)[:1001]), f
-    assert persistent.chunked_launch_counts == {"closest": 5, "any": 5}
+    assert _launches("walk.chunked.") == {"closest": 5, "any": 5}
     for c in persistent._grid_counters.values():
         assert c.tolist() == [0, 0]
 
@@ -700,7 +698,7 @@ def test_kernel_refill_fed_grid_matches_plain(dev):
     o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
     t_max = _dead_every_fifth(o.shape[0], dev)
     side = torch.cuda.Stream(dev)
-    persistent.reset_launch_counts()
+    trace.reset_counters("walk.")
     for any_hit in (False, True):
         p = walk_plain(tb, o, d, 1e-4, t_max, any_hit)
         runs = [walk_cuda(tb, o, d, 1e-4, t_max, any_hit) for _ in range(3)]
@@ -714,7 +712,7 @@ def test_kernel_refill_fed_grid_matches_plain(dev):
         for k in runs:
             _equal_fields(k, p)
         _equal_fields(small, p, 1001)
-    assert persistent.launch_counts == {"closest": 5, "any": 5}
+    assert _launches("walk.kernel1.") == {"closest": 5, "any": 5}
     for c in persistent._grid_counters.values():
         assert c.tolist() == [0, 0]
 
@@ -811,7 +809,7 @@ def test_build_order_fed_grid_and_groups(dev):
     o, d = (x.to(dev) for x in _instanced_rays(300001))
     t_max = _dead_every_fifth(o.shape[0], dev, 6.0)
     side = torch.cuda.Stream(dev)
-    instanced.reset_launch_counts()
+    trace.reset_counters("walk.")
     p, pe = walk_instanced_plain(acc, o, d, 1e-4, t_max, False, "build")
     runs = [walk_instanced_cuda(acc, o, d, 1e-4, t_max, False, "build")
             for _ in range(2)]
@@ -832,7 +830,7 @@ def test_build_order_fed_grid_and_groups(dev):
     torch.cuda.synchronize()
     _equal_fields(k, p)
     assert torch.equal(ke, pe)
-    assert instanced.launch_counts["closest_build"] == 4
+    assert _launches("walk.instanced.")["closest_build"] == 4
     for c in persistent._grid_counters.values():
         assert c.tolist() == [0, 0]
 
@@ -992,9 +990,10 @@ def _shadow_batch(ts, n=30000, seed=23):
 
 
 @pytest.mark.parametrize("traversal, counts", [
-    ("widerow", lambda: persistent.launch_counts["any"]),
-    ("skip", lambda: skip_traverse.launch_counts["any_thread"]),
-    ("instanced", lambda: instanced.launch_counts["any_nearest"])],
+    ("widerow", lambda: _launches("walk.kernel1.").get("any", 0)),
+    ("skip", lambda: _launches("walk.skip.").get("any_thread", 0)),
+    ("instanced",
+     lambda: _launches("walk.instanced.").get("any_nearest", 0))],
     ids=["kernel1", "kernel6", "kernel5"])
 def test_any_hit_dead_lanes_match_cpu(dev, traversal, counts):
     """intersect_any on a batch with t_max = -1 lanes mixed in, on kernels
@@ -1004,8 +1003,7 @@ def test_any_hit_dead_lanes_match_cpu(dev, traversal, counts):
                            traversal=traversal)
     o, d, t_max = _shadow_batch(ts)
     cpu = intersect_any(tb, ts.triangles, o, d, 0.0, t_max)
-    for mod in (persistent, skip_traverse, instanced):
-        mod.reset_launch_counts()
+    trace.reset_counters("walk.")
     ts_d, tb_d = ts.to(dev), tb.to(dev)
     card = intersect_any(tb_d, ts_d.triangles, o.to(dev), d.to(dev), 0.0,
                          t_max.to(dev))
@@ -1175,10 +1173,10 @@ def test_textured_render_on_card_matches_cpu(dev, textured_scenes,
 
 
 @pytest.mark.parametrize("traversal, counts", [
-    ("widerow", lambda: (persistent.launch_counts["closest"],
-                         persistent.launch_counts["any"])),
-    ("skip", lambda: (skip_traverse.launch_counts["closest_thread"],
-                      skip_traverse.launch_counts["any_thread"]))],
+    ("widerow", lambda: (_launches("walk.kernel1.").get("closest", 0),
+                         _launches("walk.kernel1.").get("any", 0))),
+    ("skip", lambda: (_launches("walk.skip.").get("closest_thread", 0),
+                      _launches("walk.skip.").get("any_thread", 0)))],
     ids=["kernel1", "kernel6"])
 def test_fused_batch_on_card_matches_cpu(dev, textured_scenes, traversal,
                                          counts):
@@ -1196,8 +1194,7 @@ def test_fused_batch_on_card_matches_cpu(dev, textured_scenes, traversal,
     for fuse in (False, True):
         cfg = tpt.PTConfig(max_path_length=5, count_rays=True,
                            fuse_shadow_rays=fuse, enable_bump_mapping=True)
-        for mod in (persistent, skip_traverse):
-            mod.reset_launch_counts()
+        trace.reset_counters("walk.")
         out[fuse] = tpt.render_sample(sd, bd, cd, w, h, 3, cfg) + (
             counts(),)
     (a, na, ca), (b, nb, cb) = out[False], out[True]

@@ -35,6 +35,7 @@ from gfxexp_torch.accel.traverse import (  # noqa: E402
     intersect_closest_brute,
 )
 from gfxexp_torch.scene.types import TriangleSoA  # noqa: E402
+from gfxexp_torch.utils import trace  # noqa: E402
 from gfxexp_tpu.accel.pallas_widestack import (  # noqa: E402
     _traverse_instanced,
     _traverse_instanced_tlas,
@@ -170,7 +171,7 @@ def test_dispatch_and_routing_on_cpu():
     launch the kernel, and the kernel's wrapper refuses them."""
     _, tacc, _, o, d = _accs("two_blas")
     o, d = torch.from_numpy(o), torch.from_numpy(d)
-    instanced.reset_launch_counts()
+    trace.reset_counters("walk.instanced.")
     try:
         for persist in (True, False):
             instanced.set_persistent(persist)
@@ -184,7 +185,7 @@ def test_dispatch_and_routing_on_cpu():
             assert torch.equal(occ, intersect_any_instanced(tacc, o, d))
     finally:
         instanced.set_persistent(None)
-    assert all(v == 0 for v in instanced.launch_counts.values())
+    assert not any(trace.counters("walk.instanced.").values())
     with pytest.raises(ValueError, match="CUDA"):
         walk_instanced_cuda(tacc, o, d, 1e-4, 1e30, False, route="nearest")
     with pytest.raises(ValueError):

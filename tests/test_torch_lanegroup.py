@@ -24,7 +24,6 @@ import torch
 sys.path.insert(0, "tests")
 import torch_scenes as S  # noqa: E402
 
-from gfxexp_torch.accel import lanegroup  # noqa: E402
 from gfxexp_torch.accel.lanegroup import (  # noqa: E402
     intersect_closest_lanegroup,
     walk_lanegroup_cuda,
@@ -32,6 +31,7 @@ from gfxexp_torch.accel.lanegroup import (  # noqa: E402
 )
 from gfxexp_torch.accel.persistent import walk_plain  # noqa: E402
 from gfxexp_torch.accel.widerow import build_widerow as t_build  # noqa: E402
+from gfxexp_torch.utils import trace  # noqa: E402
 from gfxexp_tpu.accel.pallas_lanegroup import (  # noqa: E402
     intersect_closest_lanegroup as j_lanegroup,
 )
@@ -83,7 +83,7 @@ def test_matches_jax_and_the_per_ray_walk(groups):
     jb, tb, soa, o, d, t_max = _case(11, 400, 600)
     jh = j_lanegroup(jb, soa, jnp.asarray(o), jnp.asarray(d),
                      t_max=jnp.asarray(t_max), rows=4, groups=groups)
-    lanegroup.reset_launch_counts()
+    trace.reset_counters("walk.lanegroup.")
     h, rows = intersect_closest_lanegroup(
         tb, None, torch.from_numpy(o), torch.from_numpy(d),
         t_max=torch.from_numpy(t_max), groups=groups, with_stats=True)
@@ -94,7 +94,7 @@ def test_matches_jax_and_the_per_ray_walk(groups):
     _check_per_ray(h, ref)
     dead = torch.from_numpy(t_max < 0)
     assert int(rows[dead].max()) == 0 and int(rows[~dead].min()) >= 1
-    assert lanegroup.launch_counts == {1: 0, 2: 0, 4: 0}
+    assert trace.counters("walk.lanegroup.") == {}
 
 
 @pytest.mark.parametrize("n_rays", [37, 700])

@@ -29,6 +29,7 @@ from gfxexp_torch.scene.types import from_numpy
 from gfxexp_torch.techniques import nrtdsm as TN
 from gfxexp_torch.techniques import shell as TS
 from gfxexp_torch.techniques import tfdm as TT
+from gfxexp_torch.utils import trace
 from gfxexp_tpu.apps.tfdm import procedural_height, subdivided_plane
 from gfxexp_tpu.techniques import nrtdsm as JN
 from gfxexp_tpu.techniques import shell as JS
@@ -322,10 +323,11 @@ def test_intersectors_match_jax(case):
         ordered = case == "exact"
         jh = JN.intersect_nrtdsm_exact(jg, jnp.asarray(o), jnp.asarray(d),
                                        ordered=ordered)
-        TT.reset_loop_stats()
+        trace.reset_counters("tfdm.")
         th = TN.intersect_nrtdsm_exact(tg, torch.from_numpy(o),
                                        torch.from_numpy(d), ordered=ordered)
-        assert (TT.loop_stats["exact_iterations"] > 0) == ordered
+        assert (trace.counters("tfdm.").get("tfdm.exact_iterations", 0)
+                > 0) == ordered
     else:
         jh = JN.intersect_nrtdsm_v2(jg, jnp.asarray(o), jnp.asarray(d))
         th = TN.intersect_nrtdsm_v2(tg, torch.from_numpy(o),
@@ -337,10 +339,10 @@ def test_intersectors_match_jax(case):
 def test_intersect_v2_prism_bvh_matches_jax(bvh_geoms):
     jg, tg = bvh_geoms
     o, d = rays(150, 7)
-    TT.reset_loop_stats()
+    trace.reset_counters("tfdm.")
     jh = JN.intersect_nrtdsm_v2(jg, jnp.asarray(o), jnp.asarray(d))
     th = TN.intersect_nrtdsm_v2(tg, torch.from_numpy(o), torch.from_numpy(d))
-    assert TT.loop_stats["bvh_iterations"] > 0
+    assert trace.counters("tfdm.").get("tfdm.bvh_iterations", 0) > 0
     _compare(jh, th)
 
 

@@ -43,6 +43,7 @@ from gfxexp_torch.render.camera import make_camera  # noqa: E402
 from gfxexp_torch.scene.compile import compile_scene as tcompile  # noqa: E402
 from gfxexp_torch.scene.types import TriangleSoA as TSoA  # noqa: E402
 from gfxexp_torch.scene.types import from_numpy  # noqa: E402
+from gfxexp_torch.utils import trace  # noqa: E402
 from gfxexp_tpu.accel.pallas_qrow import build_qrow as j_build  # noqa: E402
 from gfxexp_tpu.accel.pallas_qrow import (  # noqa: E402
     intersect_any_qrow,
@@ -126,7 +127,7 @@ def test_walk_matches_jax(max_rows):
     args = (torch.from_numpy(o), torch.from_numpy(d))
     jh = intersect_closest_qrow(jb, soa, jnp.asarray(o), jnp.asarray(d),
                                 t_max=jnp.asarray(t_max), rows=4)
-    qrow.reset_launch_counts()
+    trace.reset_counters("walk.qrow.")
     h = intersect_closest(tb, None, *args, t_max=torch.from_numpy(t_max))
     assert int(h.hit.sum()) > 100
     S.check_single_against_jax(h, jh, UV_ATOL)
@@ -135,7 +136,7 @@ def test_walk_matches_jax(max_rows):
     a = intersect_any(tb, None, *args, t_max=torch.from_numpy(t_max))
     np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
     assert not a.numpy()[t_max <= 0].any()
-    assert qrow.launch_counts == {"closest": 0, "any": 0}
+    assert trace.counters("walk.qrow.") == {}
     with pytest.raises(ValueError):
         walk_qrow_cuda(tb, *args, 1e-4, 1e30, any_hit=False)
 

@@ -39,6 +39,7 @@ import torch
 
 from gfxexp_torch.techniques import tfdm as T
 from gfxexp_torch.scene.types import from_numpy
+from gfxexp_torch.utils import trace
 from gfxexp_tpu.apps.tfdm import procedural_height, subdivided_plane
 from gfxexp_tpu.techniques import tfdm as J
 
@@ -222,10 +223,10 @@ def test_intersect_tfdm_v2_local_types_match_jax(lit):
 def test_intersect_tfdm_v2_prism_bvh_matches_jax(bvh_geoms):
     jg, tg = bvh_geoms
     o, d = _rays(300, 3)
-    T.reset_loop_stats()
+    trace.reset_counters("tfdm.")
     jh = J.intersect_tfdm_v2(jg, jnp.asarray(o), jnp.asarray(d))
     th = T.intersect_tfdm_v2(tg, torch.from_numpy(o), torch.from_numpy(d))
-    assert T.loop_stats["bvh_iterations"] > 0
+    assert trace.counters("tfdm.").get("tfdm.bvh_iterations", 0) > 0
     _compare(jh, th)
 
 

@@ -9,7 +9,6 @@ import numpy as np
 import pytest
 import torch
 
-from gfxexp_torch.accel import persistent
 from gfxexp_torch.accel.persistent import (
     intersect_any_widerow,
     intersect_closest_widerow,
@@ -24,6 +23,7 @@ from gfxexp_torch.accel.traverse import (
 from gfxexp_torch.accel.widerow import build_widerow as t_build
 from gfxexp_torch.csrc import build as kbuild
 from gfxexp_torch.scene.types import TriangleSoA as TSoA
+from gfxexp_torch.utils import trace
 from gfxexp_tpu.accel.pallas_persistent import (
     intersect_any_persistent,
     intersect_closest_persistent,
@@ -149,10 +149,10 @@ def test_ragged_ray_counts_match_jax_persistent(nr):
 def test_cpu_tensors_never_launch_the_kernel():
     _, tb, _ = _both(3, n=64)
     o, d = _rays(4, 256)
-    persistent.reset_launch_counts()
+    trace.reset_counters("walk.kernel1.")
     intersect_closest_widerow(tb, torch.from_numpy(o), torch.from_numpy(d))
     intersect_any_widerow(tb, torch.from_numpy(o), torch.from_numpy(d))
-    assert persistent.launch_counts == {"closest": 0, "any": 0}
+    assert trace.counters("walk.kernel1.") == {}
     with pytest.raises(ValueError):
         walk_cuda(tb, torch.from_numpy(o), torch.from_numpy(d), 1e-4, 1e30,
                   any_hit=False)

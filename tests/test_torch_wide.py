@@ -33,6 +33,7 @@ from gfxexp_torch.core.tensors import from_numpy  # noqa: E402
 from gfxexp_torch.render import pathtrace as tpt  # noqa: E402
 from gfxexp_torch.render.camera import make_camera  # noqa: E402
 from gfxexp_torch.scene.compile import compile_scene as tcompile  # noqa: E402
+from gfxexp_torch.utils import trace  # noqa: E402
 from gfxexp_tpu.accel import traverse as jt  # noqa: E402
 from gfxexp_tpu.accel.bvh_build import build_bvh as j_build  # noqa: E402
 from gfxexp_tpu.render import pathtrace as jpt  # noqa: E402
@@ -108,10 +109,11 @@ def test_wide_walk_matches_jax(jax_walk):
     (p0, e1, e2), jb, jperm, rays, jh, ja = jax_walk
     tb, tperm = t_build(p0, e1, e2, arity=8)
     assert isinstance(tb, BVH) and np.array_equal(tperm, jperm)
-    tt.reset_wide_stats()
+    trace.reset_counters("wide.")
     _check_walk(tb, (p0[tperm], e1[tperm], e2[tperm]), rays, jh, ja)
-    assert tt.wide_stats["queries"] == 2 and tt.wide_stats["steps"] > 0
-    assert tt.wide_stats["syncs"] <= tt.wide_stats["steps"]
+    c = trace.counters("wide.")
+    assert c["wide.queries"] == 2 and c["wide.steps"] > 0
+    assert c["wide.syncs"] <= c["wide.steps"]
 
 
 def test_wide_walk_of_jax_bvh_through_from_numpy(jax_walk):
