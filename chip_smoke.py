@@ -153,7 +153,8 @@ Phases, one line each, any failure exits non-zero:
      sample: 5 + 4 unfused, 5 + 0 fused), and kernel 1 timed on one
      batch of bounce and shadow rays as N closest + N any against one
      closest over 2N; the default sample's kernels and kernel-launch
-     calls, the calls equal to the parent's 5,824;
+     calls, by the shading kernel's route equal to SAMPLE_LAUNCHES and by
+     the eager stages to the parent's 5,824;
  27. on the card at 64x64: path_tracing -bump -texture-lod -debug-switches
      133 -exr (the EXR read back) and path_tracing -env-texture on an EXR
      written here; the svgf and restir_di frame loops on the textured
@@ -255,11 +256,23 @@ Phases, one line each, any failure exits non-zero:
      scan on the card steps down or gives an empty item a bin); octahedral round trips of
      2^22 normals (encode equal, decode within 4 ulps); power_heuristic
      and simple_tonemap equal, srgb_to_linear within 8 ulps; device ms of
-     each call.
+     each call;
+ 38. the path tracer's shading kernel (csrc/shade_bounce.cu) at 1920x1080
+     on the box and lamp: the kernel shades each of SHADE_BOUNCES bounces
+     from bounce 1, its plain version a copy of the same state after the
+     same walks (the share of bit-identical lanes of every output, the
+     largest difference in contribution, the pixels off by over 1e-3
+     within 1e-4 of them); the kernel's and the plain version's device ms
+     on bounce 2 against the bound (SHADE_LANE_BYTES a lane / 3.35 TB/s),
+     registers and spills; render_sample by the kernel and by the eager
+     stages (ms a sample, launches, the images within 1e-4 of the pixels),
+     the counters `pathtrace.shade.kernel` (one a bounce) and
+     `pathtrace.shade.eager` (none).
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -336,7 +349,8 @@ SEED = 7
 BATCH = 512 * 512  # the main path's ray batch at 512x512
 IMAGE_BAR = 5e-3  # mean relative image difference (golden-test bar)
 KERNELS = ("widerow_traverse", "instanced_traverse", "skiplink_traverse",
-           "chunked_traverse", "qrow_traverse", "lanegroup_traverse")
+           "chunked_traverse", "qrow_traverse", "lanegroup_traverse",
+           "shade_bounce")
 # the H100 SXM's published peaks (NVIDIA's data sheet: HBM3, fp32 without
 # the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -1789,9 +1803,10 @@ def phase_sl_main(report, built, small, dev):
     for key, r in rows.items():
         _check_bench_row(r, f"single-level main {key}")
         lc = {k: v for k, v in r["launches"].items() if v}
+        walks = {k: v for k, v in lc.items() if not k.startswith("shade_")}
         want = "qrow" if "qrow" in key else "chunked"
-        check(all(v > 0 for k, v in lc.items() if k.startswith(want))
-              and set(k.split("_")[0] for k in lc) == {want},
+        check(all(v > 0 for k, v in walks.items() if k.startswith(want))
+              and set(k.split("_")[0] for k in walks) == {want},
               f"single-level main {key}: timed-run launches {lc}")
         print(f"[18 single-level main {key}] {r['metric']} {r['value']} "
               f"Mrays/s, {r['rays']:.0f} rays in {r['seconds']:.3f}s, mean "
@@ -2593,9 +2608,12 @@ FUSED_RUNS = ("off", "on", "on", "off")  # phase 26's small-scene turns
 # CUDA runtime's launch calls, from `gfxexp_torch/op_counts.py --cuda` run
 # on that tree and on this one in turns (NVIDIA H100 80GB HBM3, 700.00 W;
 # PERF.md). Later in a long run the trace can keep fewer or more kernels
-# (5,769 to 5,836 for the same sample); the launch calls do not move
+# (5,769 to 5,836 for the same sample); the launch calls do not move. The
+# eager stages still make them; by the shading kernel's route (phase 38)
+# the same sample makes SAMPLE_LAUNCHES (the same card)
 PARENT_SAMPLE_KERNELS = 5833
 PARENT_SAMPLE_LAUNCHES = 5824
+SAMPLE_LAUNCHES = 329
 # every option of the slice at once: bump, texture LOD, solid-angle NEE and
 # the fused shadow rays
 ALL_OPTIONS = dict(enable_bump_mapping=True, texture_lod=True,
@@ -2806,9 +2824,15 @@ def phase_texture_costs(report, dev):
         prof = _profile(lambda s: render_accumulate(
             small, sbvh, bench.bench_camera(512, 512).to(dev), 512, 512, s,
             1, cfg))
+        eager = None
+        if fused == "off":
+            with _shade_route("eager"):
+                eager = _profile(lambda s: render_accumulate(
+                    small, sbvh, bench.bench_camera(512, 512).to(dev), 512,
+                    512, s, 1, cfg))
         turns.append({"fused": fused, "mrays_per_s": r["value"],
                       "walks_per_sample": per, "profile": prof,
-                      "mean": r["mean_radiance"]})
+                      "eager_profile": eager, "mean": r["mean_radiance"]})
         print(f"[26 fused turn {i} {fused}] small 512x512: {r['value']} "
               f"Mrays/s, {prof['kernels']} CUDA kernels a sample, "
               f"{prof['launch_calls']} launch calls (idle share "
@@ -2825,14 +2849,22 @@ def phase_texture_costs(report, dev):
           f"26 fused: mean radiance {means}")
     default = [(t["profile"]["kernels"], t["profile"]["launch_calls"])
                for t in turns if t["fused"] == "off"]
+    eager = [(t["eager_profile"]["kernels"],
+              t["eager_profile"]["launch_calls"])
+             for t in turns if t["fused"] == "off"]
     rows["fused_turns"] = turns
     rows["default_sample"] = default
+    rows["default_sample_eager"] = eager
     print(f"[26 default sample] small 512x512, default PTConfig: (CUDA "
-          f"kernels in the trace, launch calls) {default} a sample; the "
-          f"parent's: {PARENT_SAMPLE_KERNELS} kernels, "
-          f"{PARENT_SAMPLE_LAUNCHES} launch calls", flush=True)
-    check(all(c == PARENT_SAMPLE_LAUNCHES for _, c in default),
-          f"26 default sample: launch calls {default}, parent "
+          f"kernels in the trace, launch calls) {default} a sample by the "
+          f"shading kernel, {eager} by the eager stages; the parent's: "
+          f"{PARENT_SAMPLE_KERNELS} kernels, {PARENT_SAMPLE_LAUNCHES} "
+          f"launch calls", flush=True)
+    check(all(c == SAMPLE_LAUNCHES for _, c in default),
+          f"26 default sample: launch calls {default}, expected "
+          f"{SAMPLE_LAUNCHES}")
+    check(all(c == PARENT_SAMPLE_LAUNCHES for _, c in eager),
+          f"26 default sample, eager stages: launch calls {eager}, parent "
           f"{PARENT_SAMPLE_LAUNCHES}")
     report["texture_costs"] = rows
 
@@ -4774,6 +4806,195 @@ def phase_core(report, dev):
           + f" | {rep['seconds']:.1f} s", flush=True)
 
 
+SHADE_RES = (1920, 1080)  # phase 38
+SHADE_BOUNCES = 5
+SHADE_REPS = 50
+# bytes a lane the shading kernel moves: it reads the hit (t, tri, u, v,
+# hit: 17), the ray direction, throughput, contribution and pending NEE
+# term (4 x 12), `alive`, `prev_pdf`, the occlusion flag and the pixel
+# (10); it writes the next ray, throughput, contribution, shadow direction
+# and pending term (6 x 12), the shadow ray's tmax, `alive` and `prev_pdf`
+# (9)
+SHADE_LANE_BYTES = 17 + 48 + 10 + 72 + 9
+
+
+def _kernel_device_ms(fn, name, reps):
+    """Mean device ms of the CUDA kernels whose name holds `name` over reps
+    calls of fn (after a warm call), from torch.profiler: what else fn
+    launches is left out. Late in a long run the trace can keep fewer
+    kernels than were launched; the mean is over those it kept."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and name in e.name]
+    check(spans, f"{name}: no kernel in the trace of {reps} calls")
+    return sum(spans) / len(spans) / 1e3
+
+
+def phase_shade(report, dev):
+    """Phase 38: the shading kernel against its plain version and the
+    eager stages at 1920x1080 on the box and lamp (see the header)."""
+    from gfxexp_torch.apps.common import default_demo_builder
+    from gfxexp_torch.render import pathtrace as tpt
+    from gfxexp_torch.render.camera import make_camera
+    from gfxexp_torch.scene.compile import compile_scene
+
+    sys.path.insert(0, os.path.join(REPO, "benchmark"))
+    from reference import compare
+
+    t_phase = time.time()
+    w, h = SHADE_RES
+    n = w * h
+    scene, bvh = (x.to(dev) for x in compile_scene(default_demo_builder(),
+                                                   traversal="widerow"))
+    cam = make_camera([0.0, 0.0, 1.9], fov_y=1.2, aspect=w / h,
+                      target=[0.0, 0.0, -1.0]).to(dev)
+    cfg = PTConfig(max_path_length=SHADE_BOUNCES, count_rays=True)
+    check(tpt.shade_kernel_admits(scene, cfg), "38: the box is refused")
+    rep = {"res": [w, h], "bounces": {}}
+
+    # the kernel shades every bounce; the plain version shades a copy of
+    # the same state after the same walks
+    s, st = tpt._start(scene, bvh, cam, w, h, 0, n, 3, cfg)
+    timed = None
+    max_err = 0.0
+    for bounce in range(1, SHADE_BOUNCES + 1):
+        first, collect = bounce == 1, bounce == SHADE_BOUNCES
+        hit, occluded, _ = tpt._trace(s, st, first)
+        pst = _shade_lanes_copy(st)
+        if bounce == 2:
+            timed = (_shade_lanes_copy(st), hit, occluded)
+        tpt.shade_bounce(s, st, hit, bounce, first, collect, occluded)
+        tpt._shade_bounce_plain(s, pst, hit, bounce, first, collect,
+                                occluded)
+        torch.cuda.synchronize()
+        outs = {"contribution": (st.contribution, pst.contribution),
+                "throughput": (st.throughput, pst.throughput),
+                "alive": (st.alive, pst.alive),
+                "rays_traced": (st.rays_traced, pst.rays_traced)}
+        if not collect:
+            outs.update(ray_o=(st.ray_o, pst.ray_o),
+                        ray_d=(st.ray_d, pst.ray_d),
+                        pending=(st.pending[0], pst.pending[0]),
+                        shadow_tmax=(st.pending[3], pst.pending[3]))
+        same = {}
+        for name, (a, b) in outs.items():
+            eq = a == b
+            same[name] = float((eq.all(-1) if eq.dim() > 1 else eq)
+                               .double().mean())
+            if a.dtype.is_floating_point:
+                check(bool(torch.isfinite(a).all()),
+                      f"38 bounce {bounce}: {name} not finite")
+        err = float((st.contribution - pst.contribution).abs().max())
+        max_err = max(max_err, err)
+        off = compare.mismatch_share(st.contribution, pst.contribution)
+        check(off <= 1e-4, f"38 bounce {bounce}: {off} of the pixels off")
+        rep["bounces"][bounce] = {"bit_identical": same, "pixels_off": off,
+                                  "max_abs_err": err}
+        print(f"[38 shade bounce {bounce}] bit-identical lanes "
+              + ", ".join(f"{k} {v:.6f}" for k, v in same.items())
+              + f"; pixels off by over 1e-3: {off:.2e}; largest difference "
+              f"in contribution {err:.3g}", flush=True)
+    rep["max_abs_err"] = max_err
+
+    # bounce 2's shading, timed: the kernel on a fresh copy of its lanes
+    # each call (the profiler keeps its time alone), the plain version on
+    # the same inputs
+    base, hit, occ = timed
+    k_ms = _kernel_device_ms(lambda: tpt.shade_bounce(
+        s, _shade_lanes_copy(base), hit, 2, False, False, occ),
+        "shade_bounce_kernel", SHADE_REPS)
+    p_ms = _device_and_host_ms(lambda: tpt._shade_bounce_plain(
+        s, dataclasses.replace(base), hit, 2, False, False, occ), 3)[0]
+    tables = sum(x.numel() * x.element_size() for x in (
+        s.tri_packed, s.light_packed, scene.materials.diffuse_color,
+        scene.materials.specular_f0, scene.materials.emittance))
+    bound_ms, bound_by = bound(n * SHADE_LANE_BYTES + tables, 0)
+    regs = _ptxas("shade_bounce")
+    rep.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
+               lane_bytes=SHADE_LANE_BYTES, ptxas=regs,
+               roofline=bound_ms / k_ms)
+    print(f"[38 shade kernel] bounce 2 at {w}x{h}: {k_ms:.4f} ms, plain "
+          f"version {p_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{SHADE_LANE_BYTES} B a lane): {100 * bound_ms / k_ms:.1f}% of "
+          f"it; ptxas: {' | '.join(regs)}", flush=True)
+
+    # render_sample: kernel route against the eager stages
+    def render(sample):
+        return tpt.render_sample(scene, bvh, cam, w, h, sample, cfg)
+
+    rows = {}
+    for route in ("kernel", "eager", "eager", "kernel"):
+        with _shade_route(route):
+            trace.reset_counters("pathtrace.shade")
+            img, rays = render(1)
+            counted = trace.counters("pathtrace.shade")
+            prof = _profile(render)
+        rows.setdefault(route, []).append(
+            {"counters": counted, "rays": float(rays), **prof})
+        rows[route + "_img"] = img
+        print(f"[38 shade render {route}] {w}x{h} render_sample: "
+              f"{prof['wall_ms']:.2f} ms, {prof['kernels']} CUDA kernels "
+              f"({prof.get('device_busy_ms', float('nan')):.2f} ms busy), "
+              f"{prof['launch_calls']} launch calls (idle share "
+              f"{prof.get('idle_share', float('nan')):.3f}), counters "
+              f"{counted}", flush=True)
+    check(all(r["counters"] == {"pathtrace.shade.kernel": SHADE_BOUNCES}
+              for r in rows["kernel"]), f"38 counters: {rows['kernel']}")
+    check(all(r["counters"] == {"pathtrace.shade.eager": SHADE_BOUNCES}
+              for r in rows["eager"]), f"38 counters: {rows['eager']}")
+    check(rows["kernel"][0]["rays"] == rows["eager"][0]["rays"],
+          f"38 rays {rows['kernel'][0]['rays']} {rows['eager'][0]['rays']}")
+    off = compare.mismatch_share(rows.pop("kernel_img"),
+                                 rows.pop("eager_img"))
+    check(off <= 1e-4, f"38 render: {off} of the pixels off")
+    rep["render"] = rows
+    rep["render_pixels_off"] = off
+    rep["seconds"] = time.time() - t_phase
+    report["shade"] = rep
+    print(f"[38 shade] render_sample images: {off:.2e} of the pixels off "
+          f"by over 1e-3; phase {rep['seconds']:.1f}s", flush=True)
+    return rep
+
+
+@contextlib.contextmanager
+def _shade_route(route):
+    """Within it render_lanes shades by the kernel where its predicate
+    admits the call ("kernel") or by the eager stages everywhere
+    ("eager")."""
+    from gfxexp_torch.render import pathtrace as tpt
+
+    admits = tpt.shade_kernel_admits
+    if route == "eager":
+        tpt.shade_kernel_admits = lambda *a: False
+    try:
+        yield
+    finally:
+        tpt.shade_kernel_admits = admits
+
+
+def _shade_lanes_copy(st):
+    """A copy of render_lanes' lane state, every tensor copied (the pending
+    term and the shading kernel's buffers too)."""
+    pending = (None if st.pending is None
+               else tuple(x.clone() for x in st.pending))
+    buffers = (None if st.buffers is None
+               else {k: None if x is None else x.clone()
+                     for k, x in st.buffers.items()})
+    return dataclasses.replace(
+        st, ray_o=st.ray_o.clone(), ray_d=st.ray_d.clone(),
+        throughput=st.throughput.clone(), alive=st.alive.clone(),
+        prev_pdf=st.prev_pdf.clone(), contribution=st.contribution.clone(),
+        rays_traced=st.rays_traced.clone(), pending=pending, buffers=buffers)
+
+
 def mark(report, t_start, phase):
     """Seconds since the start at the end of `phase`, kept and printed."""
     secs = time.time() - t_start
@@ -4870,6 +5091,8 @@ def main():
     mark(report, t_start, "36")
     phase_core(report, dev)
     mark(report, t_start, "37")
+    shade = phase_shade(report, dev)
+    mark(report, t_start, "38")
 
     kernels = [
         {"name": f"widerow_walk_{kind}", "route": "cuda",
@@ -4936,6 +5159,15 @@ def main():
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
+    kernels.append({
+        "name": "shade_bounce_kernel", "route": "cuda",
+        "source": "gfxexp_torch/csrc/shade_bounce.cu",
+        "replaces": None,  # the JAX integrator is plain jnp
+        "launches": shade["render"]["kernel"][0]["counters"][
+            "pathtrace.shade.kernel"],
+        "max_abs_err": shade["max_abs_err"], "ms": shade["ms"],
+        "plain_ms": shade["plain_ms"], "bound_ms": shade["bound_ms"],
+        "bound_by": shade["bound_by"], "library_ms": None})
     report["seconds"] = time.time() - t_start
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -604,6 +604,12 @@ def use_kernel1(bvh: WideRowBVH) -> bool:
     return persist_on() and persistent_supported(bvh)
 
 
+def walk_library(bvh: WideRowBVH) -> str:
+    """The csrc library whose kernel _walk launches for `bvh` on the
+    card."""
+    return "widerow_traverse" if use_kernel1(bvh) else "chunked_traverse"
+
+
 def _walk(bvh, o, d, t_min, t_max, any_hit):
     one = use_kernel1(bvh)
     if o.device.type == "cuda":

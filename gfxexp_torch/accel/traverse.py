@@ -167,6 +167,19 @@ def _traverse(bvh, tris, o, d, t_min, t_max, any_hit: bool) -> HitInfo:
                    hit=best_tri >= 0)
 
 
+def walk_library(bvh) -> Optional[str]:
+    """The csrc library (csrc/<name>.cu) whose kernel walks `bvh` on the
+    card, so that a caller can build it with its own kernels at once; None
+    for the wide BVH, whose walk is plain torch."""
+    from gfxexp_torch.accel import persistent
+
+    kind = _check_structure(bvh)
+    if kind == "widerow":
+        return persistent.walk_library(bvh)
+    return {"qrow": "qrow_traverse", "instanced": "instanced_traverse",
+            "skip": "skiplink_traverse"}.get(kind)
+
+
 def intersect_closest(bvh, tris, o, d, t_min=1e-4, t_max=1e30) -> HitInfo:
     """Closest-hit query for a ray batch; o, d: [R, 3]. `tris` (the world
     triangles in traversal order) is read by the skip-link and wide BVH

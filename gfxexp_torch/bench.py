@@ -540,8 +540,10 @@ def _counts():
     """Launches so far of every kernel a single- or two-level scene can
     reach: kernel 1 (widerow_*), kernel 2 (chunked_*), the quantized walk
     (qrow_*), the two-level walk (instanced_*) and the lane-group walk
-    (lanegroup_g*), which no bench route takes."""
-    c = trace.counters("walk.")
+    (lanegroup_g*), which no bench route takes; and the path tracer's
+    bounces shaded by its kernel (shade_kernel) or by the eager stages on
+    the card (shade_eager)."""
+    c = trace.counters()
     qs = ("closest", "any")
     names = {**{f"widerow_{q}": f"walk.kernel1.{q}" for q in qs},
              **{f"chunked_{q}": f"walk.chunked.{q}" for q in qs},
@@ -549,7 +551,9 @@ def _counts():
              **{f"instanced_{q}_{r}": f"walk.instanced.{q}_{r}"
                 for q in qs for r in instanced.ROUTES},
              **{f"lanegroup_g{g}": f"walk.lanegroup.{g}"
-                for g in lanegroup.GROUPS}}
+                for g in lanegroup.GROUPS},
+             "shade_kernel": "pathtrace.shade.kernel",
+             "shade_eager": "pathtrace.shade.eager"}
     return {k: c.get(name, 0) for k, name in names.items()}
 
 

@@ -146,6 +146,11 @@ def _declare(name: str, lib: ctypes.CDLL):
             vp, vp, vp, vp, vp,                  # t, u, v, tri, hit
             vp,                                  # stream
         ]
+    elif name == "shade_bounce":
+        lib.shade_bounce_args_size.restype = ci
+        lib.shade_bounce_args_size.argtypes = []
+        lib.shade_bounce_launch.restype = ci
+        lib.shade_bounce_launch.argtypes = [vp, vp]  # args struct, stream
     else:
         raise KeyError(f"no C interface declared for {name!r}")
 

@@ -12,8 +12,17 @@ Options are decided on the host: the debug switches are a Python int, and
 the texture, bump and LOD branches are taken only when the scene has
 texture layers, so the default path launches no kernel for them. With
 `fuse_shadow_rays` each bounce's closest-hit rays and the previous
-bounce's shadow rays go through one closest-hit walk of 2N lanes; NEE
-visibility is then applied one step later, in the same order of sums.
+bounce's shadow rays go through one closest-hit walk of 2N lanes.
+
+The default NEE leaves each bounce's term and shadow ray to the next
+bounce: its walks trace the shadow rays (an any-hit walk, or inside the
+closest-hit walk), and its shading adds the unoccluded terms before its
+own emission, the order of sums of tracing them at once. Where
+shade_kernel_admits takes a call (one level, no texture layers, displaced
+geometry or environment, the default NEE and ray order), a bounce's
+shading is shade_bounce: one CUDA kernel on the card
+(csrc/shade_bounce.cu), whose plain version, _shade_bounce_plain, shades
+every other call and every call on the CPU.
 
 A scene's displaced geometry (SceneData.displaced: TFDM and NRTDSM meshes,
 shells, direct curves; techniques/, core/curves.py) is traced after the
@@ -26,6 +35,7 @@ takes none of these branches.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional
@@ -37,6 +47,7 @@ from gfxexp_torch.accel.traverse import (
     HitInfo,
     intersect_any,
     intersect_closest,
+    walk_library,
 )
 from gfxexp_torch.core.math import (
     cross,
@@ -50,7 +61,7 @@ from gfxexp_torch.core.math import (
     to_local,
     to_world,
 )
-from gfxexp_torch.core.rng import SampleStream
+from gfxexp_torch.core.rng import SampleStream, _as_i32
 from gfxexp_torch.core.tensors import TensorData
 from gfxexp_torch.render.bsdf import (
     bsdf_evaluate,
@@ -428,6 +439,508 @@ def _bump_normal(scene: SceneData, sp: SurfacePoint, nrm):
     return torch.where((ntid < 0)[:, None], nrm, bumped)
 
 
+def shade_kernel_admits(scene: SceneData, cfg: PTConfig, nee_fn=None) -> bool:
+    """Whether render_lanes shades its bounces with shade_bounce
+    (csrc/shade_bounce.cu on the card) rather than _shade_bounce_plain: a
+    single-level scene without texture layers, displaced geometry,
+    environment or light-unit probability texture, the default next-event
+    estimation, and none of ray sorting, compaction, solid-angle light
+    sampling or fused shadow rays. It reads the scene and the
+    configuration only."""
+    return (not scene.is_instanced and not has_textures(scene)
+            and not scene.displaced and scene.env is None
+            and scene.light_unit_probtex is None and nee_fn is None
+            and not cfg.sort_secondary_rays and not cfg.compact_rays
+            and not cfg.use_solid_angle_sampling
+            and not cfg.fuse_shadow_rays and cfg.max_path_length >= 1)
+
+
+@dataclass
+class _Setting:
+    """What every bounce of one render_lanes call reads besides the
+    lanes."""
+
+    scene: SceneData
+    bvh: object
+    cfg: PTConfig
+    dbg: DebugSwitches
+    sample_idx: int
+    tri_packed: torch.Tensor  # pack_tri_attrs
+    light_packed: Optional[torch.Tensor]  # pack_light_rows
+    p_env_sel: torch.Tensor
+    p_surf_sel: torch.Tensor
+    use_env: bool
+    bump: bool
+    lod_texels: Optional[torch.Tensor]
+    nee_fn: object
+    # the shadow rays join the next bounce's closest-hit walk
+    fuse: bool
+
+
+@dataclass
+class _Lanes:
+    """The lanes' state, carried from bounce to bounce."""
+
+    pixel: torch.Tensor  # [N] int64
+    ray_o: torch.Tensor  # [N, 3]
+    ray_d: torch.Tensor  # [N, 3]
+    throughput: torch.Tensor  # [N, 3]
+    alive: torch.Tensor  # [N] bool
+    prev_pdf: torch.Tensor  # [N]
+    contribution: torch.Tensor  # [N, 3]
+    rays_traced: torch.Tensor  # []
+    nee_aux: object = None
+    # the NEE term a bounce leaves to the next bounce's walk: (contribution
+    # with throughput and gates applied, shadow origins, directions, tmax <
+    # 0 = none)
+    pending: Optional[tuple] = None
+    # each lane's first lane (compaction permutes the lanes)
+    lane_ids: Optional[torch.Tensor] = None
+    # the shading kernel's output buffers, made at bounce 1
+    buffers: Optional[dict] = None
+
+
+def _trace(s: _Setting, st: _Lanes, first: bool):
+    """A bounce's walks: the previous bounce's shadow rays (an any-hit
+    walk, or with s.fuse inside the closest-hit walk), then the closest-hit
+    walk (after compaction, sorted, against the displaced geometry).
+    Returns (hit, occluded [N] of st.pending or None, displaced hits:
+    None or (hits, lanes they replace))."""
+    scene, cfg = s.scene, s.cfg
+    n = st.alive.shape[0]
+    occluded = None
+    if st.pending is not None and not s.fuse:
+        _, p_o, p_d, p_tmax = st.pending
+        occluded = intersect_any(s.bvh, scene.triangles, p_o, p_d, t_min=0.0,
+                                 t_max=p_tmax)
+        if scene.displaced and cfg.displaced_shadows:
+            occluded = occluded | _displaced_occluded(scene, p_o, p_d, p_tmax)
+    if cfg.compact_rays and not first:
+        # dead lanes gather at the end, whole rows of them leave the walks
+        # at once; every lane keeps its pixel's random numbers
+        order = _alive_first(st.alive)
+        for f in ("ray_o", "ray_d", "throughput", "alive", "prev_pdf",
+                  "contribution", "pixel", "lane_ids"):
+            setattr(st, f, getattr(st, f)[order])
+        if occluded is not None:
+            occluded = occluded[order]
+            st.pending = tuple(x[order] for x in st.pending)
+    if cfg.count_rays:
+        st.rays_traced = st.rays_traced + st.alive.sum().to(torch.float32)
+    # dead lanes trace with tmax < 0: no traversal work
+    tmax = torch.where(st.alive, 1e30, -1.0)
+    if st.pending is not None and s.fuse:
+        # one closest-hit walk over this bounce's rays and the previous
+        # bounce's shadow rays
+        _, p_o, p_d, p_tmax = st.pending
+        bh = intersect_closest(s.bvh, scene.triangles,
+                               torch.cat([st.ray_o, p_o]),
+                               torch.cat([st.ray_d, p_d]), t_min=0.0,
+                               t_max=torch.cat([tmax, p_tmax]))
+        hit = HitInfo(t=bh.t[:n], tri=bh.tri[:n], u=bh.u[:n], v=bh.v[:n],
+                      hit=bh.hit[:n],
+                      inst=None if bh.inst is None else bh.inst[:n])
+        occluded = bh.hit[n:]
+    elif cfg.sort_secondary_rays and not first and not scene.displaced:
+        hit = _intersect_closest_sorted(s.bvh, scene.triangles, st.ray_o,
+                                        st.ray_d, st.alive)
+    else:
+        hit = intersect_closest(s.bvh, scene.triangles, st.ray_o, st.ray_d,
+                                t_min=0.0, t_max=tmax)
+    if not scene.displaced:
+        return hit, occluded, None
+    # the displaced hits are clipped by the triangle hit's t, so a reported
+    # one is the nearer
+    disp = _displaced_closest(scene, st.ray_o, st.ray_d,
+                              torch.where(st.alive, hit.t, -1.0))
+    d_take = st.alive & disp[1]
+    hit = dataclasses.replace(hit, t=torch.where(d_take, disp[0], hit.t),
+                              hit=hit.hit | d_take)
+    return hit, occluded, (disp, d_take)
+
+
+def _shade_bounce_plain(s: _Setting, st: _Lanes, hit: HitInfo, bounce: int,
+                        first: bool, collect_only: bool, occluded=None,
+                        disp=None):
+    """The stages .surface, .bsdf and .nee of one bounce after its walks,
+    updating `st`: the previous bounce's NEE term (st.pending) where
+    `occluded` [N] is False, the environment and emitter hits, Russian
+    roulette, the BSDF, next-event estimation (the default one leaves its
+    term and shadow ray in st.pending for the next bounce's walk) and the
+    next ray. `disp`: the displaced hits and the lanes they replace (from
+    _trace). The plain version of csrc/shade_bounce.cu (shade_bounce)."""
+    scene, cfg, dbg = s.scene, s.cfg, s.dbg
+    dev = st.alive.device
+    n = st.alive.shape[0]
+    name = f"gfx.pathtrace.bounce{bounce}"
+    rs = SampleStream(st.pixel, s.sample_idx, stream=bounce)
+    ray_d, alive, throughput = st.ray_d, st.alive, st.throughput
+    if occluded is not None:
+        # the previous bounce's NEE term, where its shadow ray is
+        # unoccluded: before this bounce's emission, the order of sums of
+        # tracing it at once
+        st.contribution = st.contribution + torch.where(
+            occluded[..., None], 0.0, st.pending[0])
+    st.pending = None
+
+    with trace.span(name + ".surface"):
+        hit_ok = alive & hit.hit
+        miss = alive & ~hit.hit
+        emission = cfg.use_implicit_light_sampling or first
+        if not first and dbg.no_implicit:
+            emission = False
+
+        # ---- miss: environment ------------------------------------------
+        if s.use_env and emission:
+            env_l = env_radiance(scene.env, ray_d)
+            if first or not cfg.use_mis:
+                env_mis = torch.ones(n, device=dev)
+            else:
+                light_p = s.p_env_sel * env_pdf(scene.env, ray_d)
+                env_mis = st.prev_pdf ** 2 / torch.clamp(
+                    st.prev_pdf ** 2 + light_p ** 2, min=1e-30)
+            st.contribution = st.contribution + torch.where(
+                miss[..., None], throughput * env_l * env_mis[..., None],
+                0.0)
+
+        sp = compute_surface_point(scene, hit.tri, hit.u, hit.v,
+                                   inst=hit.inst, packed=s.tri_packed)
+        if disp is not None:
+            (_, _, d_pos, d_nrm, d_uv, d_mat), d_take = disp
+            d3 = d_take[:, None]
+            d_mat = d_mat.to(torch.int64)
+            sp = dataclasses.replace(
+                sp, position=torch.where(d3, d_pos, sp.position),
+                geom_normal=torch.where(d3, d_nrm, sp.geom_normal),
+                shading_normal=torch.where(d3, d_nrm, sp.shading_normal),
+                texcoord=torch.where(d3, d_uv, sp.texcoord),
+                tangent=torch.where(d3, make_frame(d_nrm)[0], sp.tangent),
+                material=torch.where(d_take, d_mat, sp.material),
+                emittance=torch.where(
+                    d3, scene.materials.emittance[d_mat], sp.emittance))
+        v_out = -ray_d
+        front = dot(v_out, sp.geom_normal) >= 0.0
+        gn_signed = torch.where(front[..., None], sp.geom_normal,
+                                -sp.geom_normal)
+        pos_off = offset_ray_origin(sp.position, gn_signed)
+        nrm = sp.shading_normal
+        if s.bump:
+            nrm = _bump_normal(scene, sp, nrm)
+        if dbg.geom_normal:
+            nrm = gn_signed
+        t, b = make_frame(nrm)
+        v_out_local = to_local(t, b, nrm, v_out)
+
+        # ---- implicit emitter hit ---------------------------------------
+        if emission:
+            emissive = ((sp.emittance > 0.0).any(dim=-1)
+                        & (v_out_local[..., 2] > 0.0))
+            if first or not cfg.use_mis:
+                mis_w = torch.ones(n, device=dev)
+            else:
+                dist2 = torch.clamp(hit.t ** 2, min=1e-12)
+                tri = torch.clamp(hit.tri.to(torch.int64), min=0)
+                if scene.is_instanced:
+                    hyp_area = surface_light_pdf(scene, tri, inst=hit.inst)
+                else:
+                    hyp_area = s.tri_packed[tri, 25]
+                light_p = (s.p_surf_sel * hyp_area * dist2
+                           / torch.clamp(v_out_local[..., 2], min=1e-6))
+                mis_w = st.prev_pdf ** 2 / torch.clamp(
+                    st.prev_pdf ** 2 + light_p ** 2, min=1e-30)
+            gate = hit_ok & emissive
+            st.contribution = st.contribution + torch.where(
+                gate[..., None],
+                throughput * sp.emittance * (mis_w / _PI)[..., None], 0.0)
+
+        alive = st.alive = hit_ok
+    if collect_only:
+        return
+
+    with trace.span(name + ".bsdf"):
+        # ---- Russian roulette (skipped where it cannot change the image)
+        if cfg.russian_roulette and not first:
+            if dbg.no_rr:
+                # continuation probability 1: the draw is consumed, and
+                # u < 1 keeps every lane
+                rs.skip(1)
+            else:
+                cont_prob = torch.clamp(luminance(throughput), max=1.0)
+                u_rr = rs.next()
+                alive = alive & (u_rr < cont_prob)
+                throughput = throughput / torch.clamp(
+                    cont_prob, min=1e-8)[..., None]
+
+        # ---- the BSDF at the hit ----------------------------------------
+        lod = None
+        if s.lod_texels is not None:
+            cosg = torch.abs(dot(v_out, sp.geom_normal))
+            footprint = hit.t * s.lod_texels / torch.clamp(cosg, min=0.1)
+            lod = torch.log2(torch.clamp(footprint * sp.texel_density,
+                                         min=1.0))
+        params = material_params_textured(scene.materials, scene.textures,
+                                          sp.material, sp.texcoord, lod=lod)
+        if cfg.mollify_specular and not first:
+            params.roughness = 1.0 - 0.5 * (1.0 - params.roughness)
+        if dbg.white_albedo:
+            params.diffuse = torch.full_like(params.diffuse, 0.8)
+
+    with trace.span(name + ".nee"):
+        sp_off = dataclasses.replace(sp, position=pos_off)
+        if cfg.use_explicit_light_sampling:
+            if cfg.count_rays:
+                st.rays_traced = (st.rays_traced
+                                  + alive.sum().to(torch.float32))
+            frame = (t, b, nrm)
+            if s.nee_fn is not None:
+                nee, st.nee_aux = s.nee_fn(scene, s.bvh, sp_off, v_out_local,
+                                           frame, params, rs, cfg, alive,
+                                           st.nee_aux)
+                if not dbg.no_nee:
+                    st.contribution = st.contribution + torch.where(
+                        alive[..., None], throughput * nee, 0.0)
+            elif dbg.no_nee:
+                rs.skip(3)  # u_light, u0, u1
+            else:
+                # the shadow ray goes to the next bounce's walk; throughput
+                # and gates fold into its contribution now (its tmax is
+                # already < 0 on dead lanes)
+                nee_c, sdir, stmax = _next_event_setup(
+                    scene, sp_off, v_out_local, frame, params, rs, cfg,
+                    alive, s.light_packed, dbg.no_env)
+                st.pending = (torch.where(alive[..., None],
+                                          throughput * nee_c, 0.0),
+                              pos_off, sdir, stmax)
+
+    with trace.span(name + ".bsdf"):
+        # ---- next direction ---------------------------------------------
+        u0, u1 = rs.next2()
+        v_in_local, f_val, pdf = bsdf_sample(params, v_out_local, u0, u1)
+        valid = (pdf > 0.0) & torch.isfinite(pdf)
+        thr = f_val * (torch.abs(v_in_local[..., 2])
+                       / torch.clamp(pdf, min=1e-30))[..., None]
+        st.throughput = torch.where((alive & valid)[..., None],
+                                    throughput * thr, throughput)
+        st.alive = alive & valid
+        st.ray_o = pos_off
+        st.ray_d = normalize(to_world(t, b, nrm, v_in_local))
+        st.prev_pdf = pdf
+
+
+# the kernel's per-launch switches (csrc/shade_bounce.cu, enum k*)
+_SHADE_FLAGS = {name: 1 << i for i, name in enumerate((
+    "first", "collect_only", "emission", "mis", "roulette", "no_rr",
+    "explicit", "no_nee", "mollify", "white", "geom_normal", "pending",
+    "count", "alias_units", "alias_tris"))}
+
+_SHADE_INTS = ("n", "flags", "sample", "stream", "n_units", "n_light_rows")
+_SHADE_PTRS = (
+    "pixel", "hit_t", "hit_tri", "hit_u", "hit_v", "hit_hit", "tri_rows",
+    "unit_material", "bsdf_type", "diffuse", "f0", "roughness", "emittance",
+    "light_rows", "unit_alias_prob", "unit_alias_idx", "unit_cdf",
+    "tri_offset", "tri_count", "tri_alias_prob", "tri_alias_local",
+    "tri_cdf", "emissive_total", "d_in", "ray_o", "ray_d", "throughput",
+    "contribution", "alive", "prev_pdf", "shadow_d", "shadow_tmax",
+    "pending", "occluded", "counts")
+
+
+class _ShadeArgs(ctypes.Structure):
+    """csrc/shade_bounce.cu's ShadeArgs."""
+
+    _fields_ = ([(f, ctypes.c_int) for f in _SHADE_INTS]
+                + [(f, ctypes.c_void_p) for f in _SHADE_PTRS])
+
+
+def _as_int32(x: int) -> int:
+    """The uint32 bits of x as a C int."""
+    x = int(x) & 0xFFFFFFFF
+    return x - (1 << 32) if x >= (1 << 31) else x
+
+
+def _kernel_input(name, x, dtype, shape, dev):
+    """x's address after checking that the kernel takes it."""
+    if x is None:
+        return None
+    if x.device != dev or x.dtype != dtype or not x.is_contiguous():
+        raise ValueError(f"shade_bounce: {name} must be a contiguous {dtype} "
+                         f"tensor on {dev}, got {x.dtype} on {x.device} "
+                         f"(contiguous: {x.is_contiguous()})")
+    if shape is not None and tuple(x.shape) != tuple(shape):
+        raise ValueError(f"shade_bounce: {name} must be {tuple(shape)}, got "
+                         f"{tuple(x.shape)}")
+    return x.data_ptr()
+
+
+def shade_bounce(s: _Setting, st: _Lanes, hit: HitInfo, bounce: int,
+                 first: bool, collect_only: bool, occluded=None):
+    """One bounce's shading on the route shade_kernel_admits takes, after
+    its walks, updating `st` as _shade_bounce_plain does. On a CUDA tensor
+    it launches csrc/shade_bounce.cu (counter `pathtrace.shade.kernel`),
+    whose lanes start at bounce 1, and raises on what the kernel does not
+    take; on a CPU tensor it runs _shade_bounce_plain."""
+    dev = st.pixel.device
+    if dev.type == "cpu":
+        return _shade_bounce_plain(s, st, hit, bounce, first, collect_only,
+                                   occluded)
+    if dev.type != "cuda":
+        raise ValueError(f"shade_bounce runs on CPU and CUDA tensors, got "
+                         f"{dev}")
+    from gfxexp_torch.csrc.build import load_library
+
+    scene, cfg, dbg = s.scene, s.cfg, s.dbg
+    n = st.pixel.shape[0]
+    lib = load_library("shade_bounce")
+    if lib.shade_bounce_args_size() != ctypes.sizeof(_ShadeArgs):
+        raise RuntimeError("shade_bounce: the argument struct differs from "
+                           "the kernel's")
+    if first:
+        st.buffers = {
+            "pixel": _as_i32(st.pixel),
+            "ray_o": torch.empty((n, 3), device=dev),
+            "ray_d": torch.empty((n, 3), device=dev),
+            "shadow_d": torch.empty((n, 3), device=dev),
+            "shadow_tmax": torch.empty(n, device=dev),
+            "pending": torch.empty((n, 3), device=dev),
+            # a bounce's NEE rays, one slot a bounce
+            "counts": (torch.zeros(cfg.max_path_length, dtype=torch.int32,
+                                   device=dev) if cfg.count_rays else None)}
+    elif st.buffers is None:
+        raise ValueError("shade_bounce: the kernel's lanes start at bounce 1")
+    buf = st.buffers
+    emission = first or (cfg.use_implicit_light_sampling
+                         and not dbg.no_implicit)
+    explicit = cfg.use_explicit_light_sampling
+    units = scene.units
+    switches = {
+        "first": first, "collect_only": collect_only, "emission": emission,
+        "mis": cfg.use_mis, "roulette": cfg.russian_roulette and not first,
+        "no_rr": dbg.no_rr, "explicit": explicit, "no_nee": dbg.no_nee,
+        "mollify": cfg.mollify_specular and not first,
+        "white": dbg.white_albedo, "geom_normal": dbg.geom_normal,
+        "pending": occluded is not None, "count": cfg.count_rays,
+        "alias_units": scene.light_unit_alias_prob is not None,
+        "alias_tris": units.light_tri_alias_prob is not None}
+    flags = sum(_SHADE_FLAGS[k] for k, on in switches.items() if on)
+    n_units = scene.num_units
+    light = s.light_packed if explicit else None
+    n_light = 0 if light is None else light.shape[0]
+    light_order = None if light is None else (n_light,)
+    f32, i32, u8 = torch.float32, torch.int32, torch.bool
+    mats = scene.materials
+    n_mat = mats.bsdf_type.shape[0]
+    n_tri = s.tri_packed.shape[0]
+    counts = buf["counts"]
+    inputs = {
+        "pixel": (buf["pixel"], i32, (n,)),
+        "hit_t": (hit.t, f32, (n,)), "hit_tri": (hit.tri, i32, (n,)),
+        "hit_u": (hit.u, f32, (n,)), "hit_v": (hit.v, f32, (n,)),
+        "hit_hit": (hit.hit, u8, (n,)),
+        "tri_rows": (s.tri_packed, f32, (n_tri, 27)),
+        "unit_material": (units.material, i32, (n_units,)),
+        "bsdf_type": (mats.bsdf_type, i32, (n_mat,)),
+        "diffuse": (mats.diffuse_color, f32, (n_mat, 3)),
+        "f0": (mats.specular_f0, f32, (n_mat, 3)),
+        "roughness": (mats.roughness, f32, (n_mat,)),
+        "emittance": (mats.emittance, f32, (n_mat, 3)),
+        "light_rows": (light, f32, (n_light, 22)),
+        "unit_alias_prob": (scene.light_unit_alias_prob, f32, (n_units,)),
+        "unit_alias_idx": (scene.light_unit_alias_idx, i32, (n_units,)),
+        "unit_cdf": (scene.light_unit_cdf, f32, (n_units + 1,)),
+        "tri_offset": (units.tri_offset, i32, (n_units,)),
+        "tri_count": (units.tri_count, i32, (n_units,)),
+        "tri_alias_prob": (units.light_tri_alias_prob, f32, light_order),
+        "tri_alias_local": (units.light_tri_alias_local, i32, light_order),
+        "tri_cdf": (units.light_tri_cdf, f32, light_order),
+        "emissive_total": (scene.total_emissive_importance, f32, ()),
+        "d_in": (st.ray_d, f32, (n, 3)),
+        "throughput": (st.throughput, f32, (n, 3)),
+        "contribution": (st.contribution, f32, (n, 3)),
+        "alive": (st.alive, u8, (n,)),
+        "prev_pdf": (st.prev_pdf, f32, (n,)),
+        "occluded": (occluded, u8, (n,)),
+        "counts": (None if counts is None
+                   else counts[bounce - 1:bounce], i32, (1,)),
+        **{k: (buf[k], f32, (n, 3)) for k in (
+            "ray_o", "ray_d", "shadow_d", "pending")},
+        "shadow_tmax": (buf["shadow_tmax"], f32, (n,))}
+    args = _ShadeArgs(n=n, flags=flags, sample=_as_int32(s.sample_idx),
+                      stream=_as_int32(bounce), n_units=n_units,
+                      n_light_rows=n_light)
+    for k, (x, dtype, shape) in inputs.items():
+        setattr(args, k, _kernel_input(k, x, dtype, shape, dev))
+    with trace.span(f"gfx.pathtrace.bounce{bounce}.shade"), \
+            torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.shade_bounce_launch(ctypes.byref(args),
+                                     ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"shade_bounce launch failed: CUDA error {rc}")
+    trace.count("pathtrace.shade.kernel")
+    st.pending = None
+    if collect_only:
+        return
+    if explicit and cfg.count_rays:
+        # the kernel's count, summed where the plain version sums it
+        st.rays_traced = st.rays_traced + counts[bounce - 1].to(torch.float32)
+    st.ray_o, st.ray_d = buf["ray_o"], buf["ray_d"]
+    if explicit and not dbg.no_nee:
+        st.pending = (buf["pending"], buf["ray_o"], buf["shadow_d"],
+                      buf["shadow_tmax"])
+
+
+def _start(scene: SceneData, bvh, camera: Camera, width: int, height: int,
+           lane_start, lane_count: int, sample_idx, cfg: PTConfig,
+           nee_fn=None, nee_aux=None, debug_switches=None):
+    """A render_lanes call's setting and its lanes at bounce 1 (the camera
+    rays)."""
+    dbg = DebugSwitches.from_bits(debug_switches)
+    dev = scene.triangles.p0.device
+    n = lane_count
+    lane = int(lane_start) + torch.arange(n, dtype=torch.int64, device=dev)
+    pixel = pixel_from_lane(lane, width, height)
+    sample_idx = int(sample_idx)
+
+    rs_cam = SampleStream(pixel, sample_idx, stream=0xFFFF)
+    if cfg.enable_jitter and not dbg.no_jitter:
+        jx, jy = rs_cam.next2()
+    else:
+        jx = torch.full((n,), 0.5, device=dev)
+        jy = torch.full((n,), 0.5, device=dev)
+    ray_o, ray_d = generate_rays_for_lanes(camera, width, height, pixel,
+                                           jx, jy)
+    st = _Lanes(pixel=pixel, ray_o=ray_o, ray_d=ray_d,
+                throughput=torch.ones((n, 3), device=dev),
+                alive=torch.ones(n, dtype=torch.bool, device=dev),
+                prev_pdf=torch.zeros(n, device=dev),
+                contribution=torch.zeros((n, 3), device=dev),
+                rays_traced=torch.zeros((), device=dev), nee_aux=nee_aux,
+                lane_ids=(torch.arange(n, device=dev)
+                          if cfg.compact_rays else None))
+
+    p_env_sel, p_surf_sel = light_selection_probs(scene)
+    textured = has_textures(scene)
+    lod_texels = None
+    if cfg.texture_lod and textured and scene.textures.mip_flat is not None:
+        # texels a pixel's angle covers at distance 1: the pixel footprint
+        # heuristic (primary rays' differentials; bounces reuse the last
+        # segment's length)
+        lod_texels = (2.0 * torch.tan(camera.fov_y * 0.5) / height
+                      * scene.textures.layers.shape[1])
+    s = _Setting(
+        scene=scene, bvh=bvh, cfg=cfg, dbg=dbg, sample_idx=sample_idx,
+        tri_packed=pack_tri_attrs(scene.triangles, scene),
+        light_packed=(pack_light_rows(scene)
+                      if cfg.use_explicit_light_sampling else None),
+        p_env_sel=p_env_sel, p_surf_sel=p_surf_sel,
+        use_env=cfg.enable_env and scene.env is not None and not dbg.no_env,
+        bump=cfg.enable_bump_mapping and textured and not dbg.no_bump,
+        lod_texels=lod_texels, nee_fn=nee_fn,
+        fuse=(cfg.fuse_shadow_rays and cfg.use_explicit_light_sampling
+              and nee_fn is None and not scene.displaced
+              and not cfg.sort_secondary_rays and not cfg.compact_rays))
+    return s, st
+
+
 def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
                  height: int, lane_start, lane_count: int, sample_idx,
                  cfg: PTConfig = PTConfig(), nee_fn=None, nee_aux=None,
@@ -436,6 +949,10 @@ def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
     `lane_start`. Returns radiance [lane_count, 3] in lane order (and the
     traced-ray count as a 0-d tensor when cfg.count_rays). Runs on the
     device that holds `scene`.
+
+    A bounce is its walks (_trace) and its shading: shade_bounce (one
+    kernel on the card) where shade_kernel_admits(scene, cfg, nee_fn),
+    else _shade_bounce_plain. Both give the same image.
 
     `nee_fn(scene, bvh, sp, v_out_local, (t, b, n), params, rs, cfg, alive,
     aux) -> (radiance, aux)` takes the place of the default next-event
@@ -447,273 +964,41 @@ def render_lanes(scene: SceneData, bvh, camera: Camera, width: int,
 
     `debug_switches` is the 8-bit field of DebugSwitches (None, an int or
     a 0-d tensor, read once on the host)."""
-    dbg = DebugSwitches.from_bits(debug_switches)
-    has_aux = nee_aux is not None
-    dev = scene.triangles.p0.device
-    n = lane_count
-    lane = int(lane_start) + torch.arange(n, dtype=torch.int64, device=dev)
-    pixel = pixel_from_lane(lane, width, height)
-    sample_idx = int(sample_idx)
-    rays_traced = torch.zeros((), device=dev)
+    kernel = shade_kernel_admits(scene, cfg, nee_fn)
+    s, st = _start(scene, bvh, camera, width, height, lane_start, lane_count,
+                   sample_idx, cfg, nee_fn, nee_aux, debug_switches)
+    cuda = st.alive.device.type == "cuda"
+    if kernel and cuda:
+        # the shading kernel and the walk build at once at first use
+        from gfxexp_torch.csrc.build import load_libraries
 
-    rs_cam = SampleStream(pixel, sample_idx, stream=0xFFFF)
-    if cfg.enable_jitter and not dbg.no_jitter:
-        jx, jy = rs_cam.next2()
-    else:
-        jx = torch.full((n,), 0.5, device=dev)
-        jy = torch.full((n,), 0.5, device=dev)
-    ray_o, ray_d = generate_rays_for_lanes(camera, width, height, pixel,
-                                           jx, jy)
-
-    contribution = torch.zeros((n, 3), device=dev)
-    throughput = torch.ones((n, 3), device=dev)
-    alive = torch.ones(n, dtype=torch.bool, device=dev)
-    prev_pdf = torch.zeros(n, device=dev)
-
-    use_env = cfg.enable_env and scene.env is not None and not dbg.no_env
-    p_env_sel, p_surf_sel = light_selection_probs(scene)
-    tri_packed = pack_tri_attrs(scene.triangles, scene)
-    light_packed = (pack_light_rows(scene)
-                    if cfg.use_explicit_light_sampling else None)
-    textured = has_textures(scene)
-    bump = cfg.enable_bump_mapping and textured and not dbg.no_bump
-    lod_texels = None
-    if cfg.texture_lod and textured and scene.textures.mip_flat is not None:
-        # texels a pixel's angle covers at distance 1: the pixel footprint
-        # heuristic (primary rays' differentials; bounces reuse the last
-        # segment's length)
-        lod_texels = (2.0 * torch.tan(camera.fov_y * 0.5) / height
-                      * scene.textures.layers.shape[1])
-    fuse = (cfg.fuse_shadow_rays and cfg.use_explicit_light_sampling
-            and nee_fn is None and not scene.displaced
-            and not cfg.sort_secondary_rays and not cfg.compact_rays)
-    # each lane's first lane (compaction permutes the lanes)
-    lane_ids = torch.arange(n, device=dev) if cfg.compact_rays else None
-    # the previous bounce's shadow rays (fused mode): (contribution with
-    # throughput and gates applied, origins, directions, tmax < 0 = none)
-    pending = None
-
+        load_libraries(["shade_bounce"]
+                       + [x for x in (walk_library(bvh),) if x])
+    L = cfg.max_path_length
     # the first bounce (MIS weight 1) and the last (collect only: no NEE,
     # no new direction) are peeled, as in the reference
-    def step(bounce: int, first: bool, collect_only: bool):
-        nonlocal ray_o, ray_d, throughput, alive, prev_pdf, contribution
-        nonlocal rays_traced, nee_aux, pending, pixel, lane_ids
-        name = f"gfx.pathtrace.bounce{bounce}"
-        with trace.span(name + ".trace"):
-            if cfg.compact_rays and not first:
-                # dead lanes gather at the end, whole rows of them leave
-                # the walks at once; every lane keeps its pixel's random
-                # numbers
-                order = _alive_first(alive)
-                ray_o, ray_d = ray_o[order], ray_d[order]
-                throughput, alive = throughput[order], alive[order]
-                prev_pdf, contribution = prev_pdf[order], contribution[order]
-                pixel, lane_ids = pixel[order], lane_ids[order]
-            rs = SampleStream(pixel, sample_idx, stream=bounce)
-            if cfg.count_rays:
-                rays_traced = rays_traced + alive.sum().to(torch.float32)
-            # dead lanes trace with tmax < 0: no traversal work
-            tmax = torch.where(alive, 1e30, -1.0)
-            if pending is not None:
-                # one closest-hit walk over this bounce's rays and the
-                # previous bounce's shadow rays, whose visibility resolves
-                # here
-                p_contrib, p_o, p_d, p_tmax = pending
-                bh = intersect_closest(bvh, scene.triangles,
-                                       torch.cat([ray_o, p_o]),
-                                       torch.cat([ray_d, p_d]), t_min=0.0,
-                                       t_max=torch.cat([tmax, p_tmax]))
-                hit = HitInfo(t=bh.t[:n], tri=bh.tri[:n], u=bh.u[:n],
-                              v=bh.v[:n], hit=bh.hit[:n],
-                              inst=None if bh.inst is None else bh.inst[:n])
-                contribution = contribution + torch.where(
-                    bh.hit[n:][..., None], 0.0, p_contrib)
-                pending = None
-            elif (cfg.sort_secondary_rays and not first
-                  and not scene.displaced):
-                hit = _intersect_closest_sorted(bvh, scene.triangles, ray_o,
-                                                ray_d, alive)
-            else:
-                hit = intersect_closest(bvh, scene.triangles, ray_o, ray_d,
-                                        t_min=0.0, t_max=tmax)
-            disp = None
-            if scene.displaced:
-                # the displaced hits are clipped by the triangle hit's t,
-                # so a reported one is the nearer
-                disp = _displaced_closest(scene, ray_o, ray_d,
-                                          torch.where(alive, hit.t, -1.0))
-                d_take = alive & disp[1]
-                hit = dataclasses.replace(
-                    hit, t=torch.where(d_take, disp[0], hit.t),
-                    hit=hit.hit | d_take)
-
-        with trace.span(name + ".surface"):
-            hit_ok = alive & hit.hit
-            miss = alive & ~hit.hit
-            emission = cfg.use_implicit_light_sampling or first
-            if not first and dbg.no_implicit:
-                emission = False
-
-            # ---- miss: environment --------------------------------------
-            if use_env and emission:
-                env_l = env_radiance(scene.env, ray_d)
-                if first or not cfg.use_mis:
-                    env_mis = torch.ones(n, device=dev)
-                else:
-                    light_p = p_env_sel * env_pdf(scene.env, ray_d)
-                    env_mis = prev_pdf ** 2 / torch.clamp(
-                        prev_pdf ** 2 + light_p ** 2, min=1e-30)
-                contribution = contribution + torch.where(
-                    miss[..., None], throughput * env_l * env_mis[..., None],
-                    0.0)
-
-            sp = compute_surface_point(scene, hit.tri, hit.u, hit.v,
-                                       inst=hit.inst, packed=tri_packed)
-            if disp is not None:
-                _, _, d_pos, d_nrm, d_uv, d_mat = disp
-                d3 = d_take[:, None]
-                d_mat = d_mat.to(torch.int64)
-                sp = dataclasses.replace(
-                    sp, position=torch.where(d3, d_pos, sp.position),
-                    geom_normal=torch.where(d3, d_nrm, sp.geom_normal),
-                    shading_normal=torch.where(d3, d_nrm,
-                                               sp.shading_normal),
-                    texcoord=torch.where(d3, d_uv, sp.texcoord),
-                    tangent=torch.where(d3, make_frame(d_nrm)[0],
-                                        sp.tangent),
-                    material=torch.where(d_take, d_mat, sp.material),
-                    emittance=torch.where(
-                        d3, scene.materials.emittance[d_mat], sp.emittance))
-            v_out = -ray_d
-            front = dot(v_out, sp.geom_normal) >= 0.0
-            gn_signed = torch.where(front[..., None], sp.geom_normal,
-                                    -sp.geom_normal)
-            pos_off = offset_ray_origin(sp.position, gn_signed)
-            nrm = sp.shading_normal
-            if bump:
-                nrm = _bump_normal(scene, sp, nrm)
-            if dbg.geom_normal:
-                nrm = gn_signed
-            t, b = make_frame(nrm)
-            v_out_local = to_local(t, b, nrm, v_out)
-
-            # ---- implicit emitter hit -----------------------------------
-            if emission:
-                emissive = ((sp.emittance > 0.0).any(dim=-1)
-                            & (v_out_local[..., 2] > 0.0))
-                if first or not cfg.use_mis:
-                    mis_w = torch.ones(n, device=dev)
-                else:
-                    dist2 = torch.clamp(hit.t ** 2, min=1e-12)
-                    tri = torch.clamp(hit.tri.to(torch.int64), min=0)
-                    if scene.is_instanced:
-                        hyp_area = surface_light_pdf(scene, tri,
-                                                     inst=hit.inst)
-                    else:
-                        hyp_area = tri_packed[tri, 25]
-                    light_p = (p_surf_sel * hyp_area * dist2
-                               / torch.clamp(v_out_local[..., 2], min=1e-6))
-                    mis_w = prev_pdf ** 2 / torch.clamp(
-                        prev_pdf ** 2 + light_p ** 2, min=1e-30)
-                gate = hit_ok & emissive
-                contribution = contribution + torch.where(
-                    gate[..., None],
-                    throughput * sp.emittance * (mis_w / _PI)[..., None],
-                    0.0)
-
-            alive = hit_ok
-        if collect_only:
-            return
-
-        with trace.span(name + ".bsdf"):
-            # ---- Russian roulette (skipped where it cannot change the
-            # image)
-            if cfg.russian_roulette and not first:
-                if dbg.no_rr:
-                    # continuation probability 1: the draw is consumed,
-                    # and u < 1 keeps every lane
-                    rs.skip(1)
-                else:
-                    cont_prob = torch.clamp(luminance(throughput), max=1.0)
-                    u_rr = rs.next()
-                    alive = alive & (u_rr < cont_prob)
-                    throughput = throughput / torch.clamp(
-                        cont_prob, min=1e-8)[..., None]
-
-            # ---- the BSDF at the hit ------------------------------------
-            lod = None
-            if lod_texels is not None:
-                cosg = torch.abs(dot(v_out, sp.geom_normal))
-                footprint = hit.t * lod_texels / torch.clamp(cosg, min=0.1)
-                lod = torch.log2(torch.clamp(footprint * sp.texel_density,
-                                             min=1.0))
-            params = material_params_textured(scene.materials,
-                                              scene.textures, sp.material,
-                                              sp.texcoord, lod=lod)
-            if cfg.mollify_specular and not first:
-                params.roughness = 1.0 - 0.5 * (1.0 - params.roughness)
-            if dbg.white_albedo:
-                params.diffuse = torch.full_like(params.diffuse, 0.8)
-
-        with trace.span(name + ".nee"):
-            sp_off = dataclasses.replace(sp, position=pos_off)
-            if cfg.use_explicit_light_sampling:
-                if cfg.count_rays:
-                    rays_traced = rays_traced + alive.sum().to(torch.float32)
-                frame = (t, b, nrm)
-                if nee_fn is not None:
-                    nee, nee_aux = nee_fn(scene, bvh, sp_off, v_out_local,
-                                          frame, params, rs, cfg, alive,
-                                          nee_aux)
-                    if not dbg.no_nee:
-                        contribution = contribution + torch.where(
-                            alive[..., None], throughput * nee, 0.0)
-                elif dbg.no_nee:
-                    rs.skip(3)  # u_light, u0, u1
-                elif fuse:
-                    # the shadow ray joins the next bounce's walk;
-                    # throughput and gates fold into its contribution now
-                    nee_c, sdir, stmax = _next_event_setup(
-                        scene, sp_off, v_out_local, frame, params, rs, cfg,
-                        alive, light_packed, dbg.no_env)
-                    a3 = alive[..., None]
-                    pending = (torch.where(a3, throughput * nee_c, 0.0),
-                               pos_off, sdir, torch.where(alive, stmax, -1.0))
-                else:
-                    nee = _next_event(scene, bvh, sp_off, v_out_local, frame,
-                                      params, rs, cfg, alive,
-                                      light_packed=light_packed,
-                                      env_off=dbg.no_env)
-                    contribution = contribution + torch.where(
-                        alive[..., None], throughput * nee, 0.0)
-
-        with trace.span(name + ".bsdf"):
-            # ---- next direction -----------------------------------------
-            u0, u1 = rs.next2()
-            v_in_local, f_val, pdf = bsdf_sample(params, v_out_local, u0, u1)
-            valid = (pdf > 0.0) & torch.isfinite(pdf)
-            thr = f_val * (torch.abs(v_in_local[..., 2])
-                           / torch.clamp(pdf, min=1e-30))[..., None]
-            throughput = torch.where((alive & valid)[..., None],
-                                     throughput * thr, throughput)
-            alive = alive & valid
-            ray_o = pos_off
-            ray_d = normalize(to_world(t, b, nrm, v_in_local))
-            prev_pdf = pdf
-
-    L = cfg.max_path_length
     for bounce in range(1, max(L, 1) + 1):
+        first, last = bounce == 1, bounce == L
         with trace.span(f"gfx.pathtrace.bounce{bounce}"):
-            step(bounce, first=bounce == 1, collect_only=bounce == L)
+            with trace.span(f"gfx.pathtrace.bounce{bounce}.trace"):
+                hit, occluded, disp = _trace(s, st, first)
+            if kernel:
+                shade_bounce(s, st, hit, bounce, first, last, occluded)
+            else:
+                if cuda:
+                    trace.count("pathtrace.shade.eager")
+                _shade_bounce_plain(s, st, hit, bounce, first, last,
+                                    occluded, disp)
     if cfg.compact_rays and L > 1:
         with trace.span("gfx.pathtrace.resolve"):
             # undo the bounces' alive-first orders
-            contribution = torch.zeros_like(contribution).index_copy_(
-                0, lane_ids, contribution)
+            st.contribution = torch.zeros_like(
+                st.contribution).index_copy_(0, st.lane_ids, st.contribution)
 
-    result = (contribution, rays_traced) if cfg.count_rays else contribution
-    if has_aux:
-        return result, nee_aux
+    result = ((st.contribution, st.rays_traced) if cfg.count_rays
+              else st.contribution)
+    if nee_aux is not None:
+        return result, st.nee_aux
     return result
 
 

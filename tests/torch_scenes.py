@@ -293,3 +293,22 @@ def many_light_scene(mod, n_lights=64, seed=3, albedo=0.6, occluders=0):
             x, z = rng.uniform(-1.5, 1.5, 2)
             b.add_instance(sph, mod.affine(translation=[x, 0.6, z]))
     return b
+
+
+def glossy_box_scene(mod):
+    """box_scene with a diffuse + GGX floor and two diffuse + GGX spheres,
+    one rough and one near-mirror, on it."""
+    b = box_scene(mod)
+    floor = b.add_diffuse_specular_material((0.5, 0.45, 0.4), (0.04,) * 3,
+                                            smoothness=0.7)
+    b.add_instance(b.add_rectangle(3.9, 3.9, floor),
+                   mod.affine(translation=[0, -1.99, 0]))
+    rough = b.add_diffuse_specular_material((0.6, 0.2, 0.2), (0.3,) * 3,
+                                            smoothness=0.4)
+    mirror = b.add_diffuse_specular_material((0.05, 0.05, 0.05),
+                                             (0.9, 0.9, 0.9),
+                                             smoothness=0.97)
+    for mat, t in ((rough, [-0.7, -1.4, -0.3]), (mirror, [0.8, -1.3, 0.2])):
+        sph = b.add_sphere(0.55, mat, n_theta=16, n_phi=32)
+        b.add_instance(sph, mod.affine(translation=t))
+    return b
