@@ -16,10 +16,19 @@ root, scale by -lr), then the EMA.
 
 State: {"params": {"weights": [...], "hash_table"?}, "ema": <params>,
 "opt": {"count", "mu", "nu"}, "step"}, tensors on one device.
+
+Tracing (utils/trace.py): train_on_frame is span `gfx.nrc.train`, each
+step `gfx.nrc.train.step<k>` with its stages `.encode`, `.mlp`,
+`.backward` and `.adam`; it counts `nrc.frames` (a frame trained),
+`nrc.train_steps`, `nrc.train_rows` (the records through each step, the
+masked ones too), `nrc.train_params` (the parameters each step updates)
+and `nrc.train_macs` (the multiply-adds of each step's forward MLP), from
+the tensors' shapes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict
 
@@ -33,6 +42,7 @@ from gfxexp_torch.core.tree import (
     tree_unflatten,
 )
 from gfxexp_torch.techniques.nrc import encoding as enc
+from gfxexp_torch.utils import trace
 
 # a query: position 3, direction 2, normal 2, roughness 1, diffuse 3,
 # specular 3
@@ -122,17 +132,28 @@ def _bf16(x):
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def apply(params, query, cfg: NRCConfig):
+def _stage(stage, part):
+    """Span `<stage>.<part>`, or nothing where no stage is named."""
+    if stage is None:
+        return contextlib.nullcontext()
+    return trace.span(f"{stage}.{part}")
+
+
+def apply(params, query, cfg: NRCConfig, stage: str = None):
     """Forward pass [B, 14] -> [B, 3]: bf16-rounded operands, f32
-    products and sums (JAX's preferred_element_type=f32)."""
-    x = _bf16(encode_query(params, query, cfg))
-    ws = params["weights"]
-    zero = torch.zeros((), device=x.device)
-    for i, w in enumerate(ws):
-        x = torch.matmul(x, _bf16(w))
-        if i < len(ws) - 1:
-            # torch.maximum splits the gradient at 0 as jnp.maximum does
-            x = _bf16(torch.maximum(x, zero))
+    products and sums (JAX's preferred_element_type=f32). With `stage`,
+    the encoding and the MLP are spans `<stage>.encode` and
+    `<stage>.mlp`."""
+    with _stage(stage, "encode"):
+        x = _bf16(encode_query(params, query, cfg))
+    with _stage(stage, "mlp"):
+        ws = params["weights"]
+        zero = torch.zeros((), device=x.device)
+        for i, w in enumerate(ws):
+            x = torch.matmul(x, _bf16(w))
+            if i < len(ws) - 1:
+                # torch.maximum splits the gradient at 0 as jnp.maximum does
+                x = _bf16(torch.maximum(x, zero))
     return x
 
 
@@ -150,17 +171,19 @@ def relative_l2_luminance_loss(pred, target):
     return _relative_l2_luminance(pred, target).mean()
 
 
-def masked_loss_sum(params, query, target, mask, cfg: NRCConfig):
+def masked_loss_sum(params, query, target, mask, cfg: NRCConfig,
+                    stage: str = None):
     """The RelativeL2Luminance loss summed over the records `mask` keeps
     (the data-parallel step sums it over the devices)."""
-    per = _relative_l2_luminance(apply(params, query, cfg), target)
+    per = _relative_l2_luminance(apply(params, query, cfg, stage), target)
     return torch.where(mask, per, 0.0).sum()
 
 
-def masked_loss(params, query, target, mask, cfg: NRCConfig):
+def masked_loss(params, query, target, mask, cfg: NRCConfig,
+                stage: str = None):
     """masked_loss_sum over max(sum(mask), 1): the batch's mean loss, the
     masked records weighing 0."""
-    return (masked_loss_sum(params, query, target, mask, cfg)
+    return (masked_loss_sum(params, query, target, mask, cfg, stage)
             / torch.clamp(mask.sum().to(torch.float32), min=1.0))
 
 
@@ -170,20 +193,24 @@ def infer(state: NRCState, query, cfg: NRCConfig = NRCConfig()):
         return apply(state["ema"], query, cfg)
 
 
-def value_and_grads(fn, params, *args):
+def value_and_grads(fn, params, *args, stage: str = None):
     """(fn(params, *args), its gradients with the structure of
-    `params`)."""
+    `params`). With `stage`, the backward pass is span
+    `<stage>.backward`."""
     leaves, structure = tree_flatten(params)
     with torch.enable_grad():
         leaves = [p.detach().requires_grad_(True) for p in leaves]
         value = fn(tree_unflatten(structure, leaves), *args)
-        grads = torch.autograd.grad(value, leaves)
+        with _stage(stage, "backward"):
+            grads = torch.autograd.grad(value, leaves)
     return value.detach(), tree_unflatten(structure, list(grads))
 
 
-def loss_and_grads(params, query, target, mask, cfg: NRCConfig):
+def loss_and_grads(params, query, target, mask, cfg: NRCConfig,
+                   stage: str = None):
     """(loss, grads with the structure of `params`)."""
-    return value_and_grads(masked_loss, params, query, target, mask, cfg)
+    return value_and_grads(masked_loss, params, query, target, mask, cfg,
+                           stage, stage=stage)
 
 
 def apply_step(state: NRCState, grads, cfg: NRCConfig) -> NRCState:
@@ -220,11 +247,21 @@ def apply_step(state: NRCState, grads, cfg: NRCConfig) -> NRCState:
 
 
 def train_step(state: NRCState, query, target, mask,
-               cfg: NRCConfig = NRCConfig()):
+               cfg: NRCConfig = NRCConfig(), stage: str = None):
     """One Adam step on a batch (`mask` selects the valid records).
-    Returns (new state, loss)."""
-    loss, grads = loss_and_grads(state["params"], query, target, mask, cfg)
-    return apply_step(state, grads, cfg), loss
+    Returns (new state, loss). With `stage`, its encoding, MLP, backward
+    pass and optimizer are spans `<stage>.encode`, `.mlp`, `.backward`
+    and `.adam`."""
+    params = state["params"]
+    trace.count("nrc.train_steps")
+    trace.count("nrc.train_rows", query.shape[0])
+    trace.count("nrc.train_params",
+                sum(p.numel() for p in tree_flatten(params)[0]))
+    trace.count("nrc.train_macs", query.shape[0] * sum(
+        w.shape[0] * w.shape[1] for w in params["weights"]))
+    loss, grads = loss_and_grads(params, query, target, mask, cfg, stage)
+    with _stage(stage, "adam"):
+        return apply_step(state, grads, cfg), loss
 
 
 def train_on_frame(state: NRCState, query, target, mask,
@@ -237,6 +274,14 @@ def train_on_frame(state: NRCState, query, target, mask,
     included. The permutation comes from `generator` (a CPU generator
     seeded 0 by default, so that every device draws the same order), or
     is `perm` [n] as given. Returns (new state, mean loss)."""
+    with trace.span("gfx.nrc.train"):
+        trace.count("nrc.frames")
+        return _train_on_frame(state, query, target, mask, cfg, steps,
+                               generator, perm)
+
+
+def _train_on_frame(state, query, target, mask, cfg, steps, generator,
+                    perm):
     n = query.shape[0]
     m = (n // steps) * steps
     if perm is None:
@@ -256,9 +301,11 @@ def train_on_frame(state: NRCState, query, target, mask,
     perm = perm[:m].reshape(steps, m // steps)
     losses = []
     for k in range(steps):
-        idx = perm[k]
-        state, loss = train_step(state, query[idx], target[idx], mask[idx],
-                                 cfg)
+        stage = f"gfx.nrc.train.step{k}"
+        with trace.span(stage):
+            idx = perm[k]
+            state, loss = train_step(state, query[idx], target[idx],
+                                     mask[idx], cfg, stage)
         losses.append(loss)
     return state, torch.stack(losses).mean()
 
