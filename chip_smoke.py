@@ -110,10 +110,12 @@ Phases, one line each, any failure exits non-zero:
      the classic and the rearchitected pipelines, 4 frames at 64x64 on the
      card against the CPU (image mean relative difference < 5e-3); at
      1920x1080, 4 frames each: ms per frame of gbuffer and restir, shadow
-     rays per frame, kernel 1's launches per frame, one frame under
-     torch.profiler, out/torch_restir_{classic,rearch}.png; then the svgf,
-     restir_di -rearch and path_tracing -denoise CLIs at 64x64, 4 frames,
-     all three at once; their PNGs;
+     rays per frame, kernel 1's launches per frame, the stages' routes
+     (restir.kernel.* / restir.eager.*: the classic initial stream plain,
+     the rearchitected one and every spatial pass by their kernels), one
+     frame under torch.profiler, out/torch_restir_{classic,rearch}.png;
+     then the svgf, restir_di -rearch and path_tracing -denoise CLIs at
+     64x64, 4 frames, all three at once; their PNGs;
  22. ReGIR: 4 frames of build_cell_reservoirs and render_sample_regir at
      64x64, grid (8, 4, 8) x 64 slots, on the card against the CPU from the
      same inputs (each device its own state; selections equal on >= 0.999
@@ -267,7 +269,20 @@ Phases, one line each, any failure exits non-zero:
      registers and spills; render_sample by the kernel and by the eager
      stages (ms a sample, launches, the images within 1e-4 of the pixels),
      the counters `pathtrace.shade.kernel` (one a bounce) and
-     `pathtrace.shade.eager` (none).
+     `pathtrace.shade.eager` (none);
+ 39. ReSTIR DI's resampling kernels (csrc/restir_resample.cu) at 1920x1080
+     on phase 21's scene with the benchmark's configuration (rearchitected,
+     8 candidates, 2 spatial passes of 3 neighbours): the initial stream and
+     each spatial pass by the kernel and by the plain version on the same
+     inputs (the share of bit-identical pixels of every reservoir field, the
+     largest difference, the pixels off by over 1e-3 within 1e-4 of them);
+     each kernel's device ms from the profiler and the plain version's
+     against the bound (RESTIR_INITIAL_BYTES and RESTIR_SPATIAL_BYTES a
+     pixel / 3.35 TB/s), registers and spills; restir_di_frame by the
+     kernel route and by the plain versions (ms a frame, launches, the
+     images within 1e-4 of the pixels), the counters
+     `restir.kernel.initial` (one a frame), `restir.kernel.spatial` (one a
+     pass) and no `restir.eager.*`.
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -350,7 +365,7 @@ BATCH = 512 * 512  # the main path's ray batch at 512x512
 IMAGE_BAR = 5e-3  # mean relative image difference (golden-test bar)
 KERNELS = ("widerow_traverse", "instanced_traverse", "skiplink_traverse",
            "chunked_traverse", "qrow_traverse", "lanegroup_traverse",
-           "shade_bounce")
+           "shade_bounce", "restir_resample")
 # the H100 SXM's published peaks (NVIDIA's data sheet: HBM3, fp32 without
 # the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -2137,6 +2152,7 @@ def phase_restir(report, dev):
         torch.cuda.reset_peak_memory_stats(dev)
         timer = PassTimer(device=dev)
         _reset_counts()
+        trace.reset_counters("restir.")
         film, _, _ = restir_app.frame_loop(scene, bvh, cam, [], "widerow",
                                            TECH_W, TECH_H, RESTIR_FRAMES, cfg,
                                            True, timer)
@@ -2144,6 +2160,15 @@ def phase_restir(report, dev):
         counts = _all_counts()
         check(_route_launched(counts, "widerow"),
               f"21 restir {name}: the frames did not take kernel 1: {counts}")
+        # the resampling kernels: the initial stream only in the
+        # rearchitected pipeline, every (biased) spatial pass
+        routed = trace.counters("restir.")
+        initial = ("restir.kernel.initial" if cfg.use_rearchitected_pipeline
+                   else "restir.eager.initial")
+        check(routed == {initial: RESTIR_FRAMES,
+                         "restir.kernel.spatial": RESTIR_FRAMES
+                         * cfg.num_spatial_passes},
+              f"21 restir {name}: the stages' routes {routed}")
         img = film.beauty
         check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
               f"21 restir {name}: bad image")
@@ -2165,6 +2190,7 @@ def phase_restir(report, dev):
                                     cfg, vis), "one restir frame")
         ms = {p: timer.mean_ms(p) for p in timer.samples}
         rows[name] = {"frames": RESTIR_FRAMES, "ms_per_frame": ms,
+                      "stage_routes": routed,
                       "shadow_rays_per_frame": rays,
                       "peak_memory_bytes":
                       torch.cuda.max_memory_allocated(dev),
@@ -4822,19 +4848,24 @@ def _kernel_device_ms(fn, name, reps):
     """Mean device ms of the CUDA kernels whose name holds `name` over reps
     calls of fn (after a warm call), from torch.profiler: what else fn
     launches is left out. Late in a long run the trace can keep fewer
-    kernels than were launched; the mean is over those it kept."""
+    kernels than were launched, or none (seen after phase 38 of a full
+    run): the mean is over those it kept, and a trace that kept none is
+    taken again, three at most."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and name in e.name]
-    check(spans, f"{name}: no kernel in the trace of {reps} calls")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and name in e.name]
+        if spans:
+            break
+    check(spans, f"{name}: no kernel in 3 traces of {reps} calls")
     return sum(spans) / len(spans) / 1e3
 
 
@@ -4995,6 +5026,189 @@ def _shade_lanes_copy(st):
         rays_traced=st.rays_traced.clone(), pending=pending, buffers=buffers)
 
 
+RESTIR_KERNEL_REPS = 50  # phase 39
+# bytes a pixel the resampling kernels move, each input and output once:
+# a pixel's context (position, v_out_local, the frame t, b, n, diffuse and
+# f0: 7 x 12; roughness 4; the Lambert and valid flags 2) and a reservoir
+# (position, normal, emittance 3 x 12; at_inf 1; sum_w, stream length,
+# rec_pdf, target 4 x 4). The initial kernel reads the context and writes
+# a reservoir and the shadow ray (12 + 4), and reads the pool once (41 B an
+# entry); a spatial pass reads the context, the camera distance (4), the
+# reservoirs and the G-buffer's hit, position and normal (25), and writes
+# reservoirs.
+RESTIR_CTX_BYTES = 7 * 12 + 4 + 2
+RESTIR_RES_BYTES = 3 * 12 + 1 + 4 * 4
+RESTIR_INITIAL_BYTES = RESTIR_CTX_BYTES + RESTIR_RES_BYTES + 16
+RESTIR_SPATIAL_BYTES = RESTIR_CTX_BYTES + 4 + 25 + 2 * RESTIR_RES_BYTES
+RESTIR_POOL_ENTRY_BYTES = 3 * 12 + 1 + 4
+
+
+@contextlib.contextmanager
+def _restir_route(route):
+    """Within it restir_di_frame runs its stages by the kernels where its
+    predicate admits them ("kernel") or by the plain versions everywhere
+    ("plain")."""
+    from gfxexp_torch.techniques import restir_di
+
+    admits = restir_di.restir_kernel_admits
+    if route == "plain":
+        restir_di.restir_kernel_admits = lambda *a: (False, False)
+    try:
+        yield
+    finally:
+        restir_di.restir_kernel_admits = admits
+
+
+def phase_restir_kernels(report, dev):
+    """Phase 39: ReSTIR DI's resampling kernels against their plain
+    versions at 1920x1080 on phase 21's scene (see the header)."""
+    from gfxexp_torch.render.gbuffer import render_gbuffer
+    from gfxexp_torch.techniques import restir_di as R
+
+    sys.path.insert(0, os.path.join(REPO, "benchmark"))
+    from reference import compare
+
+    t_phase = time.time()
+    w, h = TECH_W, TECH_H
+    n = w * h
+    scene, bvh = (x.to(dev) for x in _many_light_scene())
+    cam = _ml_camera(w, h).to(dev)
+    cfg = R.ReSTIRConfig(use_rearchitected_pipeline=True)
+    check(R.restir_kernel_admits(cfg, cam.position) == (True, True),
+          "39: the kernels refuse the benchmark's configuration")
+    frame = 3
+    gb = render_gbuffer(scene, bvh, cam, cam, w, h, frame, True)
+    ctx = R.pixel_ctx(scene, gb, cam)
+    pool = R.presample_lights(scene, frame, cfg)
+    pixel = torch.arange(n, device=dev)
+    rep = {"res": [w, h]}
+
+    def against(tag, k, p):
+        same = {}
+        identical = torch.ones(n, dtype=torch.bool, device=dev)
+        err = 0.0
+        for f in dataclasses.fields(k):
+            a, b = getattr(k, f.name), getattr(p, f.name)
+            eq = a == b
+            eq = eq.all(-1) if eq.dim() > 1 else eq
+            identical &= eq
+            same[f.name] = float(eq.double().mean())
+            if a.dtype.is_floating_point:
+                check(bool(torch.isfinite(a).all()),
+                      f"39 {tag}: {f.name} not finite")
+                err = max(err, float((a - b).abs().max()))
+        names = [f.name for f in dataclasses.fields(k)]
+        off = compare.share(compare.fields_mismatch(
+            {x: getattr(k, x).float() for x in names},
+            {x: getattr(p, x).float() for x in names}))
+        share = float(identical.double().mean())
+        check(share >= 1.0 - 1e-4 and off <= 1e-4,
+              f"39 {tag}: {share} of the pixels bit-identical, {off} off")
+        print(f"[39 restir {tag}] bit-identical pixels "
+              + ", ".join(f"{k_} {v:.6f}" for k_, v in same.items())
+              + f"; all fields {share:.6f}; pixels off by over 1e-3: "
+              f"{off:.2e}; largest difference {err:.3g}", flush=True)
+        return {"bit_identical": same, "pixels_identical": share,
+                "pixels_off": off, "max_abs_err": err}
+
+    # each stage by the kernel and by the plain version on the same inputs
+    k = R.initial_ris_kernel(scene, bvh, ctx, pool, gb, frame, cfg)
+    p = R.initial_ris_presampled(scene, bvh, ctx, pool, gb, pixel, frame,
+                                 cfg)
+    torch.cuda.synchronize()
+    stages = {"initial": against("initial", k, p)}
+    res = {"initial": p}
+    for pass_idx in range(cfg.num_spatial_passes):
+        prev = p
+        k = R.spatial_reuse_kernel(prev, ctx, gb, cam, frame, pass_idx, cfg)
+        p = R.spatial_reuse(scene, bvh, prev, ctx, gb, cam, pixel, frame,
+                            pass_idx, cfg)
+        torch.cuda.synchronize()
+        stages[f"spatial{pass_idx}"] = against(f"spatial{pass_idx}", k, p)
+        res[f"spatial{pass_idx}"] = prev
+    rep["stages"] = stages
+
+    # each kernel's device time (the profiler keeps it alone), the plain
+    # version's on the same inputs, and the bound
+    regs = _ptxas("restir_resample")
+    pool_bytes = pool["pos"].shape[0] * RESTIR_POOL_ENTRY_BYTES
+    timed = {
+        "initial": (
+            lambda: R.initial_ris_kernel(scene, bvh, ctx, pool, gb, frame,
+                                         cfg),
+            lambda: R.initial_ris_presampled(scene, bvh, ctx, pool, gb,
+                                             pixel, frame, cfg),
+            "restir_initial_kernel", n * RESTIR_INITIAL_BYTES + pool_bytes),
+        "spatial": (
+            lambda: R.spatial_reuse_kernel(res["spatial1"], ctx, gb, cam,
+                                           frame, 1, cfg),
+            lambda: R.spatial_reuse(scene, bvh, res["spatial1"], ctx, gb,
+                                    cam, pixel, frame, 1, cfg),
+            "restir_spatial_kernel", n * RESTIR_SPATIAL_BYTES)}
+    for name, (kern, plain, kname, nbytes) in timed.items():
+        k_ms = _kernel_device_ms(kern, kname, RESTIR_KERNEL_REPS)
+        p_ms = _device_and_host_ms(plain, 3)[0]
+        bound_ms, bound_by = bound(nbytes, 0)
+        rep[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "bytes": nbytes,
+                     "roofline": bound_ms / k_ms}
+        print(f"[39 restir {name} kernel] at {w}x{h}: {k_ms:.4f} ms, plain "
+              f"version {p_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{nbytes / n:.1f} B a pixel): {100 * bound_ms / k_ms:.1f}% "
+              f"of it", flush=True)
+    rep["ptxas"] = regs
+    print(f"[39 restir kernels] ptxas: {' | '.join(regs)}", flush=True)
+
+    # restir_di_frame by the kernel route and by the plain versions, each
+    # from the same state
+    flat = (gb.hit.reshape(n), gb.position.reshape(n, 3),
+            gb.normal.reshape(n, 3))
+    state = (res["spatial1"], ctx)
+
+    def frame_fn(_):
+        return R.restir_di_frame(scene, bvh, gb, cam, *state, *flat,
+                                 frame + 1, cfg)
+
+    rows = {}
+    for route in ("kernel", "plain", "plain", "kernel"):
+        with _restir_route(route):
+            trace.reset_counters("restir.")
+            img = frame_fn(0)[0]
+            torch.cuda.synchronize()
+            counted = trace.counters("restir.")
+            prof = _profile(frame_fn)
+        rows.setdefault(route, []).append({"counters": counted, **prof})
+        rows[route + "_img"] = img.reshape(n, 3)
+        print(f"[39 restir frame {route}] {w}x{h} restir_di_frame: "
+              f"{prof['wall_ms']:.2f} ms, {prof['kernels']} CUDA kernels "
+              f"({prof.get('device_busy_ms', float('nan')):.2f} ms busy), "
+              f"{prof['launch_calls']} launch calls (idle share "
+              f"{prof.get('idle_share', float('nan')):.3f}), counters "
+              f"{counted}", flush=True)
+    passes = cfg.num_spatial_passes
+    check(all(r["counters"] == {"restir.kernel.initial": 1,
+                                "restir.kernel.spatial": passes}
+              for r in rows["kernel"]), f"39 counters: {rows['kernel']}")
+    check(all(r["counters"] == {"restir.eager.initial": 1,
+                                "restir.eager.spatial": passes}
+              for r in rows["plain"]), f"39 counters: {rows['plain']}")
+    kimg, pimg = rows.pop("kernel_img"), rows.pop("plain_img")
+    off = compare.mismatch_share(kimg, pimg)
+    same = float((kimg == pimg).all(-1).double().mean())
+    check(off <= 1e-4 and same >= 1.0 - 1e-4,
+          f"39 frame: {off} of the pixels off, {same} bit-identical")
+    rep["frame"] = rows
+    rep["frame_pixels_off"] = off
+    rep["frame_pixels_identical"] = same
+    rep["max_abs_err"] = max(s["max_abs_err"] for s in stages.values())
+    rep["seconds"] = time.time() - t_phase
+    report["restir_kernels"] = rep
+    print(f"[39 restir] restir_di_frame images: {same:.6f} of the pixels "
+          f"bit-identical, {off:.2e} off by over 1e-3; phase "
+          f"{rep['seconds']:.1f}s", flush=True)
+    return rep
+
+
 def mark(report, t_start, phase):
     """Seconds since the start at the end of `phase`, kept and printed."""
     secs = time.time() - t_start
@@ -5093,6 +5307,8 @@ def main():
     mark(report, t_start, "37")
     shade = phase_shade(report, dev)
     mark(report, t_start, "38")
+    restir_k = phase_restir_kernels(report, dev)
+    mark(report, t_start, "39")
 
     kernels = [
         {"name": f"widerow_walk_{kind}", "route": "cuda",
@@ -5168,6 +5384,20 @@ def main():
         "max_abs_err": shade["max_abs_err"], "ms": shade["ms"],
         "plain_ms": shade["plain_ms"], "bound_ms": shade["bound_ms"],
         "bound_by": shade["bound_by"], "library_ms": None})
+    for stage, passes in (("initial", 1), ("spatial", 2)):
+        t = restir_k[stage]
+        kernels.append({
+            "name": f"restir_{stage}_kernel", "route": "cuda",
+            "source": "gfxexp_torch/csrc/restir_resample.cu",
+            "replaces": None,  # the JAX technique is plain jnp
+            "launches": restir_k["frame"]["kernel"][0]["counters"][
+                f"restir.kernel.{stage}"],
+            "max_abs_err": max(s["max_abs_err"] for k, s in
+                               restir_k["stages"].items()
+                               if k.startswith(stage)),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None})
     report["seconds"] = time.time() - t_start
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

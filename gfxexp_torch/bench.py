@@ -540,9 +540,12 @@ def _counts():
     """Launches so far of every kernel a single- or two-level scene can
     reach: kernel 1 (widerow_*), kernel 2 (chunked_*), the quantized walk
     (qrow_*), the two-level walk (instanced_*) and the lane-group walk
-    (lanegroup_g*), which no bench route takes; and the path tracer's
+    (lanegroup_g*), which no bench route takes; the path tracer's
     bounces shaded by its kernel (shade_kernel) or by the eager stages on
-    the card (shade_eager)."""
+    the card (shade_eager); and ReSTIR DI's initial streams and spatial
+    passes run by its resampling kernels (restir_kernel_initial,
+    restir_kernel_spatial) or by their plain versions on the card
+    (restir_eager_initial, restir_eager_spatial)."""
     c = trace.counters()
     qs = ("closest", "any")
     names = {**{f"widerow_{q}": f"walk.kernel1.{q}" for q in qs},
@@ -553,7 +556,9 @@ def _counts():
              **{f"lanegroup_g{g}": f"walk.lanegroup.{g}"
                 for g in lanegroup.GROUPS},
              "shade_kernel": "pathtrace.shade.kernel",
-             "shade_eager": "pathtrace.shade.eager"}
+             "shade_eager": "pathtrace.shade.eager",
+             **{f"restir_{r}_{s}": f"restir.{r}.{s}"
+                for r in ("kernel", "eager") for s in ("initial", "spatial")}}
     return {k: c.get(name, 0) for k, name in names.items()}
 
 

@@ -151,6 +151,14 @@ def _declare(name: str, lib: ctypes.CDLL):
         lib.shade_bounce_args_size.argtypes = []
         lib.shade_bounce_launch.restype = ci
         lib.shade_bounce_launch.argtypes = [vp, vp]  # args struct, stream
+    elif name == "restir_resample":
+        for kernel in ("initial", "spatial"):
+            size = getattr(lib, f"restir_{kernel}_args_size")
+            size.restype = ci
+            size.argtypes = []
+            launch = getattr(lib, f"restir_{kernel}_launch")
+            launch.restype = ci
+            launch.argtypes = [vp, vp]  # args struct, stream
     else:
         raise KeyError(f"no C interface declared for {name!r}")
 
@@ -217,6 +225,54 @@ def header_constant(name: str, header: str = "widerow_walk.cuh") -> int:
     if m is None:
         raise KeyError(f"{name} is not a constexpr int of {header}")
     return int(m.group(1))
+
+
+def int32_bits(x: int) -> int:
+    """The uint32 bits of x as a C int."""
+    x = int(x) & 0xFFFFFFFF
+    return x - (1 << 32) if x >= (1 << 31) else x
+
+
+def tensor_arg(kernel: str, name: str, x, dtype, shape, dev):
+    """The address of `kernel`'s argument `name`, the tensor x (None: a
+    null pointer), after checking that the kernel takes it: contiguous,
+    of `dtype`, on `dev` and, unless `shape` is None, of that shape."""
+    if x is None:
+        return None
+    if x.device != dev or x.dtype != dtype or not x.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be a contiguous {dtype} "
+                         f"tensor on {dev}, got {x.dtype} on {x.device} "
+                         f"(contiguous: {x.is_contiguous()})")
+    if shape is not None and tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} must be {tuple(shape)}, got "
+                         f"{tuple(x.shape)}")
+    return x.data_ptr()
+
+
+def launch(library: str, kernel: str, args_type, fields: dict,
+           tensors: dict, dev) -> None:
+    """Launch `<kernel>_launch` of csrc/<library>.cu on the current stream
+    of `dev` with its one argument struct, `args_type` (a ctypes Structure
+    mirroring the kernel's): the plain fields from `fields`, the pointers
+    from `tensors` ({name: (tensor or None, dtype, shape)}, each checked by
+    tensor_arg). Raises when the struct's size differs from the kernel's
+    (`<kernel>_args_size`), on a tensor the kernel does not take, or when
+    the launch fails."""
+    import torch
+
+    lib = load_library(library)
+    if getattr(lib, f"{kernel}_args_size")() != ctypes.sizeof(args_type):
+        raise RuntimeError(f"{kernel}: the argument struct differs from the "
+                           f"kernel's")
+    args = args_type(**fields)
+    for k, (x, dtype, shape) in tensors.items():
+        setattr(args, k, tensor_arg(kernel, k, x, dtype, shape, dev))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, f"{kernel}_launch")(ctypes.byref(args),
+                                              ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
 
 
 def load_library(name: str) -> ctypes.CDLL:

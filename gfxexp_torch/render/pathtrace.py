@@ -751,26 +751,6 @@ class _ShadeArgs(ctypes.Structure):
                 + [(f, ctypes.c_void_p) for f in _SHADE_PTRS])
 
 
-def _as_int32(x: int) -> int:
-    """The uint32 bits of x as a C int."""
-    x = int(x) & 0xFFFFFFFF
-    return x - (1 << 32) if x >= (1 << 31) else x
-
-
-def _kernel_input(name, x, dtype, shape, dev):
-    """x's address after checking that the kernel takes it."""
-    if x is None:
-        return None
-    if x.device != dev or x.dtype != dtype or not x.is_contiguous():
-        raise ValueError(f"shade_bounce: {name} must be a contiguous {dtype} "
-                         f"tensor on {dev}, got {x.dtype} on {x.device} "
-                         f"(contiguous: {x.is_contiguous()})")
-    if shape is not None and tuple(x.shape) != tuple(shape):
-        raise ValueError(f"shade_bounce: {name} must be {tuple(shape)}, got "
-                         f"{tuple(x.shape)}")
-    return x.data_ptr()
-
-
 def shade_bounce(s: _Setting, st: _Lanes, hit: HitInfo, bounce: int,
                  first: bool, collect_only: bool, occluded=None):
     """One bounce's shading on the route shade_kernel_admits takes, after
@@ -785,14 +765,10 @@ def shade_bounce(s: _Setting, st: _Lanes, hit: HitInfo, bounce: int,
     if dev.type != "cuda":
         raise ValueError(f"shade_bounce runs on CPU and CUDA tensors, got "
                          f"{dev}")
-    from gfxexp_torch.csrc.build import load_library
+    from gfxexp_torch.csrc.build import int32_bits, launch
 
     scene, cfg, dbg = s.scene, s.cfg, s.dbg
     n = st.pixel.shape[0]
-    lib = load_library("shade_bounce")
-    if lib.shade_bounce_args_size() != ctypes.sizeof(_ShadeArgs):
-        raise RuntimeError("shade_bounce: the argument struct differs from "
-                           "the kernel's")
     if first:
         st.buffers = {
             "pixel": _as_i32(st.pixel),
@@ -863,18 +839,11 @@ def shade_bounce(s: _Setting, st: _Lanes, hit: HitInfo, bounce: int,
         **{k: (buf[k], f32, (n, 3)) for k in (
             "ray_o", "ray_d", "shadow_d", "pending")},
         "shadow_tmax": (buf["shadow_tmax"], f32, (n,))}
-    args = _ShadeArgs(n=n, flags=flags, sample=_as_int32(s.sample_idx),
-                      stream=_as_int32(bounce), n_units=n_units,
-                      n_light_rows=n_light)
-    for k, (x, dtype, shape) in inputs.items():
-        setattr(args, k, _kernel_input(k, x, dtype, shape, dev))
-    with trace.span(f"gfx.pathtrace.bounce{bounce}.shade"), \
-            torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.shade_bounce_launch(ctypes.byref(args),
-                                     ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"shade_bounce launch failed: CUDA error {rc}")
+    ints = dict(n=n, flags=flags, sample=int32_bits(s.sample_idx),
+                stream=int32_bits(bounce), n_units=n_units,
+                n_light_rows=n_light)
+    with trace.span(f"gfx.pathtrace.bounce{bounce}.shade"):
+        launch("shade_bounce", "shade_bounce", _ShadeArgs, ints, inputs, dev)
     trace.count("pathtrace.shade.kernel")
     st.pending = None
     if collect_only:

@@ -22,17 +22,26 @@ the same streams: 0x5151 (initial RIS), 0x9135 (the pool), 0x5152 (per-pixel
 RIS), pcg3d(tile, frame, 77) (a tile's subset), 0x7e39 (temporal reuse),
 0x7e40 (shade_and_resample), 0x5a00 + pass (spatial reuse). Frame indices
 are Python ints.
+
+On the card two stages run as one CUDA kernel each
+(csrc/restir_resample.cu) where restir_kernel_admits takes them: the
+rearchitected pipeline's initial candidate stream (initial_ris_kernel,
+then the any-hit walk of its shadow rays) and each biased spatial pass with
+low-discrepancy neighbours (spatial_reuse_kernel). Their plain versions,
+initial_ris_presampled and spatial_reuse, run every other route and every
+call on the CPU; kernel and plain version agree bit for bit on the card.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from gfxexp_torch.accel.traverse import intersect_any
+from gfxexp_torch.accel.traverse import intersect_any, walk_library
 from gfxexp_torch.core.math import (
     dot,
     length,
@@ -204,11 +213,16 @@ def _shadow_dir_dist(ctx: PixelCtx, ls_pos, ls_inf):
     return sdir, tmax
 
 
-def _visibility(scene, bvh, ctx: PixelCtx, ls_pos, ls_inf, valid):
+def _visibility(scene, bvh, ctx: PixelCtx, ls_pos, ls_inf, valid,
+                ray=None):
     """Unoccluded and valid [N] bool: one any-hit query, the dead lanes
-    with t_max = -1 (the walks do no work for them)."""
-    sdir, tmax = _shadow_dir_dist(ctx, ls_pos, ls_inf)
-    tmax = torch.where(valid, tmax, -1.0)
+    with t_max = -1 (the walks do no work for them). `ray`: the query's
+    (direction, t_max) where a kernel computed them."""
+    if ray is None:
+        sdir, tmax = _shadow_dir_dist(ctx, ls_pos, ls_inf)
+        tmax = torch.where(valid, tmax, -1.0)
+    else:
+        sdir, tmax = ray
     occluded = intersect_any(bvh, scene.triangles, ctx.pos, sdir, t_min=0.0,
                              t_max=tmax)
     return ~occluded & valid
@@ -268,14 +282,21 @@ def _finish_ris(scene, bvh, ctx: PixelCtx, res: ReservoirSoA,
     rec_pdf = res.sum_w / torch.clamp(selected_target * res.stream_len,
                                       min=1e-30)
     bad = ~torch.isfinite(rec_pdf) | (selected_target <= 0.0)
-    rec_pdf = torch.where(bad, 0.0, rec_pdf)
-    selected_target = torch.where(bad, 0.0, selected_target)
-    if cfg.reuse_visibility:
-        vis = _visibility(scene, bvh, ctx, res.pos, res.at_inf,
-                          ctx.valid & (selected_target > 0.0))
-        rec_pdf = torch.where(vis, rec_pdf, 0.0)
-        selected_target = torch.where(vis, selected_target, 0.0)
-    return dataclasses.replace(res, rec_pdf=rec_pdf, target=selected_target)
+    res = dataclasses.replace(res, rec_pdf=torch.where(bad, 0.0, rec_pdf),
+                              target=torch.where(bad, 0.0, selected_target))
+    return _keep_visible(scene, bvh, ctx, res, cfg)
+
+
+def _keep_visible(scene, bvh, ctx: PixelCtx, res: ReservoirSoA,
+                  cfg: ReSTIRConfig, ray=None) -> ReservoirSoA:
+    """The estimate killed where the selected sample's shadow ray is
+    occluded (cfg.reuse_visibility; `ray` as _visibility takes it)."""
+    if not cfg.reuse_visibility:
+        return res
+    vis = _visibility(scene, bvh, ctx, res.pos, res.at_inf,
+                      ctx.valid & (res.target > 0.0), ray)
+    return dataclasses.replace(res, rec_pdf=torch.where(vis, res.rec_pdf, 0.0),
+                               target=torch.where(vis, res.target, 0.0))
 
 
 # ---------------------------------------------------------------------------
@@ -607,6 +628,14 @@ def _r2_disk_deltas(count: int = 1024) -> np.ndarray:
 _SPATIAL_DELTAS = _r2_disk_deltas()
 
 
+def _spatial_table_index(frame_idx: int, pass_idx: int, k: int,
+                         cfg: ReSTIRConfig) -> int:
+    """Neighbour k's entry of _SPATIAL_DELTAS: a frame-varying base index
+    into the table."""
+    return (frame_idx * (cfg.num_spatial_passes * cfg.num_spatial_neighbors)
+            + pass_idx * cfg.num_spatial_neighbors + k) % 1024
+
+
 def spatial_reuse(scene, bvh, res: ReservoirSoA, ctx: PixelCtx, gb: GBuffer,
                   camera: Camera, pixel, frame_idx: int, pass_idx: int,
                   cfg: ReSTIRConfig) -> ReservoirSoA:
@@ -636,11 +665,8 @@ def spatial_reuse(scene, bvh, res: ReservoirSoA, ctx: PixelCtx, gb: GBuffer,
     nb_accepts = []
     for k in range(cfg.num_spatial_neighbors):
         if cfg.use_low_discrepancy_neighbors:
-            # a frame-varying base index into the table
-            tbl = (frame_idx * (cfg.num_spatial_passes
-                                * cfg.num_spatial_neighbors)
-                   + pass_idx * cfg.num_spatial_neighbors + k) % 1024
-            delta = _SPATIAL_DELTAS[tbl]
+            delta = _SPATIAL_DELTAS[_spatial_table_index(frame_idx, pass_idx,
+                                                         k, cfg)]
             dx = torch.full((n,), float(delta[0]), device=dev) \
                 * cfg.spatial_radius
             dy = torch.full((n,), float(delta[1]), device=dev) \
@@ -720,6 +746,189 @@ def spatial_reuse(scene, bvh, res: ReservoirSoA, ctx: PixelCtx, gb: GBuffer,
     return _finish_reuse(combined, weight_for_estimate, selected_target)
 
 
+# ---------------------------------------------------------------------------
+# the card's resampling kernels (csrc/restir_resample.cu)
+# ---------------------------------------------------------------------------
+
+# the most neighbours the spatial kernel takes (restir_resample.cu
+# kMaxNeighbors)
+_MAX_KERNEL_NEIGHBORS = 32
+
+
+def restir_kernel_admits(cfg: ReSTIRConfig, x: torch.Tensor):
+    """(initial, spatial): whether restir_di_frame runs its initial
+    candidate stream, and each spatial pass, as one CUDA kernel
+    (csrc/restir_resample.cu) rather than by its plain version. Both need
+    `x`, any tensor of the frame, on a CUDA device. The initial kernel is
+    the rearchitected pipeline's stream over the presampled pool (the
+    classic initial_ris samples the whole light set itself). The spatial
+    kernel takes a biased pass over at most 32 low-discrepancy neighbours:
+    the unbiased pass traces a visibility walk per neighbour between its
+    steps. It reads the configuration and the device only."""
+    cuda = x.device.type == "cuda"
+    return (cuda and cfg.use_rearchitected_pipeline,
+            cuda and not cfg.use_unbiased_estimator
+            and cfg.use_low_discrepancy_neighbors
+            and cfg.num_spatial_neighbors <= _MAX_KERNEL_NEIGHBORS)
+
+
+_CTX_PTRS = ("pos", "v_out", "t", "b", "nrm", "diffuse", "f0", "rough",
+             "lambert", "valid")
+# ReservoirSoA's fields and the kernels' names for them
+_RES_PTRS = {"pos": "pos", "nrm": "nrm", "emit": "emit", "at_inf": "inf",
+             "sum_w": "sum_w", "stream_len": "len", "rec_pdf": "rec",
+             "target": "target"}
+
+
+class _InitialArgs(ctypes.Structure):
+    """restir_resample.cu's InitialArgs."""
+
+    _fields_ = ([(f, ctypes.c_int) for f in (
+        "n", "w", "frame", "num_subsets", "subset_size", "n_cand")]
+        + [("mean_scale", ctypes.c_float)]
+        + [(f, ctypes.c_void_p) for f in (
+            *_CTX_PTRS, "pool_pos", "pool_nrm", "pool_emit", "pool_inf",
+            "pool_rec", *(f"r_{k}" for k in _RES_PTRS.values()),
+            "shadow_d", "shadow_tmax")])
+
+
+class _SpatialArgs(ctypes.Structure):
+    """restir_resample.cu's SpatialArgs."""
+
+    _fields_ = ([(f, ctypes.c_int) for f in (
+        "n", "w", "h", "frame", "pass", "n_nb")]
+        + [("mean_scale", ctypes.c_float),
+           ("dx", ctypes.c_float * _MAX_KERNEL_NEIGHBORS),
+           ("dy", ctypes.c_float * _MAX_KERNEL_NEIGHBORS)]
+        + [(f, ctypes.c_void_p) for f in (
+            *_CTX_PTRS, "cam_dist", "cam_pos", "gb_hit", "gb_pos", "gb_nrm",
+            *(f"in_{k}" for k in _RES_PTRS.values()),
+            *(f"r_{k}" for k in _RES_PTRS.values()))])
+
+
+def _mean_scale(n: int) -> float:
+    """The factor of PyTorch's CUDA mean over the last axis of an [n, 3]
+    tensor: n / (3 n), each rounded to float32 first."""
+    return float(np.float32(n) / np.float32(3 * max(n, 1)))
+
+
+def _ctx_args(ctx: PixelCtx, n: int) -> dict:
+    f32, b8 = torch.float32, torch.bool
+    p = ctx.params
+    return dict(zip(_CTX_PTRS, (
+        (ctx.pos, f32, (n, 3)), (ctx.v_out_local, f32, (n, 3)),
+        (ctx.t, f32, (n, 3)), (ctx.b, f32, (n, 3)), (ctx.n, f32, (n, 3)),
+        (p.diffuse, f32, (n, 3)), (p.f0, f32, (n, 3)),
+        (p.roughness, f32, (n,)), (p.is_lambert, b8, (n,)),
+        (ctx.valid, b8, (n,)))))
+
+
+def _res_args(prefix: str, res: ReservoirSoA, n: int) -> dict:
+    return {f"{prefix}{c}": (getattr(res, k),
+                             torch.bool if k == "at_inf" else torch.float32,
+                             (n, 3) if k in ("pos", "nrm", "emit") else (n,))
+            for k, c in _RES_PTRS.items()}
+
+
+def _empty_like_res(n: int, dev) -> ReservoirSoA:
+    """Uninitialised reservoirs, a kernel's output."""
+    e3 = [torch.empty((n, 3), device=dev) for _ in range(3)]
+    e = [torch.empty((n,), device=dev) for _ in range(4)]
+    return ReservoirSoA(pos=e3[0], nrm=e3[1], emit=e3[2],
+                        at_inf=torch.empty((n,), dtype=torch.bool,
+                                           device=dev),
+                        sum_w=e[0], stream_len=e[1], rec_pdf=e[2],
+                        target=e[3])
+
+
+def _launch(kernel: str, args_type, fields: dict, tensors: dict, dev):
+    """Launch restir_resample.cu's `kernel` (counter
+    restir.kernel.<kernel>): build.launch on a CUDA device, else raise."""
+    from gfxexp_torch.csrc.build import launch
+
+    if dev.type != "cuda":
+        raise ValueError(f"restir_{kernel}: runs on CUDA tensors, got {dev}")
+    launch("restir_resample", f"restir_{kernel}", args_type, fields, tensors,
+           dev)
+    trace.count(f"restir.kernel.{kernel}")
+
+
+def initial_ris_kernel(scene, bvh, ctx: PixelCtx, pool, gb: GBuffer,
+                       frame_idx: int, cfg: ReSTIRConfig) -> ReservoirSoA:
+    """initial_ris_presampled for the pixels 0 .. N - 1 of `gb` in order,
+    on the card: the candidate stream and its estimate in one kernel
+    launch, then (cfg.reuse_visibility) the any-hit walk of the shadow rays
+    the kernel wrote and the mask of _finish_ris. Raises on a tensor the
+    kernel does not take; nothing falls back."""
+    from gfxexp_torch.csrc.build import int32_bits
+
+    h, w = gb.depth.shape
+    n = h * w
+    dev = ctx.pos.device
+    f32 = torch.float32
+    res = _empty_like_res(n, dev)
+    ray = ((torch.empty((n, 3), device=dev), torch.empty((n,), device=dev))
+           if cfg.reuse_visibility else (None, None))
+    p = cfg.num_light_subsets * cfg.light_subset_size
+    inputs = {
+        **_ctx_args(ctx, n),
+        "pool_pos": (pool["pos"], f32, (p, 3)),
+        "pool_nrm": (pool["nrm"], f32, (p, 3)),
+        "pool_emit": (pool["emit"], f32, (p, 3)),
+        "pool_inf": (pool["at_inf"], torch.bool, (p,)),
+        "pool_rec": (pool["rec_pdf"], f32, (p,)),
+        **_res_args("r_", res, n),
+        "shadow_d": (ray[0], f32, (n, 3)), "shadow_tmax": (ray[1], f32, (n,))}
+    _launch("initial", _InitialArgs, dict(
+        n=n, w=w, frame=int32_bits(frame_idx),
+        num_subsets=cfg.num_light_subsets, subset_size=cfg.light_subset_size,
+        n_cand=1 << cfg.log2_num_candidates, mean_scale=_mean_scale(n)),
+        inputs, dev)
+    return _keep_visible(scene, bvh, ctx, res, cfg, ray)
+
+
+def spatial_reuse_kernel(res: ReservoirSoA, ctx: PixelCtx, gb: GBuffer,
+                         camera: Camera, frame_idx: int, pass_idx: int,
+                         cfg: ReSTIRConfig) -> ReservoirSoA:
+    """spatial_reuse for the pixels 0 .. N - 1 of `gb` in order, biased,
+    with low-discrepancy neighbours, on the card in one kernel launch: new
+    reservoirs, `res` untouched. Raises on a tensor or a configuration the
+    kernel does not take; nothing falls back."""
+    from gfxexp_torch.csrc.build import int32_bits
+
+    if not restir_kernel_admits(cfg, ctx.pos)[1]:
+        raise ValueError("restir_spatial: the kernel takes a biased pass "
+                         "over at most 32 low-discrepancy neighbours on "
+                         "the card")
+    h, w = gb.depth.shape
+    n = h * w
+    dev = ctx.pos.device
+    f32 = torch.float32
+    k = cfg.num_spatial_neighbors
+    dx = (ctypes.c_float * _MAX_KERNEL_NEIGHBORS)()
+    dy = (ctypes.c_float * _MAX_KERNEL_NEIGHBORS)()
+    for j in range(k):
+        # spatial_reuse's offset: the table's float32 entry times the
+        # radius, in float32
+        delta = _SPATIAL_DELTAS[_spatial_table_index(frame_idx, pass_idx, j,
+                                                     cfg)]
+        radius = np.float32(cfg.spatial_radius)
+        dx[j], dy[j] = float(delta[0] * radius), float(delta[1] * radius)
+    out = _empty_like_res(n, dev)
+    inputs = {
+        **_ctx_args(ctx, n), "cam_dist": (ctx.cam_dist, f32, (n,)),
+        "cam_pos": (camera.position, f32, (3,)),
+        "gb_hit": (gb.hit.reshape(n), torch.bool, (n,)),
+        "gb_pos": (gb.position.reshape(n, 3), f32, (n, 3)),
+        "gb_nrm": (gb.normal.reshape(n, 3), f32, (n, 3)),
+        **_res_args("in_", res, n), **_res_args("r_", out, n)}
+    _launch("spatial", _SpatialArgs, {
+        "n": n, "w": w, "h": h, "frame": int32_bits(frame_idx),
+        "pass": pass_idx, "n_nb": k, "mean_scale": _mean_scale(n),
+        "dx": dx, "dy": dy}, inputs, dev)
+    return out
+
+
 def _direct_emission(ctx: PixelCtx, gb: GBuffer):
     """Emitters seen directly: emittance / pi on their front side."""
     emit = gb.emittance.reshape(-1, 3)
@@ -748,23 +957,53 @@ def restir_di_frame(scene: SceneData, bvh, gb: GBuffer, camera: Camera,
     """One ReSTIR DI frame on the device that holds `scene`. Returns
     (colour [H, W, 3], reservoir, ctx, SampleVisibility): carry all four
     into the next frame (the visibility matters only for the rearchitected
-    pipeline's reuse_visibility_for_temporal)."""
+    pipeline's reuse_visibility_for_temporal).
+
+    The initial stream and the spatial passes run as CUDA kernels where
+    restir_kernel_admits(cfg, gb.depth) takes them (counters
+    restir.kernel.initial and restir.kernel.spatial, one a launch), else by
+    their plain versions (restir.eager.initial, restir.eager.spatial, one
+    a pass on the card). Both give the same frame."""
     with trace.span("gfx.restir"):
         h, w = gb.depth.shape
         n = h * w
         dev = gb.depth.device
         frame_idx = int(frame_idx)
         pixel = torch.arange(n, dtype=torch.int64, device=dev)
+        kernel = restir_kernel_admits(cfg, gb.depth)
+        if any(kernel):
+            # the resampling kernels and the walk build at once at first use
+            from gfxexp_torch.csrc.build import load_libraries
+
+            load_libraries(["restir_resample"]
+                           + [x for x in (walk_library(bvh),) if x])
         ctx = pixel_ctx(scene, gb, camera)
         if prev_vis is None:
             prev_vis = empty_sample_visibility(n, dev)
+
+        def spatial(res):
+            for p in range(cfg.num_spatial_passes):
+                with trace.span(f"gfx.restir.spatial{p}"):
+                    if kernel[1]:
+                        res = spatial_reuse_kernel(res, ctx, gb, camera,
+                                                   frame_idx, p, cfg)
+                    else:
+                        _count_eager(dev, "spatial")
+                        res = spatial_reuse(scene, bvh, res, ctx, gb, camera,
+                                            pixel, frame_idx, p, cfg)
+            return res
 
         if cfg.use_rearchitected_pipeline:
             with trace.span("gfx.restir.presample"):
                 pool = presample_lights(scene, frame_idx, cfg)
             with trace.span("gfx.restir.initial"):
-                res = initial_ris_presampled(scene, bvh, ctx, pool, gb,
-                                             pixel, frame_idx, cfg)
+                if kernel[0]:
+                    res = initial_ris_kernel(scene, bvh, ctx, pool, gb,
+                                             frame_idx, cfg)
+                else:
+                    _count_eager(dev, "initial")
+                    res = initial_ris_presampled(scene, bvh, ctx, pool, gb,
+                                                 pixel, frame_idx, cfg)
             if cfg.enable_temporal_reuse:
                 with trace.span("gfx.restir.shadow"):
                     vis, _ = trace_shadow_rays(
@@ -776,16 +1015,13 @@ def restir_di_frame(scene: SceneData, bvh, gb: GBuffer, camera: Camera,
                         scene, res, prev_reservoir, vis, ctx, prev_ctx, gb,
                         pixel, frame_idx, cfg)
                 if cfg.enable_spatial_reuse:
-                    for p in range(cfg.num_spatial_passes):
-                        with trace.span(f"gfx.restir.spatial{p}"):
-                            res = spatial_reuse(scene, bvh, res, ctx, gb,
-                                                camera, pixel, frame_idx, p,
-                                                cfg)
+                    res = spatial(res)
                     with trace.span("gfx.restir.shade"):
                         color = shade(scene, bvh, res, ctx, gb)
                 return color, res, ctx, vis
         else:
             with trace.span("gfx.restir.initial"):
+                _count_eager(dev, "initial")
                 res = initial_ris(scene, bvh, ctx, pixel, frame_idx, cfg)
             if cfg.enable_temporal_reuse:
                 with trace.span("gfx.restir.temporal"):
@@ -794,10 +1030,13 @@ def restir_di_frame(scene: SceneData, bvh, gb: GBuffer, camera: Camera,
                                          prev_nrm, camera, pixel, frame_idx,
                                          cfg)
         if cfg.enable_spatial_reuse:
-            for p in range(cfg.num_spatial_passes):
-                with trace.span(f"gfx.restir.spatial{p}"):
-                    res = spatial_reuse(scene, bvh, res, ctx, gb, camera,
-                                        pixel, frame_idx, p, cfg)
+            res = spatial(res)
         with trace.span("gfx.restir.shade"):
             color = shade(scene, bvh, res, ctx, gb)
         return color, res, ctx, empty_sample_visibility(n, dev)
+
+
+def _count_eager(dev, stage: str):
+    """Count a stage's plain pass on the card (restir.eager.<stage>)."""
+    if dev.type == "cuda":
+        trace.count(f"restir.eager.{stage}")
