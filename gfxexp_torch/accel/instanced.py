@@ -42,10 +42,11 @@ import torch
 
 from gfxexp_torch.accel.bvh_build import build_bvh
 from gfxexp_torch.accel.persistent import (
-    _outputs,
+    _check_depth,
+    _launch_walk,
     _prepare,
-    _ptr,
     _safe_inv,
+    _walk_fields,
     entry_slabs,
     grid_counters,
     slab_rows,
@@ -62,7 +63,6 @@ from gfxexp_torch.accel.widerow import (  # noqa: F401 (set_persistent)
     set_persistent,
 )
 from gfxexp_torch.core.tensors import TensorData
-from gfxexp_torch.utils import trace
 
 # entries under one union box for the build-order kernel: its windows
 # (kWindow in csrc/instanced_traverse.cu) and the runs inside them (kSub)
@@ -375,14 +375,22 @@ def _cached_groups(acc: InstancedAccel, lo, hi):
     return cached[1:]
 
 
+class _InstancedArgs(ctypes.Structure):
+    """csrc/instanced_traverse.cu's InstancedArgs."""
+
+    _fields_ = _walk_fields(
+        ("any_hit", "nearest", "arity", "n_rows", "n_blas_rows", "max_leaf",
+         "stack_depth", "n_entries", "n"),
+        ("nodes", "blas_ids", "start_rows", "inv_transforms", "entry_lo",
+         "entry_hi", "entry", "counters", "group_lo", "group_hi"))
+
+
 def walk_instanced_cuda(acc: InstancedAccel, o, d, t_min, t_max,
                         any_hit: bool, route: str):
     """Launch csrc/instanced_traverse.cu on PyTorch's current stream, in
     its build-order instantiation for route "build", else nearest-first.
     Returns (HitInfo, entry [N] int32). Raises if the kernel cannot be built
     or the launch is refused."""
-    from gfxexp_torch.csrc.build import load_library
-
     flat, ents, o, d, t_min, t_max = _prepare_inst(acc, o, d, t_min, t_max,
                                                    route)
     if o.device.type != "cuda":
@@ -394,36 +402,29 @@ def walk_instanced_cuda(acc: InstancedAccel, o, d, t_min, t_max,
     blas, start, tf, lo, hi = ents
     if tf.data_ptr() % 16:
         raise ValueError("inv_transforms must be 16-byte aligned")
-    lib = load_library("instanced_traverse")
-    depth = stack_depth(acc)
-    if depth > lib.instanced_max_stack():
-        raise ValueError(f"stack depth {depth} exceeds the kernel's bound "
-                         f"{lib.instanced_max_stack()}")
+    depth = _check_depth(stack_depth(acc))
     n, dev = o.shape[0], o.device
-    t, u, v, tri, hit = _outputs(n, dev)
     entry = torch.empty(n, dtype=torch.int32, device=dev)
-    if n:
-        nodes = flat.nodes  # [1, B*R, 64]
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            if route == "build":
-                glo, ghi = (_ptr(x) for x in _cached_groups(acc, lo, hi))
-                counters = _ptr(grid_counters(dev, stream))
-            else:
-                glo = ghi = counters = ctypes.c_void_p(None)
-            rc = lib.instanced_walk_launch(
-                int(any_hit), int(route != "build"), acc.arity, _ptr(nodes),
-                nodes.shape[1], acc.nodes.shape[1], acc.max_leaf, depth,
-                acc.num_entries, _ptr(blas), _ptr(start), _ptr(tf), _ptr(lo),
-                _ptr(hi), n, _ptr(o), _ptr(d), _ptr(t_min), _ptr(t_max),
-                _ptr(t), _ptr(u), _ptr(v), _ptr(tri), _ptr(hit), _ptr(entry),
-                ctypes.c_void_p(stream), counters, glo, ghi)
-        if rc != 0:
-            raise RuntimeError(f"instanced_walk launch failed: CUDA error "
-                               f"{rc}")
-        trace.count(f"walk.instanced.{'any' if any_hit else 'closest'}_"
-                    f"{route}")
-    return HitInfo(t=t, tri=tri, u=u, v=v, hit=hit), entry
+    nodes = flat.nodes  # [1, B*R, 64]
+    glo = ghi = counters = None
+    if route == "build" and n:
+        glo, ghi = _cached_groups(acc, lo, hi)
+        counters = grid_counters(dev)
+    f32, i32 = torch.float32, torch.int32
+    h = _launch_walk(
+        "instanced_traverse", "instanced_walk", _InstancedArgs,
+        dict(any_hit=int(any_hit), nearest=int(route != "build"),
+             arity=acc.arity, n_rows=nodes.shape[1],
+             n_blas_rows=acc.nodes.shape[1], max_leaf=acc.max_leaf,
+             stack_depth=depth, n_entries=acc.num_entries),
+        dict(nodes=(nodes, f32, None), blas_ids=(blas, i32, None),
+             start_rows=(start, i32, None), inv_transforms=(tf, f32, None),
+             entry_lo=(lo, f32, None), entry_hi=(hi, f32, None),
+             entry=(entry, i32, (n,)), counters=(counters, i32, (2,)),
+             group_lo=(glo, f32, None), group_hi=(ghi, f32, None)),
+        (o, d, t_min, t_max),
+        f"walk.instanced.{'any' if any_hit else 'closest'}_{route}")
+    return h, entry
 
 
 # ---------------------------------------------------------------------------

@@ -36,15 +36,15 @@ import torch
 from gfxexp_torch.accel.persistent import (
     _NET4,
     _NET8,
-    _outputs,
+    _check_depth,
+    _launch_walk,
     _prepare,
-    _ptr,
     _safe_inv,
+    _walk_fields,
     stack_depth,
 )
 from gfxexp_torch.accel.traverse import HitInfo
 from gfxexp_torch.accel.widerow import COUNT_SHIFT, WIDTH, WideRowBVH
-from gfxexp_torch.utils import trace
 
 LANES = 128  # rays of a block, split into G groups
 GROUPS = (1, 2, 4)  # the kernel's group counts
@@ -201,13 +201,18 @@ def walk_lanegroup_plain(bvh: WideRowBVH, o, d, t_min, t_max, groups: int,
     return (hit, flat(rows), steps) if with_steps else (hit, flat(rows))
 
 
+class _LanegroupArgs(ctypes.Structure):
+    """csrc/lanegroup_traverse.cu's LanegroupArgs."""
+
+    _fields_ = _walk_fields(("groups", "arity", "n_rows", "max_leaf",
+                             "stack_depth", "n"), ("nodes", "rows"))
+
+
 def walk_lanegroup_cuda(bvh: WideRowBVH, o, d, t_min, t_max, groups: int,
                         with_stats: bool = False):
     """Launch csrc/lanegroup_traverse.cu on PyTorch's current stream.
     Raises if the kernel cannot be built, the group count is not 1, 2 or 4,
     or the launch is refused."""
-    from gfxexp_torch.csrc.build import load_library
-
     _check(bvh, groups)
     nodes, o, d, t_min, t_max = _prepare(bvh, o, d, t_min, t_max)
     if o.device.type != "cuda":
@@ -216,29 +221,17 @@ def walk_lanegroup_cuda(bvh: WideRowBVH, o, d, t_min, t_max, groups: int,
     if groups not in GROUPS:
         raise ValueError(f"the kernel takes groups in {GROUPS}, got "
                          f"{groups}")
-    lib = load_library("lanegroup_traverse")
-    depth = stack_depth(bvh)
-    if depth > lib.lanegroup_max_stack():
-        raise ValueError(f"stack depth {depth} exceeds the kernel's bound "
-                         f"{lib.lanegroup_max_stack()}")
+    depth = _check_depth(stack_depth(bvh))
     n = o.shape[0]
-    t, u, v, tri, hit = _outputs(n, o.device)
     rows = (torch.empty(n, dtype=torch.int32, device=o.device)
             if with_stats else None)
-    if n:
-        with torch.cuda.device(o.device):
-            stream = torch.cuda.current_stream(o.device).cuda_stream
-            rc = lib.lanegroup_walk_launch(
-                groups, bvh.arity, _ptr(nodes), nodes.shape[0], bvh.max_leaf,
-                depth, n, _ptr(o), _ptr(d), _ptr(t_min), _ptr(t_max), _ptr(t),
-                _ptr(u), _ptr(v), _ptr(tri), _ptr(hit),
-                ctypes.c_void_p(None if rows is None else rows.data_ptr()),
-                ctypes.c_void_p(stream))
-        if rc != 0:
-            raise RuntimeError(f"lanegroup_walk launch failed: CUDA error "
-                               f"{rc}")
-        trace.count(f"walk.lanegroup.{groups}")
-    h = HitInfo(t=t, tri=tri, u=u, v=v, hit=hit)
+    h = _launch_walk("lanegroup_traverse", "lanegroup_walk", _LanegroupArgs,
+                     dict(groups=groups, arity=bvh.arity,
+                          n_rows=nodes.shape[0], max_leaf=bvh.max_leaf,
+                          stack_depth=depth),
+                     dict(nodes=(nodes, torch.float32, None),
+                          rows=(rows, torch.int32, (n,))),
+                     (o, d, t_min, t_max), f"walk.lanegroup.{groups}")
     return (h, rows.to(torch.int64)) if with_stats else h
 
 

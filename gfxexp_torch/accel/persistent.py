@@ -61,6 +61,7 @@ from gfxexp_torch.accel.widerow import (
     WideRowBVH,
     persist_on,
 )
+from gfxexp_torch.csrc.build import header_constant, launch
 from gfxexp_torch.utils import trace
 
 # the persistent grids' counters (kernels 1, 2 and the two-level walk in
@@ -485,14 +486,6 @@ def chunked_trips(rows, leaf_tests, arity: int):
 # ---------------------------------------------------------------------------
 
 
-def _ptr(x: torch.Tensor):
-    return ctypes.c_void_p(x.data_ptr())
-
-
-def _null_or_ptr(x):
-    return ctypes.c_void_p(None if x is None else x.data_ptr())
-
-
 def _outputs(n, dev):
     """Empty (t, u, v, tri, hit) tensors a walk kernel writes."""
     return (torch.empty(n, dtype=torch.float32, device=dev),
@@ -502,11 +495,53 @@ def _outputs(n, dev):
             torch.empty(n, dtype=torch.bool, device=dev))
 
 
-def grid_counters(dev: torch.device, stream: int) -> torch.Tensor:
-    """The two counters of a persistent grid on `stream` (its cuda_stream
-    handle) of device `dev`, zeroed at the first call; every launch leaves
-    them at zero."""
-    key = (dev.index, stream)
+# the rays and the results (_outputs), the last pointers of each walk's
+# argument struct (csrc/*_traverse.cu)
+_RAY_PTRS = ("o", "d", "tmin", "tmax", "t", "u", "v", "tri", "hit")
+
+
+def _walk_fields(ints, ptrs) -> list:
+    """The ctypes fields of a walk's argument struct: the ints, then the
+    pointers, then _RAY_PTRS."""
+    return ([(f, ctypes.c_int) for f in ints]
+            + [(f, ctypes.c_void_p) for f in (*ptrs, *_RAY_PTRS)])
+
+
+def _check_depth(depth: int, bound: str = "kMaxStack",
+                 header: str = "widerow_walk.cuh") -> int:
+    """`depth`, a table's stack bound, checked against the kernel's:
+    `bound` of csrc/<header>."""
+    limit = header_constant(bound, header)
+    if depth > limit:
+        raise ValueError(f"stack depth {depth} exceeds the kernel's bound "
+                         f"{limit}")
+    return depth
+
+
+def _launch_walk(library: str, kernel: str, args_type, ints: dict,
+                 tensors: dict, rays, counter: str) -> HitInfo:
+    """build.launch of a walk kernel over the rays (o, d, t_min, t_max),
+    unless there are none, counted as trace counter `counter`: its own
+    fields (`ints`, `tensors`), then n and the addresses of _RAY_PTRS, the
+    rays as prepare_rays checked them and the results _outputs makes.
+    Returns the results."""
+    o, d, t_min, t_max = rays
+    n = o.shape[0]
+    t, u, v, tri, hit = out = _outputs(n, o.device)
+    if n:
+        addresses = {k: x.data_ptr() for k, x in
+                     zip(_RAY_PTRS, (o, d, t_min, t_max, *out))}
+        launch(library, kernel, args_type, {**ints, "n": n, **addresses},
+               tensors, o.device)
+        trace.count(counter)
+    return HitInfo(t=t, tri=tri, u=u, v=v, hit=hit)
+
+
+def grid_counters(dev: torch.device) -> torch.Tensor:
+    """The two counters of a persistent grid on the current stream of
+    device `dev`, zeroed at the first call; every launch leaves them at
+    zero."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
     counters = _grid_counters.get(key)
     if counters is None:
         counters = _grid_counters[key] = torch.zeros(2, dtype=torch.int32,
@@ -514,39 +549,40 @@ def grid_counters(dev: torch.device, stream: int) -> torch.Tensor:
     return counters
 
 
+class _WiderowArgs(ctypes.Structure):
+    """csrc/widerow_traverse.cu's WiderowArgs."""
+
+    _fields_ = _walk_fields(("any_hit", "arity", "n_rows", "max_leaf",
+                             "stack_depth", "n"), ("nodes", "counters"))
+
+
+class _ChunkedArgs(ctypes.Structure):
+    """csrc/chunked_traverse.cu's ChunkedArgs."""
+
+    _fields_ = _walk_fields(("any_hit", "arity", "n_chunks", "rows_per_chunk",
+                             "max_leaf", "stack_depth", "n"),
+                            ("nodes", "lo", "hi", "counters"))
+
+
 def walk_cuda(bvh: WideRowBVH, o, d, t_min, t_max, any_hit: bool) -> HitInfo:
     """Launch kernel 1 (csrc/widerow_traverse.cu) on PyTorch's current
     stream over a single-chunk table. Raises if the kernel cannot be built
     or the launch is refused."""
-    from gfxexp_torch.csrc.build import load_library
-
     nodes, o, d, t_min, t_max = _prepare(bvh, o, d, t_min, t_max)
     if o.device.type != "cuda":
         raise ValueError(f"walk_cuda needs CUDA tensors, got {o.device}")
     if bvh.num_chunks != 1:
         raise ValueError(f"kernel 1 walks one table, got {bvh.num_chunks} "
                          "chunks (walk_chunked_cuda walks them)")
-    lib = load_library("widerow_traverse")
-    depth = stack_depth(bvh)
-    if depth > lib.widerow_max_stack():
-        raise ValueError(f"stack depth {depth} exceeds the kernel's bound "
-                         f"{lib.widerow_max_stack()}")
-    n = o.shape[0]
-    t, u, v, tri, hit = _outputs(n, o.device)
-    if n:
-        with torch.cuda.device(o.device):
-            stream = torch.cuda.current_stream(o.device).cuda_stream
-            rc = lib.widerow_walk_launch(
-                int(any_hit), bvh.arity, _ptr(nodes), nodes.shape[0],
-                bvh.max_leaf, depth, n, _ptr(o), _ptr(d), _ptr(t_min),
-                _ptr(t_max), _ptr(t), _ptr(u), _ptr(v), _ptr(tri), _ptr(hit),
-                ctypes.c_void_p(stream), _ptr(grid_counters(o.device,
-                                                            stream)))
-        if rc != 0:
-            raise RuntimeError(f"widerow_walk launch failed: CUDA error {rc}")
-        trace.count("walk.kernel1.any" if any_hit
-                    else "walk.kernel1.closest")
-    return HitInfo(t=t, tri=tri, u=u, v=v, hit=hit)
+    depth = _check_depth(stack_depth(bvh))
+    return _launch_walk(
+        "widerow_traverse", "widerow_walk", _WiderowArgs, dict(
+            any_hit=int(any_hit), arity=bvh.arity, n_rows=nodes.shape[0],
+            max_leaf=bvh.max_leaf, stack_depth=depth), dict(
+            nodes=(nodes, torch.float32, None),
+            counters=(grid_counters(o.device), torch.int32, (2,))),
+        (o, d, t_min, t_max),
+        "walk.kernel1.any" if any_hit else "walk.kernel1.closest")
 
 
 def walk_chunked_cuda(bvh: WideRowBVH, o, d, t_min, t_max,
@@ -555,36 +591,22 @@ def walk_chunked_cuda(bvh: WideRowBVH, o, d, t_min, t_max,
     stream: the chunks nearest first, or the one table of a table without
     chunk boxes. Raises if the kernel cannot be built or the launch is
     refused."""
-    from gfxexp_torch.csrc.build import load_library
-
     nodes, o, d, t_min, t_max = _prepare(bvh, o, d, t_min, t_max)
     if o.device.type != "cuda":
         raise ValueError(f"walk_chunked_cuda needs CUDA tensors, got "
                          f"{o.device}")
-    boxes = _chunk_boxes(bvh, o.device)
-    lo, hi = boxes if boxes is not None else (None, None)
-    lib = load_library("chunked_traverse")
-    depth = stack_depth(bvh)
-    if depth > lib.chunked_max_stack():
-        raise ValueError(f"stack depth {depth} exceeds the kernel's bound "
-                         f"{lib.chunked_max_stack()}")
-    n = o.shape[0]
-    t, u, v, tri, hit = _outputs(n, o.device)
-    if n:
-        with torch.cuda.device(o.device):
-            stream = torch.cuda.current_stream(o.device).cuda_stream
-            counters = grid_counters(o.device, stream)
-            rc = lib.chunked_walk_launch(
-                int(any_hit), bvh.arity, _ptr(nodes), bvh.num_chunks,
-                bvh.rows_per_chunk, bvh.max_leaf, depth, _null_or_ptr(lo),
-                _null_or_ptr(hi), n, _ptr(o), _ptr(d), _ptr(t_min),
-                _ptr(t_max), _ptr(t), _ptr(u), _ptr(v), _ptr(tri), _ptr(hit),
-                ctypes.c_void_p(stream), _ptr(counters))
-        if rc != 0:
-            raise RuntimeError(f"chunked_walk launch failed: CUDA error {rc}")
-        trace.count("walk.chunked.any" if any_hit
-                    else "walk.chunked.closest")
-    return HitInfo(t=t, tri=tri, u=u, v=v, hit=hit)
+    lo, hi = _chunk_boxes(bvh, o.device) or (None, None)
+    depth = _check_depth(stack_depth(bvh))
+    return _launch_walk(
+        "chunked_traverse", "chunked_walk", _ChunkedArgs, dict(
+            any_hit=int(any_hit), arity=bvh.arity, n_chunks=bvh.num_chunks,
+            rows_per_chunk=bvh.rows_per_chunk, max_leaf=bvh.max_leaf,
+            stack_depth=depth), dict(
+            nodes=(nodes, torch.float32, None),
+            lo=(lo, torch.float32, None), hi=(hi, torch.float32, None),
+            counters=(grid_counters(o.device), torch.int32, (2,))),
+        (o, d, t_min, t_max),
+        "walk.chunked.any" if any_hit else "walk.chunked.closest")
 
 
 # ---------------------------------------------------------------------------

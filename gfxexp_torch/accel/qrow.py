@@ -47,11 +47,11 @@ import torch
 from gfxexp_torch.accel.bvh_build import BVH, build_bvh
 from gfxexp_torch.accel.persistent import (
     _NET8,
+    _check_depth,
     _chunk_boxes,
-    _null_or_ptr,
-    _outputs,
-    _ptr,
+    _launch_walk,
     _safe_inv,
+    _walk_fields,
     order_children,
     prepare_rays,
     walk_entries_plain,
@@ -59,7 +59,6 @@ from gfxexp_torch.accel.persistent import (
 from gfxexp_torch.accel.traverse import HitInfo
 from gfxexp_torch.accel.widerow import morton_chunks, stack_chunks
 from gfxexp_torch.core.tensors import TensorData
-from gfxexp_torch.utils import trace
 
 WIDTH = 32
 ARITY = 8
@@ -478,36 +477,30 @@ def walk_qrow_plain(bvh: QRowBVH, o, d, t_min, t_max, any_hit: bool,
 # ---------------------------------------------------------------------------
 
 
+class _QrowArgs(ctypes.Structure):
+    """csrc/qrow_traverse.cu's QrowArgs."""
+
+    _fields_ = _walk_fields(("any_hit", "n_chunks", "rows_per_chunk",
+                             "stack_depth", "n"), ("nodes", "lo", "hi"))
+
+
 def walk_qrow_cuda(bvh: QRowBVH, o, d, t_min, t_max,
                    any_hit: bool) -> HitInfo:
     """Launch csrc/qrow_traverse.cu on PyTorch's current stream. Raises if
     the kernel cannot be built or the launch is refused."""
-    from gfxexp_torch.csrc.build import load_library
-
     nodes, o, d, t_min, t_max = _prepare(bvh, o, d, t_min, t_max)
     if o.device.type != "cuda":
         raise ValueError(f"walk_qrow_cuda needs CUDA tensors, got {o.device}")
-    boxes = _chunk_boxes(bvh, o.device)
-    lo, hi = boxes if boxes is not None else (None, None)
-    lib = load_library("qrow_traverse")
-    depth = stack_depth(bvh)
-    if depth > lib.qrow_max_stack():
-        raise ValueError(f"stack depth {depth} exceeds the kernel's bound "
-                         f"{lib.qrow_max_stack()}")
-    n = o.shape[0]
-    t, u, v, tri, hit = _outputs(n, o.device)
-    if n:
-        with torch.cuda.device(o.device):
-            stream = torch.cuda.current_stream(o.device).cuda_stream
-            rc = lib.qrow_walk_launch(
-                int(any_hit), _ptr(nodes), bvh.num_chunks, bvh.rows_per_chunk,
-                depth, _null_or_ptr(lo), _null_or_ptr(hi), n, _ptr(o), _ptr(d),
-                _ptr(t_min), _ptr(t_max), _ptr(t), _ptr(u), _ptr(v),
-                _ptr(tri), _ptr(hit), ctypes.c_void_p(stream))
-        if rc != 0:
-            raise RuntimeError(f"qrow_walk launch failed: CUDA error {rc}")
-        trace.count("walk.qrow.any" if any_hit else "walk.qrow.closest")
-    return HitInfo(t=t, tri=tri, u=u, v=v, hit=hit)
+    lo, hi = _chunk_boxes(bvh, o.device) or (None, None)
+    depth = _check_depth(stack_depth(bvh), "kQMaxStack", "qrow_traverse.cu")
+    return _launch_walk(
+        "qrow_traverse", "qrow_walk", _QrowArgs, dict(
+            any_hit=int(any_hit), n_chunks=bvh.num_chunks,
+            rows_per_chunk=bvh.rows_per_chunk, stack_depth=depth), dict(
+            nodes=(nodes, torch.float32, None),
+            lo=(lo, torch.float32, None), hi=(hi, torch.float32, None)),
+        (o, d, t_min, t_max),
+        "walk.qrow.any" if any_hit else "walk.qrow.closest")
 
 
 def _walk(bvh, o, d, t_min, t_max, any_hit):

@@ -28,25 +28,29 @@ import ctypes
 
 import torch
 
-from gfxexp_torch.accel.persistent import prepare_rays
+from gfxexp_torch.accel.persistent import (
+    _launch_walk,
+    _walk_fields,
+    prepare_rays,
+)
 from gfxexp_torch.accel.skiplink import SkipBVH, packed, walk_skip_plain
 from gfxexp_torch.accel.traverse import HitInfo
-from gfxexp_torch.utils import trace
 
 SCOPES = ("thread", "warp", "block")
 _SCOPE_ID = {s: i for i, s in enumerate(SCOPES)}
 
 
-def _ptr(x: torch.Tensor):
-    return ctypes.c_void_p(x.data_ptr())
+class _SkiplinkArgs(ctypes.Structure):
+    """csrc/skiplink_traverse.cu's SkiplinkArgs."""
+
+    _fields_ = _walk_fields(("any_hit", "scope", "n_nodes", "n_tri_rows",
+                             "max_leaf", "n"), ("nodes", "tris"))
 
 
 def walk_skip_cuda(bvh: SkipBVH, tris, o, d, t_min, t_max, any_hit: bool,
                    scope: str = "thread") -> HitInfo:
     """Launch csrc/skiplink_traverse.cu on PyTorch's current stream. Raises
     if the kernel cannot be built or the launch is refused."""
-    from gfxexp_torch.csrc.build import load_library
-
     if scope not in SCOPES:
         raise ValueError(f"scope must be one of {SCOPES}, got {scope!r}")
     bvh = packed(bvh, tris)
@@ -59,25 +63,15 @@ def walk_skip_cuda(bvh: SkipBVH, tris, o, d, t_min, t_max, any_hit: bool,
                 or not x.is_contiguous() or x.data_ptr() % 16):
             raise ValueError(f"the {name} table must be a contiguous, "
                              f"16-byte aligned float32 tensor on {o.device}")
-    lib = load_library("skiplink_traverse")
-    n, dev = o.shape[0], o.device
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    u = torch.empty(n, dtype=torch.float32, device=dev)
-    v = torch.empty(n, dtype=torch.float32, device=dev)
-    tri = torch.empty(n, dtype=torch.int32, device=dev)
-    hit = torch.empty(n, dtype=torch.bool, device=dev)
-    if n:
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.skiplink_walk_launch(
-                int(any_hit), _SCOPE_ID[scope], _ptr(nodes), bvh.num_nodes,
-                _ptr(tp), tp.shape[0], bvh.max_leaf, n, _ptr(o), _ptr(d),
-                _ptr(t_min), _ptr(t_max), _ptr(t), _ptr(u), _ptr(v),
-                _ptr(tri), _ptr(hit), ctypes.c_void_p(stream))
-        if rc != 0:
-            raise RuntimeError(f"skiplink_walk launch failed: CUDA error {rc}")
-        trace.count(f"walk.skip.{'any' if any_hit else 'closest'}_{scope}")
-    return HitInfo(t=t, tri=tri, u=u, v=v, hit=hit)
+    return _launch_walk(
+        "skiplink_traverse", "skiplink_walk", _SkiplinkArgs,
+        dict(any_hit=int(any_hit), scope=_SCOPE_ID[scope],
+             n_nodes=bvh.num_nodes, n_tri_rows=tp.shape[0],
+             max_leaf=bvh.max_leaf),
+        dict(nodes=(nodes, torch.float32, None),
+             tris=(tp, torch.float32, None)),
+        (o, d, t_min, t_max),
+        f"walk.skip.{'any' if any_hit else 'closest'}_{scope}")
 
 
 def walk(bvh: SkipBVH, tris, o, d, t_min, t_max, any_hit: bool,

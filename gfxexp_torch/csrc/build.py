@@ -1,5 +1,5 @@
 """Build the CUDA kernels in this directory with nvcc into shared libraries
-with a plain C interface, and load them with ctypes.
+with a plain C interface, load them with ctypes, and launch them.
 
 Each `<name>.cu` becomes lib<name>.so in `build_dir()` at first use, or
 when the source or any header in this directory (`*.cuh`) is newer than
@@ -11,6 +11,7 @@ rounds every multiply and add on its own, as its plain PyTorch version does.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -29,6 +30,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-Xptxas", "-v"]
 
 _libs: dict = {}
+# (library, kernel): its `<kernel>_launch`, declared once its argument
+# struct's size was checked
+_launchers: dict = {}
 # per kernel: seconds nvcc took in this process (0.0 when an up-to-date
 # library was reused) and nvcc's -Xptxas -v report (registers, spills)
 build_seconds: dict = {}
@@ -80,89 +84,6 @@ def _nvcc() -> str:
     return path
 
 
-def _declare(name: str, lib: ctypes.CDLL):
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    if name == "widerow_traverse":
-        lib.widerow_max_stack.restype = ci
-        lib.widerow_max_stack.argtypes = []
-        lib.widerow_walk_launch.restype = ci
-        lib.widerow_walk_launch.argtypes = [
-            ci, ci, vp, ci, ci, ci, ci,          # any_hit .. n
-            vp, vp, vp, vp,                      # o, d, tmin, tmax
-            vp, vp, vp, vp, vp,                  # t, u, v, tri, hit
-            vp, vp,                              # stream, counters
-        ]
-    elif name == "instanced_traverse":
-        lib.instanced_max_stack.restype = ci
-        lib.instanced_max_stack.argtypes = []
-        lib.instanced_walk_launch.restype = ci
-        lib.instanced_walk_launch.argtypes = [
-            ci, ci, ci,                          # any_hit, nearest, arity
-            vp, ci, ci, ci, ci,                  # nodes .. stack_depth
-            ci, vp, vp, vp, vp, vp,              # entries: count .. hi
-            ci, vp, vp, vp, vp,                  # n, o, d, tmin, tmax
-            vp, vp, vp, vp, vp, vp,              # t, u, v, tri, hit, entry
-            vp, vp,                              # stream, counters
-            vp, vp,                              # group boxes lo, hi
-        ]
-    elif name == "chunked_traverse":
-        lib.chunked_max_stack.restype = ci
-        lib.chunked_max_stack.argtypes = []
-        lib.chunked_walk_launch.restype = ci
-        lib.chunked_walk_launch.argtypes = [
-            ci, ci, vp, ci, ci, ci, ci,          # any_hit .. stack_depth
-            vp, vp,                              # chunk boxes lo, hi
-            ci, vp, vp, vp, vp,                  # n, o, d, tmin, tmax
-            vp, vp, vp, vp, vp,                  # t, u, v, tri, hit
-            vp, vp,                              # stream, counters
-        ]
-    elif name == "qrow_traverse":
-        lib.qrow_max_stack.restype = ci
-        lib.qrow_max_stack.argtypes = []
-        lib.qrow_walk_launch.restype = ci
-        lib.qrow_walk_launch.argtypes = [
-            ci, vp, ci, ci, ci,                  # any_hit .. stack_depth
-            vp, vp,                              # chunk boxes lo, hi
-            ci, vp, vp, vp, vp,                  # n, o, d, tmin, tmax
-            vp, vp, vp, vp, vp,                  # t, u, v, tri, hit
-            vp,                                  # stream
-        ]
-    elif name == "lanegroup_traverse":
-        lib.lanegroup_max_stack.restype = ci
-        lib.lanegroup_max_stack.argtypes = []
-        lib.lanegroup_walk_launch.restype = ci
-        lib.lanegroup_walk_launch.argtypes = [
-            ci, ci, vp, ci, ci, ci,              # groups .. stack_depth
-            ci, vp, vp, vp, vp,                  # n, o, d, tmin, tmax
-            vp, vp, vp, vp, vp, vp,              # t, u, v, tri, hit, rows
-            vp,                                  # stream
-        ]
-    elif name == "skiplink_traverse":
-        lib.skiplink_walk_launch.restype = ci
-        lib.skiplink_walk_launch.argtypes = [
-            ci, ci,                              # any_hit, scope
-            vp, ci, vp, ci, ci,                  # nodes .. max_leaf
-            ci, vp, vp, vp, vp,                  # n, o, d, tmin, tmax
-            vp, vp, vp, vp, vp,                  # t, u, v, tri, hit
-            vp,                                  # stream
-        ]
-    elif name == "shade_bounce":
-        lib.shade_bounce_args_size.restype = ci
-        lib.shade_bounce_args_size.argtypes = []
-        lib.shade_bounce_launch.restype = ci
-        lib.shade_bounce_launch.argtypes = [vp, vp]  # args struct, stream
-    elif name == "restir_resample":
-        for kernel in ("initial", "spatial"):
-            size = getattr(lib, f"restir_{kernel}_args_size")
-            size.restype = ci
-            size.argtypes = []
-            launch = getattr(lib, f"restir_{kernel}_launch")
-            launch.restype = ci
-            launch.argtypes = [vp, vp]  # args struct, stream
-    else:
-        raise KeyError(f"no C interface declared for {name!r}")
-
-
 def _stale(src: str, so: str) -> bool:
     if not os.path.exists(so):
         return True
@@ -210,16 +131,17 @@ def load_libraries(names) -> dict:
                 os.remove(tmp)
     for name in names:
         if name not in _libs:
-            lib = ctypes.CDLL(os.path.join(out_dir, f"lib{name}.so"))
-            _declare(name, lib)
-            _libs[name] = lib
+            _libs[name] = ctypes.CDLL(os.path.join(out_dir, f"lib{name}.so"))
     return {name: _libs[name] for name in names}
 
 
+@functools.cache
 def header_constant(name: str, header: str = "widerow_walk.cuh") -> int:
-    """N of `constexpr int <name> = N;` in csrc/<header>: the nearest-first
-    pick's kPick (keys a ray keeps in registers) and kSpill (keys it keeps
-    in local memory), for the tests and the chip report."""
+    """N of `constexpr int <name> = N;` in csrc/<header>, read once per
+    process: the walks' stack bounds (kMaxStack, kQMaxStack) and the
+    nearest-first pick's kPick (keys a ray keeps in registers) and kSpill
+    (keys it keeps in local memory), for the wrappers, the tests and the
+    chip report."""
     with open(os.path.join(_DIR, header)) as f:
         m = re.search(rf"constexpr int {name} = (\d+);", f.read())
     if m is None:
@@ -253,24 +175,32 @@ def launch(library: str, kernel: str, args_type, fields: dict,
            tensors: dict, dev) -> None:
     """Launch `<kernel>_launch` of csrc/<library>.cu on the current stream
     of `dev` with its one argument struct, `args_type` (a ctypes Structure
-    mirroring the kernel's): the plain fields from `fields`, the pointers
-    from `tensors` ({name: (tensor or None, dtype, shape)}, each checked by
-    tensor_arg). Raises when the struct's size differs from the kernel's
-    (`<kernel>_args_size`), on a tensor the kernel does not take, or when
-    the launch fails."""
+    mirroring the kernel's): the plain fields from `fields` (numbers, or
+    addresses the caller has checked), the pointers from `tensors` ({name:
+    (tensor or None, dtype, shape)}, each checked by tensor_arg). Raises
+    when the struct's size differs from the kernel's (`<kernel>_args_size`,
+    asked at the kernel's first launch in the process), on a tensor the
+    kernel does not take, or when the launch fails."""
     import torch
 
-    lib = load_library(library)
-    if getattr(lib, f"{kernel}_args_size")() != ctypes.sizeof(args_type):
-        raise RuntimeError(f"{kernel}: the argument struct differs from the "
-                           f"kernel's")
+    fn = _launchers.get((library, kernel))
+    if fn is None:
+        lib = load_library(library)
+        size = getattr(lib, f"{kernel}_args_size")
+        size.restype, size.argtypes = ctypes.c_int, []
+        if size() != ctypes.sizeof(args_type):
+            raise RuntimeError(f"{kernel}: the argument struct differs from "
+                               f"the kernel's")
+        fn = getattr(lib, f"{kernel}_launch")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]  # args, stream
+        _launchers[library, kernel] = fn
     args = args_type(**fields)
     for k, (x, dtype, shape) in tensors.items():
         setattr(args, k, tensor_arg(kernel, k, x, dtype, shape, dev))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, f"{kernel}_launch")(ctypes.byref(args),
-                                              ctypes.c_void_p(stream))
+        rc = fn(ctypes.byref(args), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
 

@@ -35,10 +35,10 @@
 //     stages them once; more boxes are read through __ldg by each ray's
 //     scan, a table without boxes is walked whole. With the batch: 0.866 /
 //     0.886 of the earlier walk's time on city (closest / any), 0.891 /
-//     0.895 on big (H100 80GB HBM3 at 700 W, gfxexp_torch/walk_ab.py;
-//     PERF.md). The grid's size is asked of the card once, and the counters
-//     live with the caller, who zeroes them once; each launch's last warp
-//     sets them back to 0, so a launch costs the host no fill and no query.
+//     0.895 on big (H100 80GB HBM3 at 700 W; PERF.md). The grid's size is
+//     asked of the card once, and the counters live with the caller, who
+//     zeroes them once; each launch's last warp sets them back to 0, so a
+//     launch costs the host no fill and no query.
 // Timed and dropped: registers capped for 5 blocks a SM (even with the
 // uncapped 109-128, 4 blocks) and for 6 (1.08-1.18x: spills). The plain
 // PyTorch version is walk_chunked_plain in gfxexp_torch/accel/persistent.py;
@@ -53,6 +53,25 @@
 #include <stdint.h>
 
 #include "widerow_walk.cuh"
+
+// The arguments, one struct (accel/persistent.py _ChunkedArgs mirrors it).
+// nodes: [n_chunks, rows_per_chunk, 64] float32; lo, hi: [n_chunks, 3]
+// chunk boxes, or both null for one table walked whole. stack_depth is the
+// table's bound, checked against kMaxStack. counters: two unsigned ints on
+// the device, zero before the first launch on the stream; each launch
+// leaves them zero again.
+struct ChunkedArgs {
+  int any_hit, arity, n_chunks, rows_per_chunk, max_leaf, stack_depth, n;
+  const float* nodes;
+  const float* lo;
+  const float* hi;
+  unsigned int* counters;
+  const float *o, *d;  // [n, 3]
+  const float *tmin, *tmax;
+  float *t, *u, *v;  // out
+  int* tri;
+  unsigned char* hit;
+};
 
 namespace {
 
@@ -195,38 +214,31 @@ cudaError_t launch(const float* nodes, int n_chunks, int rows_per_chunk,
 
 extern "C" {
 
-int chunked_max_stack() { return kMaxStack; }
+// sizeof(ChunkedArgs), so the caller can check its layout
+int chunked_walk_args_size() { return (int)sizeof(ChunkedArgs); }
 
 // Returns 0 on success, else the CUDA error code of the launch (or
-// cudaErrorInvalidValue for arguments the kernel does not take). nodes:
-// [n_chunks, rows_per_chunk, 64] float32; lo, hi: [n_chunks, 3] chunk boxes,
-// or both null for one table walked whole. stack_depth is the table's
-// bound, checked against kMaxStack. counters: two unsigned ints on the
-// device, zero before the first launch on the stream; each launch leaves
-// them zero again.
-int chunked_walk_launch(int any_hit, int arity, const float* nodes,
-                        int n_chunks, int rows_per_chunk, int max_leaf,
-                        int stack_depth, const float* lo, const float* hi,
-                        int n, const float* o, const float* d,
-                        const float* tmin, const float* tmax, float* t,
-                        float* u, float* v, int* tri, unsigned char* hit,
-                        cudaStream_t stream, unsigned int* counters) {
-  if (n <= 0) return 0;
-  if (n_chunks <= 0 || rows_per_chunk <= 0 || counters == nullptr ||
-      (int64_t)n_chunks * rows_per_chunk > INT32_MAX || max_leaf < 0 ||
-      max_leaf > 5 || stack_depth > kMaxStack ||
-      (lo == nullptr) != (hi == nullptr) ||
-      (lo == nullptr && n_chunks != 1)) {
+// cudaErrorInvalidValue for arguments the kernel does not take).
+int chunked_walk_launch(const ChunkedArgs* args, cudaStream_t stream) {
+  if (args == nullptr) return (int)cudaErrorInvalidValue;
+  const ChunkedArgs a = *args;
+  if (a.n <= 0) return 0;
+  if (a.n_chunks <= 0 || a.rows_per_chunk <= 0 || a.counters == nullptr ||
+      (int64_t)a.n_chunks * a.rows_per_chunk > INT32_MAX || a.max_leaf < 0 ||
+      a.max_leaf > 5 || a.stack_depth > kMaxStack ||
+      (a.lo == nullptr) != (a.hi == nullptr) ||
+      (a.lo == nullptr && a.n_chunks != 1)) {
     return (int)cudaErrorInvalidValue;
   }
 #define GFX_LAUNCH(A, K)                                                     \
-  launch<A, K>(nodes, n_chunks, rows_per_chunk, max_leaf, lo, hi, n, o, d,   \
-               tmin, tmax, t, u, v, tri, hit, stream, counters)
+  launch<A, K>(a.nodes, a.n_chunks, a.rows_per_chunk, a.max_leaf, a.lo,      \
+               a.hi, a.n, a.o, a.d, a.tmin, a.tmax, a.t, a.u, a.v, a.tri,    \
+               a.hit, stream, a.counters)
   cudaError_t err;
-  if (arity == 4) {
-    err = any_hit ? GFX_LAUNCH(true, 4) : GFX_LAUNCH(false, 4);
-  } else if (arity == 8) {
-    err = any_hit ? GFX_LAUNCH(true, 8) : GFX_LAUNCH(false, 8);
+  if (a.arity == 4) {
+    err = a.any_hit ? GFX_LAUNCH(true, 4) : GFX_LAUNCH(false, 4);
+  } else if (a.arity == 8) {
+    err = a.any_hit ? GFX_LAUNCH(true, 8) : GFX_LAUNCH(false, 8);
   } else {
     return (int)cudaErrorInvalidValue;
   }

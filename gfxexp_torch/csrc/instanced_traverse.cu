@@ -56,10 +56,10 @@
 // registers uncapped (107-114, 4 blocks a SM, no spills). `city`, per
 // 262,144-ray batch, closest / any: 0.748 / 0.565 of the parent's time,
 // rebraid4 0.731 / 0.495, `big` 0.956 / 0.960; windows without the runs of
-// 8 0.764 / 0.604, 0.758 / 0.532, 0.949 / 0.979 (H100 80GB HBM3 at 700 W,
-// gfxexp_torch/walk_ab.py; PERF.md). Measured against windows alone and
-// dropped: no union boxes (0.910 / 0.979 on `city`, where they skip 32% /
-// 67% of the windows), no row batch (0.779 / 0.586, but `big` any 1.061),
+// 8 0.764 / 0.604, 0.758 / 0.532, 0.949 / 0.979 (H100 80GB HBM3 at 700 W;
+// PERF.md). Measured against windows alone and dropped: no union boxes
+// (0.910 / 0.979 on `city`, where they skip 32% / 67% of the windows), no
+// row batch (0.779 / 0.586, but `big` any 1.061),
 // registers capped for 6 blocks (0.771 / 0.616, spills) or 5 (0.730 /
 // 0.602, rebraid4 0.757 / 0.552, spills), and each lane on its own cursor
 // over all boxes, skipping windows it misses (1.071 / 0.842, rebraid4 2.36
@@ -80,6 +80,32 @@
 #include <stdint.h>
 
 #include "widerow_walk.cuh"
+
+// The arguments, one struct (accel/instanced.py _InstancedArgs mirrors
+// it). stack_depth is the deepest BLAS's bound, checked against kMaxStack.
+// Build order only (else unused): counters, two unsigned ints on the
+// device, zero before the first launch on the stream, which each launch
+// leaves zero again; group_lo, group_hi [ceil(C / 32) + ceil(C / 8), 3],
+// the union of each run of 32 entry boxes, then of each run of 8.
+struct InstancedArgs {
+  int any_hit, nearest, arity, n_rows, n_blas_rows, max_leaf, stack_depth,
+      n_entries, n;
+  const float* nodes;
+  const int* blas_ids;  // [n_entries]
+  const int* start_rows;
+  const float* inv_transforms;  // [n_entries, 16]
+  const float* entry_lo;        // [n_entries, 3]
+  const float* entry_hi;
+  int* entry;  // [n] out
+  unsigned int* counters;
+  const float* group_lo;
+  const float* group_hi;
+  const float *o, *d;  // [n, 3]
+  const float *tmin, *tmax;
+  float *t, *u, *v;  // out
+  int* tri;
+  unsigned char* hit;
+};
 
 namespace {
 
@@ -378,46 +404,38 @@ cudaError_t dispatch(int any_hit, int nearest, const float* nodes,
 
 extern "C" {
 
-int instanced_max_stack() { return kMaxStack; }
+// sizeof(InstancedArgs), so the caller can check its layout
+int instanced_walk_args_size() { return (int)sizeof(InstancedArgs); }
 
 // Returns 0 on success, else the CUDA error code of the launch (or
 // cudaErrorInvalidValue for arguments the kernel does not take).
-// stack_depth is the deepest BLAS's bound, checked against kMaxStack.
-// Build order only (else unused): counters, two unsigned ints on the
-// device, zero before the first launch on the stream, which each launch
-// leaves zero again; group_lo, group_hi [ceil(C / 32) + ceil(C / 8), 3],
-// the union of each run of 32 entry boxes, then of each run of 8.
-int instanced_walk_launch(int any_hit, int nearest, int arity,
-                          const float* nodes, int n_rows, int n_blas_rows,
-                          int max_leaf, int stack_depth, int n_entries,
-                          const int* blas_ids, const int* start_rows,
-                          const float* inv_transforms, const float* entry_lo,
-                          const float* entry_hi, int n, const float* o,
-                          const float* d, const float* tmin,
-                          const float* tmax, float* t, float* u, float* v,
-                          int* tri, unsigned char* hit, int* entry,
-                          cudaStream_t stream, unsigned int* counters,
-                          const float* group_lo, const float* group_hi) {
-  if (n <= 0) return 0;
-  if (n_rows <= 0 || n_blas_rows <= 0 || n_entries < 0 || max_leaf < 0 ||
-      max_leaf > 5 || stack_depth > kMaxStack ||
-      (!nearest && (counters == nullptr ||
-                    (n_entries > 0 &&
-                     (group_lo == nullptr || group_hi == nullptr))))) {
+int instanced_walk_launch(const InstancedArgs* args, cudaStream_t stream) {
+  if (args == nullptr) return (int)cudaErrorInvalidValue;
+  const InstancedArgs a = *args;
+  if (a.n <= 0) return 0;
+  if (a.n_rows <= 0 || a.n_blas_rows <= 0 || a.n_entries < 0 ||
+      a.max_leaf < 0 || a.max_leaf > 5 || a.stack_depth > kMaxStack ||
+      (!a.nearest &&
+       (a.counters == nullptr ||
+        (a.n_entries > 0 &&
+         (a.group_lo == nullptr || a.group_hi == nullptr))))) {
     return (int)cudaErrorInvalidValue;
   }
-  const Entries e{n_entries, blas_ids,   start_rows,
-                  inv_transforms, entry_lo, entry_hi,
-                  group_lo,  group_hi,   (n_entries + kWindow - 1) / kWindow};
-  if (arity == 4) {
-    return (int)dispatch<4>(any_hit, nearest, nodes, n_rows, n_blas_rows,
-                            max_leaf, e, n, o, d, tmin, tmax, t, u, v, tri,
-                            hit, entry, stream, counters);
+  const Entries e{a.n_entries,      a.blas_ids, a.start_rows,
+                  a.inv_transforms, a.entry_lo, a.entry_hi,
+                  a.group_lo,       a.group_hi,
+                  (a.n_entries + kWindow - 1) / kWindow};
+  if (a.arity == 4) {
+    return (int)dispatch<4>(a.any_hit, a.nearest, a.nodes, a.n_rows,
+                            a.n_blas_rows, a.max_leaf, e, a.n, a.o, a.d,
+                            a.tmin, a.tmax, a.t, a.u, a.v, a.tri, a.hit,
+                            a.entry, stream, a.counters);
   }
-  if (arity == 8) {
-    return (int)dispatch<8>(any_hit, nearest, nodes, n_rows, n_blas_rows,
-                            max_leaf, e, n, o, d, tmin, tmax, t, u, v, tri,
-                            hit, entry, stream, counters);
+  if (a.arity == 8) {
+    return (int)dispatch<8>(a.any_hit, a.nearest, a.nodes, a.n_rows,
+                            a.n_blas_rows, a.max_leaf, e, a.n, a.o, a.d,
+                            a.tmin, a.tmax, a.t, a.u, a.v, a.tri, a.hit,
+                            a.entry, stream, a.counters);
   }
   return (int)cudaErrorInvalidValue;
 }

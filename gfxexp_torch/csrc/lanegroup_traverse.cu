@@ -42,7 +42,7 @@
 // (14-16 __ldg), run K slab tests and K float reductions of 5 shuffles,
 // keep the stack in a 512-byte local array and pass two block barriers a
 // step; this one reads 0.605 / 0.629 / 0.823 of its time (G = 1 / 2 / 4,
-// NVIDIA H100 80GB HBM3, 700.00 W, gfxexp_torch/walk_ab.py) at 56-64
+// NVIDIA H100 80GB HBM3, 700.00 W; PERF.md) at 56-64
 // registers and no stack (the earlier: 512 bytes). Timed and
 // dropped: the same step with K reductions of each kind always and the
 // network always 0.711 / 0.846 / 0.882; a leaf's tests as (ray, triangle)
@@ -56,6 +56,21 @@
 #include <stdint.h>
 
 #include "widerow_walk.cuh"
+
+// The arguments, one struct (accel/lanegroup.py _LanegroupArgs mirrors
+// it). nodes: [n_rows, 64] float32 (one table); rows: per-ray rows taken
+// part in, or null. stack_depth is the table's bound, checked against
+// kMaxStack.
+struct LanegroupArgs {
+  int groups, arity, n_rows, max_leaf, stack_depth, n;
+  const float* nodes;
+  int* rows;  // [n] out, or null
+  const float *o, *d;  // [n, 3]
+  const float *tmin, *tmax;
+  float *t, *u, *v;  // out
+  int* tri;
+  unsigned char* hit;
+};
 
 namespace {
 
@@ -382,30 +397,28 @@ cudaError_t dispatch(int groups, const float* nodes, int n_rows,
 
 extern "C" {
 
-int lanegroup_max_stack() { return kMaxStack; }
+// sizeof(LanegroupArgs), so the caller can check its layout
+int lanegroup_walk_args_size() { return (int)sizeof(LanegroupArgs); }
 
 // Returns 0 on success, else the CUDA error code of the launch (or
-// cudaErrorInvalidValue for arguments the kernel does not take). nodes:
-// [n_rows, 64] float32 (one table); rows: per-ray rows taken part in, or
-// null. stack_depth is the table's bound, checked against kMaxStack.
-int lanegroup_walk_launch(int groups, int arity, const float* nodes,
-                          int n_rows, int max_leaf, int stack_depth, int n,
-                          const float* o, const float* d, const float* tmin,
-                          const float* tmax, float* t, float* u, float* v,
-                          int* tri, unsigned char* hit, int* rows,
-                          cudaStream_t stream) {
-  if (n <= 0) return 0;
-  if (n_rows <= 0 || max_leaf < 0 || max_leaf > 5 ||
-      stack_depth > kMaxStack) {
+// cudaErrorInvalidValue for arguments the kernel does not take).
+int lanegroup_walk_launch(const LanegroupArgs* args, cudaStream_t stream) {
+  if (args == nullptr) return (int)cudaErrorInvalidValue;
+  const LanegroupArgs a = *args;
+  if (a.n <= 0) return 0;
+  if (a.n_rows <= 0 || a.max_leaf < 0 || a.max_leaf > 5 ||
+      a.stack_depth > kMaxStack) {
     return (int)cudaErrorInvalidValue;
   }
-  if (arity == 4) {
-    return (int)dispatch<4>(groups, nodes, n_rows, max_leaf, n, o, d, tmin,
-                            tmax, t, u, v, tri, hit, rows, stream);
+  if (a.arity == 4) {
+    return (int)dispatch<4>(a.groups, a.nodes, a.n_rows, a.max_leaf, a.n,
+                            a.o, a.d, a.tmin, a.tmax, a.t, a.u, a.v, a.tri,
+                            a.hit, a.rows, stream);
   }
-  if (arity == 8) {
-    return (int)dispatch<8>(groups, nodes, n_rows, max_leaf, n, o, d, tmin,
-                            tmax, t, u, v, tri, hit, rows, stream);
+  if (a.arity == 8) {
+    return (int)dispatch<8>(a.groups, a.nodes, a.n_rows, a.max_leaf, a.n,
+                            a.o, a.d, a.tmin, a.tmax, a.t, a.u, a.v, a.tri,
+                            a.hit, a.rows, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

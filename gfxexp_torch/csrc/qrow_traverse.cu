@@ -56,6 +56,22 @@
 
 #include "widerow_walk.cuh"
 
+// The arguments, one struct (accel/qrow.py _QrowArgs mirrors it). nodes:
+// [n_chunks, rows_per_chunk, 32] float32, 16-byte aligned; lo, hi:
+// [n_chunks, 3] chunk boxes, or both null for one table walked whole.
+// stack_depth is the table's bound, checked against kQMaxStack.
+struct QrowArgs {
+  int any_hit, n_chunks, rows_per_chunk, stack_depth, n;
+  const float* nodes;
+  const float* lo;
+  const float* hi;
+  const float *o, *d;  // [n, 3]
+  const float *tmin, *tmax;
+  float *t, *u, *v;  // out
+  int* tri;
+  unsigned char* hit;
+};
+
 namespace {
 
 using widerow::Best;
@@ -281,34 +297,30 @@ cudaError_t launch(const float4* nodes, int n_chunks, int rows_per_chunk,
 
 extern "C" {
 
-int qrow_max_stack() { return kQMaxStack; }
+// sizeof(QrowArgs), so the caller can check its layout
+int qrow_walk_args_size() { return (int)sizeof(QrowArgs); }
 
 // Returns 0 on success, else the CUDA error code of the launch (or
-// cudaErrorInvalidValue for arguments the kernel does not take). nodes:
-// [n_chunks, rows_per_chunk, 32] float32, 16-byte aligned; lo, hi:
-// [n_chunks, 3] chunk boxes, or both null for one table walked whole.
-// stack_depth is the table's bound, checked against kQMaxStack.
-int qrow_walk_launch(int any_hit, const float* nodes, int n_chunks,
-                     int rows_per_chunk, int stack_depth, const float* lo,
-                     const float* hi, int n, const float* o, const float* d,
-                     const float* tmin, const float* tmax, float* t, float* u,
-                     float* v, int* tri, unsigned char* hit,
-                     cudaStream_t stream) {
-  if (n <= 0) return 0;
-  if (n_chunks <= 0 || rows_per_chunk <= 0 ||
-      (int64_t)n_chunks * rows_per_chunk >= kLeafBit ||
-      stack_depth > kQMaxStack || (lo == nullptr) != (hi == nullptr) ||
-      (lo == nullptr && n_chunks != 1) ||
-      (reinterpret_cast<uintptr_t>(nodes) & 15)) {
+// cudaErrorInvalidValue for arguments the kernel does not take).
+int qrow_walk_launch(const QrowArgs* args, cudaStream_t stream) {
+  if (args == nullptr) return (int)cudaErrorInvalidValue;
+  const QrowArgs a = *args;
+  if (a.n <= 0) return 0;
+  if (a.n_chunks <= 0 || a.rows_per_chunk <= 0 ||
+      (int64_t)a.n_chunks * a.rows_per_chunk >= kLeafBit ||
+      a.stack_depth > kQMaxStack || (a.lo == nullptr) != (a.hi == nullptr) ||
+      (a.lo == nullptr && a.n_chunks != 1) ||
+      (reinterpret_cast<uintptr_t>(a.nodes) & 15)) {
     return (int)cudaErrorInvalidValue;
   }
-  const float4* nodes4 = reinterpret_cast<const float4*>(nodes);
-  return (int)(any_hit
-                   ? launch<true>(nodes4, n_chunks, rows_per_chunk, lo, hi, n,
-                                  o, d, tmin, tmax, t, u, v, tri, hit, stream)
-                   : launch<false>(nodes4, n_chunks, rows_per_chunk, lo, hi,
-                                   n, o, d, tmin, tmax, t, u, v, tri, hit,
-                                   stream));
+  const float4* nodes4 = reinterpret_cast<const float4*>(a.nodes);
+  return (int)(a.any_hit
+                   ? launch<true>(nodes4, a.n_chunks, a.rows_per_chunk, a.lo,
+                                  a.hi, a.n, a.o, a.d, a.tmin, a.tmax, a.t,
+                                  a.u, a.v, a.tri, a.hit, stream)
+                   : launch<false>(nodes4, a.n_chunks, a.rows_per_chunk, a.lo,
+                                   a.hi, a.n, a.o, a.d, a.tmin, a.tmax, a.t,
+                                   a.u, a.v, a.tri, a.hit, stream));
 }
 
 }  // extern "C"

@@ -40,7 +40,7 @@
 // one batch (`leaf` with kLeaf = the table's max_leaf of 4 or 8), which cut
 // city's round trips per live ray from 83.2 to 73.6
 // (gfxexp_torch/walk_trips.py) and its time to 0.859 of the earlier walk's
-// (big 0.897; H100 80GB HBM3 at 700 W, gfxexp_torch/walk_ab.py, PERF.md).
+// (big 0.897; H100 80GB HBM3 at 700 W, PERF.md).
 // Any hit keeps the one-row loop, its registers capped at 40 (12 blocks a
 // SM, as the earlier walk held them; uncapped it took 45 and ran 1.09x
 // slower). Timed and dropped (thread scope, city, closest / any): runs of 2
@@ -62,7 +62,7 @@
 // 1,139 node loads 263 window loads (walk_trips.warp_windows), and the
 // leaf's staged rows serve every lane that hit it from one load; it reads
 // 0.927 / 0.994 of the earlier warp scope on city, closest / any (big
-// 0.944 / 0.927; NVIDIA H100 80GB HBM3, 700.00 W, gfxexp_torch/walk_ab.py)
+// 0.944 / 0.927; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)
 // at 56 / 61 registers, no spills. Timed and dropped against the
 // earlier warp scope (big closest / any, city closest / any, one call):
 // the window in shared memory filled by cp.async 1.278 / 1.316 (city, with
@@ -82,6 +82,21 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// The arguments, one struct (accel/skip_traverse.py _SkiplinkArgs mirrors
+// it). nodes: [n_nodes + 1, 8] float32; tris: [n_tri_rows, 12] float32
+// with n_tri_rows = triangles + max_leaf, both 16-byte aligned; scope 0
+// thread, 1 warp, 2 block.
+struct SkiplinkArgs {
+  int any_hit, scope, n_nodes, n_tri_rows, max_leaf, n;
+  const float* nodes;
+  const float* tris;
+  const float *o, *d;  // [n, 3]
+  const float *tmin, *tmax;
+  float *t, *u, *v;  // out
+  int* tri;
+  unsigned char* hit;
+};
 
 namespace {
 
@@ -479,33 +494,31 @@ cudaError_t dispatch_leaf(int max_leaf, int scope, const float4* nodes,
 
 extern "C" {
 
+// sizeof(SkiplinkArgs), so the caller can check its layout
+int skiplink_walk_args_size() { return (int)sizeof(SkiplinkArgs); }
+
 // Returns 0 on success, else the CUDA error code of the launch (or
 // cudaErrorInvalidValue for arguments the kernel does not take).
-// nodes: [n_nodes + 1, 8] float32; tris: [n_tri_rows, 12] float32 with
-// n_tri_rows = triangles + max_leaf; scope 0 thread, 1 warp, 2 block.
-int skiplink_walk_launch(int any_hit, int scope, const float* nodes,
-                         int n_nodes, const float* tris, int n_tri_rows,
-                         int max_leaf, int n, const float* o, const float* d,
-                         const float* tmin, const float* tmax, float* t,
-                         float* u, float* v, int* tri, unsigned char* hit,
-                         cudaStream_t stream) {
-  if (n <= 0) return 0;
-  if (n_nodes <= 0 || max_leaf <= 0 || max_leaf > kMaxLeaf ||
-      n_tri_rows < max_leaf || n_tri_rows >= (1 << kCountShift) ||
-      (reinterpret_cast<uintptr_t>(nodes) & 15) ||
-      (reinterpret_cast<uintptr_t>(tris) & 15)) {
+int skiplink_walk_launch(const SkiplinkArgs* args, cudaStream_t stream) {
+  if (args == nullptr) return (int)cudaErrorInvalidValue;
+  const SkiplinkArgs a = *args;
+  if (a.n <= 0) return 0;
+  if (a.n_nodes <= 0 || a.max_leaf <= 0 || a.max_leaf > kMaxLeaf ||
+      a.n_tri_rows < a.max_leaf || a.n_tri_rows >= (1 << kCountShift) ||
+      (reinterpret_cast<uintptr_t>(a.nodes) & 15) ||
+      (reinterpret_cast<uintptr_t>(a.tris) & 15)) {
     return (int)cudaErrorInvalidValue;
   }
-  const float4* nodes4 = reinterpret_cast<const float4*>(nodes);
-  const float4* tris4 = reinterpret_cast<const float4*>(tris);
-  if (any_hit) {
-    return (int)dispatch_leaf<true>(max_leaf, scope, nodes4, n_nodes, tris4,
-                                    n, o, d, tmin, tmax, t, u, v, tri, hit,
-                                    stream);
+  const float4* nodes4 = reinterpret_cast<const float4*>(a.nodes);
+  const float4* tris4 = reinterpret_cast<const float4*>(a.tris);
+  if (a.any_hit) {
+    return (int)dispatch_leaf<true>(a.max_leaf, a.scope, nodes4, a.n_nodes,
+                                    tris4, a.n, a.o, a.d, a.tmin, a.tmax, a.t,
+                                    a.u, a.v, a.tri, a.hit, stream);
   }
-  return (int)dispatch_leaf<false>(max_leaf, scope, nodes4, n_nodes, tris4, n,
-                                   o, d, tmin, tmax, t, u, v, tri, hit,
-                                   stream);
+  return (int)dispatch_leaf<false>(a.max_leaf, a.scope, nodes4, a.n_nodes,
+                                   tris4, a.n, a.o, a.d, a.tmin, a.tmax, a.t,
+                                   a.u, a.v, a.tri, a.hit, stream);
 }
 
 }  // extern "C"

@@ -28,7 +28,7 @@
 // they walked 0.27. It ran 0.888-0.902 of the static grid's time (kRefill
 // 16; 8: 0.897-0.902; 1: 0.933; 32, per-warp feeding: 1.098), at 96
 // registers, 5 blocks of 128 a SM as the static grid holds, on an H100
-// 80GB HBM3 at 700 W (gfxexp_torch/walk_ab.py; PERF.md). Measured and
+// 80GB HBM3 at 700 W (PERF.md). Measured and
 // dropped: a leaf's triangles past the first batch loaded one at a time
 // (1.003), registers capped for 5, 6 or 8 blocks a SM (0.902, 1.088,
 // 1.534: spills). Any hit keeps one thread per ray (widerow_walk_rays):
@@ -43,6 +43,21 @@
 #include <stdint.h>
 
 #include "widerow_walk.cuh"
+
+// The arguments, one struct (accel/persistent.py _WiderowArgs mirrors it).
+// stack_depth is the table's bound, checked against kMaxStack. counters:
+// two unsigned ints on the device, zero before the first launch on the
+// stream; each launch leaves them zero again.
+struct WiderowArgs {
+  int any_hit, arity, n_rows, max_leaf, stack_depth, n;
+  const float* nodes;  // [n_rows, 64]
+  unsigned int* counters;
+  const float *o, *d;  // [n, 3]
+  const float *tmin, *tmax;
+  float *t, *u, *v;  // out
+  int* tri;
+  unsigned char* hit;
+};
 
 namespace {
 
@@ -197,32 +212,27 @@ cudaError_t launch(const float* nodes, int n_rows, int max_leaf, int n,
 
 extern "C" {
 
-int widerow_max_stack() { return kMaxStack; }
+// sizeof(WiderowArgs), so the caller can check its layout
+int widerow_walk_args_size() { return (int)sizeof(WiderowArgs); }
 
 // Returns 0 on success, else the CUDA error code of the launch (or
 // cudaErrorInvalidValue for arguments the kernel does not take).
-// stack_depth is the table's bound, checked against kMaxStack. counters:
-// two unsigned ints on the device, zero before the first launch on the
-// stream; each launch leaves them zero again.
-int widerow_walk_launch(int any_hit, int arity, const float* nodes,
-                        int n_rows, int max_leaf, int stack_depth, int n,
-                        const float* o, const float* d, const float* tmin,
-                        const float* tmax, float* t, float* u, float* v,
-                        int* tri, unsigned char* hit, cudaStream_t stream,
-                        unsigned int* counters) {
-  if (n <= 0) return 0;
-  if (n_rows <= 0 || max_leaf < 0 || max_leaf > 5 ||
-      stack_depth > kMaxStack || counters == nullptr) {
+int widerow_walk_launch(const WiderowArgs* args, cudaStream_t stream) {
+  if (args == nullptr) return (int)cudaErrorInvalidValue;
+  const WiderowArgs a = *args;
+  if (a.n <= 0) return 0;
+  if (a.n_rows <= 0 || a.max_leaf < 0 || a.max_leaf > 5 ||
+      a.stack_depth > kMaxStack || a.counters == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
 #define GFX_LAUNCH(A, K)                                                     \
-  launch<A, K>(nodes, n_rows, max_leaf, n, o, d, tmin, tmax, t, u, v, tri,   \
-               hit, stream, counters)
+  launch<A, K>(a.nodes, a.n_rows, a.max_leaf, a.n, a.o, a.d, a.tmin, a.tmax, \
+               a.t, a.u, a.v, a.tri, a.hit, stream, a.counters)
   cudaError_t err;
-  if (arity == 4) {
-    err = any_hit ? GFX_LAUNCH(true, 4) : GFX_LAUNCH(false, 4);
-  } else if (arity == 8) {
-    err = any_hit ? GFX_LAUNCH(true, 8) : GFX_LAUNCH(false, 8);
+  if (a.arity == 4) {
+    err = a.any_hit ? GFX_LAUNCH(true, 4) : GFX_LAUNCH(false, 4);
+  } else if (a.arity == 8) {
+    err = a.any_hit ? GFX_LAUNCH(true, 8) : GFX_LAUNCH(false, 8);
   } else {
     return (int)cudaErrorInvalidValue;
   }
